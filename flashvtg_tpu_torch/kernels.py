@@ -1,0 +1,102 @@
+"""Build and load the port's CUDA kernels (nvcc + ctypes, plain C interface).
+
+Each source under csrc/ is compiled by nvcc for sm_90a into its own shared
+library, at first use, into `_build/` beside this file (listed in
+.gitignore). The library name carries a hash of the source and the flags,
+so an edited source is rebuilt and a stale library is never loaded.
+`build_all()` starts one nvcc per source, all at once, and waits for them.
+Nothing here runs at import: the tests import every module on machines
+without nvcc or a card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from typing import Dict
+
+_HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+SOURCES = {"aca_attention": "aca_attention.cu"}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    found = shutil.which("nvcc") or os.path.join(cuda_home, "bin", "nvcc")
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found (PATH or $CUDA_HOME/bin): the CUDA kernels are "
+            "built from flashvtg_tpu_torch/csrc at first use"
+        )
+    return found
+
+
+def library_path(name: str) -> str:
+    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
+        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
+
+
+def build_all() -> Dict[str, str]:
+    """Compile every source whose library is missing, one nvcc each, all in
+    parallel. Returns {name: ptxas report}; raises on any failed build."""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    procs = {}
+    for name, src in SOURCES.items():
+        out = library_path(name)
+        if os.path.exists(out):
+            continue
+        tmp = f"{out}.{os.getpid()}.tmp"
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, src)]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out)
+    reports = {}
+    for name, (proc, tmp, out) in procs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {SOURCES[name]}:\n{log}")
+        os.replace(tmp, out)
+        with open(out + ".log", "w") as f:
+            f.write(log)
+        reports[name] = log
+    for name in SOURCES:
+        if name not in reports:
+            log_path = library_path(name) + ".log"
+            reports[name] = open(log_path).read() if os.path.exists(log_path) else ""
+    return reports
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of `name`, built first if needed."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            if not os.path.exists(library_path(name)):
+                build_all()
+            lib = ctypes.CDLL(library_path(name))
+            _bind(name, lib)
+            _libs[name] = lib
+    return _libs[name]
+
+
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    if name == "aca_attention":
+        fn = lib.flashvtg_aca_attention_f32
+        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i

@@ -1,0 +1,289 @@
+"""The FlashVTG network in PyTorch: eval forward and boundary decode.
+
+Counterpart of flashvtg_tpu/models/flashvtg.py (`ModelConfig`,
+`FlashVTGModel`, `decode_boundaries`). Module and parameter names are the
+reference FlashVTG torch names (input_vid_proj.0.net.1,
+transformer.t2v_encoder.layers.i.self_attn.out_proj, class_head.convs.i, x,
+coef, ...), so `load_state_dict(strict=True)` takes both
+`utils.convert.state_dict_from_jax` output and a reference `.ckpt`'s
+`model` dict.
+
+Only the eval branch is ported: the negative-pair pass, the train-time
+unmasked global mean and the misaligned-mask donor rows belong to training.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from flashvtg_tpu_torch.models.components import (
+    AdaPooling,
+    ConfidenceScorer,
+    ConvHead,
+    ConvPyramid,
+    InputProj,
+    TrainablePositionalEncoding,
+    sine_position_embedding,
+)
+from flashvtg_tpu_torch.models.points import generate_points, pyramid_masks_pool
+from flashvtg_tpu_torch.models.transformer import Encoder, T2VEncoder
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Static architecture hyper-parameters (mirror of the JAX ModelConfig)."""
+
+    vid_dim: int = 2818  # video feature dim incl. +2 TEF channels
+    txt_dim: int = 512
+    hidden_dim: int = 256
+    nheads: int = 8
+    enc_layers: int = 3
+    t2v_layers: int = 2
+    dummy_layers: int = 2
+    num_dummies: int = 45
+    dim_feedforward: int = 1024
+    dropout: float = 0.1
+    input_dropout: float = 0.5
+    n_input_proj: int = 2
+    use_txt_pos: bool = False
+    max_q_l: int = 100
+    strides: Tuple[int, ...] = (1, 2, 4, 8)
+    kernel_size: int = 3
+    coord_kernel_size: int = 3
+    num_conv_layers: int = 3
+    num_mlp_layers: int = 3
+    # the reference hardcodes the dummy-token encoder's dropout (0.1) and
+    # head count (8) independently of --dropout/--nheads
+    dummy_dropout: float = 0.1
+    dummy_nheads: int = 8
+    compat_attn_tile: bool = True  # train-only; inert in eval
+    max_num_moment: int = 50
+    clip_length: float = 2.0
+    use_neg: bool = True
+    merge_cls_sal: bool = True
+    # JAX chunks self-attention past this length; the port's attention
+    # computes the same function unchunked (the kernel takes Lk <= 128)
+    attn_chunk: int = 512
+
+
+class Transformer(nn.Module):
+    """Holder of the two trunk stacks, named as in the reference."""
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        d = cfg.hidden_dim
+        self.t2v_encoder = T2VEncoder(
+            cfg.t2v_layers, d, cfg.nheads, cfg.num_dummies, cfg.dim_feedforward
+        )
+        self.encoder = Encoder(cfg.enc_layers, d, cfg.nheads, cfg.dim_feedforward)
+
+
+class FlashVTGModel(nn.Module):
+    """End-to-end FlashVTG eval forward.
+
+    Inputs (masks use 1 = valid): src_txt (B, Lq, Dt), src_txt_mask (B, Lq),
+    src_vid (B, Lv, Dv), src_vid_mask (B, Lv), point_valid optional (B, N).
+    """
+
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        self.cfg = cfg
+        d, nd = cfg.hidden_dim, cfg.num_dummies
+        self.input_vid_proj = InputProj(
+            cfg.vid_dim, d, cfg.n_input_proj, cfg.input_dropout
+        )
+        self.input_txt_proj = InputProj(
+            cfg.txt_dim, d, cfg.n_input_proj, cfg.input_dropout
+        )
+        self.token_type_embeddings = nn.Embedding(2, d)
+        # always present in the reference state_dict; live under use_txt_pos
+        self.txt_position_embed = TrainablePositionalEncoding(cfg.max_q_l, d)
+        self.dummy_rep_token = nn.Parameter(torch.randn(nd, d))
+        self.dummy_rep_pos = nn.Parameter(torch.randn(nd, d))
+        self.txtproj_encoder = Encoder(
+            cfg.dummy_layers, d, cfg.dummy_nheads, cfg.dim_feedforward
+        )
+        self.transformer = Transformer(cfg)
+        self.saliency_proj1 = nn.Linear(d, d)
+        self.saliency_proj2 = nn.Linear(d, d)
+        self.pyramid = ConvPyramid(d, cfg.strides)
+        self.pooling = AdaPooling(d)
+        self.class_head = ConfidenceScorer(
+            d, cfg.kernel_size, cfg.num_conv_layers, cfg.num_mlp_layers
+        )
+        self.conf_head = ConfidenceScorer(
+            d, cfg.kernel_size, cfg.num_conv_layers, cfg.num_mlp_layers
+        )
+        self.coord_head = ConvHead(d, 2, cfg.coord_kernel_size)
+        self.coef = nn.Parameter(torch.ones(len(cfg.strides)))
+        self.x = nn.Parameter(torch.tensor(0.5))
+
+    def forward(
+        self,
+        src_txt: torch.Tensor,
+        src_txt_mask: torch.Tensor,
+        src_vid: torch.Tensor,
+        src_vid_mask: torch.Tensor,
+        point_valid: Optional[torch.Tensor] = None,
+    ) -> Dict[str, Any]:
+        if self.training:
+            raise NotImplementedError(
+                "only the eval forward is ported; call model.eval() first"
+            )
+        cfg = self.cfg
+        b, lv = src_vid.shape[:2]
+        d, nd = cfg.hidden_dim, cfg.num_dummies
+
+        vid = self.input_vid_proj(src_vid) + self.token_type_embeddings.weight[1]
+        txt = self.input_txt_proj(src_txt) + self.token_type_embeddings.weight[0]
+
+        pos_vid = sine_position_embedding(src_vid_mask, d)
+        if cfg.use_txt_pos:
+            # quirk kept: the learned text PE returns LN(x + pos), a full
+            # re-embedding of the text, used as the position tensor
+            pos_txt = self.txt_position_embed(txt)
+        else:
+            pos_txt = torch.zeros_like(txt)
+
+        # dummy tokens refreshed by a text self-attention encoder
+        txt_d = torch.cat([self.dummy_rep_token.expand(b, nd, d), txt], dim=1)
+        pos_txt_d = torch.cat([self.dummy_rep_pos.expand(b, nd, d), pos_txt], dim=1)
+        txt_d_valid = torch.cat(
+            [src_txt_mask.new_ones((b, nd)), src_txt_mask], dim=1
+        )
+        refreshed = self.txtproj_encoder(txt_d, pos_txt_d, txt_d_valid)
+        dummy_refreshed = refreshed[:, :nd]
+        txt_d = torch.cat([dummy_refreshed, txt], dim=1)
+
+        fused, attn_weights = self.transformer.t2v_encoder(
+            vid, txt_d, pos_vid, pos_txt_d, txt_d_valid
+        )
+        video_emb = self.transformer.encoder(fused, pos_vid, src_vid_mask)
+        # eval: masked mean over the valid clips
+        denom = src_vid_mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+        global_emb = (video_emb * src_vid_mask[..., None]).sum(dim=1) / denom
+        saliency = (
+            self.saliency_proj1(video_emb) * self.saliency_proj2(global_emb)[:, None, :]
+        ).sum(-1) / math.sqrt(float(d))
+
+        # eval zeroes padded clips: the reference runs bsz=1 unpadded, so
+        # its convs see zeros past the true length
+        video_emb = video_emb * src_vid_mask[..., None]
+        pymid, video_emb = self.pyramid(video_emb)
+        pymid_msk = pyramid_masks_pool(src_vid_mask, cfg.strides)
+        points = torch.from_numpy(generate_points(lv, cfg.strides)).to(
+            src_vid.device
+        )
+        level_masks = [None] * len(pymid)
+        if point_valid is not None:
+            masked, level_masks, off = [], [], 0
+            for e in pymid:
+                n = e.shape[1]
+                m = point_valid[:, off : off + n]
+                masked.append(e * m[..., None])
+                level_masks.append(m)
+                off += n
+            pymid = masked
+
+        out_class = torch.cat(
+            [self.class_head(e, m) for e, m in zip(pymid, level_masks)], dim=1
+        )
+        cat = torch.cat(pymid, dim=1)
+        if point_valid is not None:
+            # conf head convolves across the concatenated pyramid: compact
+            # the valid rows to the front (level order kept), convolve,
+            # scatter back, so level-boundary rows see what the reference's
+            # unpadded run sees. Valid row i -> slot (#valid before i),
+            # invalid row -> slot (#valid + #invalid before i).
+            valid = point_valid > 0
+            nv = valid.sum(dim=1, keepdim=True)
+            inv = torch.where(
+                valid, valid.cumsum(dim=1) - 1, nv + (~valid).cumsum(dim=1) - 1
+            )
+            comp = torch.zeros_like(cat).scatter_(
+                1, inv[..., None].expand_as(cat), cat
+            )
+            comp_msk = (
+                torch.arange(cat.shape[1], device=cat.device)[None, :] < nv
+            ).to(point_valid.dtype)
+            out_conf = torch.gather(self.conf_head(comp, comp_msk), 1, inv[..., None])
+        else:
+            out_conf = self.conf_head(cat, None)
+        out_class = self.x * out_class + (1.0 - self.x) * out_conf  # (B, N, 1)
+
+        out_coord = torch.cat(
+            [
+                torch.exp(self.coord_head(e, m)) * self.coef[i]
+                for i, (e, m) in enumerate(zip(pymid, level_masks))
+            ],
+            dim=1,
+        )  # (B, N, 2)
+
+        query_emb = self.pooling(txt, src_txt_mask)
+
+        t2vattn = (attn_weights[:, :, nd:] * src_txt_mask[:, None, :]).sum(2)
+        t2vattn = t2vattn.clamp(0.0, 1.0)
+
+        return {
+            "saliency_scores": saliency,
+            "t2vattnvalues": t2vattn,
+            "attn_weights": attn_weights,
+            "video_emb": video_emb,
+            "query_emb": query_emb,
+            "video_msk": src_vid_mask,
+            "pymid_msk": pymid_msk,
+            "out_class": out_class,
+            "out_coord": out_coord,
+            "point": points,
+            "dummy_tokens": dummy_refreshed,
+        }
+
+
+def decode_boundaries(
+    out_class: torch.Tensor,
+    out_coord: torch.Tensor,
+    points: torch.Tensor,
+    clip_length: float,
+    point_valid: Optional[torch.Tensor] = None,
+    top_k: int = 50,
+):
+    """Boundary decode + confidence ranking (reference model.py:247-266).
+
+    start = (center - off0 * stride) * clip_length, end likewise with +off1;
+    score = sigmoid(logit), -1 at invalid points. Ranking is a stable
+    descending sort, so ties (every invalid point scores -1) go to the lower
+    index, as jax.lax.top_k breaks them.
+
+    Returns spans (B, K, 2) seconds and scores (B, K).
+    """
+    center = points[None, :, 0]
+    stride = points[None, :, 3]
+    start = (center - out_coord[..., 0] * stride) * clip_length
+    end = (center + out_coord[..., 1] * stride) * clip_length
+    scores = torch.sigmoid(out_class[..., 0])
+    if point_valid is not None:
+        scores = torch.where(point_valid > 0, scores, scores.new_tensor(-1.0))
+    k = min(top_k, scores.shape[1])
+    sorted_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
+    top_scores, idx = sorted_scores[:, :k], idx[:, :k]
+    both = torch.stack([start, end], dim=-1)
+    spans = torch.gather(both, 1, idx[..., None].expand(-1, -1, 2))
+    return spans, top_scores
+
+
+def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> FlashVTGModel:
+    """A FlashVTGModel with weights drawn from `seed` (torch init on the CPU,
+    outside the global RNG stream), moved to `device` (None: the card), in
+    eval mode."""
+    from flashvtg_tpu_torch.utils.runtime import resolve_device
+
+    device = resolve_device(device)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        model = FlashVTGModel(cfg)
+    return model.to(device).eval()

@@ -1,0 +1,109 @@
+"""Where the device time of one flagship eval step goes, on the card.
+
+    python -m flashvtg_tpu_torch.tools.profile_eval [--bsz 256] [--steps 10]
+
+Builds the flagship model (preset qvhighlights_slowclip, random weights from
+--seed), one batch of random features with ragged video and text lengths,
+and profiles --steps eval steps (forward + decode, inputs already on the
+card) with torch.profiler. Prints the card's name and power limit, then one
+JSON line: host wall time and device-busy time per step, the idle share,
+device time by kernel class (the port's attention kernel, GEMMs,
+convolutions, the rest) and the top kernels by device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import collections
+import json
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from flashvtg_tpu_torch.models.flashvtg import build_model
+from flashvtg_tpu_torch.models.points import pyramid_masks_strict
+from flashvtg_tpu_torch.train.config import from_preset
+from flashvtg_tpu_torch.train.infer import make_eval_step
+from flashvtg_tpu_torch.utils.runtime import resolve_device
+
+
+def kernel_class(name: str) -> str:
+    low = name.lower()
+    if "aca_attention" in low:
+        return "attention (port kernel)"
+    if "gemm" in low or "cutlass" in low or "xmma" in low or "matmul" in low:
+        return "gemm"
+    if "conv" in low or "cudnn" in low:
+        return "conv"
+    if "memcpy" in low or "memset" in low:
+        return "memcpy/memset"
+    return "other"
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--bsz", type=int, default=256)
+    ap.add_argument("--steps", type=int, default=10)
+    args = ap.parse_args()
+
+    dev = resolve_device("cuda")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True,
+    ).stdout.strip().splitlines()[0])
+    cfg = from_preset("qvhighlights_slowclip")
+    model = build_model(cfg.model_config(), dev, args.seed)
+    rng = np.random.default_rng(args.seed)
+    b, lv, lq = args.bsz, cfg.max_v_l, cfg.max_q_l
+    v_lens = rng.integers(20, lv + 1, b)
+    q_lens = rng.integers(5, lq + 1, b)
+    batch = {
+        "src_txt": rng.standard_normal((b, lq, cfg.t_feat_dim), dtype=np.float32),
+        "src_txt_mask": (np.arange(lq)[None] < q_lens[:, None]).astype(np.float32),
+        "src_vid": rng.standard_normal((b, lv, cfg.total_v_feat_dim), dtype=np.float32),
+        "src_vid_mask": (np.arange(lv)[None] < v_lens[:, None]).astype(np.float32),
+    }
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    pv = torch.from_numpy(pyramid_masks_strict(v_lens, lv, cfg.strides)[0]).to(dev)
+    step = make_eval_step(model, cfg.max_num_moment)
+    for _ in range(3):
+        step(batch, pv)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(args.steps):
+            step(batch, pv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            per_name[e.name][0] += e.time_range.elapsed_us()
+            per_name[e.name][1] += 1
+    busy_us = sum(us for us, _ in per_name.values())
+    classes = collections.defaultdict(float)
+    for name, (us, _) in per_name.items():
+        classes[kernel_class(name)] += us
+    n = args.steps
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    print(json.dumps({
+        "bsz": b, "steps": n,
+        "wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
+        "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
+        "class_ms_per_step": {k: v / 1e3 / n for k, v in classes.items()},
+        "top": [
+            {"name": name[:90], "ms_per_step": us / 1e3 / n, "calls_per_step": c / n}
+            for name, (us, c) in top
+        ],
+    }))
+
+
+if __name__ == "__main__":
+    main()

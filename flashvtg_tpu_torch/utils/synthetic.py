@@ -1,0 +1,83 @@
+"""Synthetic QVHighlights-format fixtures (features + jsonl annotations).
+
+Counterpart of flashvtg_tpu/utils/synthetic.py. With the default arguments
+it writes the same files, value for value, as the JAX package's copy; the
+extra `min_clips` draws a per-video clip count so that some videos are
+shorter than `n_clips` and the eval path's strict point masks are exercised.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+import numpy as np
+
+from flashvtg_tpu_torch.utils.io import save_jsonl
+
+
+def make_synthetic_qvh(
+    root: str,
+    n_queries: int = 16,
+    v_dim: int = 32,
+    t_dim: int = 24,
+    n_clips: int = 16,
+    clip_len: float = 2.0,
+    seed: int = 0,
+    deterministic_labels: bool = False,
+    min_clips: Optional[int] = None,
+    max_q_tokens: int = 12,
+):
+    """Write a small QVH-style dataset under `root`.
+
+    Returns (ann_path, vid_dir, txt_dir). Each query gets its own video.
+    `min_clips` (None = every video has `n_clips` clips) lets every fourth
+    video draw its length from [min_clips, n_clips). `max_q_tokens` is the
+    exclusive upper bound of the text length draw (lower bound 5).
+    """
+    rng = np.random.default_rng(seed)
+    if deterministic_labels:
+        n_clips = 2
+    vdir = os.path.join(root, "vid_feats")
+    qdir = os.path.join(root, "txt_feats")
+    os.makedirs(vdir, exist_ok=True)
+    os.makedirs(qdir, exist_ok=True)
+
+    rows = []
+    for i in range(n_queries):
+        vid = f"synthvid_{i:04d}"
+        clips = n_clips
+        if min_clips is not None and i % 4 == 3:
+            clips = int(rng.integers(min_clips, n_clips))
+        duration = clips * clip_len
+        if deterministic_labels:
+            s, e = 0, 1
+        else:
+            s = int(rng.integers(0, clips - 2))
+            e = int(rng.integers(s + 1, clips))
+        rel_ids = list(range(s, e))
+        rows.append(
+            dict(
+                qid=i,
+                query=f"synthetic query {i}",
+                duration=duration,
+                vid=vid,
+                relevant_clip_ids=rel_ids,
+                saliency_scores=[
+                    [int(x) for x in rng.integers(0, 5, 3)] for _ in rel_ids
+                ],
+                relevant_windows=[[s * clip_len, e * clip_len]],
+            )
+        )
+        np.savez(
+            os.path.join(vdir, f"{vid}.npz"),
+            features=rng.standard_normal((clips, v_dim), dtype=np.float32),
+        )
+        lq = int(rng.integers(5, max_q_tokens))
+        np.savez(
+            os.path.join(qdir, f"qid{i}.npz"),
+            last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32),
+        )
+    ann = os.path.join(root, "synth.jsonl")
+    save_jsonl(rows, ann)
+    return ann, vdir, qdir

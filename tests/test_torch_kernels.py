@@ -1,0 +1,117 @@
+"""The CUDA attention kernel (csrc/aca_attention.cu) vs its plain twin, on
+the card. Every test here needs CUDA and skips without it: the kernel has no
+CPU mode. The file imports torch and the port only, so it also runs on a
+machine without JAX:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
+
+Tolerance: atol 1e-5 on out and head_mean; both sides compute in float32
+(no TF32), and differ only in the order of their sums.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from flashvtg_tpu_torch.ops import aca
+
+pytestmark = pytest.mark.cuda
+
+ATOL = 1e-5
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(b, lv, lk, heads, seed, pad_from=None):
+    g = torch.Generator().manual_seed(seed)
+    d = heads * 32
+    q, k, v = (torch.randn((b, n, d), generator=g) for n in (lv, lk, lk))
+    valid = torch.ones((b, lk))
+    if pad_from is not None:
+        for i in range(b):
+            valid[i, max(1, pad_from - i) :] = 0
+    return q, k, v, valid
+
+
+@pytest.mark.parametrize(
+    "b,lv,lk,heads,nd,pad_from",
+    [
+        (256, 75, 42, 8, 10, 30),  # flagship ACA
+        (7, 33, 128, 8, 10, 100),  # most keys the kernel takes
+        (3, 16, 1, 2, 1, None),  # one key: the dummy only
+        (5, 1, 20, 1, 0, 12),
+        (2, 130, 75, 8, 10, 50),  # three uneven row tiles
+    ],
+)
+def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
+    t = tuple(x.to(cuda) for x in _inputs(b, lv, lk, heads, 0, pad_from))
+    out, hm = aca.aca_attention(*t, num_heads=heads, num_dummies=nd)
+    ref_out, ref_hm = aca.aca_attention_plain(*t, heads, nd)
+    torch.cuda.synchronize()
+    assert (out - ref_out).abs().max().item() <= ATOL
+    assert (hm - ref_hm).abs().max().item() <= ATOL
+    # the head mean is summed in a fixed order: launches agree bit for bit
+    assert torch.equal(aca.aca_attention(*t, num_heads=heads, num_dummies=nd)[1], hm)
+
+
+@pytest.mark.parametrize("b,l,pad_from", [(256, 42, 30), (256, 75, 60), (9, 128, 70)])
+def test_masked_attention_kernel_matches_twin(cuda, b, l, pad_from):
+    t = tuple(x.to(cuda) for x in _inputs(b, l, l, 8, 1, pad_from))
+    before = aca.LAUNCHES["masked_attention"]
+    out = aca.masked_attention(*t, num_heads=8)
+    assert aca.LAUNCHES["masked_attention"] == before + 1
+    ref = aca.masked_attention_plain(*t, 8)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, valid = (x.to(cuda) for x in _inputs(2, 8, 8, 2, 2))
+    with pytest.raises(TypeError):
+        aca.aca_attention(q.double(), k, v, valid, 2, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        aca.aca_attention(q.transpose(0, 1).contiguous().transpose(0, 1), k, v, valid, 2, 0)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+        aca.aca_attention(shifted, k, v, valid, 2, 0)
+    with pytest.raises(ValueError, match="head dim"):
+        aca.aca_attention(q, k, v, valid, 4, 0)
+    big = torch.zeros((2, 129, 64), device=cuda)
+    with pytest.raises(ValueError, match="keys"):
+        aca.aca_attention(q, big, big, torch.ones((2, 129), device=cuda), 2, 0)
+
+
+def test_model_forward_on_card_matches_cpu(cuda):
+    """A small model (head dim 32) on the card vs the same weights on the
+    CPU (plain twins): every attention core runs the kernel."""
+    from flashvtg_tpu_torch.models.flashvtg import ModelConfig, build_model
+    from flashvtg_tpu_torch.models.points import pyramid_masks_strict
+
+    cfg = ModelConfig(vid_dim=40, txt_dim=24, hidden_dim=64, nheads=2, dummy_nheads=2,
+                      num_dummies=3, dim_feedforward=96, t2v_layers=2, enc_layers=2,
+                      dummy_layers=1, kernel_size=5, num_conv_layers=1)
+    cpu_model = build_model(cfg, "cpu", seed=0)
+    gpu_model = build_model(cfg, cuda, seed=0)
+    rng = np.random.default_rng(0)
+    lens = np.asarray([20, 13, 7])
+    arrs = (
+        rng.standard_normal((3, 8, 24), dtype=np.float32),
+        (np.arange(8)[None] < np.asarray([8, 5, 2])[:, None]).astype(np.float32),
+        rng.standard_normal((3, 20, 40), dtype=np.float32),
+        (np.arange(20)[None] < lens[:, None]).astype(np.float32),
+        pyramid_masks_strict(lens, 20, cfg.strides)[0],
+    )
+    aca.reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*map(torch.from_numpy, arrs))
+        out = gpu_model(*(torch.from_numpy(a).to(cuda) for a in arrs))
+    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 3}
+    for key in ("saliency_scores", "t2vattnvalues", "out_class", "out_coord"):
+        np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4)
