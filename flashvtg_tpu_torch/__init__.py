@@ -1,11 +1,13 @@
 """flashvtg_tpu_torch: the PyTorch + CUDA port of flashvtg_tpu for one NVIDIA
 H100.
 
-Slice 1 runs flagship QVHighlights moment-retrieval eval end to end
-(features -> forward -> decode -> submission rows -> NMS -> metrics), with
-every attention core on one hand-written CUDA kernel (csrc/aca_attention.cu).
-The package imports torch and numpy only; the kernel library is built and
-loaded at its first CUDA launch.
+It runs moment-retrieval eval end to end (features -> forward -> decode ->
+submission rows -> NMS -> metrics) for the flagship QVHighlights preset and
+for the long-video TACoS preset (2048 clips). Every attention core runs on a
+hand-written CUDA kernel: csrc/aca_attention.cu for the ACA layers and for
+self-attention over up to 128 keys, csrc/flash_attention.cu (memory-linear)
+beyond. The package imports torch and numpy only; the kernel libraries are
+built and loaded at their first CUDA launch.
 """
 
 from flashvtg_tpu_torch.entry import entry

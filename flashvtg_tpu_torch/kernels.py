@@ -26,7 +26,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = {"aca_attention": "aca_attention.cu"}
+SOURCES = {
+    "aca_attention": "aca_attention.cu",
+    "flash_attention": "flash_attention.cu",
+}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -99,4 +102,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     if name == "aca_attention":
         fn = lib.flashvtg_aca_attention_f32
         fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
+        fn.restype = i
+    elif name == "flash_attention":
+        fn = lib.flashvtg_flash_attention_f32
+        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
         fn.restype = i

@@ -66,8 +66,9 @@ class ModelConfig:
     clip_length: float = 2.0
     use_neg: bool = True
     merge_cls_sal: bool = True
-    # JAX chunks self-attention past this length; the port's attention
-    # computes the same function unchunked (the kernel takes Lk <= 128)
+    # mirrored from the JAX config, where self-attention is query-chunked
+    # past this length; the port does not read it: its self-attention goes
+    # to the memory-linear flash kernel past 128 keys (models/transformer.py)
     attn_chunk: int = 512
 
 

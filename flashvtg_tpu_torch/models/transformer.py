@@ -1,10 +1,11 @@
 """FlashVTG transformer stack in PyTorch (channels-last, mask-driven).
 
-Counterpart of flashvtg_tpu/models/transformer.py. Both attention cores run
-through one hand-written kernel (ops/aca.py): the Adaptive Cross-Attention
-with its dummy-dropping value product and fused head mean, and the masked
-self-attention as the same kernel with no dummies. Only the projections
-around the kernel are F.linear. Layer attribute names are the reference's
+Counterpart of flashvtg_tpu/models/transformer.py. Every attention core runs
+through a hand-written kernel: the Adaptive Cross-Attention with its
+dummy-dropping value product and fused head mean (ops/aca.py), and the
+masked self-attention, which goes by key count: up to aca.MAX_KEYS (128) to
+the same kernel with no dummies, past it to the memory-linear flash kernel
+(ops/chunked_attn.py). Only the projections around the kernels are F.linear. Layer attribute names are the reference's
 (self_attn, linear1, activation, linear2, norm1, norm2), so reference
 checkpoints load as they are.
 
@@ -18,7 +19,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from flashvtg_tpu_torch.ops.aca import aca_attention, masked_attention
+from flashvtg_tpu_torch.ops.aca import MAX_KEYS, aca_attention, masked_attention
+from flashvtg_tpu_torch.ops.chunked_attn import flash_attention
 
 
 class AdaptiveCrossAttention(nn.Module):
@@ -87,7 +89,12 @@ class T2VEncoder(nn.Module):
 
 class SelfAttention(nn.Module):
     """Multi-head self-attention, q = k = x + pos, v = x, with the packed
-    q/k/v projection of torch's nn.MultiheadAttention."""
+    q/k/v projection of torch's nn.MultiheadAttention.
+
+    The JAX layer switches to its query-chunked form past attn_chunk (512)
+    clips; both of its forms compute the same function, so the switch here
+    follows what the kernels take: masked_attention up to MAX_KEYS keys,
+    flash_attention beyond."""
 
     def __init__(self, d: int, num_heads: int):
         super().__init__()
@@ -104,7 +111,8 @@ class SelfAttention(nn.Module):
         q = F.linear(qk_in, w[:d], b[:d])
         k = F.linear(qk_in, w[d : 2 * d], b[d : 2 * d])
         v = F.linear(x, w[2 * d :], b[2 * d :])
-        return self.out_proj(masked_attention(q, k, v, valid, self.num_heads))
+        attend = masked_attention if x.shape[1] <= MAX_KEYS else flash_attention
+        return self.out_proj(attend(q, k, v, valid, self.num_heads))
 
 
 class EncoderLayer(nn.Module):

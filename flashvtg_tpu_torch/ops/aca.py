@@ -65,33 +65,41 @@ def masked_attention_plain(q, k, v, key_valid, num_heads: int):
     return aca_attention_plain(q, k, v, key_valid, num_heads, 0, False)[0]
 
 
-def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean):
-    from flashvtg_tpu_torch import kernels
-
+def _check_operands(tag, q, k, v, key_valid, num_heads):
+    """Checks of the kernels' launchers: float32 contiguous CUDA operands on
+    one device, q/k/v 16-byte aligned, q (B, Lq, H*Dh) beside k and v
+    (B, Lk, H*Dh) and key_valid (B, Lk), head dim 32. Returns (B, Lq, Lk)."""
     if q.device.type != "cuda":
-        raise ValueError(f"aca kernel: tensors on {q.device}, expected CPU or CUDA")
-    b, lv, dm = q.shape
+        raise ValueError(f"{tag}: tensors on {q.device}, expected CPU or CUDA")
+    b, lq, dm = q.shape
     lk = k.shape[1]
     for name, t in (("q", q), ("k", k), ("v", v), ("key_valid", key_valid)):
         if t.dtype != torch.float32:
-            raise TypeError(f"aca kernel: {name} is {t.dtype}, expected float32")
+            raise TypeError(f"{tag}: {name} is {t.dtype}, expected float32")
         if not t.is_contiguous():
-            raise ValueError(f"aca kernel: {name} is not contiguous")
+            raise ValueError(f"{tag}: {name} is not contiguous")
         if name != "key_valid" and t.data_ptr() % 16:
-            raise ValueError(f"aca kernel: {name} is not 16-byte aligned")
+            raise ValueError(f"{tag}: {name} is not 16-byte aligned")
         if t.device != q.device:
-            raise ValueError(f"aca kernel: {name} on {t.device}, q on {q.device}")
+            raise ValueError(f"{tag}: {name} on {t.device}, q on {q.device}")
     if k.shape != (b, lk, dm) or v.shape != (b, lk, dm) or key_valid.shape != (b, lk):
         raise ValueError(
-            f"aca kernel: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
+            f"{tag}: shapes q {tuple(q.shape)} k {tuple(k.shape)} "
             f"v {tuple(v.shape)} key_valid {tuple(key_valid.shape)}"
         )
     if dm % num_heads or dm // num_heads != HEAD_DIM:
-        raise ValueError(f"aca kernel: head dim {dm / num_heads} != {HEAD_DIM}")
+        raise ValueError(f"{tag}: head dim {dm / num_heads} != {HEAD_DIM}")
+    return b, lq, lk
+
+
+def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean):
+    from flashvtg_tpu_torch import kernels
+
+    b, lv, lk = _check_operands("aca kernel", q, k, v, key_valid, num_heads)
     if lk > MAX_KEYS:
         raise ValueError(
-            f"aca kernel: {lk} keys > {MAX_KEYS}; long sequences need the "
-            "flash form of the kernel"
+            f"aca kernel: {lk} keys > {MAX_KEYS}; self-attention over more "
+            "keys goes to ops/chunked_attn.py:flash_attention"
         )
     if not 0 <= num_dummies <= lk:
         raise ValueError(f"aca kernel: num_dummies {num_dummies} outside [0, {lk}]")

@@ -1,14 +1,17 @@
-"""Where the device time of one flagship eval step goes, on the card.
+"""Where the device time of one eval step goes, on the card.
 
-    python -m flashvtg_tpu_torch.tools.profile_eval [--bsz 256] [--steps 10]
+    python -m flashvtg_tpu_torch.tools.profile_eval [--preset qvhighlights_slowclip]
+        [--bsz <the preset's eval_bsz>] [--steps 10]
 
-Builds the flagship model (preset qvhighlights_slowclip, random weights from
---seed), one batch of random features with ragged video and text lengths,
-and profiles --steps eval steps (forward + decode, inputs already on the
-card) with torch.profiler. Prints the card's name and power limit, then one
-JSON line: host wall time and device-busy time per step, the idle share,
-device time by kernel class (the port's attention kernel, GEMMs,
-convolutions, the rest) and the top kernels by device time.
+Builds the preset's model at full width and depth (random weights from
+--seed), one batch of random features at the preset's video bucket with
+ragged video lengths (from max(20, Lv / 32) clips to Lv: 20-75 for the
+flagship, 64-2048 for tacos) and ragged text, and profiles --steps eval
+steps (forward + decode, inputs already on the card) with torch.profiler.
+Prints the card's name and power limit, then one JSON line: host wall time
+and device-busy time per step, the idle share, device time by kernel class
+(each of the port's attention kernels by name, GEMMs, convolutions, the
+rest) and the top kernels by device time.
 """
 
 from __future__ import annotations
@@ -31,8 +34,12 @@ from flashvtg_tpu_torch.utils.runtime import resolve_device
 
 def kernel_class(name: str) -> str:
     low = name.lower()
-    if "aca_attention" in low:
-        return "attention (port kernel)"
+    if "flash_attention_kernel" in low:
+        return "flash_attention"
+    if "aca_attention_kernel" in low:
+        # one template: with the head mean it is the ACA core, without it
+        # the short masked self-attention
+        return "aca_attention" if "true>" in low else "masked_attention"
     if "gemm" in low or "cutlass" in low or "xmma" in low or "matmul" in low:
         return "gemm"
     if "conv" in low or "cudnn" in low:
@@ -45,7 +52,8 @@ def kernel_class(name: str) -> str:
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--bsz", type=int, default=256)
+    ap.add_argument("--preset", default="qvhighlights_slowclip")
+    ap.add_argument("--bsz", type=int, default=None)
     ap.add_argument("--steps", type=int, default=10)
     args = ap.parse_args()
 
@@ -54,11 +62,11 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
-    cfg = from_preset("qvhighlights_slowclip")
+    cfg = from_preset(args.preset)
     model = build_model(cfg.model_config(), dev, args.seed)
     rng = np.random.default_rng(args.seed)
-    b, lv, lq = args.bsz, cfg.max_v_l, cfg.max_q_l
-    v_lens = rng.integers(20, lv + 1, b)
+    b, lv, lq = args.bsz or cfg.eval_bsz, cfg.max_v_l, cfg.max_q_l
+    v_lens = rng.integers(max(20, lv // 32), lv + 1, b)
     q_lens = rng.integers(5, lq + 1, b)
     batch = {
         "src_txt": rng.standard_normal((b, lq, cfg.t_feat_dim), dtype=np.float32),
@@ -93,7 +101,9 @@ def main():
     n = args.steps
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
-        "bsz": b, "steps": n,
+        "preset": args.preset, "bsz": b, "steps": n,
+        # the self-attention's valid keys: the flash kernel skips the rest
+        "valid_clips": int(v_lens.sum()), "padded_clips": b * lv,
         "wall_ms_per_step": wall * 1e3 / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
         "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,

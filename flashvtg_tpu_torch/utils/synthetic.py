@@ -1,9 +1,11 @@
-"""Synthetic QVHighlights-format fixtures (features + jsonl annotations).
+"""Synthetic annotation + feature fixtures, in QVHighlights and TACoS format.
 
-Counterpart of flashvtg_tpu/utils/synthetic.py. With the default arguments
-it writes the same files, value for value, as the JAX package's copy; the
-extra `min_clips` draws a per-video clip count so that some videos are
-shorter than `n_clips` and the eval path's strict point masks are exercised.
+`make_synthetic_qvh` is the counterpart of flashvtg_tpu/utils/synthetic.py.
+With the default arguments it writes the same files, value for value, as the
+JAX package's copy; the extra `min_clips` draws a per-video clip count so
+that some videos are shorter than `n_clips` and the eval path's strict point
+masks are exercised. `make_synthetic_tacos` writes TACoS-format rows (string
+qids, windows and durations, no saliency fields) over long ragged videos.
 """
 
 from __future__ import annotations
@@ -79,5 +81,61 @@ def make_synthetic_qvh(
             last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32),
         )
     ann = os.path.join(root, "synth.jsonl")
+    save_jsonl(rows, ann)
+    return ann, vdir, qdir
+
+
+def make_synthetic_tacos(
+    root: str,
+    n_queries: int = 16,
+    v_dim: int = 768,
+    t_dim: int = 4096,
+    max_clips: int = 2048,
+    min_clips: int = 64,
+    clip_len: float = 2.0,
+    seed: int = 0,
+    max_q_tokens: int = 40,
+):
+    """Write a TACoS-format dataset under `root`: one video per query.
+
+    Returns (ann_path, vid_dir, txt_dir). Rows carry a string qid, query,
+    vid, duration and one relevant window, and no saliency fields, as the
+    TACoS annotations do. The first video has exactly `max_clips` clips,
+    every other draws its length from [min_clips, max_clips), so every
+    batch padded to `max_clips` holds short rows. Text has 5 to
+    `max_q_tokens` tokens.
+    """
+    rng = np.random.default_rng(seed)
+    vdir = os.path.join(root, "vid_feats")
+    qdir = os.path.join(root, "txt_feats")
+    os.makedirs(vdir, exist_ok=True)
+    os.makedirs(qdir, exist_ok=True)
+
+    rows = []
+    for i in range(n_queries):
+        vid = f"synthtacos-v{i:04d}"
+        qid = f"{vid}_q0"
+        clips = max_clips if i == 0 else int(rng.integers(min_clips, max_clips))
+        s = int(rng.integers(0, clips - 2))
+        e = int(rng.integers(s + 1, min(clips, s + 64)))
+        rows.append(
+            dict(
+                qid=qid,
+                query=f"synthetic tacos query {i}",
+                duration=clips * clip_len,
+                vid=vid,
+                relevant_windows=[[s * clip_len, e * clip_len]],
+            )
+        )
+        np.savez(
+            os.path.join(vdir, f"{vid}.npz"),
+            features=rng.standard_normal((clips, v_dim), dtype=np.float32),
+        )
+        lq = int(rng.integers(5, max_q_tokens + 1))
+        np.savez(
+            os.path.join(qdir, f"qid{qid}.npz"),
+            last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32),
+        )
+    ann = os.path.join(root, "tacos.jsonl")
     save_jsonl(rows, ann)
     return ann, vdir, qdir

@@ -1,19 +1,20 @@
-"""The CUDA attention kernel (csrc/aca_attention.cu) vs its plain twin, on
-the card. Every test here needs CUDA and skips without it: the kernel has no
-CPU mode. The file imports torch and the port only, so it also runs on a
-machine without JAX:
+"""The CUDA attention kernels (csrc/aca_attention.cu, csrc/flash_attention.cu)
+vs their plain versions, on the card. Every test here needs CUDA and skips
+without it: the kernels have no CPU mode. The file imports torch and the
+port only, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 
 Tolerance: atol 1e-5 on out and head_mean; both sides compute in float32
-(no TF32), and differ only in the order of their sums.
+(no TF32), and differ only in the order of their sums (the flash kernel's
+online softmax adds a rescale per key tile).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from flashvtg_tpu_torch.ops import aca
+from flashvtg_tpu_torch.ops import aca, chunked_attn
 
 pytestmark = pytest.mark.cuda
 
@@ -48,6 +49,7 @@ def _inputs(b, lv, lk, heads, seed, pad_from=None):
         (3, 16, 1, 2, 1, None),  # one key: the dummy only
         (5, 1, 20, 1, 0, 12),
         (2, 130, 75, 8, 10, 50),  # three uneven row tiles
+        (8, 2048, 75, 8, 35, 60),  # TACoS ACA: 52 row tiles, 35 dummies
     ],
 )
 def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
@@ -115,3 +117,126 @@ def test_model_forward_on_card_matches_cpu(cuda):
     assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 3}
     for key in ("saliency_scores", "t2vattnvalues", "out_class", "out_coord"):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4)
+
+
+def _ragged(b, length, seed):
+    """Valid prefixes drawn from [1, length], the first row full."""
+    lens = np.random.default_rng(seed).integers(1, length + 1, b)
+    lens[0] = length
+    return torch.from_numpy((np.arange(length)[None] < lens[:, None]).astype(np.float32))
+
+
+@pytest.mark.parametrize(
+    "b,length",
+    [
+        (3, 129),  # one key past the short kernel; a tile of one key
+        (16, 256),  # charades
+        (4, 1000),  # tvsum, youtube_uni: not a multiple of the 128-key tile
+        (8, 2048),  # TACoS encoder
+        (2, 77),  # shorter than one tile
+        (2, 1),  # one clip
+        (1, chunked_attn.MAX_LEN),  # the largest v_bucket: 32 key tiles
+    ],
+)
+def test_flash_kernel_matches_plain(cuda, b, length):
+    q, k, v, _ = _inputs(b, length, length, 8, 3)
+    t = tuple(x.to(cuda) for x in (q, k, v, _ragged(b, length, length)))
+    before = chunked_attn.LAUNCHES["flash_attention"]
+    out = chunked_attn.flash_attention(*t, num_heads=8)
+    assert chunked_attn.LAUNCHES["flash_attention"] == before + 1
+    ref = chunked_attn.flash_attention_plain(*t, 8)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+    # fixed summation order: launches agree bit for bit
+    assert torch.equal(chunked_attn.flash_attention(*t, num_heads=8), out)
+
+
+@pytest.mark.parametrize("case", ["one_key", "holes", "last_key", "all_masked_tiles"])
+def test_flash_kernel_any_mask(cuda, case):
+    b, length = 3, 700
+    q, k, v, _ = _inputs(b, length, length, 8, 4)
+    rng = np.random.default_rng(5)
+    valid = np.zeros((b, length), np.float32)
+    if case == "one_key":
+        valid[np.arange(b), rng.integers(0, length, b)] = 1.0
+    elif case == "holes":  # not a prefix: random keys, every row has some
+        valid = (rng.random((b, length)) < 0.3).astype(np.float32)
+    elif case == "last_key":
+        valid[:, -1] = 1.0
+    else:  # valid keys only in the second and last 128-key tiles
+        valid[:, 130:140] = 1.0
+        valid[:, 650:] = 1.0
+    t = tuple(x.to(cuda) for x in (q, k, v, torch.from_numpy(valid)))
+    out = chunked_attn.flash_attention(*t, num_heads=8)
+    ref = chunked_attn.flash_attention_plain(*t, 8)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max().item() <= ATOL
+
+
+def test_flash_kernel_row_without_valid_key_is_zero(cuda):
+    q, k, v, _ = _inputs(2, 300, 300, 8, 6)
+    valid = torch.ones((2, 300))
+    valid[1] = 0
+    t = tuple(x.to(cuda) for x in (q, k, v, valid))
+    out = chunked_attn.flash_attention(*t, num_heads=8)
+    ref = chunked_attn.flash_attention_plain(*t, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(out[1], torch.zeros_like(out[1]))
+    assert (out[0] - ref[0]).abs().max().item() <= ATOL
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, k, v, valid = (x.to(cuda) for x in _inputs(2, 200, 200, 2, 7))
+    with pytest.raises(TypeError):
+        chunked_attn.flash_attention(q.double(), k, v, valid, 2)
+    with pytest.raises(TypeError):
+        chunked_attn.flash_attention(q, k, v, valid.bool(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        chunked_attn.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                                     k, v, valid, 2)
+    with pytest.raises(ValueError, match="aligned"):
+        shifted = torch.zeros(q.numel() + 1, device=cuda)[1:].view(q.shape)
+        chunked_attn.flash_attention(shifted, k, v, valid, 2)
+    with pytest.raises(ValueError, match="head dim"):
+        chunked_attn.flash_attention(q, k, v, valid, 4)
+    with pytest.raises(ValueError, match="shapes"):
+        chunked_attn.flash_attention(q, k[:, :100].contiguous(), v, valid, 2)
+    with pytest.raises(ValueError, match="length"):
+        big = torch.zeros((1, chunked_attn.MAX_LEN + 1, 64), device=cuda)
+        chunked_attn.flash_attention(big, big, big, torch.ones(big.shape[:2], device=cuda), 2)
+
+
+def test_tacos_forward_on_card_matches_cpu(cuda):
+    """Preset tacos at full width (depth cut to 2 ACA, 2 encoder and 1
+    dummy-encoder layers), two videos padded to the 2048-clip bucket, one of
+    them short: the encoder runs the flash kernel, the dummy encoder and the
+    ACA layers the short one; the CPU runs the plain versions."""
+    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models.points import pyramid_masks_strict
+    from flashvtg_tpu_torch.train.config import from_preset
+
+    cfg = from_preset("tacos", t2v_layers=2, enc_layers=2, dummy_layers=1)
+    cpu_model = build_model(cfg.model_config(), "cpu", seed=0)
+    gpu_model = build_model(cfg.model_config(), cuda, seed=0)
+    rng = np.random.default_rng(0)
+    lv, lq = cfg.max_v_l, cfg.max_q_l
+    v_lens, q_lens = np.asarray([lv, 517]), np.asarray([lq, 9])
+    txt_mask = (np.arange(lq)[None] < q_lens[:, None]).astype(np.float32)
+    vid_mask = (np.arange(lv)[None] < v_lens[:, None]).astype(np.float32)
+    arrs = (
+        rng.standard_normal((2, lq, cfg.t_feat_dim), dtype=np.float32) * txt_mask[..., None],
+        txt_mask,
+        rng.standard_normal((2, lv, cfg.total_v_feat_dim), dtype=np.float32) * vid_mask[..., None],
+        vid_mask,
+        pyramid_masks_strict(v_lens, lv, cfg.strides)[0],
+    )
+    aca.reset_launch_counts()
+    chunked_attn.reset_launch_counts()
+    with torch.no_grad():
+        ref = cpu_model(*map(torch.from_numpy, arrs))
+        out = gpu_model(*(torch.from_numpy(a).to(cuda) for a in arrs))
+    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 1}
+    assert chunked_attn.LAUNCHES == {"flash_attention": 2}
+    for key in ("saliency_scores", "t2vattnvalues", "attn_weights", "out_class", "out_coord"):
+        np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4,
+                                   err_msg=key)
