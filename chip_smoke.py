@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port (flashvtg_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--queries 512] [--tacos-queries 64]
+                          [--train-steps 3]
 
 Phases, each failing loudly:
   1. device: prints the card's name and power limit, requires CUDA, sets
@@ -29,12 +30,41 @@ Phases, each failing loudly:
      short and 3 flash launches per batch; the peak memory of one eval step
      above what was allocated before it must stay under one (B, H, L, L)
      float32 tensor (the memory-linear check); then card vs CPU on 2 of the
-     queries, one of them short, as in phase 5.
+     queries, one of them short, as in phase 5;
+  7. training forms and backward kernels vs their plain versions, at the
+     shapes of both train paths: TACoS (B=32: ACA at Lv 2048 with 35
+     dummies, the dummy encoder's short self-attention at L 75, the flash
+     kernel at L 2048) and the flagship (B=64: ACA at Lv 75 with 10
+     dummies, the short kernel at L 42 and L 75); ACA with donor rows and a
+     head-mean gradient; dropout 0.1 on both sides with one seed. Each
+     kernel through its launcher (timed) and once through the autograd
+     Function that the model calls (aca_attention, masked_attention,
+     flash_attention on tensors that require grad, then .backward):
+     forwards (out, head mean, log-sum-exp) within atol 1e-5, gradients
+     within 1e-4 of the largest |plain| value (f32 sums in another order),
+     with times, bounds and the yardstick torch.autograd through
+     scaled_dot_product_attention (forward + backward minus forward); the
+     flash forward + backward's peak above its inputs against one
+     (B, H, L, L) f32 tensor (4.29 GB);
+  8. train paths, one per preset (qvhighlights_slowclip at B=64, tacos at
+     B=32 and Lv 2048; full width and depth, every dropout at its preset
+     value): train() on a synthetic train split for --train-steps steps and
+     one eval through run_mr_inference, each kernel's launch count, set to
+     0 just before, equal to its launches per step times the steps plus the
+     eval's; finite losses; a step timed with CUDA events; the step's peak
+     memory (< 80 GB); then card vs CPU on one 2-row step with every
+     dropout at 0: losses within rtol 1e-4; clipped gradients leaf by
+     leaf within 1e-3 of the leaf's largest |gradient| (floored at 1e-2 of
+     the largest over all leaves); the AdamW update within 1% of lr where
+     the gradient's sign is sure (|g| over 100 times the leaf's gradient
+     disagreement: a first Adam step moves a weight by about lr sign(g),
+     so elsewhere it carries no information).
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
 import argparse
+import functools
 import json
 import os
 import subprocess
@@ -50,6 +80,11 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
 FORWARD_ATOL = 3e-4
+GRAD_RTOL = 1e-4  # kernel vs plain gradients, relative to the largest |plain|
+STEP_LOSS_RTOL = 1e-4  # card vs CPU train step
+STEP_GRAD_RTOL = 1e-3  # per leaf, relative to its largest |gradient|
+STEP_GRAD_FLOOR = 1e-2  # ... floored at this share of the largest over all leaves
+TRAIN_DROPOUT = 0.1  # the presets' attention dropout
 
 
 def log(*a):
@@ -73,23 +108,41 @@ def time_ms(fn, iters=50, warmup=5):
     return start.elapsed_time(end) / iters
 
 
-def attention_bound(b, lv, lk, heads, nd, key_valid, want_head_mean):
+def attention_bound(b, lv, lk, heads, nd, key_valid, want_head_mean, backward=False,
+                    pairs=None):
     """(bound_ms, bound_by) for one attention kernel call: each input read
     once and each output written once over the memory rate, against the
     float32 operations this data needs over the f32 peak. A masked key's
     probability is 0, so it needs no work: q.k and the softmax (about five
     operations a probability, one more for the head mean) run over the valid
-    keys, p.v over the valid keys past the nd dummies. Self-attention (the
-    short and the flash kernel) is lv = lk, nd = 0, no head mean."""
+    (b, h, i, j) pairs, p.v over those past the nd dummies. `pairs` gives
+    both counts where a mask beyond key_valid (the donor rows) removes
+    pairs; by default every query row meets every valid key. The backward
+    (`backward`) recomputes q.k and does dq and dk over the valid pairs and
+    dO.v and dv over the value pairs, plus about six operations a pair (exp,
+    dP, dS); it reads q, k, v, dO, the key mask, the log-sum-exp (and the
+    head-mean gradient, or for self-attention over many keys O) and writes
+    dq, dk, dv. Self-attention (the short and the flash kernel) is lv = lk,
+    nd = 0, no head mean."""
     d = heads * 32
-    nbytes = 4 * (2 * b * lv * d + 2 * b * lk * d + b * lk)
-    if want_head_mean:
-        nbytes += 4 * b * lv * lk
-    valid_keys = float(key_valid.sum().item())
-    valid_values = float(key_valid[:, nd:].sum().item())
-    ops = 2 * 32 * heads * lv * valid_keys  # q.k
-    ops += 2 * 32 * heads * lv * valid_values  # p.v
-    ops += (6 if want_head_mean else 5) * heads * lv * valid_keys  # softmax
+    if pairs is None:
+        pairs = (heads * lv * float(key_valid.sum().item()),
+                 heads * lv * float(key_valid[:, nd:].sum().item()))
+    valid_pairs, value_pairs = pairs
+    if backward:
+        nbytes = 4 * (3 * b * lv * d + 4 * b * lk * d + b * lk + b * heads * lv)
+        if want_head_mean:
+            nbytes += 4 * b * lv * lk
+        elif lv > 128:  # the flash backward also reads O
+            nbytes += 4 * b * lv * d
+        ops = 3 * 2 * 32 * valid_pairs + 2 * 2 * 32 * value_pairs + 6 * valid_pairs
+    else:
+        nbytes = 4 * (2 * b * lv * d + 2 * b * lk * d + b * lk)
+        if want_head_mean:
+            nbytes += 4 * b * lv * lk
+        ops = 2 * 32 * valid_pairs  # q.k
+        ops += 2 * 32 * value_pairs  # p.v
+        ops += (6 if want_head_mean else 5) * valid_pairs  # softmax
     t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
@@ -250,26 +303,266 @@ def qkv_b(g, dev, b, heads, lq_, lk_):
     )
 
 
-def make_dataset(root, cfg, n_queries, seed):
-    """The synthetic set of a preset, written under `root` and loaded:
-    QVHighlights format (every fourth video 20 clips to Lv) for the
-    flagship, TACoS format (64 to 2048 clips, string qids) for tacos."""
-    from flashvtg_tpu_torch.train.infer import eval_data_config
-    from flashvtg_tpu_torch.data.dataset import VTGDataset
+def synthetic_writer(cfg):
+    """The synthetic writer of a preset: QVHighlights format (every fourth
+    video 20 clips to Lv) for the flagship, TACoS format (64 to 2048 clips,
+    string qids) for tacos."""
     from flashvtg_tpu_torch.utils.synthetic import make_synthetic_qvh, make_synthetic_tacos
 
     if cfg.dset_name == "tacos":
-        ann, vdir, qdir = make_synthetic_tacos(
-            root, n_queries=n_queries, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
-            max_clips=cfg.max_v_l, min_clips=64, clip_len=cfg.clip_length, seed=seed,
+        return functools.partial(
+            make_synthetic_tacos, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
+            max_clips=cfg.max_v_l, min_clips=64, clip_len=cfg.clip_length,
             max_q_tokens=cfg.max_q_l,
         )
+    return functools.partial(
+        make_synthetic_qvh, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
+        n_clips=cfg.max_v_l, clip_len=cfg.clip_length, min_clips=20,
+        max_q_tokens=cfg.max_q_l + 1,
+    )
+
+
+def rel_err(got, ref):
+    """max |got - ref| over max |ref| (floored at 0.1: a gradient that is 0
+    up to rounding, as dq of a row with one valid key, is held at 1e-5
+    absolute)."""
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(0.1)).item()
+
+
+def sdpa_backward_ms(q, k, v, valid, heads, d_out):
+    """The backward's yardstick: torch.autograd.grad through
+    scaled_dot_product_attention with the same boolean key mask (and no
+    dropout), forward + backward minus forward, ms."""
+    import torch
+    import torch.nn.functional as F
+
+    b = q.shape[0]
+    qh, kh, vh = (x.view(b, -1, heads, 32).transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    d_oh = d_out.view(b, -1, heads, 32).transpose(1, 2).contiguous()
+    mask = (valid > 0)[:, None, None, :]
+
+    def fwd():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
+
+    both = time_ms(lambda: torch.autograd.grad(fwd(), (qh, kh, vh), d_oh), iters=10, warmup=2)
+    return both - time_ms(fwd, iters=10, warmup=2)
+
+
+def aca_pairs(key_valid, query_valid, donor_rows, nd):
+    """(valid (b, h, i, j) pairs, those past the nd dummies) of an ACA call
+    with donor rows: the mask the kernel applies, counted on the card."""
+    qpad = (query_valid <= 0)[donor_rows.long()]  # (B, H, Lv)
+    kpad = (key_valid <= 0)[donor_rows.long()]  # (B, H, Lk)
+    ok = (key_valid > 0)[:, None, None, :] & ~(qpad[..., :, None] & kpad[..., None, :])
+    return float(ok.sum().item()), float(ok[..., nd:].sum().item())
+
+
+def function_grads(call, inputs, d_outs):
+    """(dq, dk, dv) through the autograd Function that the model calls:
+    call(q, k, v) on copies of `inputs` that require grad, then backward with
+    `d_outs`; and the peak device memory of that forward + backward above
+    what was allocated before it, bytes."""
+    import torch
+
+    leaves = [x.detach().clone().requires_grad_() for x in inputs]
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    outs = call(*leaves)
+    torch.autograd.backward(outs if isinstance(outs, tuple) else (outs,), d_outs)
+    torch.cuda.synchronize()
+    return [x.grad for x in leaves], torch.cuda.max_memory_allocated() - before
+
+
+def backward_reading(shape, bwd, bwd_plain, fn, bound, library_ms):
+    """A backward kernel against its plain version, through its launcher and
+    through its autograd Function (`fn`, function_grads' result): relative
+    errors, bit-for-bit repeat, times. `bound` is attention_bound's (ms,
+    by)."""
+    import torch
+
+    got, ref = bwd(), bwd_plain()
+    torch.cuda.synchronize()
+    errs = [rel_err(x, y) for x, y in zip(got, ref)]
+    fn_errs = [rel_err(x, y) for x, y in zip(fn[0], ref)]
+    if not max(errs + fn_errs) <= GRAD_RTOL:
+        raise AssertionError(f"backward {shape} vs plain: relative errors {errs} (launcher), "
+                             f"{fn_errs} (autograd Function) > {GRAD_RTOL}")
+    if not all(torch.equal(x, y) for x, y in zip(got, bwd())):
+        raise AssertionError(f"backward {shape}: two launches disagree")
+    return dict(
+        shape=shape, max_abs_err=max((x - y).abs().max().item() for x, y in zip(got, ref)),
+        max_rel_err=max(errs), function_rel_err=max(fn_errs),
+        function_fwd_bwd_peak_bytes=fn[1], ms=time_ms(bwd, iters=10, warmup=2),
+        plain_ms=time_ms(bwd_plain, iters=3, warmup=1), bound_ms=bound[0],
+        bound_by=bound[1], library_ms=library_ms,
+    )
+
+
+def forward_reading(shape, got, ref, fwd, fwd_plain, bound, library_ms=None):
+    """A training-form forward (out, head mean, log-sum-exp) against its
+    plain version with the same dropout seed, timed."""
+    import torch
+
+    torch.cuda.synchronize()
+    err = max((x - y).abs().max().item() for x, y in zip(got, ref) if x is not None)
+    if not err <= KERNEL_ATOL:
+        raise AssertionError(f"training forward {shape}: max |err| {err} > {KERNEL_ATOL}")
+    return dict(shape=shape, max_abs_err=err, ms=time_ms(fwd, iters=10, warmup=2),
+                plain_ms=time_ms(fwd_plain, iters=3, warmup=1), bound_ms=bound[0],
+                bound_by=bound[1], library_ms=library_ms)
+
+
+def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask):
+    """The ACA core in training form: lv video queries over nd dummies and
+    the ragged text of `valid`, videos of `vmask`, donor rows, a head-mean
+    gradient. Returns (kernel name, forward reading, backward reading)."""
+    import torch
+
+    from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
+    from flashvtg_tpu_torch.ops import aca
+    from flashvtg_tpu_torch.ops.attn_dropout import draw_seed
+
+    lk = valid.shape[1]
+    q, k, v = qkv_b(g, dev, b, heads, lv, lk)
+    d_out = torch.randn((b, lv, heads * 32), generator=g).to(dev)
+    d_hm = torch.randn((b, lv, lk), generator=g).to(dev)
+    donors = tiled_attn_donors(b, heads, dev)
+    drop_seed = draw_seed(torch.Generator().manual_seed(seed))
+    args = (q, k, v, valid, heads, nd, True, p, drop_seed, vmask, donors)
+    pairs = aca_pairs(valid, vmask, donors, nd)
+    shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd} p={p}, donor rows"
+    fwd = functools.partial(aca._launch, *args, want_lse=True)
+    fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True)
+    got, ref = fwd(), fwd_plain()
+    fwd_reading = forward_reading(
+        shape, got, ref, fwd, fwd_plain,
+        attention_bound(b, lv, lk, heads, nd, valid, True, pairs=pairs),
+    )
+    rest = (d_out, d_hm, heads, nd, p, drop_seed, vmask, donors)
+    fn = function_grads(
+        functools.partial(aca.aca_attention, key_valid=valid, num_heads=heads,
+                          num_dummies=nd, dropout=p,
+                          generator=torch.Generator().manual_seed(seed),
+                          query_valid=vmask, donor_rows=donors),
+        (q, k, v), (d_out, d_hm),
+    )
+    return "aca_attention", fwd_reading, backward_reading(
+        shape,
+        functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest),
+        functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest),
+        fn, attention_bound(b, lv, lk, heads, nd, valid, True, backward=True, pairs=pairs),
+        None,
+    )
+
+
+def self_train_case(dev, g, b, heads, p, seed, valid):
+    """Masked self-attention in training form over the keys of `valid`: the
+    short kernel up to 128 keys, the flash kernel past. Returns (kernel
+    name, forward reading, backward reading)."""
+    import torch
+
+    from flashvtg_tpu_torch.ops import aca, chunked_attn
+    from flashvtg_tpu_torch.ops.attn_dropout import draw_seed
+
+    length = valid.shape[1]
+    q, k, v = qkv_b(g, dev, b, heads, length, length)
+    d_out = torch.randn((b, length, heads * 32), generator=g).to(dev)
+    drop_seed = draw_seed(torch.Generator().manual_seed(seed))
+    shape = f"B={b} H={heads} L={length} Dh=32 p={p}"
+    call = dict(key_valid=valid, num_heads=heads, dropout=p,
+                generator=torch.Generator().manual_seed(seed))
+    if length > aca.MAX_KEYS:
+        name = "flash_attention"
+        shape += f", valid keys {int(valid.sum().item())} of {b * length}"
+        args = (q, k, v, valid, heads, p, drop_seed)
+        fwd = functools.partial(chunked_attn._launch, *args, want_lse=True)
+        fwd_plain = functools.partial(chunked_attn.flash_attention_plain, *args, want_lse=True)
+        got, ref = fwd(), fwd_plain()
+        bwd = functools.partial(chunked_attn._launch_bwd, q, k, v, valid, *got, d_out, heads,
+                                p, drop_seed)
+        bwd_plain = functools.partial(chunked_attn.flash_attention_bwd_plain, q, k, v, valid,
+                                      *ref, d_out, heads, p, drop_seed)
+        call = functools.partial(chunked_attn.flash_attention, **call)
     else:
-        ann, vdir, qdir = make_synthetic_qvh(
-            root, n_queries=n_queries, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
-            n_clips=cfg.max_v_l, clip_len=cfg.clip_length, seed=seed, min_clips=20,
-            max_q_tokens=cfg.max_q_l + 1,
+        name = "masked_attention"
+        args = (q, k, v, valid, heads, 0, False, p, drop_seed)
+        fwd = functools.partial(aca._launch, *args, want_lse=True)
+        fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True)
+        got, ref = fwd(), fwd_plain()
+        rest = (d_out, None, heads, 0, p, drop_seed)
+        bwd = functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest)
+        bwd_plain = functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest)
+        call = functools.partial(aca.masked_attention, **call)
+    fwd_reading = forward_reading(shape, got, ref, fwd, fwd_plain,
+                                  attention_bound(b, length, length, heads, 0, valid, False))
+    return name, fwd_reading, backward_reading(
+        shape, bwd, bwd_plain, function_grads(call, (q, k, v), (d_out,)),
+        attention_bound(b, length, length, heads, 0, valid, False, backward=True),
+        sdpa_backward_ms(q, k, v, valid, heads, d_out),
+    )
+
+
+# (B, Lv, dummies, text tokens, fewest clips of a video) of each train path
+TRAIN_KERNEL_SHAPES = {
+    "tacos_train": (32, 2048, 35, 40, 64),
+    "flagship_train": (64, 75, 10, 32, 20),
+}
+
+
+def phase_train_kernels(dev, seed):
+    """Phase 7: the training forms and the backward kernels at each train
+    path's shapes, dropout on, through their launchers (timed) and through
+    the autograd Functions that the model calls. Returns the backward
+    kernels' rows (at the TACoS train shapes, errors the largest over every
+    shape) and every shape's readings, which are logged."""
+    import torch
+
+    rng = np.random.default_rng(seed + 1)
+    g = torch.Generator().manual_seed(seed + 1)
+    heads, p = 8, TRAIN_DROPOUT
+    shapes, readings = {}, {}
+    for path, (b, lv, nd, lq, min_clips) in TRAIN_KERNEL_SHAPES.items():
+        text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
+        video = ragged_mask(rng, b, lv, min_clips, lv + 1).to(dev)
+        cases = (  # the ACA layers, the dummy encoder, the encoder
+            aca_train_case(dev, g, b, lv, nd, heads, p, seed, text, video),
+            self_train_case(dev, g, b, heads, p, seed, text),
+            self_train_case(dev, g, b, heads, p, seed, video),
         )
+        for (name, fwd, bwd), length in zip(cases, (lv, nd + lq, lv)):
+            shapes[f"{path} {name} L={length}"] = fwd
+            shapes[f"{path} {name}_bwd L={length}"] = bwd
+            readings.setdefault(name + "_bwd", []).append(bwd)
+        bhll = 4 * b * heads * lv * lv
+        if lv > 128:  # the flash forward + backward's peak: memory-linear
+            peak = shapes[f"{path} flash_attention_bwd L={lv}"]["function_fwd_bwd_peak_bytes"]
+            if not peak < bhll:
+                raise AssertionError(
+                    f"flash fwd + bwd peak +{peak} B >= one (B, H, L, L) f32 {bhll} B")
+            shapes["flash_fwd_bwd_memory"] = dict(peak_above_inputs_bytes=peak,
+                                                  bhll_f32_bytes=bhll)
+    source = {"aca_attention_bwd": "aca_attention_bwd.cu",
+              "masked_attention_bwd": "aca_attention_bwd.cu",
+              "flash_attention_bwd": "flash_attention_bwd.cu"}
+    rows = []
+    for name, found in readings.items():
+        rows.append(dict(
+            found[0], name=name, route="cuda", source="flashvtg_tpu_torch/csrc/" + source[name],
+            replaces="scripts/bench_flash.py:67",
+            **{key: max(r[key] for r in found)
+               for key in ("max_abs_err", "max_rel_err", "function_rel_err")},
+        ))
+    return rows, shapes
+
+
+def make_dataset(root, cfg, n_queries, seed):
+    """The synthetic eval set of a preset, written under `root` and loaded."""
+    from flashvtg_tpu_torch.train.infer import eval_data_config
+    from flashvtg_tpu_torch.data.dataset import VTGDataset
+
+    ann, vdir, qdir = synthetic_writer(cfg)(root, n_queries=n_queries, seed=seed)
     cfg = cfg.replace(eval_path=ann, v_feat_dirs=(vdir,), t_feat_dir=qdir)
     return cfg, VTGDataset(eval_data_config(cfg, ann))
 
@@ -457,11 +750,173 @@ def run_preset(dev, preset, n_queries, n_compare, seed):
     return path
 
 
+def train_launches_per_step(cfg):
+    """Each kernel's launches in one train step: the forward of the positive
+    and the negative pass (the dummy encoder runs once), and one backward
+    launch for each forward launch."""
+    per = launches_per_batch(cfg)
+    passes = 2 if cfg.use_neg else 1
+    long_video = per["flash_attention"] > 0
+    per = {
+        "aca_attention": cfg.t2v_layers * passes,
+        "masked_attention": cfg.dummy_layers + (0 if long_video else cfg.enc_layers * passes),
+        "flash_attention": cfg.enc_layers * passes if long_video else 0,
+    }
+    per.update({f"{name}_bwd": n for name, n in per.items()})
+    return per
+
+
+def make_train_split(root, cfg, n_train, n_val, seed):
+    """A synthetic train split of n_train rows and an eval split of n_val
+    rows under `root`, sharing the feature directories."""
+    writer = synthetic_writer(cfg)
+    ann, vdir, qdir = writer(root, n_queries=n_train, seed=seed, split="train")
+    val, _, _ = writer(root, n_queries=n_val, seed=seed + 1, split="val")
+    return cfg.replace(train_path=ann, eval_path=val, v_feat_dirs=(vdir,), t_feat_dir=qdir)
+
+
+def train_batch(cfg, rows):
+    """Collated train rows `rows` of cfg.train_path (labels drawn)."""
+    from flashvtg_tpu_torch.data.collate import Collator
+    from flashvtg_tpu_torch.data.dataset import VTGDataset
+    from flashvtg_tpu_torch.train.loop import train_data_config
+
+    ds = VTGDataset(train_data_config(cfg, cfg.train_path), preload=False)
+    collate = Collator(cfg.max_q_l, cfg.v_buckets, cfg.max_v_l, max_windows=cfg.max_windows,
+                       dset_name=cfg.dset_name)
+    return collate([ds[i] for i in rows])
+
+
+def train_step_time(dev, model, cfg, seed):
+    """Device time of one train step on a batch already on the card (CUDA
+    events over 5 steps), ms, and the step's peak memory, bytes."""
+    import torch
+
+    from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step, place_batch
+
+    placed = place_batch(train_batch(cfg, range(cfg.bsz)), dev)
+    optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
+    step = make_train_step(model, cfg.loss_config(), optimizer, scheduler, cfg.grad_clip,
+                           torch.Generator().manual_seed(seed))
+    step(placed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms = time_ms(lambda: step(placed), iters=5, warmup=1)
+    return ms, torch.cuda.max_memory_allocated()
+
+
+def train_card_vs_cpu(dev, cfg, seed):
+    """One 2-row step at full width with every dropout at 0 (dummy_dropout
+    and input_dropout included), the same weights on the card and on the
+    CPU: losses, clipped gradients, parameters after the AdamW step."""
+    import dataclasses
+
+    import torch
+
+    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step, place_batch
+
+    cfg = cfg.replace(dropout=0.0, input_dropout=0.0)
+    mcfg = dataclasses.replace(cfg.model_config(), dummy_dropout=0.0)
+    first = train_batch(cfg, range(8))
+    short = int(np.argmin(first["valid_v_lens"]))
+    assert first["valid_v_lens"][short] < cfg.max_v_l  # a short video is in
+    batch = train_batch(cfg, [0 if short else 1, short])
+    runs = {}
+    for d in ("cpu", dev):
+        model = build_model(mcfg, d, seed).train()
+        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+        optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
+        step = make_train_step(model, cfg.loss_config(), optimizer, scheduler, cfg.grad_clip)
+        losses = {k: v.item() for k, v in step(place_batch(batch, d)).items()}
+        named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
+        runs[str(d)] = (losses, {n: p.grad.cpu() for n, p in named},
+                        {n: p.detach().cpu() - before[n] for n, p in named})
+    (l_cpu, g_cpu, u_cpu), (l_card, g_card, u_card) = runs["cpu"], runs[str(dev)]
+    loss_err = max(abs(l_card[k] - v) / max(abs(v), 1e-6) for k, v in l_cpu.items())
+    # each leaf relative to its own largest gradient, floored at a share of
+    # the largest over all leaves (a leaf whose gradients all sit at that
+    # floor's rounding is held in absolute terms)
+    floor = STEP_GRAD_FLOOR * max(g.abs().max().item() for g in g_cpu.values())
+    grad_errs = {n: (g_card[n] - g).abs().max().item() / max(g.abs().max().item(), floor)
+                 for n, g in g_cpu.items()}
+    worst = max(grad_errs, key=grad_errs.get)
+    # the first AdamW step moves a weight by lr (g / (|g| + eps) + wd p):
+    # it carries the sign of each gradient, so updates are compared where
+    # the sign is beyond the gradients' disagreement, to 1% of lr
+    update_err, compared = 0.0, 0
+    for n, g in g_cpu.items():
+        sure = g.abs() > 100 * (g_card[n] - g).abs().max()
+        if sure.any():
+            update_err = max(update_err, (u_card[n] - u_cpu[n])[sure].abs().max().item())
+            compared += int(sure.sum().item())
+    total = sum(g.numel() for g in g_cpu.values())
+    assert all(np.isfinite(v) for v in l_card.values())
+    assert loss_err <= STEP_LOSS_RTOL, ("losses", loss_err, l_card, l_cpu)
+    assert grad_errs[worst] <= STEP_GRAD_RTOL, ("gradients", worst, grad_errs[worst])
+    assert compared > total // 4, ("updates compared", compared, total)
+    assert update_err <= 1e-2 * cfg.lr, ("updates", update_err)
+    return dict(loss_rel_err=loss_err, grad_rel_err=grad_errs[worst], grad_worst_leaf=worst,
+                update_abs_err=update_err, updates_compared=compared, weights=total,
+                rows=len(batch["vid"]), valid_v_lens=batch["valid_v_lens"].tolist())
+
+
+def run_train_preset(dev, preset, steps, seed, **overrides):
+    """Phase 8 for one preset: train(), its launches and losses, the step's
+    time and memory, card vs CPU."""
+    import torch
+
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.infer import _tail_bucket
+    from flashvtg_tpu_torch.train.loop import train
+
+    cfg = from_preset(preset, **overrides)
+    n_val = cfg.eval_bsz
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cfg = make_train_split(tmp, cfg, steps * cfg.bsz, n_val, seed)
+        log(f"[{preset} train data] {steps * cfg.bsz} + {n_val} rows written in "
+            f"{time.perf_counter() - t0:.2f} s")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        model, result = train(cfg, dev, max_steps=steps)
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t0
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        assert result["steps"] == steps
+        assert all(np.isfinite(v) for h in result["losses"] for v in h.values())
+        assert np.isfinite(list(result["metrics"]["brief"].values())).all()
+        assert _tail_bucket(n_val, cfg.eval_bsz) == n_val  # the eval is one full batch
+        per_step = train_launches_per_step(cfg)
+        per_eval = launches_per_batch(cfg)
+        for name, n in per_step.items():
+            want = n * steps + per_eval.get(name, 0)
+            assert launches[name] == want, (name, launches[name], want)
+        assert peak < 80e9, f"train peak {peak} B"
+        step_ms, step_peak = train_step_time(dev, model.train(), cfg, seed)
+        path = dict(
+            preset=preset, bsz=cfg.bsz, max_v_l=cfg.max_v_l, steps=steps, eval_rows=n_val,
+            launches=launches, launches_per_step=per_step, train_s=t_train,
+            losses_first=result["losses"][0], losses_last=result["losses"][-1],
+            brief=result["metrics"]["brief"], peak_mem_bytes=peak, step_ms=step_ms,
+            step_rows_per_s=cfg.bsz / step_ms * 1e3, step_peak_mem_bytes=step_peak,
+        )
+        log(f"[{preset} train path] {json.dumps(path)}")
+        del model
+        path["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, seed)
+        log(f"[{preset} train card vs cpu] {json.dumps(path['card_vs_cpu'])}")
+    return path
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--queries", type=int, default=512)
     ap.add_argument("--tacos-queries", type=int, default=64)
+    ap.add_argument("--train-steps", type=int, default=3)
     args = ap.parse_args()
 
     import torch
@@ -494,9 +949,17 @@ def main():
     rows, shapes = phase_kernels(dev, args.seed)
     log(f"[kernels] {json.dumps(rows)}")
 
+    train_rows, train_shapes = phase_train_kernels(dev, args.seed)
+    log(f"[train kernels] {json.dumps(train_rows)} {json.dumps(train_shapes)}")
+    rows += train_rows
+    shapes.update(train_shapes)
+
     paths = {
         "flagship": run_preset(dev, "qvhighlights_slowclip", args.queries, 8, args.seed),
         "tacos": run_preset(dev, "tacos", args.tacos_queries, 2, args.seed),
+        "flagship_train": run_train_preset(dev, "qvhighlights_slowclip", args.train_steps,
+                                           args.seed),
+        "tacos_train": run_train_preset(dev, "tacos", args.train_steps, args.seed),
     }
 
     for row in rows:

@@ -50,54 +50,30 @@
 //    fit an SM: the flagship ACA grid (2 x 256 blocks) runs in one wave.
 // The (B, H, Lv, Lk) logits and probabilities never leave the SM. No tensor
 // cores and no TF32: this is the f32 parity mode.
+//
+// Training form (flashvtg_aca_attention_train_f32, template TRAIN; the eval
+// entry point compiles without it, unchanged): it also writes the row
+// log-sum-exp lse[b, h, i] = max + log(sum) for the backward kernel
+// (aca_attention_bwd.cu); it multiplies the probabilities that feed p.v by
+// the attention-dropout scale (attn_dropout.cuh, the hash evaluated in
+// registers), while the head mean keeps them undropped, as
+// transformer.py:117-127; and it takes the reference's misaligned train mask
+// (transformer.py:34-48, 107-116): with donor rows, (i, j) of (b, h) is also
+// masked where !query_valid[d, i] && !key_valid[d, j], d = donor_rows[b, h].
 
 #include <cuda_runtime.h>
+#include <math.h>
 #include <stdint.h>
+
+#include "attn_common.cuh"
+#include "attn_dropout.cuh"
 
 namespace {
 
-constexpr int kDh = 32;
-constexpr int kRowsPerWarp = 8;
 constexpr int kMaxWarps = 5;
 constexpr int kMaxTileRows = kRowsPerWarp * kMaxWarps;
 constexpr int kMaxKeys = 128;
-constexpr int kKStride = kDh + 4;
 constexpr float kMasked = -1e30f;
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-// 16-byte copy from device memory to shared memory that bypasses the
-// registers (cp.async, sm_80 and later); completion is awaited per group.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// waits until at most the newest committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 __host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
 
@@ -138,15 +114,27 @@ __device__ __forceinline__ void load_head(float* stage, const float* qb,
   }
 }
 
-// KPL = keys per lane = ceil(Lk / 32); HM = write the head mean.
-template <int KPL, bool HM>
-__global__ void __launch_bounds__(kMaxWarps * 32, KPL <= 3 ? 4 : 2)
+// What the training form takes beside the eval operands: null pointers and
+// threshold 0 switch each part off.
+struct TrainArgs {
+  const float* query_valid;  // (B, Lv), with donor_rows
+  const int* donor_rows;     // (B, H)
+  float* lse;                // (B, H, Lv)
+  uint32_t seed;
+  uint32_t threshold;  // attn_dropout.cuh; 0 = no dropout
+  float keep_scale;    // 1 / (1 - p)
+};
+
+// KPL = keys per lane = ceil(Lk / 32); HM = write the head mean; TRAIN = the
+// training form.
+template <int KPL, bool HM, bool TRAIN>
+__global__ void __launch_bounds__(kMaxWarps * 32, (KPL <= 3 && !TRAIN) ? 4 : 2)
 aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v,
                      const float* __restrict__ key_valid,
                      float* __restrict__ out, float* __restrict__ head_mean,
                      int lv, int lk, int heads, int nd, int tile_rows,
-                     float scale) {
+                     float scale, TrainArgs tr) {
   constexpr int kPStride = 32 * KPL + 4;
   extern __shared__ float4 smem4[];
   float* stages = reinterpret_cast<float*>(smem4);
@@ -210,6 +198,24 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* v_s = k_s + lk * kKStride;
     float* q_s = stages + (h & 1) * stage_size + lk * kKStride + round4(lk) * kDh;
 
+    // training form: this head's donor row and dropout hash
+    bool kpad_d[KPL];
+    const float* qvalid_d = nullptr;
+    uint32_t drop_h = 0;
+#pragma unroll
+    for (int t = 0; t < KPL; ++t) kpad_d[t] = false;
+    if (TRAIN) {
+      if (tr.donor_rows != nullptr) {
+        const int d = tr.donor_rows[b * heads + h];
+        qvalid_d = tr.query_valid + (size_t)d * lv;
+#pragma unroll
+        for (int t = 0; t < KPL; ++t) {
+          kpad_d[t] = in_range[t] && key_valid[(size_t)d * lk + lane + 32 * t] <= 0.f;
+        }
+      }
+      drop_h = drop_head(tr.seed, b * heads + h);
+    }
+
     // the warp scales its own 8 rows of q before the dot product
     for (int i = lane * 4; i < kRowsPerWarp * kDh; i += 128) {
       float4 x = ld4(q_s + wrow * kDh + i);
@@ -251,10 +257,13 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     float* pw = p_s + wrow * kPStride;
 #pragma unroll
     for (int r = 0; r < kRowsPerWarp; ++r) {
+      const int row_r = row0 + wrow + r;  // may be >= lv: computed, not written
+      bool qpad = false;
+      if (TRAIN && qvalid_d != nullptr) qpad = qvalid_d[min(row_r, lv - 1)] <= 0.f;
       float mx = kMasked;
 #pragma unroll
       for (int t = 0; t < KPL; ++t) {
-        if (!key_ok[t]) s[r][t] = kMasked;
+        if (!key_ok[t] || (TRAIN && qpad && kpad_d[t])) s[r][t] = kMasked;
         mx = fmaxf(mx, s[r][t]);
       }
       mx = warp_max(mx);
@@ -264,13 +273,25 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         s[r][t] = in_range[t] ? expf(s[r][t] - mx) : 0.f;
         sum += s[r][t];
       }
-      const float inv_sum = 1.f / warp_sum(sum);
+      const float total = warp_sum(sum);
+      const float inv_sum = 1.f / total;
+      uint32_t drop_r = 0;
+      if (TRAIN) {
+        if (tr.lse != nullptr && lane == 0 && row_r < lv) {
+          tr.lse[((size_t)b * heads + h) * lv + row_r] = mx + logf(total);
+        }
+        drop_r = drop_row(drop_h, row_r);
+      }
 #pragma unroll
       for (int t = 0; t < KPL; ++t) {
         const int j = lane + 32 * t;
         const float p = s[r][t] * inv_sum;
         if (HM) hm[r][t] += p;
-        pw[r * kPStride + j] = j >= nd ? p : 0.f;
+        float pv = p;  // the probability p.v reads: dropped in training
+        if (TRAIN && tr.threshold != 0u) {
+          pv *= drop_scale(drop_r, j, tr.threshold, tr.keep_scale);
+        }
+        pw[r * kPStride + j] = j >= nd ? pv : 0.f;
       }
     }
     __syncwarp();
@@ -322,11 +343,11 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int KPL, bool HM>
+template <int KPL, bool HM, bool TRAIN>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* key_valid, float* out, float* head_mean,
                    int batch, int lv, int lk, int heads, int nd, float scale,
-                   cudaStream_t stream) {
+                   const TrainArgs& tr, cudaStream_t stream) {
   // tiles of up to 40 rows, as even as 8-row warps allow
   const int tiles = (lv + kMaxTileRows - 1) / kMaxTileRows;
   const int warps = ((lv + tiles - 1) / tiles + kRowsPerWarp - 1) / kRowsPerWarp;
@@ -334,27 +355,32 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   const size_t smem = sizeof(float) * smem_floats(lk, KPL, tile_rows);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        aca_attention_kernel<KPL, HM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        aca_attention_kernel<KPL, HM, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return err;
   }
   dim3 grid((lv + tile_rows - 1) / tile_rows, batch);
-  aca_attention_kernel<KPL, HM><<<grid, warps * 32, smem, stream>>>(
-      q, k, v, key_valid, out, head_mean, lv, lk, heads, nd, tile_rows, scale);
+  aca_attention_kernel<KPL, HM, TRAIN><<<grid, warps * 32, smem, stream>>>(
+      q, k, v, key_valid, out, head_mean, lv, lk, heads, nd, tile_rows, scale, tr);
   return cudaGetLastError();
 }
 
-template <bool HM>
+template <bool HM, bool TRAIN>
 cudaError_t launch_kpl(int kpl, const float* q, const float* k, const float* v,
                        const float* key_valid, float* out, float* head_mean,
                        int batch, int lv, int lk, int heads, int nd, float scale,
-                       cudaStream_t stream) {
+                       const TrainArgs& tr, cudaStream_t stream) {
   switch (kpl) {
-    case 1: return launch<1, HM>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, stream);
-    case 2: return launch<2, HM>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, stream);
-    case 3: return launch<3, HM>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, stream);
-    default: return launch<4, HM>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, stream);
+    case 1: return launch<1, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
+    case 2: return launch<2, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
+    case 3: return launch<3, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
+    default: return launch<4, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
   }
+}
+
+bool bad_shape(int batch, int lv, int lk, int heads, int head_dim, int nd) {
+  return head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk ||
+         batch < 1 || batch > 65535 || lv < 1 || heads < 1;
 }
 
 }  // namespace
@@ -370,16 +396,38 @@ int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
                                float* head_mean, int batch, int lv, int lk,
                                int heads, int head_dim, int nd, float scale,
                                void* stream) {
-  if (head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk ||
-      batch < 1 || batch > 65535 || lv < 1 || heads < 1) {
+  if (bad_shape(batch, lv, lk, heads, head_dim, nd)) return (int)cudaErrorInvalidValue;
+  const int kpl = (lk + 31) / 32;
+  cudaStream_t s = (cudaStream_t)stream;
+  const TrainArgs none = {nullptr, nullptr, nullptr, 0u, 0u, 1.f};
+  if (head_mean != nullptr) {
+    return (int)launch_kpl<true, false>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
+  }
+  return (int)launch_kpl<false, false>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
+}
+
+// The training form: as above, plus lse (B, H, Lv), attention dropout
+// (threshold = floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none)
+// and the donor-row mask (query_valid (B, Lv) f32 and donor_rows (B, H)
+// int32, or both null).
+int flashvtg_aca_attention_train_f32(const float* q, const float* k, const float* v,
+                                     const float* key_valid, const float* query_valid,
+                                     const int* donor_rows, float* out,
+                                     float* head_mean, float* lse, int batch, int lv,
+                                     int lk, int heads, int head_dim, int nd,
+                                     float scale, unsigned seed, unsigned threshold,
+                                     float keep_scale, void* stream) {
+  if (bad_shape(batch, lv, lk, heads, head_dim, nd) || lse == nullptr ||
+      (donor_rows == nullptr) != (query_valid == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const int kpl = (lk + 31) / 32;
   cudaStream_t s = (cudaStream_t)stream;
+  const TrainArgs tr = {query_valid, donor_rows, lse, seed, threshold, keep_scale};
   if (head_mean != nullptr) {
-    return (int)launch_kpl<true>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, s);
+    return (int)launch_kpl<true, true>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
   }
-  return (int)launch_kpl<false>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, s);
+  return (int)launch_kpl<false, true>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
 }
 
 }  // extern "C"

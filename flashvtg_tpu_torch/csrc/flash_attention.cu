@@ -48,21 +48,29 @@
 //  * p.v: a lane owns one of the warp's rows and 8 of the 32 output columns;
 //    each 16-byte P load serves 4 keys and each V load 8 rows (broadcast).
 // No tensor cores and no TF32: this is the f32 parity mode.
+//
+// Training form (flashvtg_flash_attention_train_f32, template TRAIN; the
+// eval entry point compiles without it, unchanged): it also writes the row
+// log-sum-exp lse[b, h, i] = m + log(l) for the backward
+// (flash_attention_bwd.cu), and multiplies each probability that feeds p.v
+// by the attention-dropout scale (attn_dropout.cuh, evaluated in registers
+// inside the tile loop); the row sum l keeps the undropped probabilities.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "attn_common.cuh"
+#include "attn_dropout.cuh"
 
 namespace {
 
-constexpr int kDh = 32;
-constexpr int kRowsPerWarp = 8;
 constexpr int kWarps = 8;
 constexpr int kTileRows = kRowsPerWarp * kWarps;  // query rows per block
 constexpr int kKPL = 4;                           // keys per lane per tile
 constexpr int kTileKeys = 32 * kKPL;
 constexpr int kMaxTiles = 32;  // one bit each in the block's tile mask
 constexpr int kMaxLen = kTileKeys * kMaxTiles;
-constexpr int kKStride = kDh + 4;
 constexpr int kPStride = kTileKeys + 4;
 
 // Shared memory, in floats: Q tile, two stages of (K, V), then P.
@@ -70,45 +78,6 @@ constexpr int kQFloats = kTileRows * kDh;
 constexpr int kStageFloats = kTileKeys * kKStride + kTileKeys * kDh;
 constexpr int kPFloats = kTileRows * kPStride;
 constexpr int kSmemBytes = sizeof(float) * (kQFloats + 2 * kStageFloats + kPFloats);
-
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void st4(float* p, float4 x) {
-  *reinterpret_cast<float4*>(p) = x;
-}
-
-// 16-byte copy from device memory to shared memory that bypasses the
-// registers (cp.async, sm_80 and later); completion is awaited per group.
-__device__ __forceinline__ void cp_async16(float* smem_dst, const float* src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// waits until at most the newest committed group is still in flight
-__device__ __forceinline__ void cp_async_wait_all_but_newest() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 // Starts the copies of key tile `tile` (head h) into `stage`. Key rows past
 // len are zero-filled with plain stores: p.v multiplies them by a zero P,
@@ -141,12 +110,14 @@ __device__ __forceinline__ int next_tile(unsigned mask, int from) {
   return rest ? __ffs(rest) - 1 : -1;
 }
 
+template <bool TRAIN>
 __global__ void __launch_bounds__(kWarps * 32, 2)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ key_valid,
                        float* __restrict__ out, int len, int heads,
-                       float scale) {
+                       float scale, float* __restrict__ lse, uint32_t seed,
+                       uint32_t threshold, float keep_scale) {
   extern __shared__ float4 smem4[];
   float* q_s = reinterpret_cast<float*>(smem4);
   float* stages = q_s + kQFloats;
@@ -165,6 +136,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vb = v + (size_t)b * len * d_model;
   const float* mb = key_valid + (size_t)b * len;
   const int n_tiles = (len + kTileKeys - 1) / kTileKeys;
+  const uint32_t drop_h = TRAIN ? drop_head(seed, b * heads + h) : 0u;
 
   // one bit per key tile that holds at least one valid key
   if (threadIdx.x == 0) tile_mask = 0u;
@@ -281,11 +253,17 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m[r] - m_new);  // 0 on the first tile
       m[r] = m_new;
       float sum = 0.f;
+      const uint32_t drop_r =
+          TRAIN && threshold != 0u ? drop_row(drop_h, row0 + wrow + r) : 0u;
 #pragma unroll
       for (int u = 0; u < kKPL; ++u) {
         const float p = key_ok[u] ? expf(s[r][u] - m_new) : 0.f;
         sum += p;
-        pw[r * kPStride + lane + 32 * u] = p;
+        float pv = p;  // the probability p.v reads: dropped in training
+        if (TRAIN && threshold != 0u) {
+          pv *= drop_scale(drop_r, tile * kTileKeys + lane + 32 * u, threshold, keep_scale);
+        }
+        pw[r * kPStride + lane + 32 * u] = pv;
       }
       l_part[r] = l_part[r] * alpha + sum;
       if (r == pr) alpha_pr = alpha;
@@ -325,6 +303,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int r = 0; r < kRowsPerWarp; ++r) {
     const float l = warp_sum(l_part[r]);
     if (r == pr) l_pr = l;
+    if (TRAIN && lane == 0 && row0 + wrow + r < len) {
+      lse[((size_t)b * heads + h) * len + row0 + wrow + r] = m[r] + logf(l);
+    }
   }
   const float inv = l_pr > 0.f ? 1.f / l_pr : 0.f;  // no valid key: zeros
   const int row = row0 + wrow + pr;
@@ -333,6 +314,29 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     st4(o, make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv));
     st4(o + 4, make_float4(acc[4] * inv, acc[5] * inv, acc[6] * inv, acc[7] * inv));
   }
+}
+
+template <bool TRAIN>
+cudaError_t launch(const float* q, const float* k, const float* v,
+                   const float* key_valid, float* out, int batch, int len,
+                   int heads, int head_dim, float scale, float* lse, uint32_t seed,
+                   uint32_t threshold, float keep_scale, cudaStream_t stream) {
+  if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 ||
+      batch > 65535 || heads < 1 || heads > 65535) {
+    return cudaErrorInvalidValue;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_attention_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_attention_kernel<TRAIN>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  dim3 grid((len + kTileRows - 1) / kTileRows, heads, batch);
+  flash_attention_kernel<TRAIN><<<grid, kWarps * 32, kSmemBytes, stream>>>(
+      q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold, keep_scale);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -346,21 +350,20 @@ int flashvtg_flash_attention_f32(const float* q, const float* k, const float* v,
                                  const float* key_valid, float* out, int batch,
                                  int len, int heads, int head_dim, float scale,
                                  void* stream) {
-  if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 ||
-      batch > 65535 || heads < 1 || heads > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_attention_kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((len + kTileRows - 1) / kTileRows, heads, batch);
-  flash_attention_kernel<<<grid, kWarps * 32, kSmemBytes, (cudaStream_t)stream>>>(
-      q, k, v, key_valid, out, len, heads, scale);
-  return (int)cudaGetLastError();
+  return (int)launch<false>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale,
+                            nullptr, 0u, 0u, 1.f, (cudaStream_t)stream);
+}
+
+// The training form: as above, plus lse (B, H, L) and attention dropout
+// (threshold = floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none).
+int flashvtg_flash_attention_train_f32(const float* q, const float* k, const float* v,
+                                       const float* key_valid, float* out, float* lse,
+                                       int batch, int len, int heads, int head_dim,
+                                       float scale, unsigned seed, unsigned threshold,
+                                       float keep_scale, void* stream) {
+  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  return (int)launch<true>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale,
+                           lse, seed, threshold, keep_scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

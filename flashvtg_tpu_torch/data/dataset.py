@@ -1,24 +1,32 @@
-"""Eval input pipeline: jsonl annotations + pre-extracted feature files.
+"""Input pipeline: jsonl annotations + pre-extracted feature files.
 
-Counterpart of flashvtg_tpu/data/dataset.py for moment-retrieval eval
-(load_labels=False): jsonl rows; npz/npy/pt features from several
-`v_feat_dirs`, concatenated; row l2-normalisation; the two TEF channels;
-truncation to max_v_l / max_q_l. Features load with numpy (the JAX
-package's native C++ loader does the same job and is not ported). Training
-labels, the GloVe text path and the TVSum / YouTube-HL layouts are not
-ported yet and are refused.
+Counterpart of flashvtg_tpu/data/dataset.py for moment retrieval: jsonl
+rows; npz/npy/pt features from several `v_feat_dirs`, concatenated; row
+l2-normalisation; the two TEF channels; truncation to max_v_l / max_q_l.
+Features load with numpy (the JAX package's native C++ loader does the same
+job and is not ported). With load_labels (training) every access draws the
+row's labels anew from the dataset's seeded random.Random, as the reference
+draws them per __getitem__: GT windows (span_windows), saliency labels
+(saliency_sub_as_query for charades / TACoS-style sets, saliency_all for
+QVHighlights), and txt_drop_ratio's zeroed text rows. The GloVe text path
+and the TVSum / YouTube-HL layouts are not ported yet and are refused.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
+import random
 from os.path import join
 from typing import Optional, Sequence
 
 import numpy as np
 
+from flashvtg_tpu_torch.data import labels as L
 from flashvtg_tpu_torch.utils.io import l2_normalize, load_jsonl
+
+# sets whose saliency labels are the GT window itself
+SUB_AS_QUERY = ("charadesSTA", "tacos", "activitynet", "nlq", "charadesSTA_internvideo2")
 
 
 @dataclasses.dataclass
@@ -35,6 +43,29 @@ class DataConfig:
     normalize_v: bool = True
     normalize_t: bool = True
     dset_domain: Optional[str] = None
+    load_labels: bool = False  # training labels, drawn per access
+    clip_len: float = 2.0
+    max_windows: int = 5
+    txt_drop_ratio: float = 0.0
+    seed: int = 2024
+
+
+def strip_vid_suffix(vid: str) -> str:
+    """Drop the trailing `_<start>_<end>` segments of a QVHighlights vid
+    (reference model.py:25-33 find_nth + :140-145), so clips cut from one
+    source video count as false negatives."""
+    count = vid.count("_")
+    if count == 0:
+        return vid
+    # find_nth walks `while n > 1`: n = 0 and n = 1 both cut at the first "_"
+    n = max(1, count - 1)
+    seen = 0
+    for i, ch in enumerate(vid):
+        if ch == "_":
+            seen += 1
+            if seen == n:
+                return vid[:i]
+    return vid
 
 
 def _load_array(path: str, key: Optional[str]) -> np.ndarray:
@@ -79,6 +110,7 @@ class VTGDataset:
                 f"{cfg.dset_name} data layout is not ported yet"
             )
         self.cfg = cfg
+        self.rng = random.Random(cfg.seed)
         self.use_tef = "tef" in cfg.ctx_mode
         self.use_video = "video" in cfg.ctx_mode
         self.data = load_jsonl(cfg.data_path)
@@ -93,9 +125,44 @@ class VTGDataset:
         return len(self.data)
 
     def __getitem__(self, index):
+        """(meta, inputs): cached features; with load_labels, labels and
+        txt_drop drawn anew on every access."""
         if self._cache[index] is None:
             self._cache[index] = self._build(self.data[index])
-        return self.data[index], dict(self._cache[index])
+        out = dict(self._cache[index])
+        if self.cfg.txt_drop_ratio > 0:
+            out["query_feat"] = self._drop_rows(out["query_feat"])
+        if self.cfg.load_labels:
+            self._attach_labels(self.data[index], out)
+        return self.data[index], out
+
+    def _drop_rows(self, emb):
+        k = round(len(emb) * self.cfg.txt_drop_ratio)
+        if k > 0:
+            idx = self.rng.sample(range(len(emb)), k)
+            emb = emb.copy()
+            emb[idx] = 0
+        return emb
+
+    def _attach_labels(self, meta, out: dict) -> None:
+        cfg = self.cfg
+        if "relevant_windows" not in meta:  # a test split without labels
+            return
+        ctx_l = len(out["video_feat"]) if self.use_video else cfg.max_v_l
+        out["gt_windows"] = L.span_windows(
+            meta["relevant_windows"], ctx_l, cfg.clip_len, cfg.max_windows, self.rng
+        )
+        if cfg.dset_name in SUB_AS_QUERY:
+            pos, neg, sal = L.saliency_sub_as_query(
+                meta["relevant_windows"][0], meta["duration"], ctx_l, self.rng
+            )
+        else:
+            pos, neg, sal = L.saliency_all(
+                meta["relevant_clip_ids"], meta["saliency_scores"], ctx_l, self.rng
+            )
+        out["saliency_pos_labels"] = np.asarray(pos, np.int64)
+        out["saliency_neg_labels"] = np.asarray(neg, np.int64)
+        out["saliency_all_labels"] = np.asarray(sal, np.float32)
 
     def _query_feat(self, meta) -> np.ndarray:
         cfg = self.cfg

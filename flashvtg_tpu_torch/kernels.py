@@ -2,8 +2,9 @@
 
 Each source under csrc/ is compiled by nvcc for sm_90a into its own shared
 library, at first use, into `_build/` beside this file (listed in
-.gitignore). The library name carries a hash of the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded.
+.gitignore). The library name carries a hash of the source, the headers of
+csrc/ and the flags, so an edited source or header is rebuilt and a stale
+library is never loaded.
 `build_all()` starts one nvcc per source, all at once, and waits for them.
 Nothing here runs at import: the tests import every module on machines
 without nvcc or a card.
@@ -28,7 +29,9 @@ NVCC_FLAGS = (
 )
 SOURCES = {
     "aca_attention": "aca_attention.cu",
+    "aca_attention_bwd": "aca_attention_bwd.cu",
     "flash_attention": "flash_attention.cu",
+    "flash_attention_bwd": "flash_attention_bwd.cu",
 }
 
 _lock = threading.Lock()
@@ -47,8 +50,11 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    with open(os.path.join(CSRC, SOURCES[name]), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for src in [SOURCES[name], *headers]:
+        with open(os.path.join(CSRC, src), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:16]}.so")
 
 
@@ -98,12 +104,25 @@ def load(name: str) -> ctypes.CDLL:
 
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    if name == "aca_attention":
-        fn = lib.flashvtg_aca_attention_f32
-        fn.argtypes = [p, p, p, p, p, p, i, i, i, i, i, i, ctypes.c_float, p]
-        fn.restype = i
-    elif name == "flash_attention":
-        fn = lib.flashvtg_flash_attention_f32
-        fn.argtypes = [p, p, p, p, p, i, i, i, i, ctypes.c_float, p]
+    p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
+    train = [f, u, u, f, p]  # scale, seed, dropout threshold, keep scale, stream
+    signatures = {
+        "aca_attention": {
+            "flashvtg_aca_attention_f32": [p] * 6 + [i] * 6 + [f, p],
+            "flashvtg_aca_attention_train_f32": [p] * 9 + [i] * 6 + train,
+        },
+        "aca_attention_bwd": {
+            "flashvtg_aca_attention_bwd_f32": [p] * 12 + [i] * 6 + train,
+        },
+        "flash_attention": {
+            "flashvtg_flash_attention_f32": [p] * 5 + [i] * 4 + [f, p],
+            "flashvtg_flash_attention_train_f32": [p] * 6 + [i] * 4 + train,
+        },
+        "flash_attention_bwd": {
+            "flashvtg_flash_attention_bwd_f32": [p] * 11 + [i] * 4 + train,
+        },
+    }
+    for fn_name, argtypes in signatures[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
         fn.restype = i

@@ -41,21 +41,44 @@ def sine_position_embedding(
 
 
 class TrainablePositionalEncoding(nn.Module):
-    """Learned positions + LN over text tokens (reference
+    """Learned positions + LN + dropout over text tokens (reference
     position_encoding.py:10-32); live only under use_txt_pos."""
 
-    def __init__(self, max_positions: int, d: int):
+    def __init__(self, max_positions: int, d: int, dropout: float = 0.1):
         super().__init__()
         self.position_embeddings = nn.Embedding(max_positions, d)
         self.LayerNorm = nn.LayerNorm(d, eps=1e-5)
+        self.dropout = nn.Dropout(dropout)
 
     def forward(self, x):
         pos = self.position_embeddings.weight[: x.shape[1]]
-        return self.LayerNorm(x + pos[None])
+        return self.dropout(self.LayerNorm(x + pos[None]))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool) -> torch.Tensor:
+    """Per-sample stochastic depth (reference transformer.py:454-467): a
+    whole batch row of the branch is dropped with chance `rate`, survivors
+    scaled by 1 / (1 - rate). Identity outside training."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.floor(keep + torch.rand(shape, dtype=x.dtype, device=x.device))
+    return x / keep * mask
+
+
+class DropPath(nn.Module):
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x):
+        return drop_path(x, self.rate, self.training)
 
 
 class LinearLayer(nn.Module):
-    """LayerNorm -> Dropout -> Linear -> optional ReLU (model.py:767-789)."""
+    """LayerNorm -> Dropout -> Linear -> optional ReLU (model.py:767-789);
+    the dropout acts in train mode only."""
 
     def __init__(self, in_dim: int, out_dim: int, dropout: float, relu: bool):
         super().__init__()

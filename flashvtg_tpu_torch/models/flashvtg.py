@@ -1,4 +1,4 @@
-"""The FlashVTG network in PyTorch: eval forward and boundary decode.
+"""The FlashVTG network in PyTorch: eval and train forward, boundary decode.
 
 Counterpart of flashvtg_tpu/models/flashvtg.py (`ModelConfig`,
 `FlashVTGModel`, `decode_boundaries`). Module and parameter names are the
@@ -8,8 +8,13 @@ coef, ...), so `load_state_dict(strict=True)` takes both
 `utils.convert.state_dict_from_jax` output and a reference `.ckpt`'s
 `model` dict.
 
-Only the eval branch is ported: the negative-pair pass, the train-time
-unmasked global mean and the misaligned-mask donor rows belong to training.
+Train mode (model.train()) follows the JAX model's train=True branch: every
+dropout and DropPath active (the dummy-token encoder at its hard-coded
+`dummy_dropout`), the unmasked global mean over the padded length, no
+zeroing of padded clips before the pyramid, the reference's misaligned ACA
+mask through donor rows when `compat_attn_tile`, and the negative-pair pass
+(text rolled by one row) with `real_neg_mask`, which adds
+saliency_scores_neg, t2vattnvalues_neg and real_neg_mask to the outputs.
 """
 
 from __future__ import annotations
@@ -31,7 +36,12 @@ from flashvtg_tpu_torch.models.components import (
     sine_position_embedding,
 )
 from flashvtg_tpu_torch.models.points import generate_points, pyramid_masks_pool
-from flashvtg_tpu_torch.models.transformer import Encoder, T2VEncoder
+from flashvtg_tpu_torch.models.transformer import (
+    Encoder,
+    T2VEncoder,
+    neg_pass_donors,
+    tiled_attn_donors,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +71,7 @@ class ModelConfig:
     # head count (8) independently of --dropout/--nheads
     dummy_dropout: float = 0.1
     dummy_nheads: int = 8
-    compat_attn_tile: bool = True  # train-only; inert in eval
+    compat_attn_tile: bool = True  # the donor-row mask; train only
     max_num_moment: int = 50
     clip_length: float = 2.0
     use_neg: bool = True
@@ -79,16 +89,22 @@ class Transformer(nn.Module):
         super().__init__()
         d = cfg.hidden_dim
         self.t2v_encoder = T2VEncoder(
-            cfg.t2v_layers, d, cfg.nheads, cfg.num_dummies, cfg.dim_feedforward
+            cfg.t2v_layers, d, cfg.nheads, cfg.num_dummies, cfg.dim_feedforward,
+            cfg.dropout,
         )
-        self.encoder = Encoder(cfg.enc_layers, d, cfg.nheads, cfg.dim_feedforward)
+        self.encoder = Encoder(
+            cfg.enc_layers, d, cfg.nheads, cfg.dim_feedforward, cfg.dropout
+        )
 
 
 class FlashVTGModel(nn.Module):
-    """End-to-end FlashVTG eval forward.
+    """End-to-end FlashVTG forward.
 
     Inputs (masks use 1 = valid): src_txt (B, Lq, Dt), src_txt_mask (B, Lq),
-    src_vid (B, Lv, Dv), src_vid_mask (B, Lv), point_valid optional (B, N).
+    src_vid (B, Lv, Dv), src_vid_mask (B, Lv), point_valid optional (B, N);
+    in train mode real_neg_mask optional (B,) ("the rolled video differs",
+    all ones when None) and `generator`, the source of the attention-dropout
+    seeds.
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -103,11 +119,14 @@ class FlashVTGModel(nn.Module):
         )
         self.token_type_embeddings = nn.Embedding(2, d)
         # always present in the reference state_dict; live under use_txt_pos
-        self.txt_position_embed = TrainablePositionalEncoding(cfg.max_q_l, d)
+        self.txt_position_embed = TrainablePositionalEncoding(
+            cfg.max_q_l, d, cfg.input_dropout
+        )
         self.dummy_rep_token = nn.Parameter(torch.randn(nd, d))
         self.dummy_rep_pos = nn.Parameter(torch.randn(nd, d))
         self.txtproj_encoder = Encoder(
-            cfg.dummy_layers, d, cfg.dummy_nheads, cfg.dim_feedforward
+            cfg.dummy_layers, d, cfg.dummy_nheads, cfg.dim_feedforward,
+            cfg.dummy_dropout,
         )
         self.transformer = Transformer(cfg)
         self.saliency_proj1 = nn.Linear(d, d)
@@ -131,12 +150,11 @@ class FlashVTGModel(nn.Module):
         src_vid: torch.Tensor,
         src_vid_mask: torch.Tensor,
         point_valid: Optional[torch.Tensor] = None,
+        real_neg_mask: Optional[torch.Tensor] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
-        if self.training:
-            raise NotImplementedError(
-                "only the eval forward is ported; call model.eval() first"
-            )
         cfg = self.cfg
+        train = self.training
         b, lv = src_vid.shape[:2]
         d, nd = cfg.hidden_dim, cfg.num_dummies
 
@@ -157,24 +175,36 @@ class FlashVTGModel(nn.Module):
         txt_d_valid = torch.cat(
             [src_txt_mask.new_ones((b, nd)), src_txt_mask], dim=1
         )
-        refreshed = self.txtproj_encoder(txt_d, pos_txt_d, txt_d_valid)
+        refreshed = self.txtproj_encoder(txt_d, pos_txt_d, txt_d_valid, generator)
         dummy_refreshed = refreshed[:, :nd]
         txt_d = torch.cat([dummy_refreshed, txt], dim=1)
 
-        fused, attn_weights = self.transformer.t2v_encoder(
-            vid, txt_d, pos_vid, pos_txt_d, txt_d_valid
-        )
-        video_emb = self.transformer.encoder(fused, pos_vid, src_vid_mask)
-        # eval: masked mean over the valid clips
-        denom = src_vid_mask.sum(dim=1, keepdim=True).clamp_min(1.0)
-        global_emb = (video_emb * src_vid_mask[..., None]).sum(dim=1) / denom
-        saliency = (
-            self.saliency_proj1(video_emb) * self.saliency_proj2(global_emb)[:, None, :]
-        ).sum(-1) / math.sqrt(float(d))
+        def trunk(txt_tokens, txt_valid, donor_rows):
+            fused, attn = self.transformer.t2v_encoder(
+                vid, txt_tokens, pos_vid, pos_txt_d, txt_valid,
+                src_vid_mask if donor_rows is not None else None, donor_rows, generator,
+            )
+            emb = self.transformer.encoder(fused, pos_vid, src_vid_mask, generator)
+            if train:
+                # the reference's unmasked mean over the padded length
+                global_emb = emb.mean(dim=1)
+            else:
+                # eval: masked mean over the valid clips
+                denom = src_vid_mask.sum(dim=1, keepdim=True).clamp_min(1.0)
+                global_emb = (emb * src_vid_mask[..., None]).sum(dim=1) / denom
+            sal = (
+                self.saliency_proj1(emb) * self.saliency_proj2(global_emb)[:, None, :]
+            ).sum(-1) / math.sqrt(float(d))
+            return emb, attn, sal
 
-        # eval zeroes padded clips: the reference runs bsz=1 unpadded, so
-        # its convs see zeros past the true length
-        video_emb = video_emb * src_vid_mask[..., None]
+        compat_tile = train and cfg.compat_attn_tile
+        donors = tiled_attn_donors(b, cfg.nheads, src_vid.device) if compat_tile else None
+        video_emb, attn_weights, saliency = trunk(txt_d, txt_d_valid, donors)
+
+        if not train:
+            # eval zeroes padded clips: the reference runs bsz=1 unpadded, so
+            # its convs see zeros past the true length; training keeps them
+            video_emb = video_emb * src_vid_mask[..., None]
         pymid, video_emb = self.pyramid(video_emb)
         pymid_msk = pyramid_masks_pool(src_vid_mask, cfg.strides)
         points = torch.from_numpy(generate_points(lv, cfg.strides)).to(
@@ -230,7 +260,7 @@ class FlashVTGModel(nn.Module):
         t2vattn = (attn_weights[:, :, nd:] * src_txt_mask[:, None, :]).sum(2)
         t2vattn = t2vattn.clamp(0.0, 1.0)
 
-        return {
+        out = {
             "saliency_scores": saliency,
             "t2vattnvalues": t2vattn,
             "attn_weights": attn_weights,
@@ -243,6 +273,19 @@ class FlashVTGModel(nn.Module):
             "point": points,
             "dummy_tokens": dummy_refreshed,
         }
+
+        if train and cfg.use_neg:
+            # negative-pair pass: each video against the next row's text
+            txt_d_neg = torch.roll(txt_d, -1, dims=0)
+            txt_d_valid_neg = torch.roll(txt_d_valid, -1, dims=0)
+            rnm = real_neg_mask if real_neg_mask is not None else src_vid.new_ones((b,))
+            donors_neg = neg_pass_donors(rnm, cfg.nheads) if compat_tile else None
+            _, attn_neg, sal_neg = trunk(txt_d_neg, txt_d_valid_neg, donors_neg)
+            t2vattn_neg = (attn_neg[:, :, nd:] * txt_d_valid_neg[:, None, nd:]).sum(2)
+            out["saliency_scores_neg"] = sal_neg
+            out["t2vattnvalues_neg"] = t2vattn_neg.clamp(0.0, 1.0)
+            out["real_neg_mask"] = rnm
+        return out
 
 
 def decode_boundaries(
@@ -280,7 +323,7 @@ def decode_boundaries(
 def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> FlashVTGModel:
     """A FlashVTGModel with weights drawn from `seed` (torch init on the CPU,
     outside the global RNG stream), moved to `device` (None: the card), in
-    eval mode."""
+    eval mode (call .train() for the train forward)."""
     from flashvtg_tpu_torch.utils.runtime import resolve_device
 
     device = resolve_device(device)

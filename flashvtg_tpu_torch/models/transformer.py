@@ -5,22 +5,57 @@ through a hand-written kernel: the Adaptive Cross-Attention with its
 dummy-dropping value product and fused head mean (ops/aca.py), and the
 masked self-attention, which goes by key count: up to aca.MAX_KEYS (128) to
 the same kernel with no dummies, past it to the memory-linear flash kernel
-(ops/chunked_attn.py). Only the projections around the kernels are F.linear. Layer attribute names are the reference's
-(self_attn, linear1, activation, linear2, norm1, norm2), so reference
-checkpoints load as they are.
+(ops/chunked_attn.py). In training each core goes through its kernels'
+autograd Function (forward with the row log-sum-exp, attention dropout
+evaluated in the kernel, backward kernel). Only the projections around the
+kernels are F.linear. Layer attribute names are the reference's (self_attn,
+linear1, activation, dropout, linear2, norm1, norm2, dropout1, dropout2),
+so reference checkpoints load as they are.
 
-Eval only: the train-time donor-row mask (JAX transformer.py:34-67,
-107-116), dropout and DropPath are identities here and are not ported.
+Train mode (module.train()) adds what the JAX layers do with
+deterministic=False: attention dropout, FFN dropout, DropPath on both
+residual branches, and, when the caller passes donor rows, the reference's
+misaligned ACA train mask (`tiled_attn_donors`, `neg_pass_donors`).
+Attention-dropout seeds are drawn from the `generator` a forward is given
+(torch's default CPU generator when None), one per attention call; FFN
+dropout and DropPath draw from torch's generator of the tensor's device.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flashvtg_tpu_torch.models.components import DropPath
 from flashvtg_tpu_torch.ops.aca import MAX_KEYS, aca_attention, masked_attention
 from flashvtg_tpu_torch.ops.chunked_attn import flash_attention
+
+
+def tiled_attn_donors(batch: int, num_heads: int, device=None) -> torch.Tensor:
+    """(B, H) donor rows of the reference's misaligned ACA attn_mask
+    (JAX transformer.py:34-48): the per-row (query_pad x key_pad) mask is
+    tiled head-major but read batch-major, so row b, head h is masked with
+    row (b * H + h) % B's padding pattern."""
+    b = torch.arange(batch, device=device)[:, None]
+    h = torch.arange(num_heads, device=device)[None, :]
+    return (b * num_heads + h) % batch
+
+
+def neg_pass_donors(real_neg_mask: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """Donor rows of the negative pass (JAX transformer.py:51-67): the
+    reference runs it on the real-negative rows only, so the donor
+    arithmetic runs over their filtered indices, mapped back to batch rows.
+    Rows that are not real negatives get a valid donor; their outputs are
+    excluded from every loss."""
+    m = real_neg_mask > 0
+    order = torch.argsort((~m).to(torch.int8), stable=True)  # real negatives first
+    r = m.sum().clamp_min(1)
+    fidx = (torch.cumsum(m.long(), dim=0) - 1).clamp_min(0)
+    h = torch.arange(num_heads, device=real_neg_mask.device)[None, :]
+    return order[(fidx[:, None] * num_heads + h) % r]
 
 
 class AdaptiveCrossAttention(nn.Module):
@@ -28,18 +63,22 @@ class AdaptiveCrossAttention(nn.Module):
 
     q (B, Lv, D) video queries (pos added), k (B, Lk, D) text keys (dummies
     first, pos added), v (B, Lk, D) raw text values, key_valid (B, Lk).
-    Returns out_proj(out) and the head-mean map (B, Lv, Lk)."""
+    Returns out_proj(out) and the head-mean map (B, Lv, Lk), whose
+    probabilities are never dropped."""
 
-    def __init__(self, d: int, num_heads: int, num_dummies: int):
+    def __init__(self, d: int, num_heads: int, num_dummies: int, dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
         self.num_dummies = num_dummies
+        self.dropout = dropout
         self.out_proj = nn.Linear(d, d)
 
-    def forward(self, q, k, v, key_valid):
+    def forward(self, q, k, v, key_valid, query_valid=None, donor_rows=None,
+                generator: Optional[torch.Generator] = None):
         out, head_mean = aca_attention(
-            q, k, v, key_valid, self.num_heads, self.num_dummies,
-            want_head_mean=True,
+            q, k, v, key_valid, self.num_heads, self.num_dummies, want_head_mean=True,
+            dropout=self.dropout if self.training else 0.0, generator=generator,
+            query_valid=query_valid, donor_rows=donor_rows,
         )
         return self.out_proj(out), head_mean
 
@@ -49,21 +88,26 @@ class T2VEncoderLayer(nn.Module):
     the un-normalized x; LN2 closes the block (reference transformer.py:311-369)."""
 
     def __init__(self, d: int, num_heads: int, num_dummies: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = AdaptiveCrossAttention(d, num_heads, num_dummies)
+        self.self_attn = AdaptiveCrossAttention(d, num_heads, num_dummies, dropout)
         self.linear1 = nn.Linear(d, dim_feedforward)
         self.activation = nn.PReLU()
+        self.dropout = nn.Dropout(dropout)
         self.linear2 = nn.Linear(dim_feedforward, d)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.dropout1 = DropPath(dropout)
+        self.dropout2 = DropPath(dropout)
 
-    def forward(self, vid, txt, pos_vid, pos_txt, txt_valid):
+    def forward(self, vid, txt, pos_vid, pos_txt, txt_valid, vid_valid=None,
+                donor_rows=None, generator=None):
         attn_out, attn_weights = self.self_attn(
-            vid + pos_vid, txt + pos_txt, txt, txt_valid
+            vid + pos_vid, txt + pos_txt, txt, txt_valid, vid_valid, donor_rows, generator
         )
-        x = vid + attn_out
-        x = x + self.linear2(self.activation(self.linear1(self.norm1(x))))
+        x = vid + self.dropout1(attn_out)
+        ffn = self.linear2(self.dropout(self.activation(self.linear1(self.norm1(x)))))
+        x = x + self.dropout2(ffn)
         return self.norm2(x), attn_weights
 
 
@@ -72,17 +116,19 @@ class T2VEncoder(nn.Module):
     head-mean map (reference transformer.py:179-214)."""
 
     def __init__(self, num_layers: int, d: int, num_heads: int, num_dummies: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            T2VEncoderLayer(d, num_heads, num_dummies, dim_feedforward)
+            T2VEncoderLayer(d, num_heads, num_dummies, dim_feedforward, dropout)
             for _ in range(num_layers)
         )
 
-    def forward(self, vid, txt, pos_vid, pos_txt, txt_valid):
+    def forward(self, vid, txt, pos_vid, pos_txt, txt_valid, vid_valid=None,
+                donor_rows=None, generator=None):
         attn_sum = None
         for layer in self.layers:
-            vid, w = layer(vid, txt, pos_vid, pos_txt, txt_valid)
+            vid, w = layer(vid, txt, pos_vid, pos_txt, txt_valid, vid_valid, donor_rows,
+                           generator)
             attn_sum = w if attn_sum is None else attn_sum + w
         return vid, attn_sum / len(self.layers)
 
@@ -96,15 +142,16 @@ class SelfAttention(nn.Module):
     follows what the kernels take: masked_attention up to MAX_KEYS keys,
     flash_attention beyond."""
 
-    def __init__(self, d: int, num_heads: int):
+    def __init__(self, d: int, num_heads: int, dropout: float = 0.1):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout = dropout
         self.in_proj_weight = nn.Parameter(torch.empty(3 * d, d))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * d))
         self.out_proj = nn.Linear(d, d)
         nn.init.xavier_uniform_(self.in_proj_weight)
 
-    def forward(self, x, pos, valid):
+    def forward(self, x, pos, valid, generator=None):
         d = x.shape[-1]
         w, b = self.in_proj_weight, self.in_proj_bias
         qk_in = x if pos is None else x + pos
@@ -112,36 +159,42 @@ class SelfAttention(nn.Module):
         k = F.linear(qk_in, w[d : 2 * d], b[d : 2 * d])
         v = F.linear(x, w[2 * d :], b[2 * d :])
         attend = masked_attention if x.shape[1] <= MAX_KEYS else flash_attention
-        return self.out_proj(attend(q, k, v, valid, self.num_heads))
+        out = attend(q, k, v, valid, self.num_heads,
+                     dropout=self.dropout if self.training else 0.0, generator=generator)
+        return self.out_proj(out)
 
 
 class EncoderLayer(nn.Module):
     """Post-norm encoder layer (reference transformer.py:387-421)."""
 
-    def __init__(self, d: int, num_heads: int, dim_feedforward: int):
+    def __init__(self, d: int, num_heads: int, dim_feedforward: int, dropout: float = 0.1):
         super().__init__()
-        self.self_attn = SelfAttention(d, num_heads)
+        self.self_attn = SelfAttention(d, num_heads, dropout)
         self.linear1 = nn.Linear(d, dim_feedforward)
         self.activation = nn.PReLU()
+        self.dropout = nn.Dropout(dropout)
         self.linear2 = nn.Linear(dim_feedforward, d)
         self.norm1 = nn.LayerNorm(d, eps=1e-5)
         self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.dropout1 = DropPath(dropout)
+        self.dropout2 = DropPath(dropout)
 
-    def forward(self, x, pos, valid):
-        x = self.norm1(x + self.self_attn(x, pos, valid))
-        return self.norm2(x + self.linear2(self.activation(self.linear1(x))))
+    def forward(self, x, pos, valid, generator=None):
+        x = self.norm1(x + self.dropout1(self.self_attn(x, pos, valid, generator)))
+        ffn = self.linear2(self.dropout(self.activation(self.linear1(x))))
+        return self.norm2(x + self.dropout2(ffn))
 
 
 class Encoder(nn.Module):
     def __init__(self, num_layers: int, d: int, num_heads: int,
-                 dim_feedforward: int):
+                 dim_feedforward: int, dropout: float = 0.1):
         super().__init__()
         self.layers = nn.ModuleList(
-            EncoderLayer(d, num_heads, dim_feedforward)
+            EncoderLayer(d, num_heads, dim_feedforward, dropout)
             for _ in range(num_layers)
         )
 
-    def forward(self, x, pos, valid):
+    def forward(self, x, pos, valid, generator=None):
         for layer in self.layers:
-            x = layer(x, pos, valid)
+            x = layer(x, pos, valid, generator)
         return x

@@ -1,16 +1,20 @@
-"""Where the device time of one eval step goes, on the card.
+"""Where the device time of one eval or train step goes, on the card.
 
     python -m flashvtg_tpu_torch.tools.profile_eval [--preset qvhighlights_slowclip]
-        [--bsz <the preset's eval_bsz>] [--steps 10]
+        [--bsz <the preset's eval_bsz, or bsz with --train>] [--steps 10] [--train]
 
 Builds the preset's model at full width and depth (random weights from
 --seed), one batch of random features at the preset's video bucket with
 ragged video lengths (from max(20, Lv / 32) clips to Lv: 20-75 for the
 flagship, 64-2048 for tacos) and ragged text, and profiles --steps eval
-steps (forward + decode, inputs already on the card) with torch.profiler.
-Prints the card's name and power limit, then one JSON line: host wall time
-and device-busy time per step, the idle share, device time by kernel class
-(each of the port's attention kernels by name, GEMMs, convolutions, the
+steps (forward + decode, inputs already on the card) with torch.profiler;
+with --train, train steps instead (train forward with both passes, losses,
+backward, clipping, AdamW; every dropout at its preset value), on labels
+of one window per video (saliency 1 inside it, two positive and two
+negative clips, as TACoS labels are drawn). Prints the card's name and
+power limit, then one JSON line: host wall time and device-busy time per
+step, the idle share, device time by kernel class (each of the port's
+attention kernels by name, forward and backward, GEMMs, convolutions, the
 rest) and the top kernels by device time.
 """
 
@@ -19,6 +23,7 @@ from __future__ import annotations
 import argparse
 import collections
 import json
+import re
 import subprocess
 import time
 
@@ -29,6 +34,7 @@ from flashvtg_tpu_torch.models.flashvtg import build_model
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import from_preset
 from flashvtg_tpu_torch.train.infer import make_eval_step
+from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step
 from flashvtg_tpu_torch.utils.runtime import resolve_device
 
 
@@ -36,10 +42,15 @@ def kernel_class(name: str) -> str:
     low = name.lower()
     if "flash_attention_kernel" in low:
         return "flash_attention"
-    if "aca_attention_kernel" in low:
+    if "flash_bwd_" in low:
+        return "flash_attention_bwd"
+    if "aca_attention_bwd_kernel" in low:
+        return "aca_attention_bwd"  # the ACA and the short self-attention's
+    hm = re.search(r"aca_attention_kernel<\d+,\s*(true|false)", low)
+    if hm:
         # one template: with the head mean it is the ACA core, without it
         # the short masked self-attention
-        return "aca_attention" if "true>" in low else "masked_attention"
+        return "aca_attention" if hm.group(1) == "true" else "masked_attention"
     if "gemm" in low or "cutlass" in low or "xmma" in low or "matmul" in low:
         return "gemm"
     if "conv" in low or "cudnn" in low:
@@ -49,12 +60,32 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def window_labels(rng, v_lens, lv, clip_length, max_windows):
+    """Train targets of one window per video, in TACoS's form: saliency 1
+    inside the window, two positive clips in it and two negatives outside,
+    the window in seconds, the other window slots +inf."""
+    b = len(v_lens)
+    sal = np.zeros((b, lv), np.float32)
+    pos, neg = np.zeros((b, 2), np.int64), np.zeros((b, 2), np.int64)
+    gt = np.full((b, max_windows, 2), np.inf, np.float32)
+    for i, n in enumerate(v_lens):
+        s = int(rng.integers(0, n - 2))
+        e = int(rng.integers(s + 1, min(n, s + 64)))
+        sal[i, s:e] = 1.0
+        pos[i] = rng.integers(s, e, 2)
+        neg[i] = [int(x) for x in rng.choice(np.r_[0:s, e:n], 2)]
+        gt[i, 0] = (s * clip_length, e * clip_length)
+    return dict(saliency_all_labels=sal, saliency_pos_labels=pos, saliency_neg_labels=neg,
+                gt_windows=gt, real_neg_mask=np.ones(b, np.float32))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--preset", default="qvhighlights_slowclip")
     ap.add_argument("--bsz", type=int, default=None)
     ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--train", action="store_true", help="profile train steps")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -65,7 +96,8 @@ def main():
     cfg = from_preset(args.preset)
     model = build_model(cfg.model_config(), dev, args.seed)
     rng = np.random.default_rng(args.seed)
-    b, lv, lq = args.bsz or cfg.eval_bsz, cfg.max_v_l, cfg.max_q_l
+    b = args.bsz or (cfg.bsz if args.train else cfg.eval_bsz)
+    lv, lq = cfg.max_v_l, cfg.max_q_l
     v_lens = rng.integers(max(20, lv // 32), lv + 1, b)
     q_lens = rng.integers(5, lq + 1, b)
     batch = {
@@ -74,18 +106,31 @@ def main():
         "src_vid": rng.standard_normal((b, lv, cfg.total_v_feat_dim), dtype=np.float32),
         "src_vid_mask": (np.arange(lv)[None] < v_lens[:, None]).astype(np.float32),
     }
+    if args.train:
+        batch.update(window_labels(rng, v_lens, lv, cfg.clip_length, cfg.max_windows))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    pv = torch.from_numpy(pyramid_masks_strict(v_lens, lv, cfg.strides)[0]).to(dev)
-    step = make_eval_step(model, cfg.max_num_moment)
+    if args.train:
+        optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
+        train_step = make_train_step(model.train(), cfg.loss_config(), optimizer, scheduler,
+                                     cfg.grad_clip, torch.Generator().manual_seed(args.seed))
+
+        def step():
+            train_step(batch)
+    else:
+        pv = torch.from_numpy(pyramid_masks_strict(v_lens, lv, cfg.strides)[0]).to(dev)
+        eval_step = make_eval_step(model, cfg.max_num_moment)
+
+        def step():
+            eval_step(batch, pv)
     for _ in range(3):
-        step(batch, pv)
+        step()
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         for _ in range(args.steps):
-            step(batch, pv)
+            step()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
 
@@ -101,7 +146,7 @@ def main():
     n = args.steps
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
     print(json.dumps({
-        "preset": args.preset, "bsz": b, "steps": n,
+        "preset": args.preset, "mode": "train" if args.train else "eval", "bsz": b, "steps": n,
         # the self-attention's valid keys: the flash kernel skips the rest
         "valid_clips": int(v_lens.sum()), "padded_clips": b * lv,
         "wall_ms_per_step": wall * 1e3 / n,

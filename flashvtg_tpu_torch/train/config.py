@@ -1,9 +1,10 @@
-"""Eval configuration: a slim ExperimentConfig + the per-dataset presets.
+"""Configuration: a slim ExperimentConfig + the per-dataset presets.
 
 Counterpart of flashvtg_tpu/train/config.py. `ExperimentConfig` holds the
-model and eval fields only; the preset table is copied whole, and
-`from_preset` keeps the keys this config holds (training keys such as the
-loss weights and the optimizer wait for the training slice).
+model, eval and train-step fields (data, optimizer, loss weights and
+bundle); the preset table is copied whole, and `from_preset` keeps the keys
+this config holds (checkpointing, early stop, the feed and the precision
+dials are not ported yet).
 """
 
 from __future__ import annotations
@@ -11,6 +12,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+from flashvtg_tpu_torch.losses.criterion import LossConfig
 from flashvtg_tpu_torch.models.flashvtg import ModelConfig
 
 
@@ -20,6 +22,7 @@ class ExperimentConfig:
     dset_name: str = "hl"
     dset_domain: Optional[str] = None
     seed: int = 2024
+    train_path: str = ""
     eval_path: str = ""
     v_feat_dirs: Sequence[str] = ()
     t_feat_dir: str = ""
@@ -30,11 +33,14 @@ class ExperimentConfig:
     data_ratio: float = 1.0
     no_norm_vfeat: bool = False
     no_norm_tfeat: bool = False
+    txt_drop_ratio: float = 0.0
 
     # lengths / batching
     max_q_l: int = 32
     max_v_l: int = 75
     clip_length: float = 2.0
+    max_windows: int = 5
+    bsz: int = 32
     eval_bsz: int = 32
     v_buckets: Sequence[int] = (75, 128, 256, 512, 1024, 2048, 4096)
     bucket_eval: bool = False
@@ -59,6 +65,29 @@ class ExperimentConfig:
     max_num_moment: int = 50
     attn_chunk: int = 512
     variant: str = "core"  # "ms" is not ported yet
+
+    # optimizer (AdamW, StepLR every lr_drop epochs, global-norm clipping)
+    lr: float = 5e-4
+    lr_drop: int = 400
+    lr_gamma: float = 0.5
+    wd: float = 1e-4
+    n_epoch: int = 700
+    grad_clip: float = 0.1
+
+    # losses
+    loss_cls: Optional[str] = "focal"
+    loss_reg: Optional[str] = "l1"
+    loss_sal: Optional[str] = "nce"
+    nce_direction: Tuple[str, ...] = ("row", "col")
+    loss_qfl: bool = False
+    saliency_margin: float = 0.2
+    sample_radius: float = 1.5
+    lw_reg: float = 0.2
+    lw_cls: float = 1.0
+    lw_sal: float = 0.1
+    lw_saliency: float = 0.1
+    lw_wattn: float = 1.0
+    label_loss_coef: float = 4.0
 
     # post-processing
     nms_thd: float = -1.0
@@ -97,6 +126,25 @@ class ExperimentConfig:
             clip_length=self.clip_length,
             use_neg=self.use_neg,
             attn_chunk=self.attn_chunk,
+        )
+
+    def loss_config(self) -> LossConfig:
+        return LossConfig(
+            label_loss_coef=self.label_loss_coef,
+            lw_saliency=self.lw_saliency,
+            lw_reg=self.lw_reg,
+            lw_cls=self.lw_cls,
+            lw_sal=self.lw_sal,
+            lw_wattn=self.lw_wattn,
+            saliency_margin=self.saliency_margin,
+            sample_radius=self.sample_radius,
+            loss_cls=self.loss_cls,
+            loss_reg=self.loss_reg,
+            loss_sal=self.loss_sal,
+            nce_direction=tuple(self.nce_direction),
+            loss_qfl=self.loss_qfl,
+            clip_length=self.clip_length,
+            dset_name=self.dset_name,
         )
 
     def replace(self, **kw) -> "ExperimentConfig":

@@ -8,7 +8,9 @@ does. Flax Dense kernels are (in, out) and become (out, in); Conv kernels
 (k, in, out) become (out, in, k), and (out, in, 1, k) for the Conv2d heads;
 PReLU's scalar becomes a (1,) weight. Dead reference parameters that the
 JAX tree has no counterpart for (txt_position_embed when use_txt_pos is off)
-get their torch init values.
+get their torch init values. Leaves keep their dtype until the end, where
+the whole state_dict is cast to `dtype` (float32 by default; float64 for a
+float64 parameter or gradient tree).
 """
 
 from __future__ import annotations
@@ -20,33 +22,34 @@ import numpy as np
 import torch
 
 
-def _f32(a):
-    return np.asarray(a, dtype=np.float32)
+def _leaf(a):
+    """A leaf as a numpy array (its dtype kept; export_state_dict casts)."""
+    return np.asarray(a)
 
 
 def _inv_dense(out, prefix, p):
-    out[f"{prefix}.weight"] = _f32(p["kernel"]).T
-    out[f"{prefix}.bias"] = _f32(p["bias"])
+    out[f"{prefix}.weight"] = _leaf(p["kernel"]).T
+    out[f"{prefix}.bias"] = _leaf(p["bias"])
 
 
 def _inv_norm(out, prefix, p):
-    out[f"{prefix}.weight"] = _f32(p["scale"])
-    out[f"{prefix}.bias"] = _f32(p["bias"])
+    out[f"{prefix}.weight"] = _leaf(p["scale"])
+    out[f"{prefix}.bias"] = _leaf(p["bias"])
 
 
 def _inv_ffn(out, prefix, p):
     _inv_dense(out, f"{prefix}.linear1", p["linear1"])
     _inv_dense(out, f"{prefix}.linear2", p["linear2"])
-    out[f"{prefix}.activation.weight"] = _f32(p["act"]["alpha"]).reshape(1)
+    out[f"{prefix}.activation.weight"] = _leaf(p["act"]["alpha"]).reshape(1)
 
 
 def _inv_self_attention(out, prefix, p):
     """q/k/v/out Dense -> nn.MultiheadAttention's packed in_proj."""
     out[f"{prefix}.in_proj_weight"] = np.concatenate(
-        [_f32(p[x]["kernel"]).T for x in ("q_proj", "k_proj", "v_proj")], 0
+        [_leaf(p[x]["kernel"]).T for x in ("q_proj", "k_proj", "v_proj")], 0
     )
     out[f"{prefix}.in_proj_bias"] = np.concatenate(
-        [_f32(p[x]["bias"]) for x in ("q_proj", "k_proj", "v_proj")]
+        [_leaf(p[x]["bias"]) for x in ("q_proj", "k_proj", "v_proj")]
     )
     _inv_dense(out, f"{prefix}.out_proj", p["out_proj"])
 
@@ -85,32 +88,32 @@ def _inv_pyramid(out, p, strides):
         level = p[f"level{s}"]
         for i in range(pw):
             base = 5 * i
-            out[f"pyramid.blocks.{j}.{base + 1}.weight"] = _f32(
+            out[f"pyramid.blocks.{j}.{base + 1}.weight"] = _leaf(
                 level[f"conv{i}"]["kernel"]
             ).transpose(2, 1, 0)
-            out[f"pyramid.blocks.{j}.{base + 1}.bias"] = _f32(level[f"conv{i}"]["bias"])
+            out[f"pyramid.blocks.{j}.{base + 1}.bias"] = _leaf(level[f"conv{i}"]["bias"])
             _inv_norm(out, f"pyramid.blocks.{j}.{base + 3}", level[f"norm{i}"])
 
 
 def _inv_confidence_scorer(out, prefix, p, num_conv_layers, num_mlp_layers):
     for i in range(num_conv_layers):
-        out[f"{prefix}.convs.{i}.weight"] = _f32(
+        out[f"{prefix}.convs.{i}.weight"] = _leaf(
             p[f"conv{i}"]["kernel"]
         ).transpose(2, 1, 0)[:, :, None, :]
-        out[f"{prefix}.convs.{i}.bias"] = _f32(p[f"conv{i}"]["bias"])
+        out[f"{prefix}.convs.{i}.bias"] = _leaf(p[f"conv{i}"]["bias"])
     for i in range(num_mlp_layers):
         _inv_dense(out, f"{prefix}.fc.layers.{i}", p["mlp"][f"layer{i}"])
 
 
 def _inv_coord_head(out, p):
     for src, dst in (("conv1", "module.1"), ("conv2", "module.3")):
-        out[f"coord_head.{dst}.weight"] = _f32(p[src]["kernel"]).transpose(2, 1, 0)
-        out[f"coord_head.{dst}.bias"] = _f32(p[src]["bias"])
+        out[f"coord_head.{dst}.weight"] = _leaf(p[src]["kernel"]).transpose(2, 1, 0)
+        out[f"coord_head.{dst}.bias"] = _leaf(p[src]["bias"])
 
 
 def _inv_txt_position_embed(out, p, cfg):
     if "txt_pos" in p:
-        out["txt_position_embed.position_embeddings.weight"] = _f32(
+        out["txt_position_embed.position_embeddings.weight"] = _leaf(
             p["txt_pos"]["positions"]["embedding"]
         )
         _inv_norm(out, "txt_position_embed.LayerNorm", p["txt_pos"]["norm"])
@@ -123,18 +126,18 @@ def _inv_txt_position_embed(out, p, cfg):
         out["txt_position_embed.LayerNorm.bias"] = np.zeros(d, np.float32)
 
 
-def export_state_dict(params, cfg) -> Dict[str, np.ndarray]:
+def export_state_dict(params, cfg, dtype=np.float32) -> Dict[str, np.ndarray]:
     """JAX FlashVTG parameter tree (numpy leaves) -> reference-named numpy
-    state_dict. `cfg` is the port's (or the JAX) ModelConfig."""
+    state_dict in `dtype`. `cfg` is the port's (or the JAX) ModelConfig."""
     p = params.get("params", params)
     out: Dict[str, np.ndarray] = {}
-    out["dummy_rep_token"] = _f32(p["dummy_token"])
-    out["dummy_rep_pos"] = _f32(p["dummy_pos"])
-    out["coef"] = _f32(p["coef"])
-    out["x"] = _f32(p["blend"]).reshape(())
+    out["dummy_rep_token"] = _leaf(p["dummy_token"])
+    out["dummy_rep_pos"] = _leaf(p["dummy_pos"])
+    out["coef"] = _leaf(p["coef"])
+    out["x"] = _leaf(p["blend"]).reshape(())
     _inv_input_proj(out, "input_vid_proj", p["vid_proj"], cfg.n_input_proj)
     _inv_input_proj(out, "input_txt_proj", p["txt_proj"], cfg.n_input_proj)
-    out["token_type_embeddings.weight"] = _f32(p["token_type"]["embedding"])
+    out["token_type_embeddings.weight"] = _leaf(p["token_type"]["embedding"])
     _inv_encoder(out, "txtproj_encoder", p["dummy_encoder"], cfg.dummy_layers)
     _inv_encoder(
         out, "transformer.t2v_encoder", p["t2v_encoder"], cfg.t2v_layers,
@@ -144,7 +147,7 @@ def export_state_dict(params, cfg) -> Dict[str, np.ndarray]:
     _inv_dense(out, "saliency_proj1", p["saliency_proj1"])
     _inv_dense(out, "saliency_proj2", p["saliency_proj2"])
     _inv_pyramid(out, p.get("pyramid", {}), cfg.strides)
-    out["pooling.att.weight"] = _f32(p["pooling"]["att"]["kernel"]).T
+    out["pooling.att.weight"] = _leaf(p["pooling"]["att"]["kernel"]).T
     _inv_confidence_scorer(
         out, "class_head", p["class_head"], cfg.num_conv_layers, cfg.num_mlp_layers
     )
@@ -153,13 +156,14 @@ def export_state_dict(params, cfg) -> Dict[str, np.ndarray]:
     )
     _inv_coord_head(out, p["coord_head"])
     _inv_txt_position_embed(out, p, cfg)
-    return out
+    return {k: np.asarray(v, dtype=dtype) for k, v in out.items()}
 
 
-def state_dict_from_jax(params, cfg) -> Dict[str, torch.Tensor]:
-    """The port's state_dict (CPU tensors) from a JAX parameter tree whose
-    leaves are numpy arrays; load it with load_state_dict(strict=True)."""
+def state_dict_from_jax(params, cfg, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """The port's state_dict (CPU tensors in `dtype`) from a JAX parameter
+    tree whose leaves are numpy arrays; load it with
+    load_state_dict(strict=True). A tree of gradients converts the same way:
+    the mapping only transposes, slices and reshapes."""
     return {
-        k: torch.tensor(np.asarray(v))
-        for k, v in export_state_dict(params, cfg).items()
+        k: torch.tensor(v) for k, v in export_state_dict(params, cfg, dtype).items()
     }

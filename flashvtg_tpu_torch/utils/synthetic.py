@@ -6,6 +6,14 @@ JAX package's copy; the extra `min_clips` draws a per-video clip count so
 that some videos are shorter than `n_clips` and the eval path's strict point
 masks are exercised. `make_synthetic_tacos` writes TACoS-format rows (string
 qids, windows and durations, no saliency fields) over long ragged videos.
+
+With `split` (e.g. "train", "val") a writer names its annotation file
+`<split>.jsonl` and puts the split into every vid and qid, so the splits of
+one root share the feature directories without clashing. A QVHighlights
+split's vids follow the dataset's `<video>_<start>_<end>` form, so the
+negative-pair mask (data/collate.py, which strips that suffix) sees distinct
+videos. Every row carries what training reads: relevant_windows and
+duration, and for QVHighlights relevant_clip_ids and saliency_scores.
 """
 
 from __future__ import annotations
@@ -29,6 +37,7 @@ def make_synthetic_qvh(
     deterministic_labels: bool = False,
     min_clips: Optional[int] = None,
     max_q_tokens: int = 12,
+    split: Optional[str] = None,
 ):
     """Write a small QVH-style dataset under `root`.
 
@@ -47,7 +56,8 @@ def make_synthetic_qvh(
 
     rows = []
     for i in range(n_queries):
-        vid = f"synthvid_{i:04d}"
+        vid = f"synthvid_{i:04d}" if split is None else f"synth{split}{i:04d}_0.0_150.0"
+        qid = i if split is None else f"{split}{i}"
         clips = n_clips
         if min_clips is not None and i % 4 == 3:
             clips = int(rng.integers(min_clips, n_clips))
@@ -60,7 +70,7 @@ def make_synthetic_qvh(
         rel_ids = list(range(s, e))
         rows.append(
             dict(
-                qid=i,
+                qid=qid,
                 query=f"synthetic query {i}",
                 duration=duration,
                 vid=vid,
@@ -77,10 +87,10 @@ def make_synthetic_qvh(
         )
         lq = int(rng.integers(5, max_q_tokens))
         np.savez(
-            os.path.join(qdir, f"qid{i}.npz"),
+            os.path.join(qdir, f"qid{qid}.npz"),
             last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32),
         )
-    ann = os.path.join(root, "synth.jsonl")
+    ann = os.path.join(root, "synth.jsonl" if split is None else f"{split}.jsonl")
     save_jsonl(rows, ann)
     return ann, vdir, qdir
 
@@ -95,6 +105,7 @@ def make_synthetic_tacos(
     clip_len: float = 2.0,
     seed: int = 0,
     max_q_tokens: int = 40,
+    split: Optional[str] = None,
 ):
     """Write a TACoS-format dataset under `root`: one video per query.
 
@@ -113,7 +124,7 @@ def make_synthetic_tacos(
 
     rows = []
     for i in range(n_queries):
-        vid = f"synthtacos-v{i:04d}"
+        vid = f"synthtacos-v{i:04d}" if split is None else f"synthtacos-{split}-v{i:04d}"
         qid = f"{vid}_q0"
         clips = max_clips if i == 0 else int(rng.integers(min_clips, max_clips))
         s = int(rng.integers(0, clips - 2))
@@ -136,6 +147,6 @@ def make_synthetic_tacos(
             os.path.join(qdir, f"qid{qid}.npz"),
             last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32),
         )
-    ann = os.path.join(root, "tacos.jsonl")
+    ann = os.path.join(root, "tacos.jsonl" if split is None else f"{split}.jsonl")
     save_jsonl(rows, ann)
     return ann, vdir, qdir

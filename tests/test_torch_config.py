@@ -35,7 +35,8 @@ def test_flagship_shapes():
 
 def test_overrides_and_unknown_keys():
     assert from_preset("qvhighlights_slowclip", eval_bsz=8).eval_bsz == 8
+    assert from_preset("qvhighlights_slowclip", lr=1e-3).lr == 1e-3  # a train-step field
     with pytest.raises(TypeError):
-        from_preset("qvhighlights_slowclip", lr=1e-3)  # a training field
+        from_preset("qvhighlights_slowclip", max_es_cnt=5)  # early stop: not ported
     with pytest.raises(KeyError):
         from_preset("no_such_preset")

@@ -1,13 +1,15 @@
-"""The CUDA attention kernels (csrc/aca_attention.cu, csrc/flash_attention.cu)
-vs their plain versions, on the card. Every test here needs CUDA and skips
-without it: the kernels have no CPU mode. The file imports torch and the
-port only, so it also runs on a machine without JAX:
+"""The CUDA attention kernels (csrc/aca_attention.cu, csrc/flash_attention.cu,
+their training forms, and the backward kernels csrc/aca_attention_bwd.cu and
+csrc/flash_attention_bwd.cu) vs their plain versions, on the card. Every
+test here needs CUDA and skips without it: the kernels have no CPU mode.
+The file imports torch and the port only, so it also runs on a machine
+without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 
 Tolerance: atol 1e-5 on out and head_mean; both sides compute in float32
 (no TF32), and differ only in the order of their sums (the flash kernel's
-online softmax adds a rescale per key tile).
+online softmax adds a rescale per key tile). Gradients: see GRAD_RTOL below.
 """
 
 import numpy as np
@@ -114,7 +116,8 @@ def test_model_forward_on_card_matches_cpu(cuda):
     with torch.no_grad():
         ref = cpu_model(*map(torch.from_numpy, arrs))
         out = gpu_model(*(torch.from_numpy(a).to(cuda) for a in arrs))
-    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 3}
+    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 3,
+                            "aca_attention_bwd": 0, "masked_attention_bwd": 0}
     for key in ("saliency_scores", "t2vattnvalues", "out_class", "out_coord"):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4)
 
@@ -235,8 +238,170 @@ def test_tacos_forward_on_card_matches_cpu(cuda):
     with torch.no_grad():
         ref = cpu_model(*map(torch.from_numpy, arrs))
         out = gpu_model(*(torch.from_numpy(a).to(cuda) for a in arrs))
-    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 1}
-    assert chunked_attn.LAUNCHES == {"flash_attention": 2}
+    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 1,
+                            "aca_attention_bwd": 0, "masked_attention_bwd": 0}
+    assert chunked_attn.LAUNCHES == {"flash_attention": 2, "flash_attention_bwd": 0}
     for key in ("saliency_scores", "t2vattnvalues", "attn_weights", "out_class", "out_coord"):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4,
                                    err_msg=key)
+
+
+# --- training forms and backward kernels -----------------------------------
+#
+# Gradients are held at a relative tolerance: max |kernel - plain| <= 1e-4 x
+# max(max |plain|, 0.1) (both f32; the sums over up to 2048 query rows run
+# in another order; the floor holds gradients that are 0 up to rounding,
+# such as dq of a row with one valid key, where P = 1 and dS = 0 up to
+# |dO . v| x eps ~ 1e-6, at 1e-5 absolute). Forwards with dropout on use the same seed on both sides: the keep
+# mask is the same hash (ops/attn_dropout.py), so they agree at atol 1e-5.
+
+GRAD_RTOL = 1e-4
+
+
+def _rel_err(got, ref):
+    return ((got - ref).abs().max() / ref.abs().max().clamp_min(0.1)).item()
+
+
+def _holes(b, n, seed, always=0):
+    """(b, n) masks with random holes past `always` leading ones; every row
+    keeps at least one key past them."""
+    rng = np.random.default_rng(seed)
+    m = (rng.random((b, n)) < 0.5).astype(np.float32)
+    m[:, :always] = 1.0
+    m[:, min(always, n - 1)] = 1.0
+    return torch.from_numpy(m)
+
+
+@pytest.mark.parametrize(
+    "b,lv,lk,heads,nd,keys,p,donors",
+    [
+        (32, 2048, 75, 8, 35, "ragged", 0.1, True),  # TACoS ACA, train
+        (64, 75, 42, 8, 10, "ragged", 0.1, True),  # flagship ACA, train
+        (32, 75, 75, 8, 0, "ragged", 0.1, False),  # TACoS dummy encoder
+        (64, 42, 42, 8, 0, "holes", 0.1, False),  # flagship dummy encoder, holes
+        (5, 130, 128, 8, 10, "holes", 0.3, True),  # most keys the kernel takes
+        (3, 16, 1, 2, 1, "ragged", 0.0, False),  # one key: the dummy only
+        (2, 1, 20, 1, 0, "ragged", 0.2, False),  # one query row
+    ],
+)
+def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, donors):
+    from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
+
+    q, k, v, valid = _inputs(b, lv, lk, heads, 11, pad_from=max(nd + 1, lk - 12))
+    if keys == "holes":
+        valid = _holes(b, lk, 12, always=nd)
+    g = torch.Generator().manual_seed(13)
+    d_out = torch.randn(q.shape, generator=g)
+    d_hm = torch.randn((b, lv, lk), generator=g) if nd else None
+    query_valid = donor_rows = None
+    if donors:
+        query_valid = (torch.arange(lv)[None] < torch.randint(1, lv + 1, (b, 1), generator=g)).float()
+        donor_rows = tiled_attn_donors(b, heads)
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    dn = [None if x is None else x.to(cuda) for x in (query_valid, donor_rows)]
+    seed = 1234
+    out, hm, lse = aca._launch(*t, heads, nd, nd > 0, p, seed, *dn, want_lse=True)
+    ref_out, ref_hm, ref_lse = aca.aca_attention_plain(*t, heads, nd, nd > 0, p, seed, *dn,
+                                                       want_lse=True)
+    torch.cuda.synchronize()
+    assert (out - ref_out).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    if nd:
+        assert (hm - ref_hm).abs().max().item() <= ATOL
+    dh = None if d_hm is None else d_hm.to(cuda)
+    grads = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
+    ref = aca.aca_attention_bwd_plain(*t, ref_lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        assert _rel_err(got, want) <= GRAD_RTOL, name
+    # every sum in one block, in a fixed order: launches agree bit for bit
+    again = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize(
+    "b,length,case,p",
+    [
+        (32, 2048, "ragged", 0.1),  # TACoS encoder, train
+        (3, 129, "ragged", 0.1),  # one key past the short kernel
+        (2, 77, "ragged", 0.0),  # shorter than one tile
+        (2, 1, "ragged", 0.0),  # one clip
+        (1, chunked_attn.MAX_LEN, "ragged", 0.1),  # the largest v_bucket
+        (3, 700, "holes", 0.1),
+        (3, 700, "one_key", 0.1),
+        (3, 700, "all_masked_tiles", 0.1),
+    ],
+)
+def test_flash_train_kernels_match_plain(cuda, b, length, case, p):
+    q, k, v, _ = _inputs(b, length, length, 8, 21)
+    rng = np.random.default_rng(22)
+    if case == "ragged":
+        valid = _ragged(b, length, 23)
+    elif case == "holes":
+        valid = _holes(b, length, 24)
+    else:
+        valid_np = np.zeros((b, length), np.float32)
+        if case == "one_key":
+            valid_np[np.arange(b), rng.integers(0, length, b)] = 1.0
+        else:  # valid keys only in the second and last 128-key tiles
+            valid_np[:, 130:140] = 1.0
+            valid_np[:, 650:] = 1.0
+        valid = torch.from_numpy(valid_np)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(25))
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    seed = 4321
+    out, lse = chunked_attn._launch(*t, 8, p, seed, want_lse=True)
+    ref_out, ref_lse = chunked_attn.flash_attention_plain(*t, 8, p, seed, want_lse=True)
+    torch.cuda.synchronize()
+    assert (out - ref_out).abs().max().item() <= ATOL
+    assert (lse - ref_lse).abs().max().item() <= ATOL
+    grads = chunked_attn._launch_bwd(*t, out, lse, d_out.to(cuda), 8, p, seed)
+    ref = chunked_attn.flash_attention_bwd_plain(*t, ref_out, ref_lse, d_out.to(cuda), 8, p,
+                                                 seed)
+    torch.cuda.synchronize()
+    for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
+        assert _rel_err(got, want) <= GRAD_RTOL, name
+    again = chunked_attn._launch_bwd(*t, out, lse, d_out.to(cuda), 8, p, seed)
+    assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+def test_flash_backward_row_without_valid_key_is_zero(cuda):
+    q, k, v, _ = _inputs(2, 300, 300, 8, 26)
+    valid = torch.ones((2, 300))
+    valid[1] = 0
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    out, lse = chunked_attn._launch(*t, 8, 0.1, 5, want_lse=True)
+    grads = chunked_attn._launch_bwd(*t, out, lse, torch.randn_like(out), 8, 0.1, 5)
+    for g in grads:
+        assert torch.equal(g[1], torch.zeros_like(g[1]))
+        assert torch.isfinite(g).all()
+
+
+def test_attention_functions_count_and_match_cpu(cuda):
+    """The autograd Functions through the wrappers: each forward and
+    backward launch is counted; with dropout off, card gradients match the
+    CPU's plain forward + backward."""
+    from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
+
+    b, lv, lk, heads, nd = 4, 300, 50, 2, 5
+    q, k, v, valid = _inputs(b, lv, lk, heads, 27, pad_from=40)
+    qs, ks, vs, _ = _inputs(b, lv, lv, heads, 28)
+    vmask = _ragged(b, lv, 29)
+    donors = tiled_attn_donors(b, heads)
+    grads = {}
+    for dev in ("cpu", cuda):
+        leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v, qs, ks, vs)]
+        out, hm = aca.aca_attention(*leaves[:3], valid.to(dev), heads, nd,
+                                    query_valid=vmask.to(dev), donor_rows=donors.to(dev))
+        sa = chunked_attn.flash_attention(*leaves[3:], vmask.to(dev), heads)
+        sm = aca.masked_attention(leaves[3][:, :lk].contiguous(), leaves[4][:, :lk].contiguous(),
+                                  leaves[5][:, :lk].contiguous(), valid.to(dev), heads)
+        aca.reset_launch_counts()
+        chunked_attn.reset_launch_counts()
+        ((out ** 2).sum() + (hm * 3).sum() + (sa ** 2).sum() + sm.sum()).backward()
+        grads[str(dev)] = [x.grad.cpu() for x in leaves]
+    assert aca.LAUNCHES == {"aca_attention": 0, "masked_attention": 0,
+                            "aca_attention_bwd": 1, "masked_attention_bwd": 1}
+    assert chunked_attn.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 1}
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert _rel_err(got, want) <= GRAD_RTOL

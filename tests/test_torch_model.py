@@ -161,7 +161,11 @@ def test_eval_forward_refuses_train_mode(pair):
     arrs = _inputs(cfg, (16, 16, 16), (8, 8, 8))
     model.train()
     try:
-        with pytest.raises(NotImplementedError):
-            model(*map(torch.from_numpy, arrs))
+        # train mode runs the train branch (negative pass included), never
+        # the eval forward
+        out = model(*map(torch.from_numpy, arrs))
+        assert ("saliency_scores_neg" in out) == cfg.use_neg
     finally:
         model.eval()
+    with torch.no_grad():
+        assert "saliency_scores_neg" not in model(*map(torch.from_numpy, arrs))
