@@ -8,10 +8,13 @@ Phases, each failing loudly:
   1. device: prints the card's name and power limit, requires CUDA, sets
      float32 without TF32 for matmuls and cuDNN;
   2. build: compiles every CUDA kernel of the port from its sources, one
-     nvcc per source, all at once;
+     nvcc per source, all at once, and counts each kernel's tensor-core
+     instructions in its SASS (cuobjdump): the flash kernels, 3xTF32 on
+     mma.sync, must have some;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
-     two eval paths give them (atol 1e-5: both compute in float32 and differ
-     only in the order of their sums), with times, bounds and yardsticks:
+     two eval paths give them (atol 1e-5: both are f32-accurate, the flash
+     kernels' products in 3xTF32, and differ in the order of their sums),
+     with times, bounds and yardsticks:
      the ACA and short self-attention kernel at the flagship shapes and at
      TACoS's ACA shape, the flash kernel at TACoS's encoder shape and,
      beside the short kernel, at the flagship's self-attention shapes;
@@ -42,8 +45,10 @@ Phases, each failing loudly:
      flash_attention on tensors that require grad, then .backward):
      forwards (out, head mean, log-sum-exp) within atol 1e-5, gradients
      within 1e-4 of the largest |plain| value (f32 sums in another order),
-     with times, bounds and the yardstick torch.autograd through
-     scaled_dot_product_attention (forward + backward minus forward); the
+     with times, bounds and yardsticks (the training forwards:
+     scaled_dot_product_attention with dropout_p on tensors that require
+     grad; the backwards: torch.autograd through it, forward + backward
+     minus forward); the
      flash forward + backward's peak above its inputs against one
      (B, H, L, L) f32 tensor (4.29 GB);
   8. train paths, one per preset (qvhighlights_slowclip at B=64, tacos at
@@ -77,6 +82,9 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
+# f32-accurate dot products on the tensor cores: the H100 SXM data sheet's
+# dense TF32 rate, 495 TFLOP/s, over the three TF32 products of 3xTF32
+TF32X3_PEAK = 495e12 / 3
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
 FORWARD_ATOL = 3e-4
@@ -110,12 +118,14 @@ def time_ms(fn, iters=50, warmup=5):
 
 def attention_bound(b, lv, lk, heads, nd, key_valid, want_head_mean, backward=False,
                     pairs=None):
-    """(bound_ms, bound_by) for one attention kernel call: each input read
-    once and each output written once over the memory rate, against the
-    float32 operations this data needs over the f32 peak. A masked key's
-    probability is 0, so it needs no work: q.k and the softmax (about five
-    operations a probability, one more for the head mean) run over the valid
-    (b, h, i, j) pairs, p.v over those past the nd dummies. `pairs` gives
+    """(bound_ms, bound_by) for one attention kernel call, the same for the
+    same work whatever implements it: each input read once and each output
+    written once over the memory rate, against the operations this data
+    needs, dot products at the f32-accurate tensor-core rate (3xTF32) and
+    the rest at the f32 peak. A masked key's probability is 0, so it needs
+    no work: q.k and the softmax (about five operations a probability, one
+    more for the head mean) run over the valid (b, h, i, j) pairs, p.v over
+    those past the nd dummies. `pairs` gives
     both counts where a mask beyond key_valid (the donor rows) removes
     pairs; by default every query row meets every valid key. The backward
     (`backward`) recomputes q.k and does dq and dk over the valid pairs and
@@ -135,15 +145,16 @@ def attention_bound(b, lv, lk, heads, nd, key_valid, want_head_mean, backward=Fa
             nbytes += 4 * b * lv * lk
         elif lv > 128:  # the flash backward also reads O
             nbytes += 4 * b * lv * d
-        ops = 3 * 2 * 32 * valid_pairs + 2 * 2 * 32 * value_pairs + 6 * valid_pairs
+        dots = 3 * 2 * 32 * valid_pairs + 2 * 2 * 32 * value_pairs
+        other = 6 * valid_pairs
     else:
         nbytes = 4 * (2 * b * lv * d + 2 * b * lk * d + b * lk)
         if want_head_mean:
             nbytes += 4 * b * lv * lk
-        ops = 2 * 32 * valid_pairs  # q.k
-        ops += 2 * 32 * value_pairs  # p.v
-        ops += (6 if want_head_mean else 5) * valid_pairs  # softmax
-    t_bytes, t_ops = nbytes / HBM_RATE, ops / F32_PEAK
+        dots = 2 * 32 * valid_pairs + 2 * 32 * value_pairs  # q.k, p.v
+        other = (6 if want_head_mean else 5) * valid_pairs  # softmax
+    t_bytes = nbytes / HBM_RATE
+    t_ops = max(dots / TF32X3_PEAK, other / F32_PEAK)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -349,6 +360,23 @@ def sdpa_backward_ms(q, k, v, valid, heads, d_out):
     return both - time_ms(fwd, iters=10, warmup=2)
 
 
+def sdpa_train_forward_ms(q, k, v, valid, heads, p):
+    """The training forward's yardstick: scaled_dot_product_attention with
+    the same boolean key mask and dropout_p on tensors that require grad
+    (so that it also keeps what its backward needs, the log-sum-exp), ms.
+    Its dropout mask is Philox's, not the port's hash: the same function up
+    to which probabilities drop."""
+    import torch.nn.functional as F
+
+    b = q.shape[0]
+    qh, kh, vh = (x.view(b, -1, heads, 32).transpose(1, 2).contiguous().requires_grad_()
+                  for x in (q, k, v))
+    mask = (valid > 0)[:, None, None, :]
+    return time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                          dropout_p=p),
+                   iters=10, warmup=2)
+
+
 def aca_pairs(key_valid, query_valid, donor_rows, nd):
     """(valid (b, h, i, j) pairs, those past the nd dummies) of an ACA call
     with donor rows: the mask the kernel applies, counted on the card."""
@@ -496,7 +524,8 @@ def self_train_case(dev, g, b, heads, p, seed, valid):
         bwd_plain = functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest)
         call = functools.partial(aca.masked_attention, **call)
     fwd_reading = forward_reading(shape, got, ref, fwd, fwd_plain,
-                                  attention_bound(b, length, length, heads, 0, valid, False))
+                                  attention_bound(b, length, length, heads, 0, valid, False),
+                                  sdpa_train_forward_ms(q, k, v, valid, heads, p))
     return name, fwd_reading, backward_reading(
         shape, bwd, bwd_plain, function_grads(call, (q, k, v), (d_out,)),
         attention_bound(b, length, length, heads, 0, valid, False, backward=True),
@@ -945,6 +974,12 @@ def main():
         kernels.load(name)
         log(f"[build] {name}:\n{reports[name]}")
     log(f"[build] {time.perf_counter() - t0:.2f} s")
+    hmma = {name: kernels.sass_mma_counts(name) for name in kernels.SOURCES}
+    log(f"[build] tensor-core instructions (SASS HMMA lines) per kernel: {json.dumps(hmma)}")
+    for name in ("flash_attention", "flash_attention_bwd"):  # 3xTF32 on mma.sync
+        for fn, n in hmma[name].items():
+            if "delta" not in fn:  # the pre-pass D = rowsum(dO O) has no product
+                assert n > 0, f"{fn}: no tensor-core instruction"
 
     rows, shapes = phase_kernels(dev, args.seed)
     log(f"[kernels] {json.dumps(rows)}")
@@ -969,7 +1004,7 @@ def main():
         assert row["launches"] > 0, f"{row['name']} never launched on the paths"
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_by_path")
-    print(json.dumps({"paths": paths, "kernel_shapes": shapes}))
+    print(json.dumps({"paths": paths, "kernel_shapes": shapes, "sass_hmma": hmma}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

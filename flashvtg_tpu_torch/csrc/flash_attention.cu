@@ -1,5 +1,5 @@
 // Memory-linear masked self-attention over any number of keys, for Hopper
-// (sm_90a), f32 on CUDA cores.
+// (sm_90a): the products on the tensor cores in 3xTF32 (f32-accurate).
 //
 // Replaces: the long, memory-linear form of JAX's library Pallas kernel
 // jax.experimental.pallas.ops.tpu.flash_attention (called at
@@ -21,40 +21,59 @@
 //
 // Memory-linear: an online softmax over key tiles (a running max and sum per
 // row, the accumulator rescaled when the max grows). Neither the (B, H, L, L)
-// logits nor a (B, H, L, chunk) slab exists in device memory: a block's
-// logits and probabilities for one key tile live in registers and shared
-// memory only.
+// logits nor a (B, H, L, chunk) slab exists in device memory: a warp's
+// logits and probabilities live in its registers only.
 //
-// What bounds it: at the TACoS encoder shape (B=8, H=8, L=2048, Dh=32) the
-// work is 4 * B * H * L * L_valid * Dh FLOP for q.k plus p.v, 34.4 GFLOP with
-// every key valid: 0.51 ms at 67 TFLOP/s f32. It moves q, k, v, the mask and
-// out once, ~67 MB: 0.02 ms at 3.35 TB/s. So it is bound by operations, and
-// a simple kernel is held back by how it feeds its FMAs. The design, as the
-// ACA kernel (aca_attention.cu) tiled over keys:
-//  * a block owns one (batch row, head) and a tile of 64 query rows (eight
-//    warps of 8 rows); the scaled Q tile stays in shared memory, and the K
-//    and V tiles of 128 keys are staged by 16-byte cp.async copies in two
-//    stages: the next tile's copies fly while this one computes;
-//  * a key tile whose keys are all masked is skipped (the block reads the
-//    mask once and keeps a bit per tile), so ragged batches pay for the keys
-//    they hold;
-//  * q.k: a lane owns keys lane + 32 t of the tile (t < 4) for the warp's 8
-//    rows: 32 logits in registers; each 16-byte K load (rows padded to 36
-//    floats, so eight lanes on eight rows hit 32 distinct banks) serves 8
-//    rows, each broadcast Q load serves 4 keys;
-//  * the online softmax runs on those registers: the tile max with warp
-//    shuffles, each lane's share of the row sum kept apart and summed across
-//    the warp once at the end (a fixed order: launches agree bit for bit);
-//  * p.v: a lane owns one of the warp's rows and 8 of the 32 output columns;
-//    each 16-byte P load serves 4 keys and each V load 8 rows (broadcast).
-// No tensor cores and no TF32: this is the f32 parity mode.
+// What bounds it: per valid (b, h, i, j) pair, 128 FLOP of dot products
+// (q.k and p.v, 64 each) and about 5 other operations (the softmax). The
+// card's f32-accurate rate for dot products is 3xTF32's, 495 / 3 = 165
+// TFLOP/s; the rest runs at the 67 TFLOP/s f32 rate. At the TACoS eval shape
+// (B=8, H=8, L=2048, 10,878 of 16,384 keys valid) that is 22.8 GFLOP, 0.14 ms,
+// against ~67 MB of inputs and outputs (0.02 ms at 3.35 TB/s): bound by
+// operations, on the tensor cores. The design:
+//  * a block owns one (batch row, head) and 64 query rows, four warps of
+//    16: a warp's rows are the M of mma.sync.m16n8k8, and its scaled Q
+//    fragments stay in registers, already split, for the whole kernel (four
+//    warps at up to 170 registers hold three blocks an SM; eight warps of 16
+//    were no faster on the card);
+//  * the key mask becomes one bit per key in shared memory (a ballot per 32
+//    keys) and the 32-bit tile mask, one bit per 128-key tile: a tile with
+//    no valid key is skipped, so ragged batches pay for the keys they hold,
+//    and so is a 64-key chunk with none;
+//  * K and V tiles of 128 keys go through a ring of two stages of 16-byte
+//    cp.async copies (rows padded to 36 floats: every fragment load of a
+//    warp hits 32 distinct banks), the next tile's copies in flight while
+//    this one computes;
+//  * S = Q K^T for 64 keys at a time goes to mma accumulators (32 registers
+//    a lane), and the online softmax runs on those fragments: a lane holds
+//    two rows, and the row max is taken across the four lanes of a quad with
+//    two shuffles; exp2 with the log2 e fold, of s - m (exactly 1 at the
+//    max);
+//  * P feeds p.v from registers as the A operand: the C layout holds keys
+//    {2t, 2t+1} where A wants k-columns {t, t+4}, so the V fragment is loaded
+//    with its key rows in that order instead of moving P;
+//  * the tensor core's f32 accumulation truncates, so no chain of products
+//    runs long: each S tile takes each k-step's hi.hi product in a fresh
+//    accumulator (attn_common.cuh dot_3xtf32), and each chunk's p.v goes to
+//    fresh accumulators added to O on the CUDA cores (one chain over 4096
+//    keys missed the 1e-5 tolerance);
+//  * each lane keeps its own share of the row sums; the quad sums them once
+//    at the end, in a fixed order, and no float atomics are used: launches
+//    agree bit for bit.
+// Why 3xTF32 is the f32 parity mode: each operand is split into two TF32
+// parts (attn_common.cuh), and the three products keep about 22 significant
+// bits, the accuracy of f32 on CUDA cores (CUTLASS's OpMultiplyAddFastF32);
+// forwards agree with the f32 plain version within 1e-5. A single TF32
+// product keeps about three decimal digits (it misses that tolerance in
+// the emulation of tests/test_torch_tf32x3.py) and is not used.
 //
 // Training form (flashvtg_flash_attention_train_f32, template TRAIN; the
-// eval entry point compiles without it, unchanged): it also writes the row
-// log-sum-exp lse[b, h, i] = m + log(l) for the backward
+// eval entry point compiles without it): it also writes the row log-sum-exp
+// lse[b, h, i] = m + log(l) in natural-log units for the backward
 // (flash_attention_bwd.cu), and multiplies each probability that feeds p.v
-// by the attention-dropout scale (attn_dropout.cuh, evaluated in registers
-// inside the tile loop); the row sum l keeps the undropped probabilities.
+// by the attention-dropout scale (attn_dropout.cuh's hash of (seed, b H + h,
+// i, j), evaluated per accumulator element); the row sum l keeps the
+// undropped probabilities.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,53 +84,20 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTileRows = kRowsPerWarp * kWarps;  // query rows per block
-constexpr int kKPL = 4;                           // keys per lane per tile
-constexpr int kTileKeys = 32 * kKPL;
-constexpr int kMaxTiles = 32;  // one bit each in the block's tile mask
-constexpr int kMaxLen = kTileKeys * kMaxTiles;
-constexpr int kPStride = kTileKeys + 4;
+constexpr int kWarps = 4;               // 16 query rows each
+constexpr int kMinBlocks = 3;           // per SM: caps a thread at 65536 / (32 kWarps kMinBlocks) registers
+constexpr int kTileRows = 16 * kWarps;  // query rows per block
+constexpr int kTileKeys = 128;          // keys per staged tile (one bit of the tile mask)
+constexpr int kChunk = 64;              // keys per S fragment set, 32 or 64
+static_assert(kChunk == 32 || kChunk == 64, "a chunk is one or two mask words");
+constexpr int kChunkTiles = kChunk / 8;
+constexpr int kMaxLen = kTileKeys * (kMaskWords / 4);
 
-// Shared memory, in floats: Q tile, two stages of (K, V), then P.
-constexpr int kQFloats = kTileRows * kDh;
-constexpr int kStageFloats = kTileKeys * kKStride + kTileKeys * kDh;
-constexpr int kPFloats = kTileRows * kPStride;
-constexpr int kSmemBytes = sizeof(float) * (kQFloats + 2 * kStageFloats + kPFloats);
-
-// Starts the copies of key tile `tile` (head h) into `stage`. Key rows past
-// len are zero-filled with plain stores: p.v multiplies them by a zero P,
-// and a zero times stale shared memory could be NaN.
-__device__ __forceinline__ void load_tile(float* stage, const float* kb,
-                                          const float* vb, int tile, int len,
-                                          int d_model, int h) {
-  float* k_s = stage;
-  float* v_s = stage + kTileKeys * kKStride;
-  const int j0 = tile * kTileKeys;
-  for (int i = threadIdx.x; i < kTileKeys * (kDh / 4); i += blockDim.x) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 4;
-    const int j = j0 + r;
-    if (j < len) {
-      const size_t g = (size_t)j * d_model + h * kDh + c;
-      cp_async16(k_s + r * kKStride + c, kb + g);
-      cp_async16(v_s + r * kDh + c, vb + g);
-    } else {
-      st4(k_s + r * kKStride + c, make_float4(0.f, 0.f, 0.f, 0.f));
-      st4(v_s + r * kDh + c, make_float4(0.f, 0.f, 0.f, 0.f));
-    }
-  }
-}
-
-// the next set bit of `mask` at or after `from`, or -1
-__device__ __forceinline__ int next_tile(unsigned mask, int from) {
-  if (from >= kMaxTiles) return -1;
-  const unsigned rest = mask & (0xffffffffu << from);
-  return rest ? __ffs(rest) - 1 : -1;
-}
+constexpr int kStageFloats = 2 * kTileKeys * kKStride;  // K, V
+constexpr int kSmemBytes = sizeof(float) * 2 * kStageFloats;
 
 template <bool TRAIN>
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ key_valid,
@@ -119,200 +105,177 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        float scale, float* __restrict__ lse, uint32_t seed,
                        uint32_t threshold, float keep_scale) {
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* stages = q_s + kQFloats;
-  float* p_s = stages + 2 * kStageFloats;
+  float* stages = reinterpret_cast<float*>(smem4);
+  __shared__ uint32_t key_bits[kMaskWords];
   __shared__ unsigned tile_mask;
 
-  const int row0 = blockIdx.x * kTileRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;  // the warp's first row in the tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int d_model = heads * kDh;
   const float* qb = q + (size_t)b * len * d_model;
   const float* kb = k + (size_t)b * len * d_model;
   const float* vb = v + (size_t)b * len * d_model;
-  const float* mb = key_valid + (size_t)b * len;
-  const int n_tiles = (len + kTileKeys - 1) / kTileKeys;
-  const uint32_t drop_h = TRAIN ? drop_head(seed, b * heads + h) : 0u;
+  const bool drop = TRAIN && threshold != 0u;
+  // this lane's rows: row[0] and row[1] = row[0] + 8
+  const int row0 = (int)blockIdx.x * kTileRows + warp * 16 + g;
+  const int row[2] = {row0, row0 + 8};
 
-  // one bit per key tile that holds at least one valid key
-  if (threadIdx.x == 0) tile_mask = 0u;
-  __syncthreads();
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    bool any = false;
-#pragma unroll
-    for (int u = 0; u < kKPL; ++u) {
-      const int j = t * kTileKeys + lane + 32 * u;
-      any |= j < len && mb[j] > 0.f;
-    }
-    if (__any_sync(0xffffffffu, any) && lane == 0) atomicOr(&tile_mask, 1u << t);
-  }
-
-  // the Q tile; rows past len copy row len - 1, computed and never written
-  for (int i = threadIdx.x; i < kTileRows * (kDh / 4); i += blockDim.x) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 4;
-    const int row = min(row0 + r, len - 1);
-    cp_async16(q_s + r * kDh + c, qb + (size_t)row * d_model + h * kDh + c);
-  }
-  __syncthreads();
+  build_key_mask(key_bits, &tile_mask, key_valid + (size_t)b * len, len);
   const unsigned mask = tile_mask;
-
-  // online softmax state of the warp's 8 rows, the same in every lane; each
-  // lane keeps its own keys' share of the row sums
-  float m[kRowsPerWarp];
-  float l_part[kRowsPerWarp];
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    m[r] = -INFINITY;
-    l_part[r] = 0.f;
-  }
-  // p.v phase: row wrow + pr, columns pc .. pc + 7
-  const int pr = lane >> 2;
-  const int pc = (lane & 3) * 8;
-  float acc[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-  float* pw = p_s + wrow * kPStride;
-  const float* q_w = q_s + wrow * kDh;
-
   int tile = next_tile(mask, 0);
-  if (tile >= 0) load_tile(stages, kb, vb, tile, len, d_model, h);
-  cp_async_commit();  // with the Q tile
+  if (tile >= 0) {
+    load_kv_tile(stages, stages + kTileKeys * kKStride, kb, vb, tile * kTileKeys, kTileKeys,
+                 len, d_model, h);
+  }
+  cp_async_commit();
+
+  // the warp's 16 rows of scale * q, split, as the A operand of the four
+  // k-steps of q.k; rows past len read row len - 1, computed and never written
+  FragA qf[kDh / 8];
+  {
+    const float* q0 = qb + (size_t)min(row[0], len - 1) * d_model + h * kDh + t;
+    const float* q1 = qb + (size_t)min(row[1], len - 1) * d_model + h * kDh + t;
+#pragma unroll
+    for (int ks = 0; ks < kDh / 8; ++ks) {
+      qf[ks] = frag_a(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
+                      q1[8 * ks + 4] * scale);
+    }
+  }
+  uint32_t drop_r[2] = {0u, 0u};
+  if (drop) {
+    const uint32_t drop_h = drop_head(seed, b * heads + h);
+    drop_r[0] = drop_row(drop_h, row[0]);
+    drop_r[1] = drop_row(drop_h, row[1]);
+  }
+
+  // online softmax state of the lane's two rows (the same in the four lanes
+  // of a quad), this lane's share of the row sums, and the output fragments
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
   for (int it = 0; tile >= 0; ++it) {
     const int next = next_tile(mask, tile + 1);
     if (next >= 0) {
-      load_tile(stages + ((it + 1) & 1) * kStageFloats, kb, vb, next, len,
-                d_model, h);
+      float* st = stages + ((it + 1) & 1) * kStageFloats;
+      load_kv_tile(st, st + kTileKeys * kKStride, kb, vb, next * kTileKeys, kTileKeys, len,
+                   d_model, h);
     }
     cp_async_commit();
     cp_async_wait_all_but_newest();  // this thread's copies of `tile` landed
     __syncthreads();                 // and every other thread's
-    if (it == 0) {
-      // the warp scales its own 8 rows of q once, before the dot products
-      for (int i = lane * 4; i < kRowsPerWarp * kDh; i += 128) {
-        float4 x = ld4(q_s + wrow * kDh + i);
-        x.x *= scale;
-        x.y *= scale;
-        x.z *= scale;
-        x.w *= scale;
-        st4(q_s + wrow * kDh + i, x);
-      }
-      __syncwarp();
-    }
     const float* k_s = stages + (it & 1) * kStageFloats;
     const float* v_s = k_s + kTileKeys * kKStride;
 
-    bool key_ok[kKPL];
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
+      const int j0 = tile * kTileKeys + c0;
+      uint32_t words[kChunk / 32], any = 0u;
 #pragma unroll
-    for (int u = 0; u < kKPL; ++u) {
-      const int j = tile * kTileKeys + lane + 32 * u;
-      key_ok[u] = j < len && mb[j] > 0.f;
-    }
+      for (int w = 0; w < kChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
+      if (any == 0u) continue;  // the same in every warp
 
-    // q.k: 8 rows x 4 keys per lane
-    float s[kRowsPerWarp][kKPL];
+      // S = (scale Q) K^T for the chunk's keys
+      float s[kChunkTiles][4];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
+      for (int n = 0; n < kChunkTiles; ++n) {
+        dot_3xtf32(s[n], qf, k_s + (c0 + 8 * n + g) * kKStride + t, 1.f);
+      }
+
+      // masked keys to -inf, then the chunk's row max across the quad
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int u = 0; u < kKPL; ++u) s[r][u] = 0.f;
+      for (int n = 0; n < kChunkTiles; ++n) {
+        const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
 #pragma unroll
-    for (int d = 0; d < kDh; d += 4) {
-      float4 kk[kKPL];
-#pragma unroll
-      for (int u = 0; u < kKPL; ++u) kk[u] = ld4(k_s + (lane + 32 * u) * kKStride + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qq = ld4(q_w + r * kDh + d);
-#pragma unroll
-        for (int u = 0; u < kKPL; ++u) {
-          float a = s[r][u];
-          a = fmaf(qq.x, kk[u].x, a);
-          a = fmaf(qq.y, kk[u].y, a);
-          a = fmaf(qq.z, kk[u].z, a);
-          a = fmaf(qq.w, kk[u].w, a);
-          s[r][u] = a;
+        for (int e = 0; e < 4; ++e) {
+          if (!((bits >> (e & 1)) & 1u)) s[n][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
         }
       }
-    }
-
-    // online softmax: the tile holds a valid key, so every row's new max is
-    // finite; masked keys get P = 0 exactly
-    float alpha_pr = 1.f;  // the rescale of row pr, for this lane's p.v
+      // p = exp2((s - m) log2 e): exactly 1 at the row's max, so that a row
+      // with one valid key gets P = 1 and lse = m exactly, as the backward
+      // recomputes them
+      float m_use[2];
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      float mx = -INFINITY;
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[r], mx[r]);
+        // -inf only while no valid key has come yet: nothing to rescale
+        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+        const float alpha = exp2_fast((m[r] - m_use[r]) * kLog2e);  // 0 while m is -inf
+        m[r] = m_new;
+        l[r] *= alpha;
 #pragma unroll
-      for (int u = 0; u < kKPL; ++u) {
-        if (key_ok[u]) mx = fmaxf(mx, s[r][u]);
-      }
-      const float m_new = fmaxf(m[r], warp_max(mx));
-      const float alpha = expf(m[r] - m_new);  // 0 on the first tile
-      m[r] = m_new;
-      float sum = 0.f;
-      const uint32_t drop_r =
-          TRAIN && threshold != 0u ? drop_row(drop_h, row0 + wrow + r) : 0u;
-#pragma unroll
-      for (int u = 0; u < kKPL; ++u) {
-        const float p = key_ok[u] ? expf(s[r][u] - m_new) : 0.f;
-        sum += p;
-        float pv = p;  // the probability p.v reads: dropped in training
-        if (TRAIN && threshold != 0u) {
-          pv *= drop_scale(drop_r, tile * kTileKeys + lane + 32 * u, threshold, keep_scale);
+        for (int n = 0; n < kDh / 8; ++n) {
+          o[n][2 * r] *= alpha;
+          o[n][2 * r + 1] *= alpha;
         }
-        pw[r * kPStride + lane + 32 * u] = pv;
       }
-      l_part[r] = l_part[r] * alpha + sum;
-      if (r == pr) alpha_pr = alpha;
-    }
-    __syncwarp();
 
-    // p.v: one row, 8 columns per lane, keys in fours
+      // P (0 at masked keys), the row sums, and the probabilities p.v reads
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] *= alpha_pr;
-    const float* prow = pw + pr * kPStride;
-#pragma unroll 4
-    for (int j = 0; j < kTileKeys; j += 4) {
-      const float4 pp = ld4(prow + j);
-      const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
+      for (int n = 0; n < kChunkTiles; ++n) {
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 va = ld4(v_s + (j + u) * kDh + pc);
-        const float4 vc = ld4(v_s + (j + u) * kDh + pc + 4);
-        acc[0] = fmaf(pj[u], va.x, acc[0]);
-        acc[1] = fmaf(pj[u], va.y, acc[1]);
-        acc[2] = fmaf(pj[u], va.z, acc[2]);
-        acc[3] = fmaf(pj[u], va.w, acc[3]);
-        acc[4] = fmaf(pj[u], vc.x, acc[4]);
-        acc[5] = fmaf(pj[u], vc.y, acc[5]);
-        acc[6] = fmaf(pj[u], vc.z, acc[6]);
-        acc[7] = fmaf(pj[u], vc.w, acc[7]);
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const float p = exp2_fast((s[n][e] - m_use[r]) * kLog2e);
+          l[r] += p;
+          s[n][e] = drop ? p * drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), threshold,
+                                          keep_scale)
+                         : p;
+        }
       }
+
+      // O += P V: P from registers, V's key rows in the order 2t, 2t + 1;
+      // the chunk's sum in fresh accumulators, added to O on the CUDA cores
+      float pv[kDh / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kChunkTiles; ++kk) {
+        const FragA pa = frag_a_from_c(s[kk]);
+        const float* vr = v_s + (c0 + 8 * kk + 2 * t) * kKStride + g;
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n) {
+          mma_3xtf32(pv[n], pa, frag_b(vr[8 * n], vr[kKStride + 8 * n]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
     }
-    __syncthreads();  // this stage and P are free for the tile after next
+    __syncthreads();  // this stage is free for the tile after next
     tile = next;
   }
-  cp_async_wait_all();  // a block with no valid key never waited for its Q
+  cp_async_wait_all();  // a block with no valid key never waited
 
-  // the row sums across the warp, in a fixed order
-  float l_pr = 0.f;
+  // the row sums across the quad, in a fixed order
 #pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const float l = warp_sum(l_part[r]);
-    if (r == pr) l_pr = l;
-    if (TRAIN && lane == 0 && row0 + wrow + r < len) {
-      lse[((size_t)b * heads + h) * len + row0 + wrow + r] = m[r] + logf(l);
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (row[r] >= len) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no valid key: zeros
+    float* orow = out + ((size_t)b * len + row[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
     }
-  }
-  const float inv = l_pr > 0.f ? 1.f / l_pr : 0.f;  // no valid key: zeros
-  const int row = row0 + wrow + pr;
-  if (row < len) {
-    float* o = out + ((size_t)b * len + row) * d_model + h * kDh + pc;
-    st4(o, make_float4(acc[0] * inv, acc[1] * inv, acc[2] * inv, acc[3] * inv));
-    st4(o + 4, make_float4(acc[4] * inv, acc[5] * inv, acc[6] * inv, acc[7] * inv));
+    if (TRAIN && t == 0) lse[((size_t)b * heads + h) * len + row[r]] = m[r] + logf(l[r]);
   }
 }
 

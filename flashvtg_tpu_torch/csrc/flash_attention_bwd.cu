@@ -1,5 +1,6 @@
 // Memory-linear backward of the masked self-attention (flash_attention.cu),
-// for Hopper (sm_90a), f32 on CUDA cores: the FlashAttention-2 backward.
+// for Hopper (sm_90a): the FlashAttention-2 backward with every product on
+// the tensor cores in 3xTF32 (f32-accurate).
 //
 // Replaces: the VJP of JAX's library Pallas flash_attention, long form (timed
 // as forward + backward at scripts/bench_flash.py:62-74) and, on the JAX
@@ -15,33 +16,62 @@
 //   z_ij  = the forward's dropout scale (attn_dropout.cuh), recomputed
 //   dS_ij = P_ij (z_ij (dO_i . v_j) - D_i)
 //   dq_i  = scale sum_j dS_ij k_j
-//   dk_j  = sum_i dS_ij (scale q_i)
+//   dk_j  = scale sum_i dS_ij q_i
 //   dv_j  = sum_i P_ij z_ij dO_i
 // Probabilities are recomputed from q, k and lse and never stored: the
 // (B, H, L, L) tensor never exists in device memory. A batch row with no
 // valid key gets zeros everywhere, as the forward gives it zeros.
 //
-// What bounds it: at the TACoS train shape (B=32, H=8, L=2048, Dh=32, every
-// key valid) the work is 10 B H L^2 Dh = 343.6 GFLOP (q.k and dO.v
-// recomputed, dq, dk and dv): 5.13 ms at 67 TFLOP/s f32, against ~0.4 GB of
-// inputs and outputs (0.12 ms at 3.35 TB/s): bound by operations. The
-// design is the forward's, split in two kernels so that every sum stays in
-// one block (no float atomics; launches agree bit for bit):
-//  * pre-pass: one warp per (b, i) row computes D for every head;
-//  * dk/dv: a block owns (b, h) and a tile of 64 keys (skipped, and written
-//    as zeros, when all 64 are masked), keeps K and V of the tile in shared
-//    memory and loops over all query tiles of 64 rows (every query row,
-//    padded rows included, takes part in the loss); per query tile a warp
-//    owns 8 rows and a lane keys lane and lane + 32: q.k and dO.v in
-//    registers, P z and dS to shared memory; then a thread owns one key and
-//    8 columns of dk and dv, summed in registers over every query tile;
-//  * dq: a block owns (b, h) and a tile of 64 query rows, keeps the Q and dO
-//    tile in shared memory and loops over the 128-key tiles that hold a
-//    valid key (one bit per tile, as the forward); dS goes to shared memory
-//    and a lane sums one row's 8 columns of dS k in registers.
+// What bounds it: per valid (b, h, i, j) pair, 320 FLOP of dot products
+// (q.k, dO.v, dq, dk and dv, 64 each) and about 6 other operations (exp,
+// dP, dS). Dot products run at 3xTF32's f32-accurate rate, 495 / 3 = 165
+// TFLOP/s, the rest at 67 TFLOP/s. At phase 7's TACoS train draw (B=32,
+// H=8, L=2048, 31,908 of 65,536 keys valid) that is 167 GFLOP, 1.01 ms,
+// against ~0.4 GB of inputs and outputs (0.12 ms at 3.35 TB/s): bound by
+// operations, on the tensor cores. The design keeps the deterministic split
+// of the f32 version (every sum in one block, in a fixed order; no float
+// atomics; launches agree bit for bit), now on mma.sync.m16n8k8:
+//  * pre-pass: one warp per (b, i) row computes D = rowsum(dO O) for every
+//    head, for the dq kernel (an elementwise dot of 32, read once: bound by
+//    bytes, on CUDA cores);
+//  * dk/dv: a block owns (b, h) and 64 keys, four warps of 16 (skipped, and
+//    written as zeros, when all 64 are masked); a warp keeps its keys' K and
+//    V fragments in registers, split, and loops over every query tile of 64
+//    rows (every query row takes part in the loss), whose Q, dO, lse, D and
+//    dropout row hashes come through a two-stage cp.async ring. Per 16 query
+//    rows it takes S^T = K (scale Q)^T and dP^T = V dO^T into accumulators,
+//    forms P^T z and dS^T there, and feeds them as A operands from registers
+//    to dv += (P z)^T dO and dk += dS^T Q, scaled once at the end (the B
+//    fragments read their query rows in the order 2t, 2t + 1 of the C
+//    layout); 16 rows a set keep the kernel under 170 registers without
+//    spills (64 spilled and ran slower on the card);
+//  * dq: a block owns (b, h) and 64 query rows, four warps of 16, with Q
+//    (scaled) and dO fragments in registers; it loops over the 128-key tiles
+//    that hold a valid key (the forward's key bits and cp.async ring), takes
+//    S = (scale Q) K^T and dP = dO V^T for 32 keys at a time, forms dS and
+//    feeds it to dq += dS K from registers;
+//  * the tensor core's f32 accumulation truncates, so no chain of products
+//    runs long: S and dP tiles take each k-step's hi.hi product in a fresh
+//    accumulator (attn_common.cuh dot_3xtf32, as accurate as an f32 FMA
+//    loop), and each set's dk, dv and dq products go to fresh accumulators
+//    added on the CUDA cores;
+//  * dS = P (z dP - D) cancels to 0 at a row with one valid key, and dk sums
+//    its rounding over every query row: f32 sums in any order, the f32
+//    plain version's included, leave dk near the tests' 1e-5 floor. So the
+//    dq kernel, which runs first, also sums D' = rowsum(P z dP) from the
+//    very P and dP it forms, and the dk/dv kernel takes D' for D; its S^T
+//    and dP^T take the dq kernel's products in the same order
+//    (dot_3xtf32<true>), and P = exp2((s - lse) log2 e) is exactly 1 at a
+//    row's only key (the forward's lse is then exactly m): dS is exactly 0
+//    there, as in exact arithmetic. Mathematically D' = D.
 // This recomputes q.k and dO.v in both kernels: 14 B H L^2 Dh FLOP in all
-// against the 10 of the bound. No tensor cores and no TF32: this is the f32
-// parity mode.
+// against the 10 of the bound, the price of sums without atomics.
+// Why 3xTF32 is the f32 parity mode: each operand is split into two TF32
+// parts (attn_common.cuh), and the three products keep about 22 significant
+// bits, the accuracy of f32 on CUDA cores (CUTLASS's OpMultiplyAddFastF32);
+// gradients agree with the f32 plain version within 1e-4 of their largest
+// value. A single TF32 product keeps about three decimal digits and is not
+// used.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -52,12 +82,16 @@
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kTileRows = kRowsPerWarp * kWarps;  // query rows per tile
-constexpr int kKvKeys = 64;                       // keys per dk/dv block
-constexpr int kDqKeys = 128;                      // keys per dq tile
-constexpr int kMaxTiles = 32;                     // of 128 keys: L <= 4096
-constexpr int kMaxLen = kDqKeys * kMaxTiles;
+constexpr int kWarps = 4;
+constexpr int kKvKeys = 16 * kWarps;  // keys per dk/dv block
+constexpr int kQTile = 64;            // query rows per dk/dv stage
+constexpr int kQSub = 16;             // query rows per S^T fragment set, 16, 32 or 64
+constexpr int kDqRows = 16 * kWarps;  // query rows per dq block
+constexpr int kDqKeys = 128;          // keys per dq stage (one bit of the tile mask)
+constexpr int kDqChunk = 32;          // keys per S fragment set, 32 or 64
+static_assert(kQTile % kQSub == 0 && kQSub % 8 == 0, "whole n-tiles in a stage");
+static_assert(kDqChunk == 32 || kDqChunk == 64, "a chunk is one or two mask words");
+constexpr int kMaxLen = kDqKeys * (kMaskWords / 4);
 
 struct Operands {
   const float* q;
@@ -66,7 +100,7 @@ struct Operands {
   const float* key_valid;
   const float* lse;
   const float* d_out;
-  const float* delta;  // (B, H, L), the pre-pass
+  float* delta;  // (B, H, L): D from the pre-pass, then D' from the dq kernel
   float* dq;
   float* dk;
   float* dv;
@@ -76,8 +110,14 @@ struct Operands {
   float keep_scale;
 };
 
-// D[b, h, i] = dO[b, i, h] . O[b, i, h]: one warp per (b, i), a lane 8
-// columns, the four lanes of a head summed with shuffles
+__device__ __forceinline__ void cp_async4(float* smem_dst, const float* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem_dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst), "l"(src)
+               : "memory");
+}
+
+// D[b, h, i] = dO[b, i, h] . O[b, i, h] for the dq kernel: one warp per
+// (b, i), a lane 8 columns, the four lanes of a head summed with shuffles
 __global__ void __launch_bounds__(256)
 flash_bwd_delta_kernel(const float* __restrict__ out, const float* __restrict__ d_out,
                        float* __restrict__ delta, int rows, int len, int heads) {
@@ -103,251 +143,343 @@ flash_bwd_delta_kernel(const float* __restrict__ out, const float* __restrict__ 
   }
 }
 
-// Loads the Q tile (scaled) and the dO tile of rows row0 .. row0 + 63, rows
-// past len reading row len - 1 (they get P = 0), plus their lse and D.
-__device__ __forceinline__ void load_query_tile(const Operands& a, float* q_s, float* do_s,
-                                                float* lse_s, float* delta_s, int b,
-                                                int h, int row0) {
+// One dk/dv stage, in floats: Q and dO (kQTile rows of kKStride), then the
+// rows' lse, D and dropout row hashes.
+constexpr int kQStageFloats = 2 * kQTile * kKStride + 3 * kQTile;
+
+// Starts the copies of query rows row0 .. row0 + kQTile - 1 into `stage`;
+// rows past len read row len - 1 (they get P = 0).
+__device__ __forceinline__ void load_query_stage(const Operands& a, float* stage, int b, int h,
+                                                 int row0, uint32_t drop_h) {
   const int d_model = a.heads * kDh;
-  for (int i = threadIdx.x; i < kTileRows * (kDh / 4); i += blockDim.x) {
+  float* q_s = stage;
+  float* do_s = q_s + kQTile * kKStride;
+  float* lse_s = do_s + kQTile * kKStride;
+  float* d_s = lse_s + kQTile;
+  uint32_t* rh_s = reinterpret_cast<uint32_t*>(d_s + kQTile);
+  for (int i = threadIdx.x; i < kQTile * (kDh / 4); i += blockDim.x) {
     const int r = i >> 3;
     const int c = (i & 7) * 4;
     const size_t g = ((size_t)b * a.len + min(row0 + r, a.len - 1)) * d_model + h * kDh + c;
-    st4(q_s + r * kDh + c, scaled(ld4(a.q + g), a.scale));
-    st4(do_s + r * kDh + c, ld4(a.d_out + g));
+    cp_async16(q_s + r * kKStride + c, a.q + g);
+    cp_async16(do_s + r * kKStride + c, a.d_out + g);
   }
-  for (int r = threadIdx.x; r < kTileRows; r += blockDim.x) {
-    const int row = min(row0 + r, a.len - 1);
-    const size_t g = ((size_t)b * a.heads + h) * a.len + row;
-    lse_s[r] = a.lse[g];
-    delta_s[r] = a.delta[g];
-  }
-}
-
-// Loads `keys` rows of K and V from key j0 (rows past len zero).
-__device__ __forceinline__ void load_key_tile(const Operands& a, float* k_s, float* v_s,
-                                              int b, int h, int j0, int keys) {
-  const int d_model = a.heads * kDh;
-  for (int i = threadIdx.x; i < keys * (kDh / 4); i += blockDim.x) {
-    const int r = i >> 3;
-    const int c = (i & 7) * 4;
-    float4 kk = make_float4(0.f, 0.f, 0.f, 0.f), vv = kk;
-    if (j0 + r < a.len) {
-      const size_t g = ((size_t)b * a.len + j0 + r) * d_model + h * kDh + c;
-      kk = ld4(a.k + g);
-      vv = ld4(a.v + g);
-    }
-    st4(k_s + r * kKStride + c, kk);
-    st4(v_s + r * kKStride + c, vv);
+  for (int r = threadIdx.x; r < kQTile; r += blockDim.x) {
+    const size_t g = ((size_t)b * a.heads + h) * a.len + min(row0 + r, a.len - 1);
+    cp_async4(lse_s + r, a.lse + g);
+    cp_async4(d_s + r, a.delta + g);
+    rh_s[r] = a.threshold != 0u ? drop_row(drop_h, row0 + r) : 0u;
   }
 }
 
-// For the warp's 8 rows and this lane's KPL keys (lane + 32 t of the tile at
-// j0): P z and dS, written to shared memory with row stride `stride`.
-template <int KPL>
-__device__ __forceinline__ void probs_and_grads(const Operands& a, const float* q_s,
-                                                const float* do_s, const float* k_s,
-                                                const float* v_s, const float* lse_s,
-                                                const float* delta_s, const bool* key_ok,
-                                                uint32_t drop_h, int row0, int j0,
-                                                float* pz_s, float* ds_s, int stride) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;
-  float s[kRowsPerWarp][KPL], dpv[kRowsPerWarp][KPL];
-  qk_dov<KPL>(q_s + wrow * kDh, do_s + wrow * kDh, k_s, v_s, s, dpv);
-#pragma unroll
-  for (int r = 0; r < kRowsPerWarp; ++r) {
-    const int row = row0 + wrow + r;
-    const bool live = row < a.len;
-    const float lse = lse_s[wrow + r];
-    const float dd = delta_s[wrow + r];
-    const uint32_t drop_r = a.threshold != 0u ? drop_row(drop_h, row) : 0u;
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) {
-      const int jl = lane + 32 * t;
-      const float p = live && key_ok[t] ? expf(s[r][t] - lse) : 0.f;
-      const float z =
-          a.threshold != 0u ? drop_scale(drop_r, j0 + jl, a.threshold, a.keep_scale) : 1.f;
-      if (pz_s != nullptr) pz_s[(wrow + r) * stride + jl] = p * z;
-      ds_s[(wrow + r) * stride + jl] = p * (z * dpv[r][t] - dd);
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kWarps * 32, 3)
 flash_bwd_dkdv_kernel(const Operands a) {
-  constexpr int kPStride = kKvKeys + 4;
   extern __shared__ float4 smem4[];
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + kKvKeys * kKStride;
-  float* q_s = v_s + kKvKeys * kKStride;
-  float* do_s = q_s + kTileRows * kDh;
-  float* pz_s = do_s + kTileRows * kDh;
-  float* ds_s = pz_s + kTileRows * kPStride;
-  float* lse_s = ds_s + kTileRows * kPStride;
-  float* delta_s = lse_s + kTileRows;
-  __shared__ int any_valid;
+  float* stages = reinterpret_cast<float*>(smem4);
 
-  const int j0 = blockIdx.x * kKvKeys;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int d_model = a.heads * kDh;
   const float* mb = a.key_valid + (size_t)b * a.len;
+  // this lane's keys: key[0] and key[1] = key[0] + 8
+  const int key0 = (int)blockIdx.x * kKvKeys + warp * 16 + g;
+  const int key[2] = {key0, key0 + 8};
+  const bool key_ok[2] = {key[0] < a.len && mb[key[0]] > 0.f,
+                          key[1] < a.len && mb[key[1]] > 0.f};
 
-  bool key_ok[2];
+  float dk[kDh / 8][4], dv[kDh / 8][4];
 #pragma unroll
-  for (int t = 0; t < 2; ++t) {
-    const int j = j0 + lane + 32 * t;
-    key_ok[t] = j < a.len && mb[j] > 0.f;
-  }
-  if (threadIdx.x == 0) any_valid = 0;
-  __syncthreads();
-  if (threadIdx.x < 32 && __any_sync(0xffffffffu, key_ok[0] || key_ok[1]) && lane == 0) {
-    any_valid = 1;
-  }
-  __syncthreads();
-
-  // dk / dv phase: key kj of the tile, columns kc .. kc + 7
-  const int kj = threadIdx.x >> 2;
-  const int kc = (threadIdx.x & 3) * 8;
-  float acc_dk[8], acc_dv[8];
+  for (int n = 0; n < kDh / 8; ++n)
 #pragma unroll
-  for (int c = 0; c < 8; ++c) {
-    acc_dk[c] = 0.f;
-    acc_dv[c] = 0.f;
-  }
-
-  if (any_valid) {
-    load_key_tile(a, k_s, v_s, b, h, j0, kKvKeys);
-    const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
-    for (int row0 = 0; row0 < a.len; row0 += kTileRows) {
-      load_query_tile(a, q_s, do_s, lse_s, delta_s, b, h, row0);
-      __syncthreads();
-      probs_and_grads<2>(a, q_s, do_s, k_s, v_s, lse_s, delta_s, key_ok, drop_h, row0, j0,
-                         pz_s, ds_s, kPStride);
-      __syncthreads();
-      const int rows = min(kTileRows, a.len - row0);
-      for (int i = 0; i < rows; ++i) {
-        const float g = ds_s[i * kPStride + kj];
-        const float w = pz_s[i * kPStride + kj];
-#pragma unroll
-        for (int c = 0; c < 8; c += 4) {
-          axpy4(acc_dk + c, g, ld4(q_s + i * kDh + kc + c));
-          axpy4(acc_dv + c, w, ld4(do_s + i * kDh + kc + c));
-        }
-      }
-      __syncthreads();  // the tile's buffers are free for the next one
+    for (int e = 0; e < 4; ++e) {
+      dk[n][e] = 0.f;
+      dv[n][e] = 0.f;
     }
+
+  if (__syncthreads_or(key_ok[0] || key_ok[1])) {
+    const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
+    load_query_stage(a, stages, b, h, 0, drop_h);
+    cp_async_commit();
+
+    // the warp's 16 keys of K and V, split, as the A operand of S^T and dP^T
+    FragA kf[kDh / 8], vf[kDh / 8];
+    {
+      const size_t g0 = ((size_t)b * a.len + min(key[0], a.len - 1)) * d_model + h * kDh + t;
+      const size_t g1 = ((size_t)b * a.len + min(key[1], a.len - 1)) * d_model + h * kDh + t;
+#pragma unroll
+      for (int ks = 0; ks < kDh / 8; ++ks) {
+        const int c = 8 * ks;
+        kf[ks] = frag_a(a.k[g0 + c], a.k[g1 + c], a.k[g0 + c + 4], a.k[g1 + c + 4]);
+        vf[ks] = frag_a(a.v[g0 + c], a.v[g1 + c], a.v[g0 + c + 4], a.v[g1 + c + 4]);
+      }
+    }
+
+    const int n_q = (a.len + kQTile - 1) / kQTile;
+    for (int qt = 0; qt < n_q; ++qt) {
+      if (qt + 1 < n_q) {
+        load_query_stage(a, stages + ((qt + 1) & 1) * kQStageFloats, b, h, (qt + 1) * kQTile,
+                         drop_h);
+      }
+      cp_async_commit();
+      cp_async_wait_all_but_newest();
+      __syncthreads();
+      const float* q_s = stages + (qt & 1) * kQStageFloats;
+      const float* do_s = q_s + kQTile * kKStride;
+      const float* lse_s = do_s + kQTile * kKStride;
+      const float* d_s = lse_s + kQTile;
+      const uint32_t* rh_s = reinterpret_cast<const uint32_t*>(d_s + kQTile);
+
+#pragma unroll 1
+      for (int sub = 0; sub < kQTile; sub += kQSub) {
+        // S^T = K (scale Q)^T and dP^T = V dO^T: keys x kQSub query rows
+        float st[kQSub / 8][4], dpt[kQSub / 8][4];
+#pragma unroll
+        for (int n = 0; n < kQSub / 8; ++n) {
+          const int off = (sub + 8 * n + g) * kKStride + t;
+          dot_3xtf32<true>(st[n], kf, q_s + off, a.scale);
+          dot_3xtf32<true>(dpt[n], vf, do_s + off, 1.f);
+        }
+
+        // P^T z and dS^T in place; this lane's query rows are 2t, 2t + 1
+        // of each 8
+#pragma unroll
+        for (int n = 0; n < kQSub / 8; ++n) {
+          const int li = sub + 8 * n + 2 * t;  // the first of the two rows, in the stage
+          const int row = qt * kQTile + li;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = e & 1;  // which of the two rows
+            const int r = e >> 1;  // which of the two keys
+            const bool live = key_ok[r] && row + c < a.len;
+            const float p = live ? exp2_fast((st[n][e] - lse_s[li + c]) * kLog2e) : 0.f;
+            const float z = a.threshold != 0u
+                                ? drop_scale(rh_s[li + c], key[r], a.threshold, a.keep_scale)
+                                : 1.f;
+            st[n][e] = p * z;
+            dpt[n][e] = p * (z * dpt[n][e] - d_s[li + c]);
+          }
+        }
+
+        // dv += (P z)^T dO and dk += dS^T Q over those rows, in fresh
+        // accumulators added to dk and dv on the CUDA cores
+        float pdv[kDh / 8][4], pdk[kDh / 8][4];
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pdv[n][e] = 0.f;
+            pdk[n][e] = 0.f;
+          }
+#pragma unroll
+        for (int kk = 0; kk < kQSub / 8; ++kk) {
+          const FragA pa = frag_a_from_c(st[kk]);
+          const FragA da = frag_a_from_c(dpt[kk]);
+          const int off = (sub + 8 * kk + 2 * t) * kKStride + g;
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n) {
+            mma_3xtf32(pdv[n], pa, frag_b(do_s[off + 8 * n], do_s[off + kKStride + 8 * n]));
+            mma_3xtf32(pdk[n], da, frag_b(q_s[off + 8 * n], q_s[off + kKStride + 8 * n]));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv[n][e] += pdv[n][e];
+            dk[n][e] += pdk[n][e];
+          }
+      }
+      __syncthreads();  // this stage is free for the tile after next
+    }
+    cp_async_wait_all();
   }
 
-  if (j0 + kj < a.len) {
-    const size_t g = ((size_t)b * a.len + j0 + kj) * d_model + h * kDh + kc;
 #pragma unroll
-    for (int c = 0; c < 8; c += 4) {
-      st4(a.dk + g + c, make_float4(acc_dk[c], acc_dk[c + 1], acc_dk[c + 2], acc_dk[c + 3]));
-      st4(a.dv + g + c, make_float4(acc_dv[c], acc_dv[c + 1], acc_dv[c + 2], acc_dv[c + 3]));
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= a.len) continue;
+    const size_t g0 = ((size_t)b * a.len + key[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      *reinterpret_cast<float2*>(a.dk + g0 + 8 * n) =
+          make_float2(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+      *reinterpret_cast<float2*>(a.dv + g0 + 8 * n) = make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
     }
   }
 }
 
-__global__ void __launch_bounds__(kWarps * 32, 2)
+__global__ void __launch_bounds__(kWarps * 32, 3)
 flash_bwd_dq_kernel(const Operands a) {
-  constexpr int kPStride = kDqKeys + 4;
   extern __shared__ float4 smem4[];
-  float* q_s = reinterpret_cast<float*>(smem4);
-  float* do_s = q_s + kTileRows * kDh;
-  float* k_s = do_s + kTileRows * kDh;
-  float* v_s = k_s + kDqKeys * kKStride;
-  float* ds_s = v_s + kDqKeys * kKStride;
-  float* lse_s = ds_s + kTileRows * kPStride;
-  float* delta_s = lse_s + kTileRows;
+  float* stages = reinterpret_cast<float*>(smem4);
+  constexpr int kStageFloats = 2 * kDqKeys * kKStride;
+  __shared__ uint32_t key_bits[kMaskWords];
   __shared__ unsigned tile_mask;
 
-  const int row0 = blockIdx.x * kTileRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;
+  const int g = lane >> 2;
+  const int t = lane & 3;
   const int d_model = a.heads * kDh;
-  const float* mb = a.key_valid + (size_t)b * a.len;
-  const int n_tiles = (a.len + kDqKeys - 1) / kDqKeys;
+  const float* kb = a.k + (size_t)b * a.len * d_model;
+  const float* vb = a.v + (size_t)b * a.len * d_model;
+  const int row0 = (int)blockIdx.x * kDqRows + warp * 16 + g;
+  const int row[2] = {row0, row0 + 8};
 
-  // one bit per 128-key tile that holds a valid key
-  if (threadIdx.x == 0) tile_mask = 0u;
-  __syncthreads();
-  for (int t = warp; t < n_tiles; t += kWarps) {
-    bool any = false;
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int j = t * kDqKeys + lane + 32 * u;
-      any |= j < a.len && mb[j] > 0.f;
-    }
-    if (__any_sync(0xffffffffu, any) && lane == 0) atomicOr(&tile_mask, 1u << t);
-  }
-  load_query_tile(a, q_s, do_s, lse_s, delta_s, b, h, row0);
-  __syncthreads();
+  build_key_mask(key_bits, &tile_mask, a.key_valid + (size_t)b * a.len, a.len);
   const unsigned mask = tile_mask;
-  const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
-
-  // row wrow + pr, columns pc .. pc + 7
-  const int pr = lane >> 2;
-  const int pc = (lane & 3) * 8;
-  float acc[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-
-  for (int tile = 0; tile < n_tiles; ++tile) {
-    if (!(mask & (1u << tile))) continue;
-    const int j0 = tile * kDqKeys;
-    load_key_tile(a, k_s, v_s, b, h, j0, kDqKeys);
-    __syncthreads();
-    bool key_ok[4];
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      const int j = j0 + lane + 32 * t;
-      key_ok[t] = j < a.len && mb[j] > 0.f;
-    }
-    probs_and_grads<4>(a, q_s, do_s, k_s, v_s, lse_s, delta_s, key_ok, drop_h, row0, j0,
-                       nullptr, ds_s, kPStride);
-    __syncwarp();
-    const float* dsrow = ds_s + (wrow + pr) * kPStride;
-#pragma unroll 4
-    for (int j = 0; j < kDqKeys; ++j) {
-      const float g = dsrow[j];
-      axpy4(acc, g, ld4(k_s + j * kKStride + pc));
-      axpy4(acc + 4, g, ld4(k_s + j * kKStride + pc + 4));
-    }
-    __syncthreads();  // K, V and dS are free for the next tile
+  int tile = next_tile(mask, 0);
+  if (tile >= 0) {
+    load_kv_tile(stages, stages + kDqKeys * kKStride, kb, vb, tile * kDqKeys, kDqKeys, a.len,
+                 d_model, h);
   }
+  cp_async_commit();
 
-  const int row = row0 + wrow + pr;
-  if (row < a.len) {
-    float* o = a.dq + ((size_t)b * a.len + row) * d_model + h * kDh + pc;
-    st4(o, scaled(make_float4(acc[0], acc[1], acc[2], acc[3]), a.scale));
-    st4(o + 4, scaled(make_float4(acc[4], acc[5], acc[6], acc[7]), a.scale));
+  // the warp's 16 rows of scale * q and of dO, split, as A operands; the
+  // rows' lse, D and dropout hashes
+  FragA qf[kDh / 8], of[kDh / 8];
+  float lse_r[2], dd[2];
+  uint32_t drop_r[2] = {0u, 0u};
+  {
+    const int rc[2] = {min(row[0], a.len - 1), min(row[1], a.len - 1)};
+    const size_t g0 = ((size_t)b * a.len + rc[0]) * d_model + h * kDh + t;
+    const size_t g1 = ((size_t)b * a.len + rc[1]) * d_model + h * kDh + t;
+#pragma unroll
+    for (int ks = 0; ks < kDh / 8; ++ks) {
+      const int c = 8 * ks;
+      qf[ks] = frag_a(a.q[g0 + c] * a.scale, a.q[g1 + c] * a.scale, a.q[g0 + c + 4] * a.scale,
+                      a.q[g1 + c + 4] * a.scale);
+      of[ks] = frag_a(a.d_out[g0 + c], a.d_out[g1 + c], a.d_out[g0 + c + 4],
+                      a.d_out[g1 + c + 4]);
+    }
+    const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t gi = ((size_t)b * a.heads + h) * a.len + rc[r];
+      lse_r[r] = a.lse[gi];
+      dd[r] = a.delta[gi];
+      if (a.threshold != 0u) drop_r[r] = drop_row(drop_h, row[r]);
+    }
+  }
+  const bool live[2] = {row[0] < a.len, row[1] < a.len};
+
+  float dq[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  float d_sum[2] = {0.f, 0.f};  // this lane's share of D' = rowsum(P z dP)
+
+  for (int it = 0; tile >= 0; ++it) {
+    const int next = next_tile(mask, tile + 1);
+    if (next >= 0) {
+      float* st = stages + ((it + 1) & 1) * kStageFloats;
+      load_kv_tile(st, st + kDqKeys * kKStride, kb, vb, next * kDqKeys, kDqKeys, a.len, d_model,
+                   h);
+    }
+    cp_async_commit();
+    cp_async_wait_all_but_newest();
+    __syncthreads();
+    const float* k_s = stages + (it & 1) * kStageFloats;
+    const float* v_s = k_s + kDqKeys * kKStride;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kDqKeys; c0 += kDqChunk) {
+      const int j0 = tile * kDqKeys + c0;
+      uint32_t words[kDqChunk / 32], any = 0u;
+#pragma unroll
+      for (int w = 0; w < kDqChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
+      if (any == 0u) continue;  // the same in every warp
+
+      // S = (scale Q) K^T and dP = dO V^T for the chunk's keys
+      float s[kDqChunk / 8][4], dp[kDqChunk / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDqChunk / 8; ++n) {
+        const int off = (c0 + 8 * n + g) * kKStride + t;
+        dot_3xtf32(s[n], qf, k_s + off, 1.f);
+        dot_3xtf32(dp[n], of, v_s + off, 1.f);
+      }
+
+      // dS in place of S
+#pragma unroll
+      for (int n = 0; n < kDqChunk / 8; ++n) {
+        const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool ok = live[r] && ((bits >> (e & 1)) & 1u);
+          const float p = ok ? exp2_fast((s[n][e] - lse_r[r]) * kLog2e) : 0.f;
+          const float z =
+              a.threshold != 0u
+                  ? drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), a.threshold, a.keep_scale)
+                  : 1.f;
+          d_sum[r] += p * (z * dp[n][e]);
+          s[n][e] = p * (z * dp[n][e] - dd[r]);
+        }
+      }
+
+      // dq += dS K: dS from registers, K's key rows in the order 2t, 2t + 1;
+      // the chunk's sum in fresh accumulators, added to dq on the CUDA cores
+      float pdq[kDh / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pdq[n][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kDqChunk / 8; ++kk) {
+        const FragA da = frag_a_from_c(s[kk]);
+        const float* kr = k_s + (c0 + 8 * kk + 2 * t) * kKStride + g;
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n) {
+          mma_3xtf32(pdq[n], da, frag_b(kr[8 * n], kr[kKStride + 8 * n]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq[n][e] += pdq[n][e];
+    }
+    __syncthreads();  // this stage is free for the tile after next
+    tile = next;
+  }
+  cp_async_wait_all();
+
+  // D' over the quad, in a fixed order, for the dk/dv kernel: every lane of
+  // the quad read its rows' D above, before this write
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 1);
+    d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 2);
+    if (!live[r]) continue;
+    if (t == 0) a.delta[((size_t)b * a.heads + h) * a.len + row[r]] = d_sum[r];
+    float* o = a.dq + ((size_t)b * a.len + row[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(dq[n][2 * r] * a.scale, dq[n][2 * r + 1] * a.scale);
+    }
   }
 }
 
-constexpr int kDkdvSmem =
-    sizeof(float) * (2 * kKvKeys * kKStride + 2 * kTileRows * kDh +
-                     2 * kTileRows * (kKvKeys + 4) + 2 * kTileRows);
-constexpr int kDqSmem =
-    sizeof(float) * (2 * kTileRows * kDh + 2 * kDqKeys * kKStride +
-                     kTileRows * (kDqKeys + 4) + 2 * kTileRows);
+constexpr int kDkdvSmem = sizeof(float) * 2 * kQStageFloats;
+constexpr int kDqSmem = sizeof(float) * 2 * 2 * kDqKeys * kKStride;
 
 }  // namespace
 
 extern "C" {
 
-// Launches the pre-pass, the dk/dv kernel and the dq kernel on `stream` and
+// Launches the pre-pass, the dq kernel and the dk/dv kernel on `stream` and
 // returns cudaGetLastError() (0 = launched). q, k, v, out, d_out, dq, dk, dv
 // (B, L, H*Dh); key_valid (B, L); lse and delta (B, H, L), delta scratch
-// that the pre-pass fills; threshold = floor(p * 2^24) (0 = no dropout),
-// keep_scale = 1 / (1 - p), seed as the forward's. f32, contiguous and
-// 16-byte aligned; 1 <= L <= 4096, Dh = 32.
+// (the pre-pass writes D there, the dq kernel D'); threshold = floor(p *
+// 2^24) (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's.
+// f32, contiguous and 16-byte aligned; 1 <= L <= 4096, Dh = 32.
 int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                                      const float* key_valid, const float* out,
                                      const float* lse, const float* d_out, float* delta,
@@ -366,19 +498,23 @@ int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float
 
   const Operands a = {q, k, v, key_valid, lse, d_out, delta, dq, dk, dv,
                       len, heads, scale, seed, threshold, keep_scale};
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             kDqSmem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  flash_bwd_dq_kernel<<<dim3((len + kDqRows - 1) / kDqRows, heads, batch), kWarps * 32,
+                        kDqSmem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+
+  // after the dq kernel: it leaves D' in delta
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
   if (err != cudaSuccess) return (int)err;
   flash_bwd_dkdv_kernel<<<dim3((len + kKvKeys - 1) / kKvKeys, heads, batch), kWarps * 32,
                           kDkdvSmem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<dim3((len + kTileRows - 1) / kTileRows, heads, batch), kWarps * 32,
-                        kDqSmem, s>>>(a);
   return (int)cudaGetLastError();
 }
 

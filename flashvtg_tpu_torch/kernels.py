@@ -88,6 +88,24 @@ def build_all() -> Dict[str, str]:
     return reports
 
 
+def sass_mma_counts(name: str) -> Dict[str, int]:
+    """{kernel function: its tensor-core instructions (SASS lines naming
+    HMMA)} in the built library of `name`, from cuobjdump --dump-sass."""
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
+    sass = subprocess.run([tool, "--dump-sass", library_path(name)], capture_output=True,
+                          text=True, check=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :", 1)[1].strip()
+            counts[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            counts[fn] += 1
+    return counts
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `name`, built first if needed."""
     lib = _libs.get(name)

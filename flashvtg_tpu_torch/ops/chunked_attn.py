@@ -192,7 +192,10 @@ def _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads, dropout=0.0, see
     if d_out.shape != q.shape or d_out.dtype != torch.float32:
         raise ValueError(f"{tag}: d_out {tuple(d_out.shape)} {d_out.dtype}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = q.new_empty((b, num_heads, length))  # rowsum(dO * O), the pre-pass
+    # scratch: D = rowsum(dO * O) from the pre-pass, then overwritten in
+    # place with D' = rowsum(P z dP) by the dq kernel, which must run before
+    # the dk/dv kernel that reads D'
+    delta = q.new_empty((b, num_heads, length))
     rc = kernels.load("flash_attention_bwd").flashvtg_flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), d_out.data_ptr(), delta.data_ptr(),

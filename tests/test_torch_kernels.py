@@ -7,9 +7,11 @@ without JAX:
 
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 
-Tolerance: atol 1e-5 on out and head_mean; both sides compute in float32
-(no TF32), and differ only in the order of their sums (the flash kernel's
-online softmax adds a rescale per key tile). Gradients: see GRAD_RTOL below.
+Tolerance: atol 1e-5 on out and head_mean; both sides are f32-accurate
+(the ACA kernels in float32 on CUDA cores, the flash kernels' products on
+the tensor cores in 3xTF32, never 1xTF32), and differ in the order of their
+sums (the flash kernel's online softmax adds a rescale per key chunk).
+Gradients: see GRAD_RTOL below.
 """
 
 import numpy as np
@@ -139,6 +141,9 @@ def _ragged(b, length, seed):
         (2, 77),  # shorter than one tile
         (2, 1),  # one clip
         (1, chunked_attn.MAX_LEN),  # the largest v_bucket: 32 key tiles
+        (3, 15),  # the mma tile edges: one short of a 16-row warp tile
+        (3, 17),  # one past it
+        (2, 2047),  # one short of the last 128-key tile
     ],
 )
 def test_flash_kernel_matches_plain(cuda, b, length):
@@ -330,37 +335,69 @@ def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, dono
         (3, 700, "holes", 0.1),
         (3, 700, "one_key", 0.1),
         (3, 700, "all_masked_tiles", 0.1),
+        # the mma tile edges (16-row warp tiles, 8-key n-tiles, 64-key
+        # chunks, 128-key stages), each at dropout 0 and 0.1
+        (2, 1, "ragged", 0.1),
+        (3, 15, "ragged", 0.0),
+        (3, 15, "ragged", 0.1),
+        (3, 17, "ragged", 0.0),
+        (3, 17, "ragged", 0.1),
+        (3, 129, "ragged", 0.0),
+        (2, 2047, "ragged", 0.0),
+        (2, 2047, "ragged", 0.1),
+        (1, chunked_attn.MAX_LEN, "ragged", 0.0),
+        (3, 700, "last_tile_key", 0.0),  # one valid key, in the last tile
+        (3, 700, "last_tile_key", 0.1),
+        (2, 2047, "last_tile_key", 0.1),
+        (3, 300, "empty_row", 0.0),  # a batch row with no valid key
+        (3, 300, "empty_row", 0.1),
     ],
 )
 def test_flash_train_kernels_match_plain(cuda, b, length, case, p):
     q, k, v, _ = _inputs(b, length, length, 8, 21)
     rng = np.random.default_rng(22)
-    if case == "ragged":
+    if case in ("ragged", "empty_row"):
         valid = _ragged(b, length, 23)
+        if case == "empty_row":
+            valid[1] = 0.0
     elif case == "holes":
         valid = _holes(b, length, 24)
     else:
         valid_np = np.zeros((b, length), np.float32)
         if case == "one_key":
             valid_np[np.arange(b), rng.integers(0, length, b)] = 1.0
+        elif case == "last_tile_key":
+            valid_np[np.arange(b), length - 1 - rng.integers(0, (length - 1) % 128 + 1, b)] = 1.0
         else:  # valid keys only in the second and last 128-key tiles
             valid_np[:, 130:140] = 1.0
             valid_np[:, 650:] = 1.0
         valid = torch.from_numpy(valid_np)
+    # the plain forward gives NaN at a batch row with no valid key, the
+    # kernel zeros: forwards are compared on the other rows
+    live = valid.sum(dim=1) > 0
     d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(25))
     t = [x.to(cuda) for x in (q, k, v, valid)]
     seed = 4321
     out, lse = chunked_attn._launch(*t, 8, p, seed, want_lse=True)
     ref_out, ref_lse = chunked_attn.flash_attention_plain(*t, 8, p, seed, want_lse=True)
     torch.cuda.synchronize()
-    assert (out - ref_out).abs().max().item() <= ATOL
-    assert (lse - ref_lse).abs().max().item() <= ATOL
+    assert (out - ref_out)[live].abs().max().item() <= ATOL
+    assert (lse - ref_lse)[live].abs().max().item() <= ATOL
+    assert torch.equal(out[~live], torch.zeros_like(out[~live]))
     grads = chunked_attn._launch_bwd(*t, out, lse, d_out.to(cuda), 8, p, seed)
-    ref = chunked_attn.flash_attention_bwd_plain(*t, ref_out, ref_lse, d_out.to(cuda), 8, p,
-                                                 seed)
+    # the plain backward in float64 on the same inputs: where one key is
+    # valid, dS = P (z dP - D) is 0 up to rounding and dk sums that rounding
+    # over every query row, so the f32 plain's own dk lies near the 1e-5
+    # floor there, and the kernel's f32 sums round in another order (3xTF32
+    # on the tensor cores)
+    t64 = [x.double() for x in t[:3]] + [t[3]]
+    out64, lse64 = chunked_attn.flash_attention_plain(*t64, 8, p, seed, want_lse=True)
+    ref = chunked_attn.flash_attention_bwd_plain(*t64, out64, lse64, d_out.to(cuda).double(), 8,
+                                                 p, seed)
     torch.cuda.synchronize()
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
-        assert _rel_err(got, want) <= GRAD_RTOL, name
+        assert _rel_err(got.double(), want) <= GRAD_RTOL, name
+        assert torch.equal(got[~live], torch.zeros_like(got[~live])), name
     again = chunked_attn._launch_bwd(*t, out, lse, d_out.to(cuda), 8, p, seed)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
@@ -405,3 +442,87 @@ def test_attention_functions_count_and_match_cpu(cuda):
     assert chunked_attn.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 1}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert _rel_err(got, want) <= GRAD_RTOL
+
+
+# --- the accuracy of the 3xTF32 sums ---------------------------------------
+
+_DOTS_SOURCE = r"""
+#include "attn_common.cuh"
+
+// C = A B^T for 16 x 8 tiles of A (16 x kDh) and B (8 x kDh): way 0 an f32
+// FMA loop, way 1 dot_3xtf32, way 2 the twelve products chained into one
+// accumulator
+__global__ void dots(const float* A, const float* B, float* C, int way) {
+  const int tile = blockIdx.x * 4 + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const float* a = A + (size_t)tile * 16 * kDh;
+  const float* b = B + (size_t)tile * 8 * kDh;
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  FragA fa[kDh / 8];
+  for (int ks = 0; ks < kDh / 8; ++ks) {
+    const float* a0 = a + g * kDh + 8 * ks + t;
+    fa[ks] = frag_a(a0[0], a0[8 * kDh], a0[4], a0[8 * kDh + 4]);
+  }
+  if (way == 0) {
+    for (int e = 0; e < 4; ++e) {
+      const float* ar = a + (g + 8 * (e >> 1)) * kDh;
+      const float* br = b + (2 * t + (e & 1)) * kDh;
+      for (int k = 0; k < kDh; ++k) c[e] = fmaf(ar[k], br[k], c[e]);
+    }
+  } else if (way == 1) {
+    dot_3xtf32(c, fa, b + g * kDh + t, 1.f);
+  } else {
+    for (int ks = 0; ks < kDh / 8; ++ks) {
+      const float* br = b + g * kDh + 8 * ks + t;
+      mma_3xtf32(c, fa[ks], frag_b(br[0], br[4]));
+    }
+  }
+  float* o = C + (size_t)tile * 16 * 8;
+  for (int e = 0; e < 4; ++e) o[(g + 8 * (e >> 1)) * 8 + 2 * t + (e & 1)] = c[e];
+}
+
+extern "C" int run(const float* A, const float* B, float* C, int tiles, int way) {
+  dots<<<tiles / 4, 128>>>(A, B, C, way);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def test_dot_3xtf32_as_accurate_as_an_fma_loop(cuda, tmp_path):
+    """The tensor core's f32 accumulation truncates, so the flash kernels'
+    dot_3xtf32 takes each k-step's big product in a fresh accumulator. On
+    524,288 dot products of 32 standard-normal terms (dP = dO V^T's shape),
+    its error against float64 is no larger than an f32 FMA loop's, at the
+    largest and in rms. Prints each way's errors (-s shows them); the
+    twelve products chained into one accumulator are printed for
+    comparison."""
+    import ctypes
+    import json
+    import subprocess
+
+    from flashvtg_tpu_torch import kernels
+
+    src, lib = tmp_path / "dots.cu", tmp_path / "libdots.so"
+    src.write_text(_DOTS_SOURCE)
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    subprocess.run([kernels._nvcc(), *flags, "-I", kernels.CSRC, "-o", str(lib), str(src)],
+                   check=True)
+    dll = ctypes.CDLL(str(lib))
+    dll.run.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2
+    dll.run.restype = ctypes.c_int
+    tiles = 4096
+    g = torch.Generator().manual_seed(0)
+    a = torch.randn((tiles, 16, 32), generator=g).to(cuda)
+    b = torch.randn((tiles, 8, 32), generator=g).to(cuda)
+    ref = torch.einsum("tik,tnk->tin", a.double(), b.double())
+    errs = {}
+    for way, name in enumerate(("f32_fma", "dot_3xtf32", "3xtf32_chained")):
+        c = torch.empty((tiles, 16, 8), device=cuda)
+        assert dll.run(a.data_ptr(), b.data_ptr(), c.data_ptr(), tiles, way) == 0, name
+        torch.cuda.synchronize()
+        err = c.double() - ref
+        errs[name] = (err.abs().max().item(), err.pow(2).mean().sqrt().item())
+        print(json.dumps(dict(way=name, dots=c.numel(), max_abs_err=errs[name][0],
+                              rms_err=errs[name][1], mean_err=err.mean().item())))
+    assert errs["dot_3xtf32"][0] <= errs["f32_fma"][0]
+    assert errs["dot_3xtf32"][1] <= errs["f32_fma"][1]
