@@ -9,10 +9,11 @@ Phases, each failing loudly:
      float32 without TF32 for matmuls and cuDNN;
   2. build: compiles every CUDA kernel of the port from its sources, one
      nvcc per source, all at once, and counts each kernel's tensor-core
-     instructions in its SASS (cuobjdump): the flash kernels, 3xTF32 on
-     mma.sync, must have some;
+     instructions in its SASS (cuobjdump): every kernel that takes a dot
+     product (3xTF32 on mma.sync) must have some, all but the flash
+     backward's D pre-pass and the ACA backward's chunk-sum pass;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
-     two eval paths give them (atol 1e-5: both are f32-accurate, the flash
+     two eval paths give them (atol 1e-5: both are f32-accurate, the
      kernels' products in 3xTF32, and differ in the order of their sums),
      with times, bounds and yardsticks:
      the ACA and short self-attention kernel at the flagship shapes and at
@@ -976,9 +977,11 @@ def main():
     log(f"[build] {time.perf_counter() - t0:.2f} s")
     hmma = {name: kernels.sass_mma_counts(name) for name in kernels.SOURCES}
     log(f"[build] tensor-core instructions (SASS HMMA lines) per kernel: {json.dumps(hmma)}")
-    for name in ("flash_attention", "flash_attention_bwd"):  # 3xTF32 on mma.sync
+    for name in kernels.SOURCES:  # every product in 3xTF32 on mma.sync
         for fn, n in hmma[name].items():
-            if "delta" not in fn:  # the pre-pass D = rowsum(dO O) has no product
+            # the flash pre-pass D = rowsum(dO O) and the ACA backward's sum of
+            # its chunks' partial dk and dv have no product
+            if "delta" not in fn and "reduce" not in fn:
                 assert n > 0, f"{fn}: no tensor-core instruction"
 
     rows, shapes = phase_kernels(dev, args.seed)

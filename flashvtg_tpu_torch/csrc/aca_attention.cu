@@ -1,5 +1,6 @@
 // Fused masked attention with dummy-dropping values and a fused head mean,
-// for Hopper (sm_90a), f32 on CUDA cores.
+// for Hopper (sm_90a): the products on the tensor cores in 3xTF32
+// (f32-accurate).
 //
 // Replaces: scripts/bench_aca.py:_aca_kernel / aca_attention, the Pallas ACA
 // kernel written for the TPU. Its function runs at every Adaptive
@@ -22,44 +23,56 @@
 // valid token) gets uniform weights over all Lk keys, as the Pallas
 // kernel's -1e30 fill gives; the plain PyTorch twin gives NaN there.
 //
-// What bounds it: at the flagship eval shapes (B=256, Lv=75, Lk=42, H=8,
-// Dh=32) it moves ~65 MB (q, k, v, out, head_mean once each) and does
-// ~1.45 GFLOP of f32 products (q.k and p.v), so bytes and operations bound
-// it about equally on an H100 (~19 us at 3.35 TB/s, ~22 us at 67 TFLOP/s).
-// The products are small (Lk <= 128 keys of 32 floats), so the kernel is
-// held back by what a simple one feeds its FMAs with: shared-memory loads
-// (one 128-byte wavefront a cycle per SM against four warp-wide FMAs),
-// load latency, and too few warps in flight. The design, as a small GEMM:
-//  * a block owns one batch row and a tile of up to 40 query rows, and loops
-//    over the heads; one head's K, V and Q tile are staged in shared memory
-//    by coalesced 16-byte cp.async copies, each input read once per block,
-//    in two stages: the next head's copies fly while this head computes;
-//  * q.k: a warp owns 8 query rows and a lane owns keys lane + 32 t, so a
-//    lane keeps 8 x KPL dot products in registers; each 16-byte K load
-//    (rows padded to 36 floats: eight lanes on eight rows hit 32 distinct
-//    banks) serves 8 rows, each broadcast Q load serves KPL keys; the warp
-//    scales its Q rows once in shared memory, not in the inner loop;
-//  * the softmax runs on those registers with warp shuffles; the head-mean
-//    sums stay in the same registers across heads (one thread owns a
-//    (row, key) for every head: a fixed summation order, no atomics, a
-//    deterministic map);
-//  * p.v: a lane owns one of the warp's rows and 8 of the 32 output columns;
-//    each 16-byte P load serves 4 keys and each V load 8 rows (broadcast);
-//    P rows are padded to 32 t + 4 floats so the 8 rows hit distinct banks;
-//  * for Lk <= 96 the registers are capped so that four blocks of five warps
-//    fit an SM: the flagship ACA grid (2 x 256 blocks) runs in one wave.
-// The (B, H, Lv, Lk) logits and probabilities never leave the SM. No tensor
-// cores and no TF32: this is the f32 parity mode.
+// What bounds it: bytes, at every shape the model gives it
+// (chip_smoke.py:attention_bound; dot products priced at 3xTF32's 495 / 3 =
+// 165 TFLOP/s). Per valid (b, h, i, j) pair it does 128 FLOP of dot products
+// and ~6 other operations, against 2 x 4 x 32 bytes of q and out per (b, i,
+// h) and 4 bytes of head mean per (b, i, j): at the flagship eval shape
+// (B=256, Lv 75, Lk 42, H 8) ~65 MB, 0.019 ms at 3.35 TB/s; at TACoS eval
+// (B=8, Lv 2048, Lk 75) ~38.5 MB, 0.012 ms; the training forms move the
+// same bytes plus the row log-sum-exp. The design:
+//  * a block owns one batch row and a tile of query rows in 16-row warp
+//    tiles (the M of mma.sync.m16n8k8), as few warps as cover the rows
+//    evenly, at most 5 (75 rows -> 80, one block; 2048 rows -> 26 blocks of
+//    80), fewer where the grid would hold under 1.5 blocks an SM (the
+//    flagship train shape, 64 x 75 rows: 320 blocks of one warp instead of
+//    64 of five), and loops over the heads: one head's K, V and Q tile go
+//    through a ring of two cp.async stages, the next head's copies in flight
+//    while this head computes (rows padded to 36 floats: every fragment load
+//    of a warp hits 32 distinct banks);
+//  * keys are padded to a multiple of 8 (the mma n-tile), not of 32: 42 ->
+//    48, 75 -> 80; S = (scale Q) K^T goes to mma accumulators with each
+//    k-step's big product in a fresh accumulator (attn_common.cuh
+//    dot_3xtf32, the same helper and order as the backward, which recomputes
+//    S bit for bit);
+//  * the softmax runs on the C fragments: a lane holds two rows, and the row
+//    max and sum are taken across the four lanes of a quad with shuffles;
+//    p = exp2((s - m) log2 e) on the SFU, exactly 1 at the row's max, and
+//    lse = m + log(l) in natural-log units (so the backward's P at a row
+//    with one valid key is exactly 1);
+//  * the head-mean sums stay in registers across heads: with the warp-to-row
+//    map fixed, a lane owns the same (row, key) C positions for every head,
+//    so the sum over heads has a fixed order and needs no atomics;
+//  * p.v takes P from registers as the A operand (the C layout holds keys
+//    {2t, 2t+1}, so V's key rows are read in that order); the dummies' key
+//    tiles are skipped and P is 0 at the dummies' columns; each 64 keys'
+//    p.v goes to fresh accumulators added on the CUDA cores (the tensor
+//    core's f32 sums truncate).
+// Why 3xTF32 is the f32 parity mode: each operand is split into two TF32
+// parts (attn_common.cuh), and the three products keep about 22 significant
+// bits, the accuracy of f32 on CUDA cores (CUTLASS's OpMultiplyAddFastF32);
+// a single TF32 product keeps about three decimal digits and is not used
+// (tests/test_torch_tf32x3.py emulates both).
 //
 // Training form (flashvtg_aca_attention_train_f32, template TRAIN; the eval
-// entry point compiles without it, unchanged): it also writes the row
-// log-sum-exp lse[b, h, i] = max + log(sum) for the backward kernel
-// (aca_attention_bwd.cu); it multiplies the probabilities that feed p.v by
-// the attention-dropout scale (attn_dropout.cuh, the hash evaluated in
-// registers), while the head mean keeps them undropped, as
-// transformer.py:117-127; and it takes the reference's misaligned train mask
-// (transformer.py:34-48, 107-116): with donor rows, (i, j) of (b, h) is also
-// masked where !query_valid[d, i] && !key_valid[d, j], d = donor_rows[b, h].
+// entry point compiles without it): it also writes the row log-sum-exp
+// lse[b, h, i] = m + log(l) for the backward kernel (aca_attention_bwd.cu);
+// it multiplies the probabilities that feed p.v by the attention-dropout
+// scale (attn_dropout.cuh, the hash evaluated at each fragment's (i, j)),
+// while the head mean keeps them undropped, as transformer.py:117-127; and it
+// takes the reference's misaligned train mask (transformer.py:34-48,
+// 107-116): with donor rows, (i, j) of (b, h) is also masked where
+// !query_valid[d, i] && !key_valid[d, j], d = donor_rows[b, h].
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -70,47 +83,40 @@
 
 namespace {
 
-constexpr int kMaxWarps = 5;
-constexpr int kMaxTileRows = kRowsPerWarp * kMaxWarps;
+constexpr int kMaxWarps = 5;  // 16 query rows each
 constexpr int kMaxKeys = 128;
+constexpr int kPvChunk = 8;  // key n-tiles (64 keys) per fresh p.v accumulator set
 constexpr float kMasked = -1e30f;
 
-__host__ __device__ constexpr int round4(int n) { return (n + 3) & ~3; }
+__host__ __device__ constexpr int round8(int n) { return (n + 7) & ~7; }
 
-// One head's staged inputs, in floats: K (lk x kKStride), V (round4(lk) x
-// kDh, the rows past lk zero), the Q tile (tile_rows x kDh).
+// One head's staged inputs, in floats: K and V (round8(lk) rows each), the
+// Q tile (tile_rows rows); every row kKStride floats.
 __host__ __device__ constexpr int stage_floats(int lk, int tile_rows) {
-  return lk * kKStride + round4(lk) * kDh + tile_rows * kDh;
+  return (2 * round8(lk) + tile_rows) * kKStride;
 }
 
-// Shared memory of one block, in floats: two stages (the next head loads
-// while this one computes), then P (tile_rows x (32 KPL + 4)). Every part
-// starts 16-byte aligned.
-__host__ __device__ constexpr int smem_floats(int lk, int kpl, int tile_rows) {
-  return 2 * stage_floats(lk, tile_rows) + tile_rows * (32 * kpl + 4);
-}
-
-// Starts the copies of head h's K, V and Q tile into `stage`. Tile rows past
-// lv copy row lv - 1: they are computed and never written back.
-__device__ __forceinline__ void load_head(float* stage, const float* qb,
-                                          const float* kb, const float* vb,
-                                          int h, int row0, int lv, int lk,
+// Starts the copies of head h's K, V and Q tile into `stage`. Key rows past
+// lk are never copied (zeroed once at the start); tile rows past lv copy
+// row lv - 1: they are computed and never written back.
+__device__ __forceinline__ void load_head(float* stage, const float* qb, const float* kb,
+                                          const float* vb, int h, int row0, int lv, int lk,
                                           int d_model, int tile_rows) {
   float* k_s = stage;
-  float* v_s = k_s + lk * kKStride;
-  float* q_s = v_s + round4(lk) * kDh;
+  float* v_s = k_s + round8(lk) * kKStride;
+  float* q_s = v_s + round8(lk) * kKStride;
   for (int i = threadIdx.x; i < lk * (kDh / 4); i += blockDim.x) {
     const int j = i >> 3;
     const int c = (i & 7) * 4;
     const size_t g = (size_t)j * d_model + h * kDh + c;
     cp_async16(k_s + j * kKStride + c, kb + g);
-    cp_async16(v_s + j * kDh + c, vb + g);
+    cp_async16(v_s + j * kKStride + c, vb + g);
   }
   for (int i = threadIdx.x; i < tile_rows * (kDh / 4); i += blockDim.x) {
     const int r = i >> 3;
     const int c = (i & 7) * 4;
     const int row = min(row0 + r, lv - 1);
-    cp_async16(q_s + r * kDh + c, qb + (size_t)row * d_model + h * kDh + c);
+    cp_async16(q_s + r * kKStride + c, qb + (size_t)row * d_model + h * kDh + c);
   }
 }
 
@@ -125,204 +131,223 @@ struct TrainArgs {
   float keep_scale;    // 1 / (1 - p)
 };
 
-// KPL = keys per lane = ceil(Lk / 32); HM = write the head mean; TRAIN = the
-// training form.
-template <int KPL, bool HM, bool TRAIN>
-__global__ void __launch_bounds__(kMaxWarps * 32, (KPL <= 3 && !TRAIN) ? 4 : 2)
+// NT = round16(lk) / 8, the key n-tiles (8 keys each) of this instance (2,
+// 4, ..., 16); the launch's own count is round8(lk) / 8 (NT or NT - 1). HM = write the head
+// mean; TRAIN = the training form. A lane's keys are 8 n + 2 t + c (n < NT,
+// c in {0, 1}), bit 2 n + c of its key masks.
+template <int NT, bool HM, bool TRAIN>
+__global__ void __launch_bounds__(kMaxWarps * 32, NT <= 10 ? 3 : 2)
 aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v,
-                     const float* __restrict__ key_valid,
-                     float* __restrict__ out, float* __restrict__ head_mean,
-                     int lv, int lk, int heads, int nd, int tile_rows,
-                     float scale, TrainArgs tr) {
-  constexpr int kPStride = 32 * KPL + 4;
+                     const float* __restrict__ v, const float* __restrict__ key_valid,
+                     float* __restrict__ out, float* __restrict__ head_mean, int lv, int lk,
+                     int heads, int nd, int tile_rows, float scale, TrainArgs tr) {
   extern __shared__ float4 smem4[];
   float* stages = reinterpret_cast<float*>(smem4);
   const int stage_size = stage_floats(lk, tile_rows);
-  float* p_s = stages + 2 * stage_size;
+  const int lkp = round8(lk);
+  const int nt = lkp >> 3;
+  const int kk0 = nd >> 3;  // the first key tile that holds a non-dummy key
 
   const int b = blockIdx.y;
-  const int row0 = blockIdx.x * tile_rows;
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int wrow = warp * kRowsPerWarp;  // the warp's first row in the tile
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int wrow = warp * 16;  // the warp's first row in the tile
+  const int row0 = (int)blockIdx.x * tile_rows + wrow + g;
+  const int row[2] = {row0, row0 + 8};  // this lane's rows (may be >= lv)
   const int d_model = heads * kDh;
   const float* qb = q + (size_t)b * lv * d_model;
   const float* kb = k + (size_t)b * lk * d_model;
   const float* vb = v + (size_t)b * lk * d_model;
+  const bool drop = TRAIN && tr.threshold != 0u;
 
-  // zero V's padding rows once in each stage: p.v reads keys in fours
-  for (int i = threadIdx.x; i < 2 * (round4(lk) - lk) * kDh; i += blockDim.x) {
-    const int st = i / ((round4(lk) - lk) * kDh);
-    const int e = i - st * (round4(lk) - lk) * kDh;
-    stages[st * stage_size + lk * kKStride + lk * kDh + e] = 0.f;
+  // zero K's and V's padding rows once in each stage: P is 0 there, and 0
+  // times stale shared memory could be NaN
+  for (int i = threadIdx.x; i < 2 * 2 * (lkp - lk) * kKStride; i += blockDim.x) {
+    const int per_stage = 2 * (lkp - lk) * kKStride;
+    const int st = i / per_stage;
+    const int e = i - st * per_stage;
+    const int part = e / ((lkp - lk) * kKStride);  // 0: K, 1: V
+    const int off = e - part * (lkp - lk) * kKStride;
+    stages[st * stage_size + part * lkp * kKStride + lk * kKStride + off] = 0.f;
   }
 
-  // keys of this lane in the q.k phase; past lk they read key lk - 1 and
-  // are dropped from the softmax
-  bool key_ok[KPL];
-  bool in_range[KPL];
-  int key_off[KPL];
+  // this lane's keys: in range, and valid in batch row b
+  uint32_t in_bits = 0u, ok_bits = 0u;
 #pragma unroll
-  for (int t = 0; t < KPL; ++t) {
-    const int j = lane + 32 * t;
-    in_range[t] = j < lk;
-    key_ok[t] = in_range[t] && key_valid[(size_t)b * lk + j] > 0.f;
-    key_off[t] = (in_range[t] ? j : lk - 1) * kKStride;
-  }
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int j = 8 * n + 2 * t + c;
+      if (j < lk) {
+        in_bits |= 1u << (2 * n + c);
+        if (key_valid[(size_t)b * lk + j] > 0.f) ok_bits |= 1u << (2 * n + c);
+      }
+    }
 
-  float hm[kRowsPerWarp][KPL];
+  float hm[NT][4];
   if (HM) {
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
+    for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int t = 0; t < KPL; ++t) hm[r][t] = 0.f;
+      for (int e = 0; e < 4; ++e) hm[n][e] = 0.f;
   }
 
-  // p.v phase: row wrow + pr, columns pc .. pc + 7
-  const int pr = lane >> 2;
-  const int pc = (lane & 3) * 8;
-  const int j_first = nd & ~3;  // P is 0 at the dummies below nd
-
-  load_head(stages, qb, kb, vb, 0, row0, lv, lk, d_model, tile_rows);
+  load_head(stages, qb, kb, vb, 0, (int)blockIdx.x * tile_rows, lv, lk, d_model, tile_rows);
   cp_async_commit();
   for (int h = 0; h < heads; ++h) {
     if (h + 1 < heads) {
-      load_head(stages + ((h + 1) & 1) * stage_size, qb, kb, vb, h + 1, row0,
-                lv, lk, d_model, tile_rows);
+      load_head(stages + ((h + 1) & 1) * stage_size, qb, kb, vb, h + 1,
+                (int)blockIdx.x * tile_rows, lv, lk, d_model, tile_rows);
     }
     cp_async_commit();
     cp_async_wait_all_but_newest();  // this thread's copies of head h landed
     __syncthreads();                 // and every other thread's
     const float* k_s = stages + (h & 1) * stage_size;
-    const float* v_s = k_s + lk * kKStride;
-    float* q_s = stages + (h & 1) * stage_size + lk * kKStride + round4(lk) * kDh;
+    const float* v_s = k_s + lkp * kKStride;
+    const float* q_s = v_s + lkp * kKStride;
 
-    // training form: this head's donor row and dropout hash
-    bool kpad_d[KPL];
-    const float* qvalid_d = nullptr;
-    uint32_t drop_h = 0;
-#pragma unroll
-    for (int t = 0; t < KPL; ++t) kpad_d[t] = false;
+    // training form: this head's donor-row mask and dropout hashes
+    uint32_t mask_bits[2] = {ok_bits, ok_bits};
+    uint32_t drop_r[2] = {0u, 0u};
     if (TRAIN) {
       if (tr.donor_rows != nullptr) {
         const int d = tr.donor_rows[b * heads + h];
-        qvalid_d = tr.query_valid + (size_t)d * lv;
+        uint32_t pad_bits = 0u;  // keys padded in the donor row
 #pragma unroll
-        for (int t = 0; t < KPL; ++t) {
-          kpad_d[t] = in_range[t] && key_valid[(size_t)d * lk + lane + 32 * t] <= 0.f;
+        for (int n = 0; n < NT; ++n)
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int j = 8 * n + 2 * t + c;
+            if (j < lk && key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+          }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (tr.query_valid[(size_t)d * lv + min(row[r], lv - 1)] <= 0.f) {
+            mask_bits[r] &= ~pad_bits;
+          }
         }
       }
-      drop_h = drop_head(tr.seed, b * heads + h);
-    }
-
-    // the warp scales its own 8 rows of q before the dot product
-    for (int i = lane * 4; i < kRowsPerWarp * kDh; i += 128) {
-      float4 x = ld4(q_s + wrow * kDh + i);
-      x.x *= scale;
-      x.y *= scale;
-      x.z *= scale;
-      x.w *= scale;
-      st4(q_s + wrow * kDh + i, x);
-    }
-    __syncwarp();
-
-    // q.k: 8 rows x KPL keys per lane
-    float s[kRowsPerWarp][KPL];
-#pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r)
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) s[r][t] = 0.f;
-#pragma unroll
-    for (int d = 0; d < kDh; d += 4) {
-      float4 kk[KPL];
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) kk[t] = ld4(k_s + key_off[t] + d);
-#pragma unroll
-      for (int r = 0; r < kRowsPerWarp; ++r) {
-        const float4 qq = ld4(q_s + (wrow + r) * kDh + d);
-#pragma unroll
-        for (int t = 0; t < KPL; ++t) {
-          float a = s[r][t];
-          a = fmaf(qq.x, kk[t].x, a);
-          a = fmaf(qq.y, kk[t].y, a);
-          a = fmaf(qq.z, kk[t].z, a);
-          a = fmaf(qq.w, kk[t].w, a);
-          s[r][t] = a;
-        }
+      if (drop) {
+        const uint32_t drop_h = drop_head(tr.seed, b * heads + h);
+        drop_r[0] = drop_row(drop_h, row[0]);
+        drop_r[1] = drop_row(drop_h, row[1]);
       }
     }
 
-    // softmax per row; P keeps the non-dummy probabilities
-    float* pw = p_s + wrow * kPStride;
+    // S = (scale Q) K^T over the key tiles
+    float s[NT][4];
+    {
+      FragA qf[kDh / 8];
+      const float* q0 = q_s + (wrow + g) * kKStride + t;
+      const float* q1 = q0 + 8 * kKStride;
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row_r = row0 + wrow + r;  // may be >= lv: computed, not written
-      bool qpad = false;
-      if (TRAIN && qvalid_d != nullptr) qpad = qvalid_d[min(row_r, lv - 1)] <= 0.f;
-      float mx = kMasked;
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) {
-        if (!key_ok[t] || (TRAIN && qpad && kpad_d[t])) s[r][t] = kMasked;
-        mx = fmaxf(mx, s[r][t]);
-      }
-      mx = warp_max(mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int t = 0; t < KPL; ++t) {
-        s[r][t] = in_range[t] ? expf(s[r][t] - mx) : 0.f;
-        sum += s[r][t];
-      }
-      const float total = warp_sum(sum);
-      const float inv_sum = 1.f / total;
-      uint32_t drop_r = 0;
-      if (TRAIN) {
-        if (tr.lse != nullptr && lane == 0 && row_r < lv) {
-          tr.lse[((size_t)b * heads + h) * lv + row_r] = mx + logf(total);
-        }
-        drop_r = drop_row(drop_h, row_r);
+      for (int ks = 0; ks < kDh / 8; ++ks) {
+        qf[ks] = frag_a(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
+                        q1[8 * ks + 4] * scale);
       }
 #pragma unroll
-      for (int t = 0; t < KPL; ++t) {
-        const int j = lane + 32 * t;
-        const float p = s[r][t] * inv_sum;
-        if (HM) hm[r][t] += p;
-        float pv = p;  // the probability p.v reads: dropped in training
-        if (TRAIN && tr.threshold != 0u) {
-          pv *= drop_scale(drop_r, j, tr.threshold, tr.keep_scale);
-        }
-        pw[r * kPStride + j] = j >= nd ? pv : 0.f;
+      for (int n = 0; n < NT; ++n) {
+        if (n < nt) dot_3xtf32(s[n], qf, k_s + (8 * n + g) * kKStride + t, 1.f);
       }
     }
-    __syncwarp();
 
-    // p.v: one row, 8 columns per lane, keys in fours
-    float acc[8];
+    // masked keys to -1e30; the row max across the quad
+    float mx[2] = {kMasked, kMasked};
 #pragma unroll
-    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
-    const float* prow = pw + pr * kPStride;
-    for (int j = j_first; j < round4(lk); j += 4) {
-      const float4 pp = ld4(prow + j);
-      const float pj[4] = {pp.x, pp.y, pp.z, pp.w};
+    for (int n = 0; n < NT; ++n) {
+      if (n >= nt) continue;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float4 va = ld4(v_s + (j + u) * kDh + pc);
-        const float4 vc = ld4(v_s + (j + u) * kDh + pc + 4);
-        acc[0] = fmaf(pj[u], va.x, acc[0]);
-        acc[1] = fmaf(pj[u], va.y, acc[1]);
-        acc[2] = fmaf(pj[u], va.z, acc[2]);
-        acc[3] = fmaf(pj[u], va.w, acc[3]);
-        acc[4] = fmaf(pj[u], vc.x, acc[4]);
-        acc[5] = fmaf(pj[u], vc.y, acc[5]);
-        acc[6] = fmaf(pj[u], vc.z, acc[6]);
-        acc[7] = fmaf(pj[u], vc.w, acc[7]);
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        if (!((mask_bits[r] >> (2 * n + (e & 1))) & 1u)) s[n][e] = kMasked;
+        mx[r] = fmaxf(mx[r], s[n][e]);
       }
     }
-    const int row = row0 + wrow + pr;
-    if (row < lv) {
-      float* o = out + ((size_t)b * lv + row) * d_model + h * kDh + pc;
-      st4(o, make_float4(acc[0], acc[1], acc[2], acc[3]));
-      st4(o + 4, make_float4(acc[4], acc[5], acc[6], acc[7]));
+    float inv[2], l[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      l[r] = 0.f;
+    }
+    // e = exp2((s - m) log2 e) at keys in range (exactly 1 at the max), and
+    // the row sums across the quad, in a fixed order
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n >= nt) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const bool in = (in_bits >> (2 * n + (e & 1))) & 1u;
+        s[n][e] = in ? exp2_fast((s[n][e] - mx[r]) * kLog2e) : 0.f;
+        l[r] += s[n][e];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      inv[r] = 1.f / l[r];
+      if (TRAIN && tr.lse != nullptr && t == 0 && row[r] < lv) {
+        tr.lse[((size_t)b * heads + h) * lv + row[r]] = mx[r] + logf(l[r]);
+      }
+    }
+
+    // P; the head mean takes it undropped, p.v dropped and 0 at the dummies
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      if (n >= nt) continue;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const int j = 8 * n + 2 * t + (e & 1);
+        const float p = s[n][e] * inv[r];
+        if (HM) hm[n][e] += p;
+        float pz = j >= nd ? p : 0.f;
+        if (drop) pz *= drop_scale(drop_r[r], j, tr.threshold, tr.keep_scale);
+        s[n][e] = pz;
+      }
+    }
+
+    // O = P V: P from registers, V's key rows in the order 2t, 2t + 1; each
+    // 64 keys' sum in fresh accumulators, added on the CUDA cores
+    float o[kDh / 8][4];
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+    for (int c0 = 0; c0 < NT; c0 += kPvChunk) {
+      float pv[kDh / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int kk = c0; kk < c0 + kPvChunk && kk < NT; ++kk) {
+        if (kk < kk0 || kk >= nt) continue;
+        const FragA pa = frag_a_from_c(s[kk]);
+        const float* vr = v_s + (8 * kk + 2 * t) * kKStride + g;
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n) {
+          mma_3xtf32(pv[n], pa, frag_b(vr[8 * n], vr[kKStride + 8 * n]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= lv) continue;
+      float* orow = out + ((size_t)b * lv + row[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n) {
+        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+      }
     }
     __syncthreads();  // stage h & 1 is free for head h + 2
   }
@@ -330,57 +355,74 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if (HM) {
     const float fh = (float)heads;
 #pragma unroll
-    for (int r = 0; r < kRowsPerWarp; ++r) {
-      const int row = row0 + wrow + r;
-      if (row >= lv) break;
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] >= lv) continue;
+      float* hrow = head_mean + ((size_t)b * lv + row[r]) * lk;
 #pragma unroll
-      for (int t = 0; t < KPL; ++t) {
-        if (in_range[t]) {
-          head_mean[((size_t)b * lv + row) * lk + lane + 32 * t] = hm[r][t] / fh;
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = 8 * n + 2 * t + c;
+          if (j < lk) hrow[j] = hm[n][2 * r + c] / fh;
         }
-      }
     }
   }
 }
 
-template <int KPL, bool HM, bool TRAIN>
-cudaError_t launch(const float* q, const float* k, const float* v,
-                   const float* key_valid, float* out, float* head_mean,
-                   int batch, int lv, int lk, int heads, int nd, float scale,
-                   const TrainArgs& tr, cudaStream_t stream) {
-  // tiles of up to 40 rows, as even as 8-row warps allow
-  const int tiles = (lv + kMaxTileRows - 1) / kMaxTileRows;
-  const int warps = ((lv + tiles - 1) / tiles + kRowsPerWarp - 1) / kRowsPerWarp;
-  const int tile_rows = warps * kRowsPerWarp;
-  const size_t smem = sizeof(float) * smem_floats(lk, KPL, tile_rows);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        aca_attention_kernel<KPL, HM, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+template <int NT, bool HM, bool TRAIN>
+cudaError_t launch(const float* q, const float* k, const float* v, const float* key_valid,
+                   float* out, float* head_mean, int batch, int lv, int lk, int heads, int nd,
+                   float scale, const TrainArgs& tr, cudaStream_t stream) {
+  // row tiles of up to kMaxWarps 16-row warp tiles, as even as they allow;
+  // fewer warps a tile where that leaves the grid under 1.5 blocks an SM
+  // (the flagship train shape: 64 batch rows of 75)
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (err != cudaSuccess) return err;
   }
+  const int warp_tiles = (lv + 15) / 16;
+  int tiles = 1;
+  for (int most = kMaxWarps; most >= 1; --most) {
+    tiles = (warp_tiles + most - 1) / most;
+    if (2 * tiles * batch >= 3 * sms) break;
+  }
+  const int warps = (warp_tiles + tiles - 1) / tiles;
+  const int tile_rows = warps * 16;
+  const size_t smem = sizeof(float) * 2 * stage_floats(lk, tile_rows);
+  cudaError_t err = cudaFuncSetAttribute(aca_attention_kernel<NT, HM, TRAIN>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
   dim3 grid((lv + tile_rows - 1) / tile_rows, batch);
-  aca_attention_kernel<KPL, HM, TRAIN><<<grid, warps * 32, smem, stream>>>(
+  aca_attention_kernel<NT, HM, TRAIN><<<grid, warps * 32, smem, stream>>>(
       q, k, v, key_valid, out, head_mean, lv, lk, heads, nd, tile_rows, scale, tr);
   return cudaGetLastError();
 }
 
 template <bool HM, bool TRAIN>
-cudaError_t launch_kpl(int kpl, const float* q, const float* k, const float* v,
-                       const float* key_valid, float* out, float* head_mean,
-                       int batch, int lv, int lk, int heads, int nd, float scale,
-                       const TrainArgs& tr, cudaStream_t stream) {
-  switch (kpl) {
-    case 1: return launch<1, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
-    case 2: return launch<2, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
-    case 3: return launch<3, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
-    default: return launch<4, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream);
+cudaError_t launch_nt(const float* q, const float* k, const float* v, const float* key_valid,
+                      float* out, float* head_mean, int batch, int lv, int lk, int heads,
+                      int nd, float scale, const TrainArgs& tr, cudaStream_t stream) {
+#define ACA_LAUNCH(NT) \
+  launch<NT, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream)
+  switch ((lk + 15) / 16) {
+    case 1: return ACA_LAUNCH(2);
+    case 2: return ACA_LAUNCH(4);
+    case 3: return ACA_LAUNCH(6);
+    case 4: return ACA_LAUNCH(8);
+    case 5: return ACA_LAUNCH(10);
+    case 6: return ACA_LAUNCH(12);
+    case 7: return ACA_LAUNCH(14);
+    default: return ACA_LAUNCH(16);
   }
+#undef ACA_LAUNCH
 }
 
 bool bad_shape(int batch, int lv, int lk, int heads, int head_dim, int nd) {
-  return head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk ||
-         batch < 1 || batch > 65535 || lv < 1 || heads < 1;
+  return head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk || batch < 1 ||
+         batch > 65535 || lv < 1 || heads < 1;
 }
 
 }  // namespace
@@ -392,18 +434,16 @@ extern "C" {
 // (B, Lv, H*Dh), head_mean (B, Lv, Lk) or null; all f32, contiguous and
 // 16-byte aligned.
 int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
-                               const float* key_valid, float* out,
-                               float* head_mean, int batch, int lv, int lk,
-                               int heads, int head_dim, int nd, float scale,
+                               const float* key_valid, float* out, float* head_mean, int batch,
+                               int lv, int lk, int heads, int head_dim, int nd, float scale,
                                void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd)) return (int)cudaErrorInvalidValue;
-  const int kpl = (lk + 31) / 32;
   cudaStream_t s = (cudaStream_t)stream;
   const TrainArgs none = {nullptr, nullptr, nullptr, 0u, 0u, 1.f};
   if (head_mean != nullptr) {
-    return (int)launch_kpl<true, false>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
+    return (int)launch_nt<true, false>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
   }
-  return (int)launch_kpl<false, false>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
+  return (int)launch_nt<false, false>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
 }
 
 // The training form: as above, plus lse (B, H, Lv), attention dropout
@@ -412,22 +452,20 @@ int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
 // int32, or both null).
 int flashvtg_aca_attention_train_f32(const float* q, const float* k, const float* v,
                                      const float* key_valid, const float* query_valid,
-                                     const int* donor_rows, float* out,
-                                     float* head_mean, float* lse, int batch, int lv,
-                                     int lk, int heads, int head_dim, int nd,
-                                     float scale, unsigned seed, unsigned threshold,
-                                     float keep_scale, void* stream) {
+                                     const int* donor_rows, float* out, float* head_mean,
+                                     float* lse, int batch, int lv, int lk, int heads,
+                                     int head_dim, int nd, float scale, unsigned seed,
+                                     unsigned threshold, float keep_scale, void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd) || lse == nullptr ||
       (donor_rows == nullptr) != (query_valid == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const int kpl = (lk + 31) / 32;
   cudaStream_t s = (cudaStream_t)stream;
   const TrainArgs tr = {query_valid, donor_rows, lse, seed, threshold, keep_scale};
   if (head_mean != nullptr) {
-    return (int)launch_kpl<true, true>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
+    return (int)launch_nt<true, true>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
   }
-  return (int)launch_kpl<false, true>(kpl, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
+  return (int)launch_nt<false, true>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
 }
 
 }  // extern "C"

@@ -130,7 +130,7 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             "flashvtg_aca_attention_train_f32": [p] * 9 + [i] * 6 + train,
         },
         "aca_attention_bwd": {
-            "flashvtg_aca_attention_bwd_f32": [p] * 12 + [i] * 6 + train,
+            "flashvtg_aca_attention_bwd_f32": [p] * 13 + [i] * 7 + train,
         },
         "flash_attention": {
             "flashvtg_flash_attention_f32": [p] * 5 + [i] * 4 + [f, p],

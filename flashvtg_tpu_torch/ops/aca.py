@@ -2,7 +2,8 @@
 versions, forward and backward.
 
 Kernels: csrc/aca_attention.cu (forward) and csrc/aca_attention_bwd.cu
-(backward), hand-written CUDA for sm_90a, f32 on CUDA cores. The forward
+(backward), hand-written CUDA for sm_90a, their products on the tensor cores
+in 3xTF32 (f32-accurate). The forward
 replaces the Pallas kernel scripts/bench_aca.py:_aca_kernel (the TPU's fused
 ACA attention), whose function runs at every ACA layer of the model
 (flashvtg_tpu/models/transformer.py:80-128); with no dummies and no head
@@ -51,6 +52,29 @@ LAUNCHES: Dict[str, int] = {
 
 HEAD_DIM = 32
 MAX_KEYS = 128
+BWD_CHUNK_ROWS = 256  # about this many query rows a block of the backward kernel
+
+
+def bwd_tiling(lv: int, lk: int) -> Tuple[int, int, int]:
+    """(tile_rows, chunks, chunk_rows) of the backward kernel: a block owns
+    one (b, h) and one chunk of chunk_rows query rows, whole tiles of
+    tile_rows = 16 max(5, ceil(lk / 16)) rows (a 16-row tile per warp, and
+    at least a warp per 16 keys); chunk c holds rows [c chunk_rows,
+    (c + 1) chunk_rows) and every chunk holds a row. csrc/aca_attention_bwd.cu
+    computes chunk_rows from `chunks` by the same formula. With more than one
+    chunk the kernel leaves dk and dv as partial sums per chunk in a
+    workspace (bwd_workspace_shape) and a second pass adds them."""
+    tile_rows = 16 * max(5, -(-lk // 16))
+    tiles = -(-lv // tile_rows)
+    chunks = -(-tiles // -(-BWD_CHUNK_ROWS // tile_rows))
+    return tile_rows, chunks, tile_rows * -(-tiles // chunks)
+
+
+def bwd_workspace_shape(b: int, num_heads: int, lv: int, lk: int):
+    """The backward's scratch, (2, B, H, chunks, Lk, 32) f32 partial dk and
+    dv, or None where one chunk covers every row (no second pass)."""
+    chunks = bwd_tiling(lv, lk)[1]
+    return None if chunks == 1 else (2, b, num_heads, chunks, lk, HEAD_DIM)
 
 
 def reset_launch_counts() -> None:
@@ -267,11 +291,13 @@ def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dumm
         if d_head_mean.shape != (b, lv, lk) or d_head_mean.dtype != torch.float32:
             raise ValueError(f"{tag}: d_head_mean {tuple(d_head_mean.shape)}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    ws_shape = bwd_workspace_shape(b, num_heads, lv, lk)
+    workspace = None if ws_shape is None else q.new_empty(ws_shape)
     rc = kernels.load("aca_attention_bwd").flashvtg_aca_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(query_valid), _ptr(donor_rows), lse.data_ptr(), d_out.data_ptr(),
-        _ptr(d_head_mean), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b, lv, lk, num_heads, HEAD_DIM, num_dummies, HEAD_DIM ** -0.5,
+        _ptr(d_head_mean), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(workspace),
+        b, lv, lk, num_heads, HEAD_DIM, num_dummies, bwd_tiling(lv, lk)[1], HEAD_DIM ** -0.5,
         seed, threshold(dropout), 1.0 / (1.0 - dropout), _stream(q),
     )
     _check_rc(tag, rc)

@@ -5,7 +5,8 @@ Counterpart of flashvtg_tpu/ops/chunked_attn.py, which the JAX encoder runs
 whenever a video has more clips than attn_chunk (the long-video presets:
 2048 clips at tacos and charades_vgg), and whose backward the JAX train step
 gets from jax.checkpoint (each query chunk's probabilities recomputed).
-Kernels, hand-written CUDA for sm_90a, f32 on CUDA cores, that never hold the
+Kernels, hand-written CUDA for sm_90a, their products on the tensor cores in
+3xTF32 (f32-accurate), that never hold the
 (B, H, L, L) logits in device memory:
   * csrc/flash_attention.cu, an online softmax over key tiles; it takes the
     place of the long, memory-linear form of JAX's library Pallas

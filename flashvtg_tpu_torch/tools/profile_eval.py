@@ -44,7 +44,7 @@ def kernel_class(name: str) -> str:
         return "flash_attention"
     if "flash_bwd_" in low:
         return "flash_attention_bwd"
-    if "aca_attention_bwd_kernel" in low:
+    if "aca_attention_bwd" in low:  # the kernel and its chunk-sum pass
         return "aca_attention_bwd"  # the ACA and the short self-attention's
     hm = re.search(r"aca_attention_kernel<\d+,\s*(true|false)", low)
     if hm:

@@ -2,7 +2,9 @@
 nvcc nor a card is needed): a library's name follows its source, every
 header of csrc/ and the nvcc flags, so an edit is rebuilt and a stale
 library never loads; the tensor-core count is taken per kernel function
-from cuobjdump's SASS; a missing nvcc is reported by name."""
+from cuobjdump's SASS; a missing nvcc is reported by name; the ACA
+backward's row chunks and workspace (ops/aca.py:bwd_tiling, the formula
+csrc/aca_attention_bwd.cu repeats) cover every query row once."""
 
 import shutil
 import subprocess
@@ -10,6 +12,7 @@ import subprocess
 import pytest
 
 from flashvtg_tpu_torch import kernels
+from flashvtg_tpu_torch.ops import aca
 
 
 def test_library_path_follows_source_headers_and_flags(tmp_path, monkeypatch):
@@ -57,3 +60,27 @@ def test_missing_nvcc_is_named(tmp_path, monkeypatch):
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc not found"):
         kernels._nvcc()
+
+
+@pytest.mark.parametrize(
+    "lv,lk",
+    [(1, 1), (15, 7), (16, 8), (17, 9), (75, 42), (80, 75), (81, 75), (300, 75), (700, 42),
+     (2047, 75), (2048, 75), (2048, 128), (4096, 128)],
+)
+def test_aca_backward_chunks_cover_every_row(lv, lk):
+    tile_rows, chunks, chunk_rows = aca.bwd_tiling(lv, lk)
+    # 16-row warp tiles, a warp per 16 keys at least, whole tiles a chunk
+    assert tile_rows % 16 == 0 and tile_rows >= 16 * -(-lk // 16)
+    assert chunk_rows % tile_rows == 0
+    # every row in exactly one chunk, and no chunk empty (the kernel refuses one)
+    assert (chunks - 1) * chunk_rows < lv <= chunks * chunk_rows
+    rows = [c * chunk_rows + i for c in range(chunks) for i in range(chunk_rows)
+            if c * chunk_rows + i < lv]
+    assert rows == list(range(lv))
+    # about BWD_CHUNK_ROWS rows a chunk: more chunks than tiles never
+    assert chunk_rows <= max(tile_rows, aca.BWD_CHUNK_ROWS + tile_rows)
+    shape = aca.bwd_workspace_shape(3, 8, lv, lk)
+    if chunks == 1:  # one chunk writes dk and dv itself: no workspace, no second pass
+        assert shape is None
+    else:
+        assert shape == (2, 3, 8, chunks, lk, aca.HEAD_DIM)

@@ -8,9 +8,9 @@ without JAX:
     python -m pytest --noconftest -q -m cuda tests/test_torch_kernels.py
 
 Tolerance: atol 1e-5 on out and head_mean; both sides are f32-accurate
-(the ACA kernels in float32 on CUDA cores, the flash kernels' products on
-the tensor cores in 3xTF32, never 1xTF32), and differ in the order of their
-sums (the flash kernel's online softmax adds a rescale per key chunk).
+(every kernel's products on the tensor cores in 3xTF32, never 1xTF32), and
+differ in the order of their sums (the flash kernel's online softmax adds a
+rescale per key chunk).
 Gradients: see GRAD_RTOL below.
 """
 
@@ -53,7 +53,14 @@ def _inputs(b, lv, lk, heads, seed, pad_from=None):
         (3, 16, 1, 2, 1, None),  # one key: the dummy only
         (5, 1, 20, 1, 0, 12),
         (2, 130, 75, 8, 10, 50),  # three uneven row tiles
-        (8, 2048, 75, 8, 35, 60),  # TACoS ACA: 52 row tiles, 35 dummies
+        (8, 2048, 75, 8, 35, 60),  # TACoS ACA: 26 row tiles, 35 dummies
+        # the mma tiling's edges: 8-key n-tiles, 16-row warp tiles
+        (4, 9, 7, 2, 2, 5),  # Lk 7: one n-tile, one key short
+        (4, 16, 8, 2, 3, 6),  # Lk 8: one whole n-tile, Lv one warp tile
+        (4, 17, 9, 2, 3, 7),  # Lk 9: one key past it, Lv one row past a warp tile
+        (3, 80, 127, 4, 10, 100),  # Lk 127, Lv 80: five warp tiles
+        (3, 15, 128, 4, 10, None),  # Lk 128, Lv one row short of a warp tile
+        (6, 1, 42, 8, 10, 30),  # Lv 1
     ],
 )
 def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
@@ -67,7 +74,12 @@ def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
     assert torch.equal(aca.aca_attention(*t, num_heads=heads, num_dummies=nd)[1], hm)
 
 
-@pytest.mark.parametrize("b,l,pad_from", [(256, 42, 30), (256, 75, 60), (9, 128, 70)])
+@pytest.mark.parametrize(
+    "b,l,pad_from",
+    [(256, 42, 30), (256, 75, 60), (9, 128, 70),
+     # the mma tiling's edges
+     (3, 1, None), (4, 7, 5), (4, 8, 6), (4, 9, 7), (4, 17, 12), (3, 127, 90)],
+)
 def test_masked_attention_kernel_matches_twin(cuda, b, l, pad_from):
     t = tuple(x.to(cuda) for x in _inputs(b, l, l, 8, 1, pad_from))
     before = aca.LAUNCHES["masked_attention"]
@@ -278,26 +290,41 @@ def _holes(b, n, seed, always=0):
 
 
 @pytest.mark.parametrize(
-    "b,lv,lk,heads,nd,keys,p,donors",
+    "b,lv,lk,heads,nd,keys,p,donors,dhm",
     [
-        (32, 2048, 75, 8, 35, "ragged", 0.1, True),  # TACoS ACA, train
-        (64, 75, 42, 8, 10, "ragged", 0.1, True),  # flagship ACA, train
-        (32, 75, 75, 8, 0, "ragged", 0.1, False),  # TACoS dummy encoder
-        (64, 42, 42, 8, 0, "holes", 0.1, False),  # flagship dummy encoder, holes
-        (5, 130, 128, 8, 10, "holes", 0.3, True),  # most keys the kernel takes
-        (3, 16, 1, 2, 1, "ragged", 0.0, False),  # one key: the dummy only
-        (2, 1, 20, 1, 0, "ragged", 0.2, False),  # one query row
+        (32, 2048, 75, 8, 35, "ragged", 0.1, True, True),  # TACoS ACA, train: 7 row chunks
+        (64, 75, 42, 8, 10, "ragged", 0.1, True, True),  # flagship ACA, train: one 80-row tile
+        (32, 75, 75, 8, 0, "ragged", 0.1, False, False),  # TACoS dummy encoder
+        (64, 42, 42, 8, 0, "holes", 0.1, False, False),  # flagship dummy encoder, holes
+        (5, 130, 128, 8, 10, "holes", 0.3, True, True),  # most keys the kernel takes
+        (3, 16, 1, 2, 1, "ragged", 0.0, False, True),  # one key: the dummy only
+        (2, 1, 20, 1, 0, "ragged", 0.2, False, False),  # one query row
+        # the tiling's edges: 8-key n-tiles, 16-row warp tiles, row chunks
+        (3, 33, 1, 2, 0, "ragged", 0.1, False, False),  # Lk 1, short form: one valid key
+        (4, 15, 7, 2, 2, "ragged", 0.1, True, True),  # Lk 7, Lv 15
+        (4, 16, 8, 2, 3, "holes", 0.1, True, False),  # Lk 8, Lv 16, head mean without gradient
+        (4, 17, 9, 2, 3, "ragged", 0.0, False, True),  # Lk 9, Lv 17
+        (2, 80, 127, 4, 5, "holes", 0.1, True, True),  # Lk 127, Lv 80
+        (2, 80, 128, 4, 0, "ragged", 0.0, False, False),  # Lk 128, short form
+        (4, 700, 42, 8, 10, "ragged", 0.1, True, True),  # 3 chunks of 240 rows, the last short
+        (2, 2047, 75, 8, 35, "holes", 0.1, True, False),  # 7 chunks, Lv not a multiple
+        (4, 300, 75, 2, 0, "one_key", 0.0, False, False),  # short form, one valid key a row
+        (4, 300, 75, 2, 0, "one_key", 0.1, False, False),
+        (3, 15, 9, 2, 0, "one_key", 0.1, False, False),
     ],
 )
-def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, donors):
+def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, donors, dhm):
     from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
 
     q, k, v, valid = _inputs(b, lv, lk, heads, 11, pad_from=max(nd + 1, lk - 12))
     if keys == "holes":
         valid = _holes(b, lk, 12, always=nd)
+    elif keys == "one_key":
+        valid = torch.zeros((b, lk))
+        valid[torch.arange(b), torch.from_numpy(np.random.default_rng(14).integers(0, lk, b))] = 1.0
     g = torch.Generator().manual_seed(13)
     d_out = torch.randn(q.shape, generator=g)
-    d_hm = torch.randn((b, lv, lk), generator=g) if nd else None
+    d_hm = torch.randn((b, lv, lk), generator=g) if dhm else None
     query_valid = donor_rows = None
     if donors:
         query_valid = (torch.arange(lv)[None] < torch.randint(1, lv + 1, (b, 1), generator=g)).float()
@@ -315,11 +342,19 @@ def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, dono
         assert (hm - ref_hm).abs().max().item() <= ATOL
     dh = None if d_hm is None else d_hm.to(cuda)
     grads = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
-    ref = aca.aca_attention_bwd_plain(*t, ref_lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
+    # the plain backward in float64 on the same inputs: at a row with one
+    # valid key dS is 0 up to rounding and dk sums that rounding over every
+    # query row, so the f32 plain's own dk lies near the 1e-5 floor there
+    t64 = [x.double() for x in t[:3]] + [t[3]]
+    lse64 = aca.aca_attention_plain(*t64, heads, nd, nd > 0, p, seed, *dn, want_lse=True)[2]
+    ref = aca.aca_attention_bwd_plain(*t64, lse64, d_out.to(cuda).double(),
+                                      None if dh is None else dh.double(), heads, nd, p, seed,
+                                      *dn)
     torch.cuda.synchronize()
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
-        assert _rel_err(got, want) <= GRAD_RTOL, name
-    # every sum in one block, in a fixed order: launches agree bit for bit
+        assert _rel_err(got.double(), want) <= GRAD_RTOL, name
+    # no float atomics, the chunks' partial sums added in a fixed order:
+    # launches agree bit for bit
     again = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
