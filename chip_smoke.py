@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (flashvtg_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--queries 512] [--tacos-queries 64]
-                          [--train-steps 3]
+                          [--train-steps 3] [--hd-queries 64]
 
 Phases, each failing loudly:
   1. device: prints the card's name and power limit, requires CUDA, sets
@@ -18,7 +18,11 @@ Phases, each failing loudly:
      with times, bounds and yardsticks:
      the ACA and short self-attention kernel at the flagship shapes and at
      TACoS's ACA shape, the flash kernel at TACoS's encoder shape and,
-     beside the short kernel, at the flagship's self-attention shapes;
+     beside the short kernel, at the flagship's self-attention shapes; then
+     every eval kernel at the highlight-detection (HD: B=4, Lv 1000 of
+     which 60-330 clips valid, 3 dummies + 32 text keys), Charades (B=128,
+     Lv 256, 15-45 clips valid, 40 dummies + 32 text keys) and Charades-VGG
+     (B=16, Lv 2048, 90-270 clips valid) eval shapes;
   4. flagship path: QVHighlights eval (preset qvhighlights_slowclip, full
      width and depth, random weights from --seed) over a synthetic set of
      --queries queries written to a temp dir: run_mr_inference (forward,
@@ -32,14 +36,20 @@ Phases, each failing loudly:
      layers, 35 dummies) over --tacos-queries synthetic TACoS-format queries
      (videos of 64-2048 clips, string qids), as in phase 4, with 8 ACA, 3
      short and 3 flash launches per batch; the peak memory of one eval step
-     above what was allocated before it must stay under one (B, H, L, L)
-     float32 tensor (the memory-linear check); then card vs CPU on 2 of the
-     queries, one of them short, as in phase 5;
+     above what was allocated before it is reported, and each flash call's
+     peak above what was allocated at its entry must stay under one
+     (B, H, L, L) float32 tensor, while the same call through the plain
+     full-logits attention, the control, must reach it (the memory-linear
+     check, made on every path with the flash kernel); then card vs CPU on
+     2 of the queries, one of them short, as in phase 5;
   7. training forms and backward kernels vs their plain versions, at the
      shapes of both train paths: TACoS (B=32: ACA at Lv 2048 with 35
      dummies, the dummy encoder's short self-attention at L 75, the flash
-     kernel at L 2048) and the flagship (B=64: ACA at Lv 75 with 10
-     dummies, the short kernel at L 42 and L 75); ACA with donor rows and a
+     kernel at L 2048), the flagship (B=64: ACA at Lv 75 with 10 dummies,
+     the short kernel at L 42 and L 75) and TVSum (B=4: ACA at Lv 1000 with
+     3 dummies, its backward in 4 row chunks, the last one partial; the
+     short kernel at L 35, the flash kernel at L 1000, 60-330 clips
+     valid); ACA with donor rows and a
      head-mean gradient; dropout 0.1 on both sides with one seed. Each
      kernel through its launcher (timed) and once through the autograd
      Function that the model calls (aca_attention, masked_attention,
@@ -64,7 +74,25 @@ Phases, each failing loudly:
      the largest over all leaves); the AdamW update within 1% of lr where
      the gradient's sign is sure (|g| over 100 times the leaf's gradient
      disagreement: a first Adam step moves a weight by about lr sign(g),
-     so elsewhere it carries no information).
+     so elsewhere it carries no information);
+  9. HD eval: youtube_uni at full width and depth (Lv 1000, 2 ACA, 2 short
+     and 3 flash launches a batch of 4) over --hd-queries synthetic videos
+     of one domain through run_hl_inference (the saliency-only forward and
+     the domain's mAP, which must lie in [0, 1]), launch counts as in phase
+     4, the step's time and its peak memory above its inputs; then tvsum on
+     8 videos of one domain in the rgb + opt layout; card vs CPU on 2
+     videos each, as in phase 5;
+ 10. TVSum train: train() on one synthetic domain of 4 train videos and 1
+     val video (B=4, one step an epoch, Lv 1000, every dropout at its
+     preset value) for --train-steps steps, then its HD eval, checked as in
+     phase 8, card vs CPU included;
+ 11. Charades-STA MR eval: charades (Lv 256, eval_bsz 128) over 256 and
+     charades_vgg (Lv 2048, eval_bsz 16, 300-d GloVe text from a vocabulary
+     file the phase writes and points FLASHVTG_GLOVE_PATH at) over 32
+     synthetic queries, through
+     run_mr_inference and eval_submission as in phase 4, card vs CPU on 2
+     queries each.
+The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without CUDA or without the package.
 """
@@ -256,54 +284,104 @@ def phase_kernels(dev, seed):
 
     # TACoS: 2048 clips over 35 dummies + up to 40 text tokens (logged), and
     # the encoder's self-attention over 2048 clips of 64-2048 valid
-    b, lv, nd, lq = 8, 2048, 35, 40
-    lk = nd + lq
+    shapes["tacos_aca"] = aca_eval_reading(dev, g, rng, 8, 2048, 35, 40)
+    log(f"aca_attention[tacos]: {json.dumps(shapes['tacos_aca'])}")
+    reading = self_eval_reading(dev, g, 8, ragged_mask(rng, 8, 2048, 64, 2049).to(dev))
+    rows.append(dict(
+        name="flash_attention", route="cuda",
+        source="flashvtg_tpu_torch/csrc/flash_attention.cu",
+        replaces="scripts/bench_flash.py:57",
+        **{k: v for k, v in reading.items() if k != "kernel"},
+    ))
+    return rows, shapes
+
+
+# (B, Lv, dummies, text tokens, fewest and most valid clips) of the eval
+# paths of the HD and Charades presets
+SLICE_EVAL_SHAPES = {
+    "hd_eval": (4, 1000, 3, 32, 60, 330),
+    "charades_eval": (128, 256, 40, 32, 15, 45),
+    "charades_vgg_eval": (16, 2048, 40, 32, 90, 270),
+}
+
+
+def aca_eval_reading(dev, g, rng, b, lv, nd, lq):
+    """The ACA kernel against its plain version at one eval shape, timed."""
+    import torch
+
+    from flashvtg_tpu_torch.ops import aca
+
+    heads, lk = 8, nd + lq
     q, k, v = qkv_b(g, dev, b, heads, lv, lk)
     valid = ragged_mask(rng, b, lk, 5, lq + 1, always=nd).to(dev)
     out, hm = aca.aca_attention(q, k, v, valid, heads, nd)
     ref_out, ref_hm = aca.aca_attention_plain(q, k, v, valid, heads, nd)
     torch.cuda.synchronize()
     err = max((out - ref_out).abs().max().item(), (hm - ref_hm).abs().max().item())
+    shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd}"
     if not err <= KERNEL_ATOL:
-        raise AssertionError(f"aca_attention at the TACoS shape: max |err| {err}")
+        raise AssertionError(f"aca_attention {shape}: max |err| {err} > {KERNEL_ATOL}")
     bound, by = attention_bound(b, lv, lk, heads, nd, valid, True)
-    shapes["tacos_aca"] = dict(
-        shape=f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd}", max_abs_err=err,
+    return dict(
+        kernel="aca_attention", shape=shape, max_abs_err=err,
         ms=time_ms(lambda: aca.aca_attention(q, k, v, valid, heads, nd), iters=20),
-        plain_ms=time_ms(lambda: aca.aca_attention_plain(q, k, v, valid, heads, nd),
-                         iters=10),
+        plain_ms=time_ms(lambda: aca.aca_attention_plain(q, k, v, valid, heads, nd), iters=10),
         bound_ms=bound, bound_by=by, library_ms=None,
     )
-    log(f"aca_attention[tacos]: {json.dumps(shapes['tacos_aca'])}")
 
-    q, k, v = qkv_b(g, dev, b, heads, lv, lv)
-    valid = ragged_mask(rng, b, lv, 64, lv + 1).to(dev)
-    out = chunked_attn.flash_attention(q, k, v, valid, heads)
-    ref = chunked_attn.flash_attention_plain(q, k, v, valid, heads)
-    torch.cuda.synchronize()
-    err = (out - ref).abs().max().item()
+
+def self_eval_reading(dev, g, b, valid):
+    """Masked self-attention over the keys of `valid` against its plain
+    version: the short kernel up to 128 keys, the flash kernel past; timed
+    beside scaled_dot_product_attention with the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from flashvtg_tpu_torch.ops import aca, chunked_attn
+
+    heads, length = 8, valid.shape[1]
+    if length > aca.MAX_KEYS:
+        name, fn, plain = ("flash_attention", chunked_attn.flash_attention,
+                           chunked_attn.flash_attention_plain)
+    else:
+        name, fn, plain = "masked_attention", aca.masked_attention, aca.masked_attention_plain
+    q, k, v = qkv_b(g, dev, b, heads, length, length)
+    err = (fn(q, k, v, valid, heads) - plain(q, k, v, valid, heads)).abs().max().item()
+    shape = f"B={b} H={heads} L={length} Dh=32, valid keys {int(valid.sum().item())} of {b * length}"
     if not err <= KERNEL_ATOL:
-        raise AssertionError(f"flash_attention kernel vs plain: max |err| {err}")
-    qh, kh, vh = (x.view(b, lv, heads, 32).transpose(1, 2).contiguous() for x in (q, k, v))
+        raise AssertionError(f"{name} {shape}: max |err| {err} > {KERNEL_ATOL}")
+    qh, kh, vh = (x.view(b, length, heads, 32).transpose(1, 2).contiguous() for x in (q, k, v))
     bool_mask = (valid > 0)[:, None, None, :]
-    bound, by = attention_bound(b, lv, lv, heads, 0, valid, False)
-    rows.append(dict(
-        name="flash_attention", route="cuda",
-        source="flashvtg_tpu_torch/csrc/flash_attention.cu",
-        replaces="scripts/bench_flash.py:57",
-        shape=f"B={b} H={heads} L={lv} Dh=32, valid keys {int(valid.sum().item())} "
-              f"of {b * lv}",
-        max_abs_err=err,
-        ms=time_ms(lambda: chunked_attn.flash_attention(q, k, v, valid, heads), iters=20),
-        plain_ms=time_ms(lambda: chunked_attn.flash_attention_plain(q, k, v, valid, heads),
-                         iters=10),
+    bound, by = attention_bound(b, length, length, heads, 0, valid, False)
+    return dict(
+        kernel=name, shape=shape, max_abs_err=err,
+        ms=time_ms(lambda: fn(q, k, v, valid, heads), iters=20),
+        plain_ms=time_ms(lambda: plain(q, k, v, valid, heads), iters=10),
         bound_ms=bound, bound_by=by,
         library_ms=time_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bool_mask),
-            iters=20,
-        ),
-    ))
-    return rows, shapes
+            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bool_mask), iters=20),
+    )
+
+
+def phase_slice_kernels(dev, seed):
+    """Phase 3, second part: each eval kernel of the HD and Charades paths
+    (the ACA layers, the dummy encoder's short self-attention, the
+    encoder's flash attention) at SLICE_EVAL_SHAPES."""
+    import torch
+
+    rng = np.random.default_rng(seed + 2)
+    g = torch.Generator().manual_seed(seed + 2)
+    shapes = {}
+    for path, (b, lv, nd, lq, lo, hi) in SLICE_EVAL_SHAPES.items():
+        text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
+        video = ragged_mask(rng, b, lv, lo, hi + 1).to(dev)
+        for length, reading in ((lv, aca_eval_reading(dev, g, rng, b, lv, nd, lq)),
+                                (nd + lq, self_eval_reading(dev, g, b, text)),
+                                (lv, self_eval_reading(dev, g, b, video))):
+            key = f"{path} {reading['kernel']} L={length}"
+            shapes[key] = reading
+            log(f"[slice kernels] {key}: {json.dumps(reading)}")
+    return shapes
 
 
 def qkv_b(g, dev, b, heads, lq_, lk_):
@@ -315,20 +393,38 @@ def qkv_b(g, dev, b, heads, lq_, lk_):
     )
 
 
+MR_ONLY_SETS = ("charadesSTA", "charadesSTA_internvideo2", "tacos", "nlq")  # no saliency rows
+
+
 def synthetic_writer(cfg):
-    """The synthetic writer of a preset: QVHighlights format (every fourth
-    video 20 clips to Lv) for the flagship, TACoS format (64 to 2048 clips,
-    string qids) for tacos."""
-    from flashvtg_tpu_torch.utils.synthetic import make_synthetic_qvh, make_synthetic_tacos
+    """The synthetic writer of a preset (utils/synthetic.py): QVHighlights
+    format (every fourth video 20 clips to Lv) for the flagship, TACoS
+    format (64 to 2048 clips, string qids) for tacos, one domain of TVSum
+    (rgb + opt halves) or YouTube-HL for the HD sets, and Charades-STA rows
+    (videos of 15-45 s) for the charades presets, the 4096-d VGG video (the
+    width that also selects its post-processor) in a "vgg" directory, as
+    its real layout has it, so that the dataset reads GloVe text."""
+    from flashvtg_tpu_torch.data.dataset import HD_SETS
+    from flashvtg_tpu_torch.utils import synthetic as S
 
     if cfg.dset_name == "tacos":
         return functools.partial(
-            make_synthetic_tacos, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
+            S.make_synthetic_tacos, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
             max_clips=cfg.max_v_l, min_clips=64, clip_len=cfg.clip_length,
             max_q_tokens=cfg.max_q_l,
         )
+    if cfg.dset_name in HD_SETS:
+        writer = S.make_synthetic_tvsum if cfg.dset_name == "tvsum" else S.make_synthetic_youtube
+        return functools.partial(writer, domain=cfg.dset_domain, v_dim=cfg.v_feat_dim,
+                                 t_dim=cfg.t_feat_dim)
+    if cfg.dset_name.startswith("charadesSTA"):
+        return functools.partial(
+            S.make_synthetic_charades, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
+            clip_len=cfg.clip_length, max_clips=cfg.max_v_l, max_q_tokens=cfg.max_q_l,
+            glove=cfg.v_feat_dim == 4096,
+        )
     return functools.partial(
-        make_synthetic_qvh, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
+        S.make_synthetic_qvh, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
         n_clips=cfg.max_v_l, clip_len=cfg.clip_length, min_clips=20,
         max_q_tokens=cfg.max_q_l + 1,
     )
@@ -534,10 +630,12 @@ def self_train_case(dev, g, b, heads, p, seed, valid):
     )
 
 
-# (B, Lv, dummies, text tokens, fewest clips of a video) of each train path
+# (B, Lv, dummies, text tokens, fewest and most clips of a video) of each
+# train path
 TRAIN_KERNEL_SHAPES = {
-    "tacos_train": (32, 2048, 35, 40, 64),
-    "flagship_train": (64, 75, 10, 32, 20),
+    "tacos_train": (32, 2048, 35, 40, 64, 2048),
+    "flagship_train": (64, 75, 10, 32, 20, 75),
+    "tvsum_train": (4, 1000, 3, 32, 60, 330),
 }
 
 
@@ -553,9 +651,9 @@ def phase_train_kernels(dev, seed):
     g = torch.Generator().manual_seed(seed + 1)
     heads, p = 8, TRAIN_DROPOUT
     shapes, readings = {}, {}
-    for path, (b, lv, nd, lq, min_clips) in TRAIN_KERNEL_SHAPES.items():
+    for path, (b, lv, nd, lq, min_clips, max_clips) in TRAIN_KERNEL_SHAPES.items():
         text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
-        video = ragged_mask(rng, b, lv, min_clips, lv + 1).to(dev)
+        video = ragged_mask(rng, b, lv, min_clips, max_clips + 1).to(dev)
         cases = (  # the ACA layers, the dummy encoder, the encoder
             aca_train_case(dev, g, b, lv, nd, heads, p, seed, text, video),
             self_train_case(dev, g, b, heads, p, seed, text),
@@ -571,8 +669,8 @@ def phase_train_kernels(dev, seed):
             if not peak < bhll:
                 raise AssertionError(
                     f"flash fwd + bwd peak +{peak} B >= one (B, H, L, L) f32 {bhll} B")
-            shapes["flash_fwd_bwd_memory"] = dict(peak_above_inputs_bytes=peak,
-                                                  bhll_f32_bytes=bhll)
+            shapes[f"{path} flash_fwd_bwd_memory"] = dict(peak_above_inputs_bytes=peak,
+                                                          bhll_f32_bytes=bhll)
     source = {"aca_attention_bwd": "aca_attention_bwd.cu",
               "masked_attention_bwd": "aca_attention_bwd.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -588,11 +686,18 @@ def phase_train_kernels(dev, seed):
 
 
 def make_dataset(root, cfg, n_queries, seed):
-    """The synthetic eval set of a preset, written under `root` and loaded."""
+    """The synthetic eval set of a preset, written under `root` and loaded.
+    Where the dataset reads GloVe text (a "vgg" video directory), a GloVe
+    file of the queries' words is written too and FLASHVTG_GLOVE_PATH
+    points at it."""
+    from flashvtg_tpu_torch.data.dataset import VTGDataset, uses_glove
     from flashvtg_tpu_torch.train.infer import eval_data_config
-    from flashvtg_tpu_torch.data.dataset import VTGDataset
+    from flashvtg_tpu_torch.utils.synthetic import write_glove
 
     ann, vdir, qdir = synthetic_writer(cfg)(root, n_queries=n_queries, seed=seed)
+    if uses_glove((vdir,)):
+        os.environ["FLASHVTG_GLOVE_PATH"] = write_glove(
+            os.path.join(root, "glove.6B.300d.txt"), dim=cfg.t_feat_dim, seed=seed)
     cfg = cfg.replace(eval_path=ann, v_feat_dirs=(vdir,), t_feat_dir=qdir)
     return cfg, VTGDataset(eval_data_config(cfg, ann))
 
@@ -604,7 +709,7 @@ def check_submission(sub, ds, cfg):
         wins = np.asarray(s["pred_relevant_windows"], np.float64)
         assert 0 < len(wins) <= cfg.max_num_moment and wins.shape[1] == 3
         assert np.isfinite(wins).all()
-        if cfg.dset_name == "tacos":  # MR only: the rows carry no saliency
+        if cfg.dset_name in MR_ONLY_SETS:  # the rows carry no saliency
             assert "pred_saliency_scores" not in s
             continue
         sal = np.asarray(s["pred_saliency_scores"], np.float64)
@@ -640,45 +745,66 @@ def launches_per_batch(cfg):
     }
 
 
-def phase_path(dev, cfg, ds, seed):
-    """Phases 4 and 6: one preset's eval through the kernels."""
+def score_mr(cfg, ds, out):
+    """The MR eval's output checked (submission rows, finite metrics) and
+    scored by eval_submission, with and without NMS."""
+    from flashvtg_tpu_torch.eval.metrics import eval_submission
+
+    sub, sub_nms = out
+    check_submission(sub, ds, cfg)
+    check_submission(sub_nms, ds, cfg)
+    metrics, metrics_nms = eval_submission(sub, ds.data), eval_submission(sub_nms, ds.data)
+    for m in (metrics, metrics_nms):
+        assert m["brief"] and all(np.isfinite(v) for v in m["brief"].values())
+    return dict(brief=metrics["brief"], brief_nms=metrics_nms["brief"])
+
+
+def score_hl(cfg, ds, result):
+    """The HD eval's output checked: one finite saliency row per video, cut
+    to its clips, and the domain's mAP (run_hl_inference scores it) in
+    [0, 1]."""
+    assert list(result["saliency"]) == [m["qid"] for m in ds.data]
+    for sal, (_, feats) in zip(result["saliency"].values(), (ds[i] for i in range(len(ds)))):
+        assert sal.shape == (min(len(feats["video_feat"]), cfg.max_v_l),)
+        assert np.isfinite(sal).all()
+    assert 0.0 <= result["brief"]["mAP"] <= 1.0, result["brief"]
+    return dict(brief=result["brief"])
+
+
+def phase_path(dev, cfg, ds, seed, infer, score):
+    """Phases 4, 6, 9 and 11: one preset's eval through the kernels:
+    infer(cfg, model, ds) (run_mr_inference or run_hl_inference) warmed up,
+    then run with the launch counts set to 0 just before and read just
+    after, then score(cfg, ds, output)."""
     import torch
 
-    from flashvtg_tpu_torch.eval.metrics import eval_submission
     from flashvtg_tpu_torch.models.flashvtg import build_model
-    from flashvtg_tpu_torch.train.infer import run_mr_inference
 
     model = build_model(cfg.model_config(), dev, seed)
-    run_mr_inference(cfg, model, ds)  # warm-up: cuBLAS / cuDNN plans
+    infer(cfg, model, ds)  # warm-up: cuBLAS / cuDNN plans
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
     reset_launch_counts()
     t0 = time.perf_counter()
-    sub, sub_nms = run_mr_inference(cfg, model, ds)
+    out = infer(cfg, model, ds)
     torch.cuda.synchronize()
     t_infer = time.perf_counter() - t0
     launches = launch_counts()
-    metrics = eval_submission(sub, ds.data)
-    metrics_nms = eval_submission(sub_nms, ds.data)
+    scored = score(cfg, ds, out)
     t_total = time.perf_counter() - t0
 
     n_batches = -(-len(ds) // cfg.eval_bsz)
     assert len(ds) % cfg.eval_bsz == 0, "use a multiple of eval_bsz queries"
     for name, n in launches_per_batch(cfg).items():
         assert launches[name] == n * n_batches, (name, launches[name], n * n_batches)
-    check_submission(sub, ds, cfg)
-    check_submission(sub_nms, ds, cfg)
-    for m in (metrics, metrics_nms):
-        assert m["brief"] and all(np.isfinite(v) for v in m["brief"].values())
     return model, dict(
         queries=len(ds), batches=n_batches, eval_bsz=cfg.eval_bsz, max_v_l=cfg.max_v_l,
         launches=launches,
         launches_per_batch=sum(launches.values()) / n_batches,
         infer_s=t_infer, infer_qps=len(ds) / t_infer,
         with_metrics_s=t_total, with_metrics_qps=len(ds) / t_total,
-        peak_mem_bytes=torch.cuda.max_memory_allocated(),
-        brief=metrics["brief"], brief_nms=metrics_nms["brief"],
+        peak_mem_bytes=torch.cuda.max_memory_allocated(), **scored,
     )
 
 
@@ -698,36 +824,68 @@ def step_inputs(dev, cfg, ds):
     return placed, torch.from_numpy(strict).to(dev)
 
 
-def step_time(dev, model, cfg, ds):
-    """Device time of one full eval batch (forward + decode) on tensors
-    already on the card, ms."""
+def eval_step(dev, model, cfg, ds):
+    """One full eval batch's step (forward + decode; the HD sets' forward
+    alone) as a call on tensors already on the card."""
+    from flashvtg_tpu_torch.data.dataset import HD_SETS
     from flashvtg_tpu_torch.train.infer import make_eval_step
 
     placed, pv = step_inputs(dev, cfg, ds)
-    step = make_eval_step(model, cfg.max_num_moment)
-    return time_ms(lambda: step(placed, pv), iters=20, warmup=3)
+    step = make_eval_step(model, cfg.max_num_moment, saliency_only=cfg.dset_name in HD_SETS)
+    return lambda: step(placed, pv)
 
 
-def step_memory(dev, model, cfg, ds):
-    """Peak device memory of one eval step above what was allocated before
-    it, bytes, against one (B, H, L, L) float32 tensor: the logits the
-    kernel never holds."""
+def full_logits_attention(q, k, v, key_valid, num_heads, dropout=0.0, generator=None):
+    """The memory check's control: the encoder's self-attention in its plain
+    full-logits form, which holds (B, H, L, L) logits and probabilities."""
+    from flashvtg_tpu_torch.ops.aca import masked_attention_plain
+
+    assert dropout == 0.0
+    return masked_attention_plain(q, k, v, key_valid, num_heads)
+
+
+def step_memory(run, cfg):
+    """Device memory of one eval step against one (B, H, L, L) float32
+    tensor, the logits the flash kernel never holds, bytes: the step's peak
+    above what was allocated before it (reported), and the largest peak of
+    a flash_attention call above what was allocated at the call's entry,
+    which must stay under that tensor. The control runs the same calls
+    through the plain full-logits attention, whose peak must reach it: else
+    the measurement could not see the logits."""
+    from unittest import mock
+
     import torch
 
-    from flashvtg_tpu_torch.train.infer import make_eval_step
+    from flashvtg_tpu_torch.models import transformer
 
-    placed, pv = step_inputs(dev, cfg, ds)
-    step = make_eval_step(model, cfg.max_num_moment)
-    torch.cuda.synchronize()
-    before = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    out = step(placed, pv)
-    torch.cuda.synchronize()
-    extra = torch.cuda.max_memory_allocated() - before
-    del out
+    def peak_above(fn):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = fn()
+        return torch.cuda.max_memory_allocated() - before, out
+
+    def measured(attend, seen):
+        def call(*args, **kw):
+            extra, out = peak_above(lambda: attend(*args, **kw))
+            seen.append(extra)
+            return out
+        return call
+
     logits = 4 * cfg.eval_bsz * cfg.nheads * cfg.max_v_l ** 2
-    assert extra < logits, f"eval step peak +{extra} B >= one (B, H, L, L) f32 {logits} B"
-    return dict(step_extra_peak_bytes=extra, bhll_f32_bytes=logits)
+    res = dict(step_extra_peak_bytes=peak_above(run)[0], bhll_f32_bytes=logits)
+    for tag, attend in (("kernel", transformer.flash_attention),
+                        ("plain", full_logits_attention)):
+        seen = []
+        with mock.patch.object(transformer, "flash_attention", measured(attend, seen)):
+            run()
+        assert len(seen) == cfg.enc_layers, seen
+        res[f"{tag}_flash_call_peak_bytes"] = max(seen)
+    assert res["kernel_flash_call_peak_bytes"] < logits, (
+        f"flash call peak +{res['kernel_flash_call_peak_bytes']} B >= one (B, H, L, L) "
+        f"f32 {logits} B")
+    assert res["plain_flash_call_peak_bytes"] >= logits, (
+        f"control: full-logits call peak +{res['plain_flash_call_peak_bytes']} B < {logits} B")
+    return res
 
 
 def phase_card_vs_cpu(dev, model, cfg, ds, seed, n):
@@ -756,27 +914,41 @@ def phase_card_vs_cpu(dev, model, cfg, ds, seed, n):
     return errs
 
 
-def run_preset(dev, preset, n_queries, n_compare, seed):
-    """Data, the eval path, its device step and card vs CPU for one preset."""
+def run_preset(dev, preset, n_queries, n_compare, seed, **overrides):
+    """Data, the eval path (phase_path through run_mr_inference, or
+    run_hl_inference for the HD sets), its device step and card vs CPU for
+    one preset."""
+    from flashvtg_tpu_torch.data.dataset import HD_SETS
     from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.infer import run_hl_inference, run_mr_inference
 
-    cfg = from_preset(preset)
-    with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        cfg, ds = make_dataset(tmp, cfg, n_queries, seed)
-        log(f"[{preset} data] {len(ds)} queries written and loaded in "
-            f"{time.perf_counter() - t0:.2f} s")
-        model, path = phase_path(dev, cfg, ds, seed)
-        path["step_ms"] = step_time(dev, model, cfg, ds)
-        path["step_qps"] = cfg.eval_bsz / path["step_ms"] * 1e3
-        if launches_per_batch(cfg)["flash_attention"]:
-            path.update(step_memory(dev, model, cfg, ds))
-        log(f"[{preset} path] {json.dumps(path)}")
-        path["card_vs_cpu_max_abs_err"] = phase_card_vs_cpu(
-            dev, model, cfg, ds, seed, n_compare
-        )
-        log(f"[{preset} card vs cpu] max |err| "
-            f"{json.dumps(path['card_vs_cpu_max_abs_err'])}")
+    cfg = from_preset(preset, **overrides)
+    glove_before = os.environ.get("FLASHVTG_GLOVE_PATH")
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            cfg, ds = make_dataset(tmp, cfg, n_queries, seed)
+            log(f"[{preset} data] {len(ds)} queries written and loaded in "
+                f"{time.perf_counter() - t0:.2f} s")
+            infer, score = ((run_hl_inference, score_hl) if cfg.dset_name in HD_SETS
+                            else (run_mr_inference, score_mr))
+            model, path = phase_path(dev, cfg, ds, seed, infer, score)
+            run = eval_step(dev, model, cfg, ds)
+            path["step_ms"] = time_ms(run, iters=20, warmup=3)
+            path["step_qps"] = cfg.eval_bsz / path["step_ms"] * 1e3
+            if launches_per_batch(cfg)["flash_attention"]:
+                path.update(step_memory(run, cfg))
+            log(f"[{preset} path] {json.dumps(path)}")
+            path["card_vs_cpu_max_abs_err"] = phase_card_vs_cpu(
+                dev, model, cfg, ds, seed, n_compare
+            )
+            log(f"[{preset} card vs cpu] max |err| "
+                f"{json.dumps(path['card_vs_cpu_max_abs_err'])}")
+    finally:
+        if glove_before is None:
+            os.environ.pop("FLASHVTG_GLOVE_PATH", None)
+        else:
+            os.environ["FLASHVTG_GLOVE_PATH"] = glove_before
     return path
 
 
@@ -835,10 +1007,11 @@ def train_step_time(dev, model, cfg, seed):
     return ms, torch.cuda.max_memory_allocated()
 
 
-def train_card_vs_cpu(dev, cfg, seed):
+def train_card_vs_cpu(dev, cfg, seed, n_rows):
     """One 2-row step at full width with every dropout at 0 (dummy_dropout
     and input_dropout included), the same weights on the card and on the
-    CPU: losses, clipped gradients, parameters after the AdamW step."""
+    CPU: losses, clipped gradients, parameters after the AdamW step. The
+    rows: the shortest video of the first 8 (of n_rows) and another."""
     import dataclasses
 
     import torch
@@ -848,7 +1021,7 @@ def train_card_vs_cpu(dev, cfg, seed):
 
     cfg = cfg.replace(dropout=0.0, input_dropout=0.0)
     mcfg = dataclasses.replace(cfg.model_config(), dummy_dropout=0.0)
-    first = train_batch(cfg, range(8))
+    first = train_batch(cfg, range(min(8, n_rows)))
     short = int(np.argmin(first["valid_v_lens"]))
     assert first["valid_v_lens"][short] < cfg.max_v_l  # a short video is in
     batch = train_batch(cfg, [0 if short else 1, short])
@@ -891,9 +1064,10 @@ def train_card_vs_cpu(dev, cfg, seed):
                 rows=len(batch["vid"]), valid_v_lens=batch["valid_v_lens"].tolist())
 
 
-def run_train_preset(dev, preset, steps, seed, **overrides):
-    """Phase 8 for one preset: train(), its launches and losses, the step's
-    time and memory, card vs CPU."""
+def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overrides):
+    """Phases 8 and 10 for one preset: train() on n_train rows (default one
+    epoch of `steps` steps) and its eval on n_val rows (default eval_bsz),
+    its launches and losses, the step's time and memory, card vs CPU."""
     import torch
 
     from flashvtg_tpu_torch.train.config import from_preset
@@ -901,11 +1075,12 @@ def run_train_preset(dev, preset, steps, seed, **overrides):
     from flashvtg_tpu_torch.train.loop import train
 
     cfg = from_preset(preset, **overrides)
-    n_val = cfg.eval_bsz
+    n_train = n_train or steps * cfg.bsz
+    n_val = n_val or cfg.eval_bsz
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
-        cfg = make_train_split(tmp, cfg, steps * cfg.bsz, n_val, seed)
-        log(f"[{preset} train data] {steps * cfg.bsz} + {n_val} rows written in "
+        cfg = make_train_split(tmp, cfg, n_train, n_val, seed)
+        log(f"[{preset} train data] {n_train} + {n_val} rows written in "
             f"{time.perf_counter() - t0:.2f} s")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -936,7 +1111,7 @@ def run_train_preset(dev, preset, steps, seed, **overrides):
         )
         log(f"[{preset} train path] {json.dumps(path)}")
         del model
-        path["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, seed)
+        path["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, seed, n_train)
         log(f"[{preset} train card vs cpu] {json.dumps(path['card_vs_cpu'])}")
     return path
 
@@ -947,6 +1122,7 @@ def main():
     ap.add_argument("--queries", type=int, default=512)
     ap.add_argument("--tacos-queries", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=3)
+    ap.add_argument("--hd-queries", type=int, default=64)
     args = ap.parse_args()
 
     import torch
@@ -986,6 +1162,7 @@ def main():
 
     rows, shapes = phase_kernels(dev, args.seed)
     log(f"[kernels] {json.dumps(rows)}")
+    shapes.update(phase_slice_kernels(dev, args.seed))
 
     train_rows, train_shapes = phase_train_kernels(dev, args.seed)
     log(f"[train kernels] {json.dumps(train_rows)} {json.dumps(train_shapes)}")
@@ -998,9 +1175,19 @@ def main():
         "flagship_train": run_train_preset(dev, "qvhighlights_slowclip", args.train_steps,
                                            args.seed),
         "tacos_train": run_train_preset(dev, "tacos", args.train_steps, args.seed),
+        "hd_youtube_eval": run_preset(dev, "youtube_uni", args.hd_queries, 2, args.seed,
+                                      dset_domain="dog"),
+        "hd_tvsum_eval": run_preset(dev, "tvsum", 8, 2, args.seed, dset_domain="BK"),
+        # TVSum's own split of a domain: 4 train videos and 1 val video
+        "tvsum_train": run_train_preset(dev, "tvsum", args.train_steps, args.seed, n_train=4,
+                                        n_val=1, dset_domain="BK"),
+        "charades_eval": run_preset(dev, "charades", 256, 2, args.seed),
+        "charades_vgg_eval": run_preset(dev, "charades_vgg", 32, 2, args.seed),
     }
 
-    for row in rows:
+    for row in rows:  # the largest error over every shape of the kernel
+        row["max_abs_err"] = max([row["max_abs_err"]] + [
+            r["max_abs_err"] for r in shapes.values() if r.get("kernel") == row["name"]])
         by_path = {name: p["launches"][row["name"]] for name, p in paths.items()}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = by_path

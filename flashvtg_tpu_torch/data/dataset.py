@@ -8,8 +8,19 @@ job and is not ported). With load_labels (training) every access draws the
 row's labels anew from the dataset's seeded random.Random, as the reference
 draws them per __getitem__: GT windows (span_windows), saliency labels
 (saliency_sub_as_query for charades / TACoS-style sets, saliency_all for
-QVHighlights), and txt_drop_ratio's zeroed text rows. The GloVe text path
-and the TVSum / YouTube-HL layouts are not ported yet and are refused.
+QVHighlights, saliency_tvsum / saliency_youtube for the highlight-detection
+sets, whose GT windows are one zero row), and txt_drop_ratio's zeroed text
+rows.
+
+The highlight-detection (HD) layouts: TVSum and YouTube-HL train and
+evaluate per domain (dset_domain, refused when missing); their text is
+`{qid}.npz` `last_hidden_state`, read as it is: no l2-norm and no max_q_l
+cut, unlike the MR sets. A TVSum video is `{vid}_rgb.npy` + `{vid}_opt.npy`,
+each cut to max_v_l, concatenated and l2-normalised after the
+concatenation (else `{vid}.npy` / `.npz`), and its clips past the label
+rows are dropped after the TEF. With a first video directory whose path
+holds "vgg" (Charades-STA VGG), the text is the query's GloVe vectors
+(data/glove.py).
 """
 
 from __future__ import annotations
@@ -27,6 +38,15 @@ from flashvtg_tpu_torch.utils.io import l2_normalize, load_jsonl
 
 # sets whose saliency labels are the GT window itself
 SUB_AS_QUERY = ("charadesSTA", "tacos", "activitynet", "nlq", "charadesSTA_internvideo2")
+TVSUM_DOMAINS = ("BK", "BT", "DS", "FM", "GA", "MS", "PK", "PR", "VT", "VU")
+YOUTUBE_DOMAINS = ("dog", "gymnastics", "parkour", "skating", "skiing", "surfing")
+# the highlight-detection sets: saliency rows only, scored by eval/hl.py
+HD_SETS = ("tvsum", "youtube_uni")
+
+
+def uses_glove(v_feat_dirs: Sequence[str]) -> bool:
+    """The text is GloVe vectors when the first video directory is VGG's."""
+    return bool(v_feat_dirs) and "vgg" in v_feat_dirs[0]
 
 
 @dataclasses.dataclass
@@ -103,19 +123,25 @@ class VTGDataset:
     """One (query, video) pair per row; item i is (meta, features)."""
 
     def __init__(self, cfg: DataConfig, preload: bool = True):
-        if cfg.dset_name in ("tvsum", "tvsum_sfc", "youtube_uni") or (
-            cfg.v_feat_dirs and "vgg" in cfg.v_feat_dirs[0]
-        ):
-            raise NotImplementedError(
-                f"{cfg.dset_name} data layout is not ported yet"
-            )
         self.cfg = cfg
         self.rng = random.Random(cfg.seed)
         self.use_tef = "tef" in cfg.ctx_mode
         self.use_video = "video" in cfg.ctx_mode
+        self.use_glove = uses_glove(cfg.v_feat_dirs)
+        self._glove = None
         self.data = load_jsonl(cfg.data_path)
         if cfg.data_ratio != 1:
             self.data = self.data[: int(len(self.data) * cfg.data_ratio)]
+        domains = {"tvsum": TVSUM_DOMAINS, "tvsum_sfc": TVSUM_DOMAINS,
+                   "youtube_uni": YOUTUBE_DOMAINS}.get(cfg.dset_name)
+        if domains is not None:
+            if cfg.dset_domain not in domains:
+                name = "tvsum" if cfg.dset_name == "tvsum_sfc" else cfg.dset_name
+                raise ValueError(
+                    f"{name} trains per domain: pass --dset_domain, one of "
+                    f"{sorted(domains)} (got {cfg.dset_domain!r})"
+                )
+            self.data = [d for d in self.data if d["domain"] == cfg.dset_domain]
         self._cache = [None] * len(self.data)
         if preload:
             for i in range(len(self.data)):
@@ -146,27 +172,44 @@ class VTGDataset:
 
     def _attach_labels(self, meta, out: dict) -> None:
         cfg = self.cfg
-        if "relevant_windows" not in meta:  # a test split without labels
-            return
         ctx_l = len(out["video_feat"]) if self.use_video else cfg.max_v_l
-        out["gt_windows"] = L.span_windows(
-            meta["relevant_windows"], ctx_l, cfg.clip_len, cfg.max_windows, self.rng
-        )
-        if cfg.dset_name in SUB_AS_QUERY:
-            pos, neg, sal = L.saliency_sub_as_query(
-                meta["relevant_windows"][0], meta["duration"], ctx_l, self.rng
-            )
+        if cfg.dset_name == "tvsum":
+            out["gt_windows"] = np.zeros((1, 2), np.float32)
+            pos, neg, sal = L.saliency_tvsum(meta["label"], ctx_l)
+            out["video_feat"] = out["video_feat"][: len(sal)]
+        elif cfg.dset_name == "youtube_uni":
+            out["gt_windows"] = np.zeros((1, 2), np.float32)
+            pos, neg, sal = L.saliency_youtube(meta["label"], ctx_l)
+        elif "relevant_windows" not in meta:  # a test split without labels
+            return
         else:
-            pos, neg, sal = L.saliency_all(
-                meta["relevant_clip_ids"], meta["saliency_scores"], ctx_l, self.rng
+            out["gt_windows"] = L.span_windows(
+                meta["relevant_windows"], ctx_l, cfg.clip_len, cfg.max_windows, self.rng
             )
+            if cfg.dset_name in SUB_AS_QUERY:
+                pos, neg, sal = L.saliency_sub_as_query(
+                    meta["relevant_windows"][0], meta["duration"], ctx_l, self.rng
+                )
+            else:
+                pos, neg, sal = L.saliency_all(
+                    meta["relevant_clip_ids"], meta["saliency_scores"], ctx_l, self.rng
+                )
         out["saliency_pos_labels"] = np.asarray(pos, np.int64)
         out["saliency_neg_labels"] = np.asarray(neg, np.int64)
         out["saliency_all_labels"] = np.asarray(sal, np.float32)
 
     def _query_feat(self, meta) -> np.ndarray:
         cfg = self.cfg
+        if self.use_glove:
+            if self._glove is None:
+                from flashvtg_tpu_torch.data.glove import GloveEmbedder
+
+                self._glove = GloveEmbedder.default()
+            return self._glove(meta["query"])
         qid = meta["qid"]
+        if cfg.dset_name in HD_SETS:
+            q = np.load(join(cfg.q_feat_dir, f"{qid}.npz"))["last_hidden_state"]
+            return np.asarray(q, np.float32)
         candidates = [
             (join(cfg.q_feat_dir, f"qid{qid}.npz"), cfg.q_feat_type),
             (join(cfg.q_feat_dir, f"{qid}.npz"), cfg.q_feat_type),
@@ -176,21 +219,29 @@ class VTGDataset:
         return _try_paths(candidates, max_rows=trunc, l2norm=cfg.normalize_t)
 
     def _video_feat(self, vid: str) -> np.ndarray:
-        cfg = self.cfg
-        feats = [
-            _try_paths(
-                [
-                    (join(d, f"{vid}.npz"), "features"),
-                    (join(d, f"{vid}.pt"), None),
-                    (join(d, f"{vid}.npy"), None),
-                ],
-                max_rows=cfg.max_v_l,
-                l2norm=cfg.normalize_v,
-            )
-            for d in cfg.v_feat_dirs
-        ]
+        feats = [self._dir_feat(d, vid) for d in self.cfg.v_feat_dirs]
         n = min(len(f) for f in feats)
         return np.concatenate([f[:n] for f in feats], axis=1)
+
+    def _dir_feat(self, d: str, vid: str) -> np.ndarray:
+        """One feature directory's rows of a video, cut to max_v_l. TVSum's
+        rgb + optical-flow halves are l2-normed over their concatenation."""
+        cfg = self.cfg
+        rgb_path = join(d, f"{vid}_rgb.npy")
+        if cfg.dset_name == "tvsum" and os.path.exists(rgb_path):
+            rgb = _try_paths([(rgb_path, None)], max_rows=cfg.max_v_l)
+            opt = _try_paths([(join(d, f"{vid}_opt.npy"), None)], max_rows=cfg.max_v_l)
+            f = np.concatenate([rgb, opt], -1)
+            return l2_normalize(f) if cfg.normalize_v else f
+        if cfg.dset_name == "tvsum":
+            candidates = [(join(d, f"{vid}.npy"), None), (join(d, f"{vid}.npz"), "features")]
+        else:
+            candidates = [
+                (join(d, f"{vid}.npz"), "features"),
+                (join(d, f"{vid}.pt"), None),
+                (join(d, f"{vid}.npy"), None),
+            ]
+        return _try_paths(candidates, max_rows=cfg.max_v_l, l2norm=cfg.normalize_v)
 
     def _build(self, meta) -> dict:
         cfg = self.cfg
@@ -209,4 +260,9 @@ class VTGDataset:
                 if self.use_video
                 else tef
             )
+        # TVSum drops the clips past the label rows (a fixed cut, so it
+        # belongs to the cached features)
+        if cfg.dset_name == "tvsum" and "video_feat" in out and "label" in meta:
+            n = min(len(meta["label"]), cfg.max_v_l, len(out["video_feat"]))
+            out["video_feat"] = out["video_feat"][:n]
         return out

@@ -3,19 +3,23 @@
     python -m flashvtg_tpu_torch.tools.profile_eval [--preset qvhighlights_slowclip]
         [--bsz <the preset's eval_bsz, or bsz with --train>] [--steps 10] [--train]
 
-Builds the preset's model at full width and depth (random weights from
+Any preset of train/config.py but the `_ms` ones: qvhighlights_slowclip,
+tacos, tvsum, youtube_uni, charades, charades_internvideo2, charades_vgg,
+... Builds the preset's model at full width and depth (random weights from
 --seed), one batch of random features at the preset's video bucket with
-ragged video lengths (from max(20, Lv / 32) clips to Lv: 20-75 for the
-flagship, 64-2048 for tacos) and ragged text, and profiles --steps eval
-steps (forward + decode, inputs already on the card) with torch.profiler;
-with --train, train steps instead (train forward with both passes, losses,
-backward, clipping, AdamW; every dropout at its preset value), on labels
-of one window per video (saliency 1 inside it, two positive and two
-negative clips, as TACoS labels are drawn). Prints the card's name and
-power limit, then one JSON line: host wall time and device-busy time per
-step, the idle share, device time by kernel class (each of the port's
-attention kernels by name, forward and backward, GEMMs, convolutions, the
-rest) and the top kernels by device time.
+ragged video lengths (`video_lengths`: 60-330 clips of Lv 1000 for the HD
+sets, videos of 15-45 s for Charades-STA, max(20, Lv / 32) clips to Lv
+otherwise) and ragged text, and profiles --steps eval steps (forward +
+decode, or the forward alone for the HD sets, inputs already on the card)
+with torch.profiler; with --train, train steps instead (train forward with
+both passes, losses, backward, clipping, AdamW; every dropout at its
+preset value), on labels of one window per video (saliency 1 inside it,
+two positive and two negative clips, as TACoS labels are drawn) or, for
+the HD sets, TVSum-like clip scores. Prints the card's name and power
+limit, then one JSON line: host wall time and device-busy time per step,
+the idle share, device time by kernel class (each of the port's attention
+kernels by name, forward and backward, GEMMs, convolutions, the rest) and
+the top kernels by device time.
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ import time
 import numpy as np
 import torch
 
+from flashvtg_tpu_torch.data.dataset import HD_SETS
 from flashvtg_tpu_torch.models.flashvtg import build_model
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import from_preset
@@ -58,6 +63,36 @@ def kernel_class(name: str) -> str:
     if "memcpy" in low or "memset" in low:
         return "memcpy/memset"
     return "other"
+
+
+def video_lengths(cfg, rng, b):
+    """Ragged valid clip counts of a batch, guessed length mixes: TVSum-like
+    60-330 clips for the HD sets (videos of 2-11 minutes at 2 s), videos of
+    15-45 s for Charades-STA, max(20, Lv / 32) to Lv clips otherwise."""
+    lv = cfg.max_v_l
+    if cfg.dset_name in HD_SETS:
+        lo, hi = 60, 330
+    elif cfg.dset_name.startswith("charadesSTA"):
+        lo, hi = int(15 / cfg.clip_length), int(45 / cfg.clip_length)
+    else:
+        lo, hi = max(20, lv // 32), lv
+    return rng.integers(min(lo, lv), min(hi, lv) + 1, b)
+
+
+def hd_labels(rng, v_lens, lv, max_windows):
+    """HD train targets: TVSum-like clip scores (annotator sums over 80
+    times 12) on the valid clips, the highest and the lowest clip as the
+    positive and the negative, GT windows one zero row."""
+    b = len(v_lens)
+    valid = np.arange(lv)[None] < np.asarray(v_lens)[:, None]
+    sal = np.where(valid, rng.integers(0, 81, (b, lv)) / 80 * 12, 0).astype(np.float32)
+    pos = np.argmax(np.where(valid, sal, -1), axis=1)[:, None]
+    neg = np.argmin(np.where(valid, sal, 99), axis=1)[:, None]
+    gt = np.full((b, max_windows, 2), np.inf, np.float32)
+    gt[:, 0] = 0.0
+    return dict(saliency_all_labels=sal, saliency_pos_labels=pos.astype(np.int64),
+                saliency_neg_labels=neg.astype(np.int64), gt_windows=gt,
+                real_neg_mask=np.ones(b, np.float32))
 
 
 def window_labels(rng, v_lens, lv, clip_length, max_windows):
@@ -98,7 +133,7 @@ def main():
     rng = np.random.default_rng(args.seed)
     b = args.bsz or (cfg.bsz if args.train else cfg.eval_bsz)
     lv, lq = cfg.max_v_l, cfg.max_q_l
-    v_lens = rng.integers(max(20, lv // 32), lv + 1, b)
+    v_lens = video_lengths(cfg, rng, b)
     q_lens = rng.integers(5, lq + 1, b)
     batch = {
         "src_txt": rng.standard_normal((b, lq, cfg.t_feat_dim), dtype=np.float32),
@@ -106,7 +141,10 @@ def main():
         "src_vid": rng.standard_normal((b, lv, cfg.total_v_feat_dim), dtype=np.float32),
         "src_vid_mask": (np.arange(lv)[None] < v_lens[:, None]).astype(np.float32),
     }
-    if args.train:
+    hd = cfg.dset_name in HD_SETS
+    if args.train and hd:
+        batch.update(hd_labels(rng, v_lens, lv, cfg.max_windows))
+    elif args.train:
         batch.update(window_labels(rng, v_lens, lv, cfg.clip_length, cfg.max_windows))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
     if args.train:
@@ -118,7 +156,7 @@ def main():
             train_step(batch)
     else:
         pv = torch.from_numpy(pyramid_masks_strict(v_lens, lv, cfg.strides)[0]).to(dev)
-        eval_step = make_eval_step(model, cfg.max_num_moment)
+        eval_step = make_eval_step(model, cfg.max_num_moment, saliency_only=hd)
 
         def step():
             eval_step(batch, pv)

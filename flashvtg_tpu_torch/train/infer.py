@@ -1,12 +1,14 @@
-"""Batched moment-retrieval inference: features -> ranked moments + saliency.
+"""Batched inference: features -> ranked moments + saliency -> HD mAP.
 
 Counterpart of flashvtg_tpu/train/infer.py (`make_eval_step`,
-`run_mr_inference`, `apply_nms`). Forward, decode and top-k run batched on
-the model's device; each batch is moved host -> device, and host code only
-formats the jsonl rows, byte for byte as the JAX package does (f64 4-decimal
-rounding, f32-noise NMS scores, parked pad slots). Not ported yet: the
-device-resident feed, mesh sharding, pipelining, eval losses and the HD
-(saliency-only) path.
+`run_mr_inference`, `apply_nms`, `run_hl_inference`). Forward, decode and
+top-k run batched on the model's device; each batch is moved host ->
+device, and host code only formats the jsonl rows, byte for byte as the JAX
+package does (f64 4-decimal rounding, f32-noise NMS scores, parked pad
+slots). The highlight-detection sets (TVSum, YouTube-HL) take the
+saliency-only step, the forward with no decode, and score the saliency
+with eval/hl.py's mAP. Not ported yet: the device-resident feed, mesh
+sharding, pipelining and eval losses.
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 
 from flashvtg_tpu_torch.data.collate import MODEL_KEYS, Collator
 from flashvtg_tpu_torch.data.dataset import DataConfig, VTGDataset
+from flashvtg_tpu_torch.eval.hl import compute_hl_map
 from flashvtg_tpu_torch.eval.postprocess import build_post_processor
 from flashvtg_tpu_torch.models.flashvtg import FlashVTGModel, decode_boundaries
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
@@ -43,9 +46,12 @@ def eval_data_config(cfg, path: str) -> DataConfig:
     )
 
 
-def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32"):
+def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32",
+                   saliency_only: bool = False):
     """step(batch, point_valid) -> (spans, scores, saliency): forward +
-    decode + rank for one batch of device tensors."""
+    decode + rank for one batch of device tensors. `saliency_only` (the HD
+    sets, which read only the saliency channel) skips the decode: spans and
+    scores are then None."""
     if precision != "float32":
         raise NotImplementedError(f"eval precision {precision!r} is not ported yet")
 
@@ -55,6 +61,8 @@ def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32")
             batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
             batch["src_vid_mask"], point_valid=point_valid,
         )
+        if saliency_only:
+            return None, None, out["saliency_scores"]
         spans, scores = decode_boundaries(
             out["out_class"], out["out_coord"], out["point"],
             model.cfg.clip_length, point_valid=point_valid, top_k=top_k,
@@ -103,6 +111,19 @@ def _strict_or_none(strict, valid_v_lens, lv):
     return strict
 
 
+def _run_step(step, batch, strides, device):
+    """One collated batch through `step` on `device`, with its strict point
+    masks (None where no row is padded): (the step's outputs on the host,
+    None kept, each row's point count)."""
+    lv = batch["src_vid"].shape[1]
+    strict, counts = pyramid_masks_strict(batch["valid_v_lens"], lv, strides)
+    strict = _strict_or_none(strict, batch["valid_v_lens"], lv)
+    dev = {k: torch.from_numpy(batch[k]).to(device) for k in MODEL_KEYS}
+    point_valid = None if strict is None else torch.from_numpy(strict).to(device)
+    outs = step(dev, point_valid)
+    return [None if t is None else t.cpu().numpy() for t in outs], counts
+
+
 def run_mr_inference(
     cfg, model: FlashVTGModel, dataset: VTGDataset, nms_thd: Optional[float] = None,
 ) -> Tuple[List[dict], Optional[List[dict]]]:
@@ -118,14 +139,7 @@ def run_mr_inference(
 
     submission: List[dict] = []
     for real, idx, batch in _batched(dataset, collator, cfg.eval_bsz, order):
-        lv = batch["src_vid"].shape[1]
-        strict, counts = pyramid_masks_strict(batch["valid_v_lens"], lv, cfg.strides)
-        strict = _strict_or_none(strict, batch["valid_v_lens"], lv)
-        dev = {k: torch.from_numpy(batch[k]).to(device) for k in MODEL_KEYS}
-        point_valid = None if strict is None else torch.from_numpy(strict).to(device)
-        spans, scores, saliency = (
-            t.cpu().numpy() for t in step(dev, point_valid)
-        )
+        (spans, scores, saliency), counts = _run_step(step, batch, cfg.strides, device)
         # 4-decimal rounding in float64: reproduces float(f"{x:.4f}") for
         # float32-origin values
         sal_r = np.round(saliency.astype(np.float64), 4)
@@ -159,6 +173,32 @@ def run_mr_inference(
     if nms is not None and nms != -1:
         submission_nms = apply_nms(submission, nms, cfg.nms_type, device=device)
     return submission, submission_nms
+
+
+def run_hl_inference(cfg, model: FlashVTGModel, dataset: VTGDataset) -> dict:
+    """TVSum / YouTube-HL: the saliency of every video of one domain on the
+    device that holds the model's parameters, then the domain's mAP (TVSum
+    top-5, YouTube-HL over the whole ranking). Returns {"brief": {"mAP":
+    rounded to 5 places}, "saliency": {qid: (valid clips,) float32}}."""
+    device = next(model.parameters()).device
+    fixed_v_len, order = _eval_plan(cfg, dataset)
+    collator = Collator(
+        max_q_l=cfg.max_q_l, v_buckets=cfg.v_buckets, fixed_v_len=fixed_v_len,
+        dset_name=cfg.dset_name,
+    )
+    step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision, saliency_only=True)
+    preds, labels, saliency = [], [], {}
+    for real, idx, batch in _batched(dataset, collator, cfg.eval_bsz, order):
+        (_, _, sal), _ = _run_step(step, batch, cfg.strides, device)
+        for j in range(real):
+            meta = batch["meta"][j]
+            # the metric ranks the row up to the label length, as the JAX
+            # package's does
+            preds.append(sal[j])
+            labels.append(meta["label"])
+            saliency[meta["qid"]] = sal[j, : int(batch["valid_v_lens"][j])]
+    mean_ap = compute_hl_map(cfg.dset_name, preds, labels)
+    return {"brief": {"mAP": round(mean_ap, 5)}, "saliency": saliency}
 
 
 def apply_nms(submission: List[dict], nms_thd: float, nms_type: str,

@@ -10,7 +10,8 @@ Counterpart of flashvtg_tpu/train/loop.py (`make_optimizer`,
     Functions, clipping, update; it returns the losses in the JAX step's
     key order (`declared_loss_keys`);
   * `train` runs shuffled, drop-last epochs from a seeded generator and one
-    eval at the end through train/infer.py:run_mr_inference.
+    eval at the end: train/infer.py:run_hl_inference for the HD sets
+    (tvsum, youtube_uni), run_mr_inference for the others.
 Not ported yet (ROADMAP): checkpoints, early stop, per-epoch eval, the scan
 epoch, the device-resident feed, the data-parallel mesh and the
 bf16 / tf32 train precision (the step runs in true f32 on the card).
@@ -24,9 +25,13 @@ import numpy as np
 import torch
 
 from flashvtg_tpu_torch.data.collate import TRAIN_KEYS, Collator
-from flashvtg_tpu_torch.data.dataset import DataConfig, VTGDataset
+from flashvtg_tpu_torch.data.dataset import HD_SETS, DataConfig, VTGDataset
 from flashvtg_tpu_torch.losses import compute_losses, declared_loss_keys, weighted_total
-from flashvtg_tpu_torch.train.infer import eval_data_config, run_mr_inference
+from flashvtg_tpu_torch.train.infer import (
+    eval_data_config,
+    run_hl_inference,
+    run_mr_inference,
+)
 
 
 def train_data_config(cfg, path: str) -> DataConfig:
@@ -109,6 +114,11 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
         losses["weighted_loss_overall"] = total
         optimizer.zero_grad(set_to_none=True)
         total.backward()
+        # optax updates every leaf: a parameter the losses do not reach (the
+        # HD sets' coord head and coef, with no loss_reg) still decays
+        for p in params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         if grad_clip > 0:
             clip_by_global_norm_(params, grad_clip)
         optimizer.step()
@@ -128,7 +138,8 @@ def train(cfg, device=None, max_steps: Optional[int] = None):
     JAX loop's Collator(fixed_v_len=max_v_l). Stops after cfg.n_epoch epochs
     or `max_steps` steps. Returns (model in eval mode, result) where result
     holds the steps run, the per-step losses, their means and, with an eval
-    set, the submission and its metrics. `device` None means the card."""
+    set, its metrics and, for an MR set, the submission. `device` None
+    means the card."""
     from flashvtg_tpu_torch.eval.metrics import eval_submission
     from flashvtg_tpu_torch.models.flashvtg import build_model
     from flashvtg_tpu_torch.utils.runtime import resolve_device
@@ -169,7 +180,10 @@ def train(cfg, device=None, max_steps: Optional[int] = None):
     }
     if cfg.eval_path:
         eval_ds = VTGDataset(eval_data_config(cfg, cfg.eval_path))
-        submission, _ = run_mr_inference(cfg, model, eval_ds)
-        result["submission"] = submission
-        result["metrics"] = eval_submission(submission, eval_ds.data)
+        if cfg.dset_name in HD_SETS:
+            result["metrics"] = run_hl_inference(cfg, model, eval_ds)
+        else:
+            submission, _ = run_mr_inference(cfg, model, eval_ds)
+            result["submission"] = submission
+            result["metrics"] = eval_submission(submission, eval_ds.data)
     return model, result

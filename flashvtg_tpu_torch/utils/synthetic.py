@@ -1,4 +1,4 @@
-"""Synthetic annotation + feature fixtures, in QVHighlights and TACoS format.
+"""Synthetic annotation + feature fixtures in the layouts of the presets.
 
 `make_synthetic_qvh` is the counterpart of flashvtg_tpu/utils/synthetic.py.
 With the default arguments it writes the same files, value for value, as the
@@ -6,6 +6,12 @@ JAX package's copy; the extra `min_clips` draws a per-video clip count so
 that some videos are shorter than `n_clips` and the eval path's strict point
 masks are exercised. `make_synthetic_tacos` writes TACoS-format rows (string
 qids, windows and durations, no saliency fields) over long ragged videos.
+`make_synthetic_tvsum` and `make_synthetic_youtube` write one domain of the
+highlight-detection sets (`label` rows, `domain`, `{qid}.npz` text; TVSum's
+video as `_rgb.npy` + `_opt.npy` halves), `make_synthetic_charades` writes
+Charades-STA rows (windows and durations, two queries a video), with
+`write_glove` for the VGG configuration's GloVe text. The length mixes of
+these writers are guesses, not the datasets' own (each writer says which).
 
 With `split` (e.g. "train", "val") a writer names its annotation file
 `<split>.jsonl` and puts the split into every vid and qid, so the splits of
@@ -150,3 +156,163 @@ def make_synthetic_tacos(
     ann = os.path.join(root, "tacos.jsonl" if split is None else f"{split}.jsonl")
     save_jsonl(rows, ann)
     return ann, vdir, qdir
+
+
+def _hd_rows(root, n_queries, t_dim, clips_range, seed, max_q_tokens, split, tag):
+    """(rng, rows, vdir, qdir, clip counts) of an HD writer: one video per
+    row, qid = vid, `{qid}.npz` text of 5 to max_q_tokens tokens."""
+    rng = np.random.default_rng(seed)
+    vdir = os.path.join(root, "vid_feats")
+    qdir = os.path.join(root, "txt_feats")
+    os.makedirs(vdir, exist_ok=True)
+    os.makedirs(qdir, exist_ok=True)
+    vids, clips = [], []
+    for i in range(n_queries):
+        vids.append(f"synth{tag}{'' if split is None else split}{i:04d}")
+        clips.append(clips_range[1] if i == 0 else int(rng.integers(*clips_range)))
+        lq = int(rng.integers(5, max_q_tokens + 1))
+        np.savez(
+            os.path.join(qdir, f"{vids[-1]}.npz"),
+            last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32),
+        )
+    return rng, vids, vdir, qdir, clips
+
+
+def make_synthetic_tvsum(
+    root: str,
+    n_queries: int = 5,
+    domain: str = "BK",
+    v_dim: int = 2816,
+    t_dim: int = 512,
+    min_clips: int = 60,
+    max_clips: int = 330,
+    clip_len: float = 2.0,
+    seed: int = 0,
+    max_q_tokens: int = 32,
+    split: Optional[str] = None,
+):
+    """Write one TVSum domain under `root`: returns (ann_path, vid_dir,
+    txt_dir). Each row carries `label`, (clips, 20) annotator scores in 1-5,
+    `domain`, and null relevant windows / clip ids; each video is a
+    `{vid}_rgb.npy` and a `{vid}_opt.npy` of v_dim / 2 channels, up to two
+    clips longer than its labels (the dataset cuts them). Length mix (a
+    guess): the first video max_clips clips, the others [min_clips,
+    max_clips) clips of 2 s (videos of 2-11 minutes)."""
+    rng, vids, vdir, qdir, clips = _hd_rows(root, n_queries, t_dim, (min_clips, max_clips),
+                                            seed, max_q_tokens, split, "tvsum")
+    rows = []
+    for vid, n in zip(vids, clips):
+        rows.append(dict(
+            qid=vid, query=f"synthetic title {vid}", duration=n * clip_len, vid=vid,
+            relevant_clip_ids=None, relevant_windows=None,
+            label=rng.integers(1, 6, (n, 20)).astype(float).tolist(), domain=domain,
+        ))
+        extra = int(rng.integers(0, 3))
+        for half in ("rgb", "opt"):
+            np.save(os.path.join(vdir, f"{vid}_{half}.npy"),
+                    rng.standard_normal((n + extra, v_dim // 2), dtype=np.float32))
+    ann = os.path.join(root, "tvsum.jsonl" if split is None else f"{split}.jsonl")
+    save_jsonl(rows, ann)
+    return ann, vdir, qdir
+
+
+def make_synthetic_youtube(
+    root: str,
+    n_queries: int = 8,
+    domain: str = "dog",
+    v_dim: int = 2816,
+    t_dim: int = 512,
+    min_clips: int = 30,
+    max_clips: int = 300,
+    seed: int = 0,
+    max_q_tokens: int = 8,
+    split: Optional[str] = None,
+):
+    """Write one YouTube-HL domain under `root`: returns (ann_path, vid_dir,
+    txt_dir). Each row carries a binary `label` (clips, 1) with at least one
+    highlight clip, `domain` and the domain as its query; each video is one
+    `{vid}.npy`. Length mix (a guess): the first video max_clips clips, the
+    others [min_clips, max_clips) clips of 1 s."""
+    rng, vids, vdir, qdir, clips = _hd_rows(root, n_queries, t_dim, (min_clips, max_clips),
+                                            seed, max_q_tokens, split, "yt")
+    rows = []
+    for vid, n in zip(vids, clips):
+        label = (rng.random(n) < 0.3).astype(int)
+        label[int(rng.integers(0, n))] = 1
+        rows.append(dict(
+            qid=vid, query=domain, duration=float(n), vid=vid, relevant_clip_ids=None,
+            relevant_windows=None, label=[[int(x)] for x in label], domain=domain,
+        ))
+        np.save(os.path.join(vdir, f"{vid}.npy"),
+                rng.standard_normal((n, v_dim), dtype=np.float32))
+    ann = os.path.join(root, "youtube.jsonl" if split is None else f"{split}.jsonl")
+    save_jsonl(rows, ann)
+    return ann, vdir, qdir
+
+
+# the words of the Charades writer's queries; write_glove covers all but the
+# last, which stays out of the vocabulary (a zero row)
+CHARADES_WORDS = ("person", "opens", "closes", "the", "door", "a", "book", "sits", "on",
+                  "chair", "takes", "cup", "from", "table", "laughs", "holding", "phone",
+                  "zzunknown")
+
+
+def make_synthetic_charades(
+    root: str,
+    n_queries: int = 16,
+    v_dim: int = 768,
+    t_dim: int = 4096,
+    clip_len: float = 1.0,
+    min_duration: float = 15.0,
+    max_duration: float = 45.0,
+    max_clips: int = 256,
+    seed: int = 0,
+    max_q_tokens: int = 32,
+    glove: bool = False,
+):
+    """Write a Charades-STA-format set under `root`, two queries a video:
+    returns (ann_path, vid_dir, txt_dir). Rows carry an int qid (0, 1, ...),
+    the query, vid, duration and one relevant window in seconds. Videos are
+    `{vid}.npz` of duration / clip_len clips (at most max_clips); with
+    `glove` (the VGG configuration: clip 1/6 s) the video directory is named
+    `vgg_feats`, which selects the GloVe text path, and no text features
+    are written (queries draw 4-10 words of CHARADES_WORDS). Length mix (a guess): the
+    first video max_duration seconds, the others uniform over
+    [min_duration, max_duration), about 30 s on average."""
+    rng = np.random.default_rng(seed)
+    vdir = os.path.join(root, "vgg_feats" if glove else "vid_feats")
+    qdir = os.path.join(root, "txt_feats")
+    os.makedirs(vdir, exist_ok=True)
+    os.makedirs(qdir, exist_ok=True)
+    rows = []
+    for i in range(n_queries):
+        vid = f"SYN{i // 2:04d}"
+        if i % 2 == 0:
+            duration = max_duration if i == 0 else round(
+                float(rng.uniform(min_duration, max_duration)), 2)
+            clips = min(max_clips, int(np.ceil(duration / clip_len)))
+            np.savez(os.path.join(vdir, f"{vid}.npz"),
+                     features=rng.standard_normal((clips, v_dim), dtype=np.float32))
+        s = round(float(rng.uniform(0, duration - 3)), 2)
+        e = round(float(rng.uniform(s + 2, min(duration, s + 20))), 2)
+        words = rng.choice(CHARADES_WORDS, int(rng.integers(4, 11)))
+        rows.append(dict(qid=i, query=" ".join(words), duration=duration, vid=vid,
+                         relevant_windows=[[s, e]]))
+        if not glove:
+            lq = int(rng.integers(5, max_q_tokens + 1))
+            np.savez(os.path.join(qdir, f"qid{i}.npz"),
+                     last_hidden_state=rng.standard_normal((lq, t_dim), dtype=np.float32))
+    ann = os.path.join(root, "charades.jsonl")
+    save_jsonl(rows, ann)
+    return ann, vdir, qdir
+
+
+def write_glove(path: str, dim: int = 300, seed: int = 0) -> str:
+    """A GloVe text file (`word v1 ... v_dim` lines) of the Charades
+    writer's words but the last, random vectors from `seed`; returns
+    `path`."""
+    rng = np.random.default_rng(seed)
+    with open(path, "w", encoding="utf-8") as f:
+        for w in CHARADES_WORDS[:-1]:
+            f.write(w + " " + " ".join(f"{x:.6f}" for x in rng.standard_normal(dim)) + "\n")
+    return path
