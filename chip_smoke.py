@@ -64,10 +64,12 @@ Phases, each failing loudly:
      (B, H, L, L) f32 tensor (4.29 GB);
   8. train paths, one per preset (qvhighlights_slowclip at B=64, tacos at
      B=32 and Lv 2048; full width and depth, every dropout at its preset
-     value): train() on a synthetic train split for --train-steps steps and
-     one eval through run_mr_inference, each kernel's launch count, set to
-     0 just before, equal to its launches per step times the steps plus the
-     eval's; finite losses; a step timed with CUDA events; the step's peak
+     value): train() on a synthetic train split for --train-steps steps
+     (one epoch) and its eval through run_mr_inference with the eval
+     losses (the forward with the negative pass), each kernel's launch
+     count, set to 0 just before, equal to its launches per step times the
+     steps plus the eval's; finite losses (read back from the run's
+     scalars.jsonl); a step timed with CUDA events; the step's peak
      memory (< 80 GB); then card vs CPU on one 2-row step with every
      dropout at 0: losses within rtol 1e-4; clipped gradients leaf by
      leaf within 1e-3 of the leaf's largest |gradient| (floored at 1e-2 of
@@ -84,14 +86,26 @@ Phases, each failing loudly:
      videos each, as in phase 5;
  10. TVSum train: train() on one synthetic domain of 4 train videos and 1
      val video (B=4, one step an epoch, Lv 1000, every dropout at its
-     preset value) for --train-steps steps, then its HD eval, checked as in
+     preset value) for --train-steps steps (epochs), then its HD eval after
+     the last, checked as in
      phase 8, card vs CPU included;
  11. Charades-STA MR eval: charades (Lv 256, eval_bsz 128) over 256 and
      charades_vgg (Lv 2048, eval_bsz 16, 300-d GloVe text from a vocabulary
      file the phase writes and points FLASHVTG_GLOVE_PATH at) over 32
      synthetic queries, through
      run_mr_inference and eval_submission as in phase 4, card vs CPU on 2
-     queries each.
+     queries each;
+ 12. cli: the port's CLI (flashvtg_tpu_torch/cli.py) on the card at the
+     flagship's full width and depth, on a synthetic QVHighlights split of
+     96 train and 64 val rows: `train` for 3 epochs at bsz 32 with an eval
+     every epoch, `infer --resume model_best.ckpt` (in this process and
+     once as `python -m flashvtg_tpu_torch.cli`), `export`, `infer` from the
+     export, then `train --resume auto --n_epoch 4`; it asserts the best
+     epoch's brief metrics (eval.log.txt) equal every infer's, the resumed
+     run starting at epoch index 3, the checkpoint files, the card-written
+     model_latest.ckpt loading on the CPU (weights, AdamW, StepLR), and each
+     kernel's launches over the in-process calls (12 train steps, 6 evals),
+     and prints each call's wall time.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -750,7 +764,7 @@ def score_mr(cfg, ds, out):
     scored by eval_submission, with and without NMS."""
     from flashvtg_tpu_torch.eval.metrics import eval_submission
 
-    sub, sub_nms = out
+    sub, sub_nms, _ = out
     check_submission(sub, ds, cfg)
     check_submission(sub_nms, ds, cfg)
     metrics, metrics_nms = eval_submission(sub, ds.data), eval_submission(sub_nms, ds.data)
@@ -1064,19 +1078,49 @@ def train_card_vs_cpu(dev, cfg, seed, n_rows):
                 rows=len(batch["vid"]), valid_v_lens=batch["valid_v_lens"].tolist())
 
 
+def read_train_run(run_dir):
+    """(per-step losses from scalars.jsonl, the eval.log.txt lines as
+    (epoch, metrics)) of a train() results directory."""
+    with open(os.path.join(run_dir, "tensorboard_log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [{k[len("train/"):]: v for k, v in r.items() if k.startswith("train/")}
+              for r in rows if any(k.startswith("train/") for k in r)]
+    evals = []
+    if os.path.exists(os.path.join(run_dir, "eval.log.txt")):
+        with open(os.path.join(run_dir, "eval.log.txt")) as f:
+            for line in f:
+                epoch = int(line.split("[Epoch] ")[1].split()[0])
+                evals.append((epoch, json.loads(line.split("[Metrics] ", 1)[1])))
+    return losses, evals
+
+
+def eval_launches(cfg):
+    """Each kernel's launches in one eval batch inside train(): the HD sets'
+    saliency forward; the MR sets' forward with the negative pass, for the
+    eval losses (the forward launches of a train step)."""
+    from flashvtg_tpu_torch.data.dataset import HD_SETS
+
+    if cfg.dset_name in HD_SETS:
+        return launches_per_batch(cfg)
+    return {k: v for k, v in train_launches_per_step(cfg).items() if not k.endswith("_bwd")}
+
+
 def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overrides):
-    """Phases 8 and 10 for one preset: train() on n_train rows (default one
-    epoch of `steps` steps) and its eval on n_val rows (default eval_bsz),
-    its launches and losses, the step's time and memory, card vs CPU."""
+    """Phases 8 and 10 for one preset: train() for `steps` steps on n_train
+    rows (default one epoch) with one eval, after the last epoch, on n_val
+    rows (default eval_bsz), its launches and losses, the step's time and
+    memory, card vs CPU."""
     import torch
 
     from flashvtg_tpu_torch.train.config import from_preset
     from flashvtg_tpu_torch.train.infer import _tail_bucket
     from flashvtg_tpu_torch.train.loop import train
 
-    cfg = from_preset(preset, **overrides)
+    cfg = from_preset(preset, use_tensorboard=False, **overrides)
     n_train = n_train or steps * cfg.bsz
     n_val = n_val or cfg.eval_bsz
+    epochs = -(-steps // max(1, n_train // cfg.bsz))
+    cfg = cfg.replace(n_epoch=epochs, eval_epoch=epochs)
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         cfg = make_train_split(tmp, cfg, n_train, n_val, seed)
@@ -1086,17 +1130,19 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
-        model, result = train(cfg, dev, max_steps=steps)
+        model, _, run_dir = train(cfg, os.path.join(tmp, "run"), dev, max_steps=steps)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
         launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
-        assert result["steps"] == steps
-        assert all(np.isfinite(v) for h in result["losses"] for v in h.values())
-        assert np.isfinite(list(result["metrics"]["brief"].values())).all()
+        losses, evals = read_train_run(run_dir)
+        assert len(losses) == steps and len(evals) == 1, (len(losses), len(evals))
+        assert all(np.isfinite(v) for h in losses for v in h.values())
+        brief = evals[0][1]["brief"]
+        assert np.isfinite(list(brief.values())).all()
         assert _tail_bucket(n_val, cfg.eval_bsz) == n_val  # the eval is one full batch
         per_step = train_launches_per_step(cfg)
-        per_eval = launches_per_batch(cfg)
+        per_eval = eval_launches(cfg)
         for name, n in per_step.items():
             want = n * steps + per_eval.get(name, 0)
             assert launches[name] == want, (name, launches[name], want)
@@ -1105,8 +1151,8 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
         path = dict(
             preset=preset, bsz=cfg.bsz, max_v_l=cfg.max_v_l, steps=steps, eval_rows=n_val,
             launches=launches, launches_per_step=per_step, train_s=t_train,
-            losses_first=result["losses"][0], losses_last=result["losses"][-1],
-            brief=result["metrics"]["brief"], peak_mem_bytes=peak, step_ms=step_ms,
+            losses_first=losses[0], losses_last=losses[-1],
+            brief=brief, peak_mem_bytes=peak, step_ms=step_ms,
             step_rows_per_s=cfg.bsz / step_ms * 1e3, step_peak_mem_bytes=step_peak,
         )
         log(f"[{preset} train path] {json.dumps(path)}")
@@ -1114,6 +1160,124 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
         path["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, seed, n_train)
         log(f"[{preset} train card vs cpu] {json.dumps(path['card_vs_cpu'])}")
     return path
+
+
+def load_on_cpu(cfg, path, steps_per_epoch, seed):
+    """A checkpoint written on the card, loaded on the CPU (map_location):
+    the weights into a CPU model, AdamW's and StepLR's state into theirs;
+    returns the number of tensors loaded, every one on the CPU."""
+    import torch
+
+    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.train.loop import load_checkpoint, load_model_weights, make_optimizer
+    from flashvtg_tpu_torch.utils.convert import model_state
+
+    ckpt = load_checkpoint(path, "cpu")
+    model = build_model(cfg.model_config(), "cpu", seed)
+    load_model_weights(model, model_state(ckpt))
+    optimizer, scheduler = make_optimizer(cfg, model.parameters(), steps_per_epoch)
+    optimizer.load_state_dict(ckpt["optimizer"])
+    scheduler.load_state_dict(ckpt["lr_scheduler"])
+    tensors = [t for s in optimizer.state.values() for t in s.values() if torch.is_tensor(t)]
+    tensors += list(model.state_dict().values())
+    assert tensors and all(t.device.type == "cpu" for t in tensors)
+    return len(tensors)
+
+
+def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
+    """Phase 12: train -> infer -> export -> infer -> resume through the
+    port's CLI at the flagship's full width and depth on the card."""
+    import glob
+
+    import torch
+
+    from flashvtg_tpu_torch import cli
+    from flashvtg_tpu_torch.train.config import from_preset
+
+    preset = "qvhighlights_slowclip"
+    cfg = from_preset(preset, bsz=bsz)
+    times = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = make_train_split(tmp, cfg, n_train, n_val, seed)
+        flags = [
+            "--device", str(dev), "--seed", str(seed), "--bsz", str(bsz), "--eval_epoch", "1",
+            "--train_path", cfg.train_path, "--eval_path", cfg.eval_path,
+            "--v_feat_dirs", *cfg.v_feat_dirs, "--t_feat_dir", cfg.t_feat_dir,
+            "--results_root", os.path.join(tmp, "results"), "--exp_id", "cli",
+            "--use_tensorboard", "false",
+        ]
+
+        def call(name, *argv):
+            t0 = time.perf_counter()
+            assert cli.main(list(argv)) == 0, name
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            log(f"[cli] {name}: {times[name]:.2f} s")
+
+        reset_launch_counts()
+        call("train", "train", preset, *flags, "--n_epoch", str(epochs))
+        (run_dir,) = glob.glob(os.path.join(tmp, "results", "*"))
+        for name in ("model_best.ckpt", "model_latest.ckpt", "opt.json", "eval.log.txt"):
+            assert os.path.isfile(os.path.join(run_dir, name)), name
+        losses, evals = read_train_run(run_dir)
+        assert [e for e, _ in evals] == list(range(epochs)), evals
+        assert len(losses) == epochs * (n_train // bsz)
+        best = os.path.join(run_dir, "model_best.ckpt")
+        best_epoch = torch.load(best, map_location="cpu", weights_only=False)["epoch"]
+        best_brief = dict(evals)[best_epoch]["brief"]
+        cpu_loaded = load_on_cpu(cfg, os.path.join(run_dir, "model_latest.ckpt"),
+                                 n_train // bsz, seed)
+        export_dir = os.path.join(tmp, "export")
+        exported = os.path.join(export_dir, "model.ckpt")
+        call("infer", "infer", preset, *flags, "--resume", best)
+        call("export", "export", preset, *flags, "--resume", best, "--export_path", exported)
+        call("infer_export", "infer", preset, *flags, "--resume", exported)
+        # the resumed run's directory is named to the second
+        time.sleep(max(0.0, 1.05 - (time.time() % 1.0)))
+        call("train_resume_auto", "train", preset, *flags, "--n_epoch", str(epochs + 1),
+             "--resume", "auto")
+        launches = launch_counts()
+
+        sub_dir = os.path.join(tmp, "sub")
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "flashvtg_tpu_torch.cli", "infer", preset, *flags,
+             "--resume", best, "--eval_results_dir", sub_dir],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600,
+        )
+        times["infer_subprocess"] = time.perf_counter() - t0
+        log(f"[cli] infer_subprocess: {times['infer_subprocess']:.2f} s")
+        assert done.returncode == 0, done.stderr[-4000:]
+
+        def brief_of(d):
+            with open(os.path.join(d, f"infer_{cfg.dset_name}_val_preds_metrics.json")) as f:
+                return json.load(f)["brief"]
+
+        briefs = {"infer": brief_of(run_dir), "infer_export": brief_of(export_dir),
+                  "infer_subprocess": brief_of(sub_dir)}
+        for name, b in briefs.items():
+            assert b == best_brief, (name, b, best_brief)
+        resumed = [d for d in glob.glob(os.path.join(tmp, "results", "*")) if d != run_dir]
+        assert len(resumed) == 1, resumed
+        r_losses, r_evals = read_train_run(resumed[0])
+        assert [e for e, _ in r_evals] == [epochs], r_evals  # epoch index 3 only
+        assert len(r_losses) == n_train // bsz
+        r_latest = torch.load(os.path.join(resumed[0], "model_latest.ckpt"), map_location="cpu",
+                              weights_only=False)
+        assert r_latest["epoch"] == epochs, r_latest["epoch"]
+
+        steps = (epochs + 1) * (n_train // bsz)
+        evals_run = epochs + 1 + 2  # the train-time evals and the two in-process infers
+        per_step, per_eval = train_launches_per_step(cfg), eval_launches(cfg)
+        for name, n in per_step.items():
+            want = n * steps + per_eval.get(name, 0) * evals_run
+            assert launches[name] == want, (name, launches[name], want)
+    return dict(preset=preset, bsz=bsz, train_rows=n_train, val_rows=n_val, epochs=epochs,
+                best_epoch=best_epoch, best_brief=best_brief, call_s=times,
+                card_ckpt_tensors_loaded_on_cpu=cpu_loaded,
+                launches=launches, resumed_first_epoch=r_evals[0][0],
+                losses_first=losses[0], losses_last=losses[-1])
 
 
 def main():
@@ -1183,6 +1347,7 @@ def main():
                                         n_val=1, dset_domain="BK"),
         "charades_eval": run_preset(dev, "charades", 256, 2, args.seed),
         "charades_vgg_eval": run_preset(dev, "charades_vgg", 32, 2, args.seed),
+        "cli": run_cli(dev, args.seed),
     }
 
     for row in rows:  # the largest error over every shape of the kernel

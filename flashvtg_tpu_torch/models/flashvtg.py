@@ -104,7 +104,8 @@ class FlashVTGModel(nn.Module):
     src_vid (B, Lv, Dv), src_vid_mask (B, Lv), point_valid optional (B, N);
     in train mode real_neg_mask optional (B,) ("the rolled video differs",
     all ones when None) and `generator`, the source of the attention-dropout
-    seeds.
+    seeds. `force_neg` runs the negative-pair pass in eval mode too (the
+    eval losses read it).
     """
 
     def __init__(self, cfg: ModelConfig):
@@ -152,6 +153,7 @@ class FlashVTGModel(nn.Module):
         point_valid: Optional[torch.Tensor] = None,
         real_neg_mask: Optional[torch.Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        force_neg: bool = False,
     ) -> Dict[str, Any]:
         cfg = self.cfg
         train = self.training
@@ -274,8 +276,10 @@ class FlashVTGModel(nn.Module):
             "dummy_tokens": dummy_refreshed,
         }
 
-        if train and cfg.use_neg:
-            # negative-pair pass: each video against the next row's text
+        if (train or force_neg) and cfg.use_neg:
+            # negative-pair pass: each video against the next row's text (at
+            # eval too with force_neg, for the eval losses: the reference's
+            # use_neg branch is not train-gated)
             txt_d_neg = torch.roll(txt_d, -1, dims=0)
             txt_d_valid_neg = torch.roll(txt_d_valid, -1, dims=0)
             rnm = real_neg_mask if real_neg_mask is not None else src_vid.new_ones((b,))

@@ -1,29 +1,45 @@
-"""Configuration: a slim ExperimentConfig + the per-dataset presets.
+"""Experiment configuration: one dataclass, its opt.json, the presets.
 
-Counterpart of flashvtg_tpu/train/config.py. `ExperimentConfig` holds the
-model, eval and train-step fields (data, optimizer, loss weights and
-bundle); the preset table is copied whole, and `from_preset` keeps the keys
-this config holds (checkpointing, early stop, the feed and the precision
-dials are not ported yet).
+Counterpart of flashvtg_tpu/train/config.py. `ExperimentConfig` has every
+field of the JAX package's, under the same name, in the same order and with
+the same default but one: `train_precision` defaults to "float32" here
+(JAX: "bfloat16"), the only precision the port's train step has (ROADMAP
+Queue A 5). So an opt.json written by either package loads in the other,
+field for field (`save` / `load`, with the reference sidecar keys and the
+`model_cfg.py` beside it). A field whose feature is not ported raises
+NotImplementedError where it is read, naming its ROADMAP item
+(`check_ported`); the reference's dead flags are accepted and warned about
+(`warn_inert_flags`), as the JAX package does.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import logging
+import os
 from typing import Optional, Sequence, Tuple
 
 from flashvtg_tpu_torch.losses.criterion import LossConfig
 from flashvtg_tpu_torch.models.flashvtg import ModelConfig
 
+logger = logging.getLogger(__name__)
+
 
 @dataclasses.dataclass
 class ExperimentConfig:
-    # dataset
+    # experiment / dataset
     dset_name: str = "hl"
     dset_domain: Optional[str] = None
+    exp_id: str = "exp"
     seed: int = 2024
+    results_root: str = "results"
     train_path: str = ""
     eval_path: str = ""
+    # second eval split, evaluated for model_best and model_latest after
+    # training (FlashVTG_ms/train.py:243-286); empty = off
+    test_path: str = ""
+    eval_split_name: str = "val"
     v_feat_dirs: Sequence[str] = ()
     t_feat_dir: str = ""
     v_feat_dim: int = 0
@@ -34,6 +50,7 @@ class ExperimentConfig:
     no_norm_vfeat: bool = False
     no_norm_tfeat: bool = False
     txt_drop_ratio: float = 0.0
+    eos_first: bool = False  # _ms InternVideo2 text order: Queue A 4
 
     # lengths / batching
     max_q_l: int = 32
@@ -41,11 +58,31 @@ class ExperimentConfig:
     clip_length: float = 2.0
     max_windows: int = 5
     bsz: int = 32
-    eval_bsz: int = 32
+    eval_bsz: int = 32  # the reference forces 1; the decode here is batched
     v_buckets: Sequence[int] = (75, 128, 256, 512, 1024, 2048, 4096)
+    # eval batches padded to their own length bucket, longest videos first
     bucket_eval: bool = False
 
+    # optimization (AdamW, StepLR every lr_drop epochs, global-norm clip)
+    lr: float = 5e-4
+    lr_drop: int = 400
+    lr_gamma: float = 0.5
+    wd: float = 1e-4
+    n_epoch: int = 700
+    max_es_cnt: int = 200
+    grad_clip: float = 0.1
+    eval_epoch: int = 2
+    start_epoch: Optional[int] = None
+    resume: Optional[str] = None
+    resume_all: bool = False
+    # partial (non-strict) parameter preload: only entries whose name and
+    # shape match are taken (reference inference.py:447-451)
+    resume_adapter: Optional[str] = None
+    # fast loop: 2 steps an epoch, 1 epoch (reference config.py:32-33)
+    debug: bool = False
+
     # model architecture
+    position_embedding: str = "sine"
     kernel_size: int = 3
     num_conv_layers: int = 3
     num_mlp_layers: int = 3
@@ -59,27 +96,21 @@ class ExperimentConfig:
     use_txt_pos: bool = False
     nheads: int = 8
     num_dummies: int = 0
+    pre_norm: bool = False
     n_input_proj: int = 2
     use_neg: bool = False
+
+    # model-structure config (data/MR*.py dicts)
     strides: Tuple[int, ...] = (1, 2, 4, 8)
+    buffer_size: int = 1024
     max_num_moment: int = 50
-    attn_chunk: int = 512
-    variant: str = "core"  # "ms" is not ported yet
-
-    # optimizer (AdamW, StepLR every lr_drop epochs, global-norm clipping)
-    lr: float = 5e-4
-    lr_drop: int = 400
-    lr_gamma: float = 0.5
-    wd: float = 1e-4
-    n_epoch: int = 700
-    grad_clip: float = 0.1
-
-    # losses
     loss_cls: Optional[str] = "focal"
     loss_reg: Optional[str] = "l1"
     loss_sal: Optional[str] = "nce"
     nce_direction: Tuple[str, ...] = ("row", "col")
     loss_qfl: bool = False
+
+    # loss weights
     saliency_margin: float = 0.2
     sample_radius: float = 1.5
     lw_reg: float = 0.2
@@ -88,11 +119,70 @@ class ExperimentConfig:
     lw_saliency: float = 0.1
     lw_wattn: float = 1.0
     label_loss_coef: float = 4.0
+    eos_coef: float = 0.1
 
     # post-processing
+    max_before_nms: int = 50
+    max_after_nms: int = 10
+    conf_thd: float = 0.0
     nms_thd: float = -1.0
     nms_type: str = "normal"
-    eval_precision: str = "float32"  # the only precision of this port so far
+
+    # test-time flags (reference TestOptions)
+    eval_untrained: bool = False  # evaluate before epoch 0 (train.py:129)
+    eval_results_dir: Optional[str] = None  # where infer writes
+    # accepted for reference opt.json compatibility, inert (_INERT_FLAGS)
+    temperature: float = 0.07
+    span_loss_type: str = "l1"  # "ce" is refused: broken in the reference
+    # static shapes drop the tail batch whatever this says
+    drop_last: bool = False
+    no_sort_results: bool = False
+    a_feat_dim: Optional[int] = None
+    a_feat_dir: Optional[str] = None
+    eval_id: Optional[str] = None
+    model_dir: Optional[str] = None
+    lw_ms_align: float = 1.0
+    aux_loss: bool = True  # --no_aux_loss store_false pair
+    span_loss_coef: float = 10.0
+    giou_loss_coef: float = 3.0
+    use_SRM: bool = False  # the reference's spelling
+    total_prompts: int = 10
+    num_prompts: int = 1
+
+    # FlashVTG_ms variant: Queue A 4
+    variant: str = "core"  # "core"; "ms" is not ported
+    num_phrase: int = 3
+    phrase_layers: int = 2
+    context_layers: int = 2
+    use_dfl: bool = False
+    num_bins: int = 16
+    rank: int = 32
+    t_sa: int = 2
+    lw_phrase: float = 1.0
+    use_eos: bool = False
+    lw_eos: float = 1.0
+
+    # runtime
+    eval_precision: str = "float32"  # float32 only: Queue A 5
+    # `infer --serving` (tensorfloat32 eval) is Queue A 5; never persisted
+    serving: bool = False
+    train_precision: str = "float32"  # JAX default "bfloat16": Queue A 5
+    # the JAX package's dropout PRNG; the port's dropout is its own hash
+    dropout_rng_impl: str = "auto"  # auto | rbg | threefry
+    transfer_dtype: str = "float32"  # bfloat16 wire: Queue A 5
+    # the device-resident feed and the scan epoch: Queue A 6. "auto" takes
+    # the streamed feed here (the same math); "on" raises
+    device_feed: str = "auto"  # auto | on | off
+    device_feed_budget_gb: float = 8.0
+    scan_steps: int = 128  # read with the device feed only
+    # mirrored from the JAX config; the port's self-attention goes to the
+    # memory-linear flash kernel past 128 keys whatever it says
+    attn_chunk: int = 512
+    debug_nans: bool = False  # finite checks: Queue A 8
+    profile_dir: Optional[str] = None  # profile trace: Queue A 8
+    use_tensorboard: bool = True
+    use_wandb: bool = False
+    wandb_project: str = "FlashVTG"
 
     @property
     def use_tef(self) -> bool:
@@ -147,8 +237,198 @@ class ExperimentConfig:
             dset_name=self.dset_name,
         )
 
+    def check_ported(self, train: bool) -> None:
+        """Raise NotImplementedError, naming its ROADMAP item, for a field
+        set to a feature the port does not have; `train` adds the fields the
+        train loop reads. The reference's dead flags only warn."""
+        self.warn_inert_flags()
+        if self.span_loss_type != "l1":
+            raise ValueError(
+                f"span_loss_type={self.span_loss_type!r} is not supported: the "
+                "reference's 'ce' path is itself broken for FlashVTG; every shipped "
+                "config uses 'l1'"
+            )
+        unported = [
+            (self.variant != "core", f"variant={self.variant!r}", 4),
+            (self.eos_first, "eos_first", 4),
+            (self.eval_precision != "float32",
+             f"eval_precision={self.eval_precision!r}", 5),
+            (self.serving, "serving (tensorfloat32 eval)", 5),
+        ]
+        if train:
+            unported += [
+                (self.train_precision != "float32",
+                 f"train_precision={self.train_precision!r} (pass --train_precision "
+                 "float32 for the port's f32 step)", 5),
+                (self.transfer_dtype != "float32",
+                 f"transfer_dtype={self.transfer_dtype!r}", 5),
+                (self.device_feed == "on", "device_feed='on' (and its scan_steps)", 6),
+                (self.debug_nans, "debug_nans", 8),
+                (bool(self.profile_dir), "profile_dir", 8),
+            ]
+        for bad, what, item in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP Queue A {item})"
+                )
+        if self.device_feed not in ("auto", "on", "off"):
+            raise ValueError(f"unknown device_feed {self.device_feed!r}")
+        if self.dropout_rng_impl not in ("auto", "rbg", "threefry"):
+            raise ValueError(f"unknown dropout_rng_impl {self.dropout_rng_impl!r}")
+
+    # flags that exist only for reference opt.json compatibility: dead (or
+    # broken) in the reference itself, so no behaviour depends on them (the
+    # JAX package's list); warned about when set away from their default
+    _INERT_FLAGS = {
+        "pre_norm": False,
+        "eos_coef": 0.1,
+        "conf_thd": 0.0,
+        "max_before_nms": 50,
+        "temperature": 0.07,
+        "no_sort_results": False,
+        "a_feat_dim": None,
+        "a_feat_dir": None,
+        "eval_id": None,
+        "model_dir": None,
+        "lw_ms_align": 1.0,
+        "aux_loss": True,
+        "span_loss_coef": 10.0,
+        "giou_loss_coef": 3.0,
+        "use_SRM": False,
+        "total_prompts": 10,
+        "num_prompts": 1,
+        # the port's own: the JAX PRNG choice has no counterpart here (the
+        # attention dropout is the port's hash, csrc/attn_dropout.cuh)
+        "dropout_rng_impl": "auto",
+    }
+
+    def warn_inert_flags(self) -> None:
+        for name, default in self._INERT_FLAGS.items():
+            current = getattr(self, name)
+            if (current is not None) if default is None else (current != default):
+                logger.warning(
+                    "--%s is accepted for reference opt.json compatibility but is "
+                    "inert in this package", name,
+                )
+
+    # opt.json round trip (the reference saves and reloads every flag)
+    def save(self, path, reference_sidecar: bool = True) -> None:
+        """Write opt.json. With reference_sidecar (default) it also holds the
+        keys the reference's TestOptions reload reads (device, num_workers,
+        results_dir, config, eval_bsz=1: its model asserts batch 1 at eval),
+        and a reference-style model-config file is written beside it, so the
+        directory runs under the reference's inference.py. `serving` is an
+        invocation-time knob and never persists."""
+        d = dataclasses.asdict(self)
+        d.pop("serving", None)
+        if reference_sidecar:
+            run_dir = os.path.dirname(os.path.abspath(path))
+            cfg_py = os.path.join(run_dir, "model_cfg.py")
+            with open(cfg_py, "w") as f:
+                f.write(emit_model_cfg(self))
+            d.update(device=-1, num_workers=0, results_dir=run_dir, config=cfg_py,
+                     eval_bsz=1)
+        with open(path, "w") as f:
+            json.dump(d, f, indent=2, default=list)
+
+    @classmethod
+    def load(cls, path) -> "ExperimentConfig":
+        """An opt.json of either package (keys that are not fields dropped,
+        `serving` never restored)."""
+        with open(path) as f:
+            raw = json.load(f)
+        raw.pop("serving", None)
+        fields = {f.name for f in dataclasses.fields(cls)}
+        return cls(**{k: v for k, v in raw.items() if k in fields})
+
     def replace(self, **kw) -> "ExperimentConfig":
         return dataclasses.replace(self, **kw)
+
+
+def load_model_cfg_file(path: str) -> dict:
+    """The `model` dict of a reference-style python model-config file
+    (data/MR*.py), executed in its own namespace; `_base_` is ignored."""
+    ns: dict = {}
+    with open(path) as f:
+        exec(compile(f.read(), path, "exec"), {}, ns)
+    return ns.get("model", {})
+
+
+# reference blocks-registry class name <-> loss kind; emit_model_cfg uses
+# the inverse
+_LOSS_TYPE_MAP = {
+    "FocalLoss": "focal",
+    "DynamicBCELoss": "dynamic_bce",
+    "L1Loss": "l1",
+    "SampledNCELoss": "nce",
+}
+
+
+def apply_model_cfg(cfg: ExperimentConfig, model_dict: dict) -> ExperimentConfig:
+    """Overlay a data/MR*.py-style dict onto an ExperimentConfig."""
+    kw = {}
+    for key in ("buffer_size", "max_num_moment"):
+        if key in model_dict:
+            kw[key] = model_dict[key]
+    if "strides" in model_dict:
+        kw["strides"] = tuple(model_dict["strides"])
+    loss_cfg = model_dict.get("loss_cfg", {})
+    if loss_cfg:
+        for key in ("loss_cls", "loss_reg", "loss_sal"):
+            entry = loss_cfg.get(key)
+            kw[key] = _LOSS_TYPE_MAP.get(entry["type"]) if entry else None
+        sal = loss_cfg.get("loss_sal")
+        if sal and "direction" in sal:
+            d = sal["direction"]
+            kw["nce_direction"] = (d,) if isinstance(d, str) else tuple(d)
+        kw["loss_qfl"] = "loss_qfl" in loss_cfg
+        if "sample_radius" in loss_cfg:
+            kw["sample_radius"] = loss_cfg["sample_radius"]
+    return cfg.replace(**kw)
+
+
+def emit_model_cfg(cfg: ExperimentConfig) -> str:
+    """Inverse of apply_model_cfg: a reference-style data/MR*.py model-config
+    file for this experiment (the reference's inference.py builds its model
+    from the file opt.json names), in the shipped files' shape."""
+    type_map = {v: k for k, v in _LOSS_TYPE_MAP.items()}
+
+    def entry(kind: Optional[str], extra: str = "") -> str:
+        return f"dict(type='{type_map[kind]}'{extra})" if kind else "None"
+
+    dirs = tuple(cfg.nce_direction)
+    sal_extra = "" if dirs == ("row", "col") else (
+        f", direction={dirs[0]!r}" if len(dirs) == 1 else f", direction={dirs!r}"
+    )
+    loss_lines = [
+        "    loss_cfg=dict(",
+        "        type='BundleLoss',",
+        f"        sample_radius={cfg.sample_radius},",
+    ]
+    if cfg.loss_qfl:
+        # data/MR_GFL.py has loss_qfl in place of loss_cls
+        loss_lines.append("        loss_qfl=dict(type='QualityFocalLoss'),")
+    else:
+        loss_lines.append(f"        loss_cls={entry(cfg.loss_cls)},")
+    loss_lines += [
+        f"        loss_reg={entry(cfg.loss_reg)},",
+        f"        loss_sal={entry(cfg.loss_sal, sal_extra)},",
+        "    ),",
+    ]
+    lines = [
+        "_base_ = ['blocks']",
+        "model = dict(",
+        f"    strides={tuple(cfg.strides)!r},",
+        f"    buffer_size={cfg.buffer_size},",
+        f"    max_num_moment={cfg.max_num_moment},",
+        "    pyramid_cfg=dict(type='ConvPyramid'),",
+        "    pooling_cfg=dict(type='AdaPooling'),",
+        "    class_head_cfg=dict(type='ConvHead', kernal_size=3),",
+        "    coord_head_cfg=dict(type='ConvHead', kernal_size=3),",
+        *loss_lines,
+        ")",
+    ]
+    return "\n".join(lines) + "\n"
 
 
 _HD_LOSSES = dict(
@@ -299,14 +579,11 @@ PRESETS = {
     ),
 }
 
-_FIELDS = frozenset(f.name for f in dataclasses.fields(ExperimentConfig))
-
-
 def from_preset(name: str, **overrides) -> ExperimentConfig:
-    """The preset's model and eval fields, with `overrides` on top (an
-    override that is not a field of this config raises TypeError)."""
+    """The preset's fields, with `overrides` on top (an override that is not
+    a field raises TypeError)."""
     if name not in PRESETS:
         raise KeyError(f"unknown preset {name!r}; have {sorted(PRESETS)}")
-    kw = {k: v for k, v in PRESETS[name].items() if k in _FIELDS}
+    kw = dict(PRESETS[name])
     kw.update(overrides)
     return ExperimentConfig(**kw)

@@ -5,31 +5,36 @@ Counterpart of flashvtg_tpu/train/infer.py (`make_eval_step`,
 top-k run batched on the model's device; each batch is moved host ->
 device, and host code only formats the jsonl rows, byte for byte as the JAX
 package does (f64 4-decimal rounding, f32-noise NMS scores, parked pad
-slots). The highlight-detection sets (TVSum, YouTube-HL) take the
-saliency-only step, the forward with no decode, and score the saliency
-with eval/hl.py's mAP. Not ported yet: the device-resident feed, mesh
-sharding, pipelining and eval losses.
+slots). With a `loss_cfg` and a labelled split, `run_mr_inference` also
+evaluates the criterion on every batch (the forward with the negative pass,
+`force_neg`) and returns its means over the split, weighted by rows, as the
+reference logs eval losses (inference.py:300-306). The highlight-detection
+sets (TVSum, YouTube-HL) take the saliency-only step, the forward with no
+decode, and score the saliency with eval/hl.py's mAP. Not ported yet: the
+device-resident feed, mesh sharding and pipelining (ROADMAP Queue A 6-7).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from flashvtg_tpu_torch.data.collate import MODEL_KEYS, Collator
+from flashvtg_tpu_torch.data.collate import MODEL_KEYS, TRAIN_KEYS, Collator
 from flashvtg_tpu_torch.data.dataset import DataConfig, VTGDataset
 from flashvtg_tpu_torch.eval.hl import compute_hl_map
 from flashvtg_tpu_torch.eval.postprocess import build_post_processor
+from flashvtg_tpu_torch.losses import compute_losses, weighted_total
 from flashvtg_tpu_torch.models.flashvtg import FlashVTGModel, decode_boundaries
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.ops.nms import suppress_overlaps
 
 
-def eval_data_config(cfg, path: str) -> DataConfig:
+def eval_data_config(cfg, path: str, load_labels: bool = False) -> DataConfig:
     """Eval DataConfig of an ExperimentConfig (the JAX loop's _dataset_cfg
-    with load_labels=False)."""
+    with train=False): labels, for the eval losses, drawn from the config's
+    seed when `load_labels`; no text-row dropout."""
     return DataConfig(
         dset_name=cfg.dset_name,
         data_path=path,
@@ -43,31 +48,45 @@ def eval_data_config(cfg, path: str) -> DataConfig:
         normalize_v=not cfg.no_norm_vfeat,
         normalize_t=not cfg.no_norm_tfeat,
         dset_domain=cfg.dset_domain,
+        load_labels=load_labels,
+        clip_len=cfg.clip_length,
+        max_windows=cfg.max_windows,
+        seed=cfg.seed,
     )
 
 
 def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32",
-                   saliency_only: bool = False):
-    """step(batch, point_valid) -> (spans, scores, saliency): forward +
-    decode + rank for one batch of device tensors. `saliency_only` (the HD
-    sets, which read only the saliency channel) skips the decode: spans and
-    scores are then None."""
+                   saliency_only: bool = False, loss_cfg=None):
+    """step(batch, point_valid) -> (spans, scores, saliency, losses):
+    forward + decode + rank for one batch of device tensors. `saliency_only`
+    (the HD sets, which read only the saliency channel) skips the decode:
+    spans and scores are then None. With `loss_cfg` the batch carries its
+    labels (TRAIN_KEYS), the forward takes the negative pass too, and losses
+    holds the criterion's batch means (0-d tensors, the weighted total
+    included); else it is {}."""
     if precision != "float32":
-        raise NotImplementedError(f"eval precision {precision!r} is not ported yet")
+        raise NotImplementedError(
+            f"eval precision {precision!r} is not ported yet (ROADMAP Queue A 5)"
+        )
 
     @torch.no_grad()
     def step(batch, point_valid):
         out = model(
             batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
             batch["src_vid_mask"], point_valid=point_valid,
+            real_neg_mask=batch.get("real_neg_mask"), force_neg=loss_cfg is not None,
         )
+        losses = {}
+        if loss_cfg is not None:
+            losses = compute_losses(out, batch, loss_cfg)
+            losses["weighted_loss_overall"] = weighted_total(losses, loss_cfg)
         if saliency_only:
-            return None, None, out["saliency_scores"]
+            return None, None, out["saliency_scores"], losses
         spans, scores = decode_boundaries(
             out["out_class"], out["out_coord"], out["point"],
             model.cfg.clip_length, point_valid=point_valid, top_k=top_k,
         )
-        return spans, scores, out["saliency_scores"]
+        return spans, scores, out["saliency_scores"], losses
 
     return step
 
@@ -111,35 +130,65 @@ def _strict_or_none(strict, valid_v_lens, lv):
     return strict
 
 
-def _run_step(step, batch, strides, device):
-    """One collated batch through `step` on `device`, with its strict point
-    masks (None where no row is padded): (the step's outputs on the host,
-    None kept, each row's point count)."""
+def _has_labels(dataset: VTGDataset) -> bool:
+    """Whether the rows carry training labels (a test split may load labels
+    yet have none), probed without consuming the dataset's label draws."""
+    if not len(dataset) or not dataset.cfg.load_labels:
+        return False
+    state = dataset.rng.getstate()
+    try:
+        _, sample = dataset[0]
+    finally:
+        dataset.rng.setstate(state)
+    return "saliency_all_labels" in sample
+
+
+def _run_step(step, batch, strides, device, keys=MODEL_KEYS):
+    """One collated batch's `keys` through `step` on `device`, with its
+    strict point masks (None where no row is padded): ((spans, scores,
+    saliency) on the host, None kept; the losses as floats; each row's
+    point count)."""
     lv = batch["src_vid"].shape[1]
     strict, counts = pyramid_masks_strict(batch["valid_v_lens"], lv, strides)
     strict = _strict_or_none(strict, batch["valid_v_lens"], lv)
-    dev = {k: torch.from_numpy(batch[k]).to(device) for k in MODEL_KEYS}
+    dev = {k: torch.from_numpy(batch[k]).to(device) for k in keys}
     point_valid = None if strict is None else torch.from_numpy(strict).to(device)
-    outs = step(dev, point_valid)
-    return [None if t is None else t.cpu().numpy() for t in outs], counts
+    *outs, losses = step(dev, point_valid)
+    host = [None if t is None else t.cpu().numpy() for t in outs]
+    values = torch.stack(list(losses.values())).tolist() if losses else []
+    return host, dict(zip(losses, values)), counts
 
 
 def run_mr_inference(
     cfg, model: FlashVTGModel, dataset: VTGDataset, nms_thd: Optional[float] = None,
-) -> Tuple[List[dict], Optional[List[dict]]]:
-    """Submission rows (and NMS'd rows) for an MR dataset, on the device
-    that holds the model's parameters."""
+    loss_cfg=None,
+) -> Tuple[List[dict], Optional[List[dict]], Dict[str, float]]:
+    """(submission rows, NMS'd rows or None, eval losses) for an MR dataset,
+    on the device that holds the model's parameters. The eval losses are the
+    criterion's means over the split when `loss_cfg` is given and the rows
+    carry labels, else {}: every batch is exactly full (the binary tail of
+    _batched), so its means weigh by its rows."""
     device = next(model.parameters()).device
     fixed_v_len, order = _eval_plan(cfg, dataset)
+    with_losses = loss_cfg is not None and _has_labels(dataset)
     collator = Collator(
-        max_q_l=cfg.max_q_l, v_buckets=cfg.v_buckets, fixed_v_len=fixed_v_len
+        max_q_l=cfg.max_q_l, v_buckets=cfg.v_buckets, fixed_v_len=fixed_v_len,
+        max_windows=cfg.max_windows, dset_name=cfg.dset_name,
     )
-    step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision)
+    step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision,
+                          loss_cfg=loss_cfg if with_losses else None)
+    keys = TRAIN_KEYS if with_losses else MODEL_KEYS
     nms = nms_thd if nms_thd is not None else cfg.nms_thd
 
     submission: List[dict] = []
+    loss_sums: Dict[str, float] = {}
+    n_rows = 0
     for real, idx, batch in _batched(dataset, collator, cfg.eval_bsz, order):
-        (spans, scores, saliency), counts = _run_step(step, batch, cfg.strides, device)
+        (spans, scores, saliency), losses, counts = _run_step(
+            step, batch, cfg.strides, device, keys)
+        for k, v in losses.items():
+            loss_sums[k] = loss_sums.get(k, 0.0) + v * real
+        n_rows += real
         # 4-decimal rounding in float64: reproduces float(f"{x:.4f}") for
         # float32-origin values
         sal_r = np.round(saliency.astype(np.float64), 4)
@@ -172,7 +221,8 @@ def run_mr_inference(
     submission_nms = None
     if nms is not None and nms != -1:
         submission_nms = apply_nms(submission, nms, cfg.nms_type, device=device)
-    return submission, submission_nms
+    eval_losses = {k: v / n_rows for k, v in loss_sums.items()} if loss_sums else {}
+    return submission, submission_nms, eval_losses
 
 
 def run_hl_inference(cfg, model: FlashVTGModel, dataset: VTGDataset) -> dict:
@@ -189,7 +239,7 @@ def run_hl_inference(cfg, model: FlashVTGModel, dataset: VTGDataset) -> dict:
     step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision, saliency_only=True)
     preds, labels, saliency = [], [], {}
     for real, idx, batch in _batched(dataset, collator, cfg.eval_bsz, order):
-        (_, _, sal), _ = _run_step(step, batch, cfg.strides, device)
+        (_, _, sal), _, _ = _run_step(step, batch, cfg.strides, device)
         for j in range(real):
             meta = batch["meta"][j]
             # the metric ranks the row up to the label length, as the JAX

@@ -1,7 +1,7 @@
-"""Train step and a minimal training loop.
+"""Train step and training loop: AdamW + StepLR, per-epoch eval, best
+model, early stop, checkpoints, resume.
 
-Counterpart of flashvtg_tpu/train/loop.py (`make_optimizer`,
-`make_train_step`, `train`), reference FlashVTG/train.py:
+Counterpart of flashvtg_tpu/train/loop.py, reference FlashVTG/train.py:
   * AdamW with StepLR (gamma every lr_drop epochs, stepped per train step
     as the JAX schedule is) and global-norm clipping with optax's formula,
     g * min(1, c / |g|) (torch's clip_grad_norm_ divides by |g| + 1e-6);
@@ -9,16 +9,35 @@ Counterpart of flashvtg_tpu/train/loop.py (`make_optimizer`,
     weighted total, backward through the attention kernels' autograd
     Functions, clipping, update; it returns the losses in the JAX step's
     key order (`declared_loss_keys`);
-  * `train` runs shuffled, drop-last epochs from a seeded generator and one
-    eval at the end: train/infer.py:run_hl_inference for the HD sets
-    (tvsum, youtube_uni), run_mr_inference for the others.
-Not ported yet (ROADMAP): checkpoints, early stop, per-epoch eval, the scan
-epoch, the device-resident feed, the data-parallel mesh and the
-bf16 / tf32 train precision (the step runs in true f32 on the card).
+  * `train`: shuffled epochs from a generator seeded at loop start (the
+    short tail batch dropped), an eval every eval_epoch epochs with the eval
+    losses (`evaluate`: run_hl_inference for the HD sets, tvsum and
+    youtube_uni, run_mr_inference for the others), the best model by
+    `stop_metric` (strictly above the best so far, which starts at 0),
+    early stop after max_es_cnt evals without a gain, model_latest every
+    epoch, --resume / --resume_all / --resume auto / --resume_adapter,
+    eval_untrained, the --test_path finals, the reference's train.log.txt /
+    eval.log.txt lines and scalars through utils/observability.py.
+Checkpoints are reference-format `.ckpt` files (utils/convert.py), the
+reference trainer's layout (train.py:200-233): model, state_dict, optimizer,
+lr_scheduler, epoch and opt (a plain dict), with a `<name>.state.json`
+best-score sidecar and opt.json beside them. The JAX package writes orbax
+directories, which the port does not read; its `cli export` `.ckpt` is what
+the two packages share, and the JAX `cli infer --resume` /
+`--resume_adapter` read the port's files.
+Not ported yet (ROADMAP Queue A 5-7): the scan epoch, the device-resident
+feed, the data-parallel mesh and multi-host rows, and the bf16 / tf32 train
+precision (the step runs in true f32 on the card).
 """
 
 from __future__ import annotations
 
+import dataclasses
+import glob
+import json
+import logging
+import os
+import time
 from typing import Dict, Iterable, Optional
 
 import numpy as np
@@ -32,6 +51,15 @@ from flashvtg_tpu_torch.train.infer import (
     run_hl_inference,
     run_mr_inference,
 )
+from flashvtg_tpu_torch.utils.convert import (
+    lenient_torch_load,
+    load_torch_checkpoint,
+    model_state,
+    save_torch_checkpoint,
+)
+from flashvtg_tpu_torch.utils.io import AverageMeter, save_json, save_jsonl
+
+logger = logging.getLogger(__name__)
 
 
 def train_data_config(cfg, path: str) -> DataConfig:
@@ -129,61 +157,421 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
     return step
 
 
-def train(cfg, device=None, max_steps: Optional[int] = None):
-    """Train a randomly initialised model (weights from cfg.seed) on
-    cfg.train_path, then evaluate it once on cfg.eval_path (if set).
+def stop_metric(cfg, brief: Dict[str, float]) -> float:
+    """Model-selection metric per dataset (reference train.py:186-194): mAP
+    for the HD sets, MR-full-mAP for the literal 'hl', MR-full-R1@0.3 for
+    tacos, else the mean of MR-full-R1@0.7 and @0.5."""
+    if cfg.dset_name in HD_SETS:
+        return brief["mAP"]
+    if cfg.dset_name == "hl":
+        return brief["MR-full-mAP"]
+    if cfg.dset_name == "tacos":
+        return brief["MR-full-R1@0.3"]
+    return (brief["MR-full-R1@0.7"] + brief["MR-full-R1@0.5"]) / 2
 
-    Epochs shuffle the rows with a generator seeded from cfg.seed and drop
-    the last partial batch; the video length is pinned to max_v_l as the
-    JAX loop's Collator(fixed_v_len=max_v_l). Stops after cfg.n_epoch epochs
-    or `max_steps` steps. Returns (model in eval mode, result) where result
-    holds the steps run, the per-step losses, their means and, with an eval
-    set, its metrics and, for an MR set, the submission. `device` None
-    means the card."""
+
+def evaluate(cfg, model, eval_dataset, results_dir, tag="latest", loss_cfg=None,
+             compute_metrics=None, split_name=None):
+    """One eval pass of `model` (put in eval mode); returns (metrics,
+    metrics_nms, eval_losses). MR sets write `{tag}_{dset}_{split}_preds.jsonl`,
+    its `_nms_thd_{t}` pair when NMS ran, and, with compute_metrics (default:
+    the split is "val"), the `_metrics.json` of each; HD sets score mAP and
+    write `{tag}_metric.jsonl`. `loss_cfg` adds the eval losses."""
     from flashvtg_tpu_torch.eval.metrics import eval_submission
-    from flashvtg_tpu_torch.models.flashvtg import build_model
-    from flashvtg_tpu_torch.utils.runtime import resolve_device
 
+    split_name = split_name or cfg.eval_split_name
+    if compute_metrics is None:
+        compute_metrics = cfg.eval_split_name == "val"
+    model.eval()
+    if cfg.dset_name in HD_SETS:
+        metrics = {"brief": run_hl_inference(cfg, model, eval_dataset)["brief"]}
+        save_jsonl([metrics], os.path.join(results_dir, f"{tag}_metric.jsonl"))
+        return metrics, None, {}
+    t0 = time.time()
+    submission, submission_nms, eval_losses = run_mr_inference(
+        cfg, model, eval_dataset, loss_cfg=loss_cfg
+    )
+    infer_s = time.time() - t0
+    sub_path = os.path.join(results_dir, f"{tag}_{cfg.dset_name}_{split_name}_preds.jsonl")
+    save_jsonl(submission, sub_path)
+    nms_path = sub_path.replace(".jsonl", f"_nms_thd_{cfg.nms_thd}.jsonl")
+    if submission_nms is not None:
+        save_jsonl(submission_nms, nms_path)
+    metrics = metrics_nms = None
+    if compute_metrics:
+        t0 = time.time()
+        metrics = eval_submission(submission, eval_dataset.data)
+        logger.info("eval timing: infer %.2fs, metrics %.2fs (%d queries)",
+                    infer_s, time.time() - t0, len(submission))
+        save_json(metrics, sub_path.replace(".jsonl", "_metrics.json"), pretty=True)
+        if submission_nms is not None:
+            metrics_nms = eval_submission(submission_nms, eval_dataset.data)
+            save_json(metrics_nms, nms_path.replace(".jsonl", "_metrics.json"), pretty=True)
+    return metrics, metrics_nms, eval_losses
+
+
+def state_sidecar(path: str) -> str:
+    """`<name>.state.json` beside checkpoint `<name>.ckpt`: its best score."""
+    return os.path.splitext(os.path.abspath(path))[0] + ".state.json"
+
+
+def save_checkpoint(path: str, model, optimizer, scheduler, epoch: int, cfg,
+                    best_score: Optional[float] = None) -> None:
+    """The full train state as a reference-format `.ckpt` (model,
+    state_dict, optimizer, lr_scheduler, epoch, opt as a plain dict; the
+    reference trainer's train.py:200-233), opt.json beside it and, with
+    `best_score`, the `<name>.state.json` sidecar that `--resume auto` reads
+    to restore the best-so-far bar."""
+    save_torch_checkpoint(
+        path, model.state_dict(), epoch=epoch, optimizer=optimizer.state_dict(),
+        lr_scheduler=scheduler.state_dict(), opt=dataclasses.asdict(cfg),
+    )
+    cfg.save(os.path.join(os.path.dirname(os.path.abspath(path)), "opt.json"))
+    if best_score is not None:
+        with open(state_sidecar(path), "w") as f:
+            json.dump({"best_score": float(best_score)}, f)
+
+
+def load_checkpoint(path: str, map_location="cpu") -> dict:
+    """A `.ckpt` dict with its tensors on `map_location`. The JAX package's
+    orbax directories are not read: export them first (`python -m
+    flashvtg_tpu.cli export ... --export_path x.ckpt`)."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (a JAX orbax checkpoint?): the port reads "
+            "reference-format .ckpt files; export it with `python -m "
+            "flashvtg_tpu.cli export <config> --resume {path} --export_path x.ckpt`"
+        )
+    return lenient_torch_load(path, map_location)
+
+
+def _fitted(src: torch.Tensor, dst: torch.Tensor) -> Optional[torch.Tensor]:
+    """`src` shaped as `dst`, or None when it does not fit. A (1,) entry fits
+    a 0-d parameter, as torch's load_state_dict allows: the JAX package's
+    export writes the 0-d `x` so."""
+    if tuple(src.shape) == tuple(dst.shape):
+        return src
+    if dst.dim() == 0 and tuple(src.shape) == (1,):
+        return src.reshape(())
+    return None
+
+
+def load_model_weights(model, sd: Dict[str, torch.Tensor]) -> None:
+    """load_state_dict(strict=True) that checks every name and shape first,
+    so a mismatched checkpoint leaves the model as it was."""
+    own = model.state_dict()
+    missing = sorted(set(own) - set(sd))
+    unexpected = sorted(set(sd) - set(own))
+    shapes = [k for k in own if k in sd and _fitted(sd[k], own[k]) is None]
+    if missing or unexpected or shapes:
+        raise ValueError(
+            f"checkpoint does not fit the model: missing {missing[:5]}, "
+            f"unexpected {unexpected[:5]}, other shapes {shapes[:5]}"
+        )
+    model.load_state_dict({k: _fitted(v, own[k]) for k, v in sd.items()})
+
+
+def merge_partial_params(params: Dict[str, torch.Tensor], loaded: Dict[str, torch.Tensor]):
+    """Non-strict preload (--resume_adapter, the reference's
+    load_state_dict(strict=False)): take each entry of `loaded` whose name
+    and shape match one of `params`; keep the others of `params`; drop
+    names `params` lacks. Returns the merged state_dict."""
+    merged, copied, skipped = {}, 0, 0
+    for name, dst in params.items():
+        src = loaded.get(name)
+        fitted = None if src is None else _fitted(src, dst)
+        if fitted is not None:
+            merged[name] = fitted.to(device=dst.device, dtype=dst.dtype)
+            copied += 1
+        else:
+            merged[name] = dst
+            skipped += src is not None
+    logger.info("resume_adapter: copied %d leaves, skipped %d", copied, skipped)
+    return merged
+
+
+def load_adapter(cfg, model) -> None:
+    """Apply --resume_adapter to `model`: a partial, non-strict preload from
+    a reference-format `.ckpt` (the port's, the JAX export's, the
+    reference's)."""
+    device = next(model.parameters()).device
+    loaded = model_state(load_checkpoint(cfg.resume_adapter, device))
+    model.load_state_dict(merge_partial_params(model.state_dict(), loaded))
+
+
+# opt.json fields that fix the parameter shapes (the JAX loop's list)
+_SHAPE_KEYS = (
+    "variant", "hidden_dim", "nheads", "enc_layers", "t2v_layers", "dummy_layers",
+    "num_dummies", "dim_feedforward", "strides", "v_feat_dim", "t_feat_dim", "max_v_l",
+    "max_q_l", "kernel_size", "num_conv_layers", "num_mlp_layers", "n_input_proj",
+    "num_phrase", "phrase_layers", "context_layers", "rank", "t_sa",
+)
+
+
+def find_auto_resume(cfg) -> Optional[str]:
+    """`--resume auto`: the newest `model_latest.ckpt` under
+    cfg.results_root whose run dir's opt.json has this experiment's
+    dset_name, ctx_mode and exp_id and the same parameter shapes, else None.
+    A checkpoint is written beside its name and renamed, so the newest is
+    whole."""
+
+    def norm(v):
+        return list(v) if isinstance(v, (list, tuple)) else v
+
+    def same_experiment(ckpt_path):
+        try:
+            with open(os.path.join(os.path.dirname(ckpt_path), "opt.json")) as f:
+                saved = json.load(f)
+        except (OSError, ValueError):
+            return False
+        if not all(saved.get(k) == getattr(cfg, k) for k in ("dset_name", "ctx_mode", "exp_id")):
+            return False
+        mismatched = [k for k in _SHAPE_KEYS
+                      if k in saved and norm(saved[k]) != norm(getattr(cfg, k, None))]
+        if mismatched:
+            logger.info("--resume auto: skipping %s (same exp_id but different model "
+                        "shape: %s)", ckpt_path, ", ".join(mismatched))
+            return False
+        return True
+
+    candidates = sorted(
+        (c for c in glob.glob(os.path.join(cfg.results_root, "*", "model_latest.ckpt"))
+         if same_experiment(c)),
+        key=os.path.getmtime,
+    )
+    return candidates[-1] if candidates else None
+
+
+def train(cfg, results_dir: Optional[str] = None, device=None,
+          max_steps: Optional[int] = None):
+    """Full training run; returns (model, best_score, results_dir): the model
+    in eval mode with the best epoch's weights (the last epoch's where no
+    eval improved), on `device` (None: the card).
+
+    Weights come from cfg.seed (then --resume_adapter, --resume); the rows
+    are shuffled each epoch by a generator seeded from cfg.seed at loop
+    start, steps_per_epoch = max(1, rows // bsz) with a short batch skipped;
+    the video length is pinned to max_v_l. `max_steps` caps the steps of
+    this run: the epoch that reaches it ends there and is the last, its eval
+    and checkpoint made as for any epoch."""
+    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.utils.observability import ScalarWriter
+    from flashvtg_tpu_torch.utils.runtime import resolve_device
+    from flashvtg_tpu_torch.utils.snapshot import snapshot_code
+
+    cfg.check_ported(train=True)
     device = resolve_device(device)
+    results_dir = results_dir or os.path.join(
+        cfg.results_root,
+        f"{cfg.dset_name}-{cfg.ctx_mode}-{cfg.exp_id}-{time.strftime('%Y-%m-%d-%H-%M-%S')}",
+    )
+    os.makedirs(results_dir, exist_ok=True)
+    cfg.save(os.path.join(results_dir, "opt.json"))
+    try:
+        snapshot_code(results_dir)
+    except Exception as e:  # a snapshot failure must never stop training
+        logger.warning("code snapshot failed: %s", e)
+
     torch.manual_seed(cfg.seed)  # feature dropout and DropPath draw from it
-    train_ds = VTGDataset(train_data_config(cfg, cfg.train_path))
-    steps_per_epoch = len(train_ds) // cfg.bsz
-    if steps_per_epoch == 0:
-        raise ValueError(f"{len(train_ds)} train rows < one batch of {cfg.bsz}")
+    train_dataset = VTGDataset(train_data_config(cfg, cfg.train_path))
+    eval_dataset = VTGDataset(eval_data_config(
+        cfg, cfg.eval_path, load_labels=cfg.eval_split_name == "val"
+    )) if cfg.eval_path else None
+    # the JAX loop collates the first two rows for its parameter init, which
+    # draws their labels; drawing them here too keeps the two label streams
+    # the same
+    for i in range(min(2, len(train_dataset))):
+        train_dataset[i]
     model = build_model(cfg.model_config(), device, cfg.seed).train()
-    optimizer, scheduler = make_optimizer(cfg, model.parameters(), steps_per_epoch)
-    step = make_train_step(model, cfg.loss_config(), optimizer, scheduler, cfg.grad_clip,
-                           torch.Generator().manual_seed(cfg.seed))
+    loss_cfg = cfg.loss_config()
     collator = Collator(
         cfg.max_q_l, cfg.v_buckets, cfg.max_v_l if cfg.max_v_l > 0 else None,
         max_windows=cfg.max_windows, dset_name=cfg.dset_name,
     )
+    if cfg.resume_adapter:
+        load_adapter(cfg, model)
+    steps_per_epoch = max(1, len(train_dataset) // cfg.bsz)
+    n_epoch = cfg.n_epoch
+    if cfg.debug:  # fast loop (reference config.py:32-33)
+        steps_per_epoch, n_epoch = min(2, steps_per_epoch), min(1, n_epoch)
+    optimizer, scheduler = make_optimizer(cfg, model.parameters(), steps_per_epoch)
+
+    start_epoch_override = resumed_best_score = prior_best_ckpt = None
+    auto_resumed = False
+    if cfg.resume == "auto":
+        cfg = cfg.replace(resume=find_auto_resume(cfg), resume_all=True)
+        auto_resumed = cfg.resume is not None
+        if auto_resumed:
+            logger.info("auto-resume from %s", cfg.resume)
+    if cfg.resume:
+        try:
+            ckpt = load_checkpoint(cfg.resume, device)
+            load_model_weights(model, model_state(ckpt))
+            if cfg.resume_all:
+                if "optimizer" in ckpt:
+                    optimizer.load_state_dict(ckpt["optimizer"])
+                if "lr_scheduler" in ckpt:
+                    scheduler.load_state_dict(ckpt["lr_scheduler"])
+        except Exception:
+            # an auto-found checkpoint that does not restore starts the run
+            # afresh; an explicit --resume stays an error
+            if not auto_resumed:
+                raise
+            logger.warning("--resume auto: %s did not restore; starting fresh",
+                           cfg.resume, exc_info=True)
+            ckpt = None
+        if ckpt is not None and cfg.resume_all:
+            start_epoch_override = int(ckpt.get("epoch", -1)) + 1
+            try:
+                with open(state_sidecar(cfg.resume)) as f:
+                    resumed_best_score = float(json.load(f)["best_score"])
+            except (OSError, ValueError, KeyError):
+                resumed_best_score = None
+            cand = os.path.join(os.path.dirname(os.path.abspath(cfg.resume)),
+                                "model_best.ckpt")
+            if os.path.isfile(cand):
+                prior_best_ckpt = cand
+    step = make_train_step(model, loss_cfg, optimizer, scheduler, cfg.grad_clip,
+                           torch.Generator().manual_seed(cfg.seed))
+    keys = step.loss_keys
+
+    writer = ScalarWriter(
+        os.path.join(results_dir, "tensorboard_log"), use_tensorboard=cfg.use_tensorboard,
+        wandb_run=dict(project=cfg.wandb_project, name=os.path.basename(results_dir),
+                       config=dataclasses.asdict(cfg)) if cfg.use_wandb else None,
+    )
+    writer.write_text("hyperparameters",
+                      json.dumps(dataclasses.asdict(cfg), indent=2, default=list))
+    n_params = sum(p.numel() for p in model.parameters())
+    logger.info("Learnable Parameters: %.3fM (100.0%%)", n_params / 1024 / 1024)
+
+    best_path = os.path.join(results_dir, "model_best.ckpt")
+    best_score, have_best, es_cnt = 0.0, False, 0
+    if resumed_best_score is not None:
+        best_score = resumed_best_score
+        logger.info("resume: best-so-far bar restored to %.4f (prior model_best: %s)",
+                    best_score, prior_best_ckpt)
+    if cfg.start_epoch is not None:
+        start_epoch = cfg.start_epoch
+    elif start_epoch_override is not None:
+        start_epoch = start_epoch_override
+    else:
+        start_epoch = 0
+
+    def run_eval_and_select(epoch: int, at_step: int) -> Optional[bool]:
+        """One in-training eval: eval/* scalars, the eval.log.txt line (raw
+        0-based epoch, -1 for eval_untrained, as the reference writes it),
+        model_best on a strict gain. None when no metrics were computed,
+        else whether the model improved."""
+        nonlocal best_score, have_best
+        label = "untrained" if epoch < 0 else f"epoch {epoch + 1}"
+        metrics, _, eval_losses = evaluate(cfg, model, eval_dataset, results_dir,
+                                           tag="latest", loss_cfg=loss_cfg)
+        if eval_losses:
+            writer.write(at_step, eval_losses, prefix="eval/")
+            logger.info("[%s] eval losses %s", label,
+                        " ".join(f"{k} {v:.4f}" for k, v in eval_losses.items()))
+        if metrics is None:
+            return None
+        score = stop_metric(cfg, metrics["brief"])
+        logger.info("[%s] eval %s", label, dict(metrics["brief"]))
+        with open(os.path.join(results_dir, "eval.log.txt"), "a") as f:
+            f.write("{} [Epoch] {:03d} [Loss] {} [Metrics] {}\n".format(
+                time.strftime("%Y_%m_%d_%H_%M_%S"), epoch,
+                " ".join(f"{k} {v:.4f}" for k, v in eval_losses.items()),
+                json.dumps(metrics),
+            ))
+        improved = score > best_score
+        if improved:
+            best_score, have_best = score, True
+            save_checkpoint(best_path, model, optimizer, scheduler, epoch, cfg,
+                            best_score=score)
+        return improved
+
+    if cfg.eval_untrained and eval_dataset is not None and start_epoch == 0:
+        run_eval_and_select(-1, 0)
+
     shuffler = np.random.default_rng(cfg.seed)
-    rows = np.arange(len(train_ds))
-    history = []
-    for _ in range(cfg.n_epoch):
-        shuffler.shuffle(rows)
+    all_rows = np.arange(len(train_dataset))
+    global_step = steps_run = 0
+    for epoch in range(start_epoch, n_epoch):
+        shuffler.shuffle(all_rows)
+        epoch_t0 = time.time()
+        vecs = []  # per-step loss vectors, on the device until the epoch ends
         for i in range(steps_per_epoch):
-            if max_steps is not None and len(history) >= max_steps:
+            if max_steps is not None and steps_run >= max_steps:
                 break
-            batch = collator([train_ds[j] for j in rows[i * cfg.bsz : (i + 1) * cfg.bsz]])
+            idx = all_rows[i * cfg.bsz : (i + 1) * cfg.bsz]
+            if len(idx) < cfg.bsz:
+                continue
+            batch = collator([train_dataset[j] for j in idx])
             losses = step(place_batch(batch, device))
-            values = torch.stack(list(losses.values())).cpu().tolist()
-            history.append(dict(zip(losses, values)))
-        if max_steps is not None and len(history) >= max_steps:
+            vecs.append(torch.stack([losses[k] for k in keys]))
+            steps_run += 1
+        meters: Dict[str, AverageMeter] = {}
+        host = torch.stack(vecs).cpu().tolist() if vecs else []
+        for s, vec in enumerate(host):
+            values = dict(zip(keys, vec))
+            for k, v in values.items():
+                meters.setdefault(k, AverageMeter()).update(v)
+            writer.write(global_step + s, values, prefix="train/")
+        global_step += len(host)
+        dt = time.time() - epoch_t0
+        writer.write(global_step, {"epoch_seconds": dt,
+                                   "steps_per_sec": max(len(host), 1) / max(dt, 1e-9)},
+                     prefix="perf/")
+        loss_str = " ".join(f"{k} {m.avg:.4f}" for k, m in meters.items())
+        logger.info("[epoch %d] (%.1fs) %s", epoch + 1, dt, loss_str)
+        # the reference's epoch line (train.py:93-103)
+        with open(os.path.join(results_dir, "train.log.txt"), "a") as f:
+            f.write("{} [Epoch] {:03d} [Loss] {}\n".format(
+                time.strftime("%Y_%m_%d_%H_%M_%S"), epoch + 1, loss_str))
+
+        if eval_dataset is not None and (epoch + 1) % cfg.eval_epoch == 0:
+            improved = run_eval_and_select(epoch, global_step)
+            if improved:
+                es_cnt = 0
+            elif improved is False:
+                es_cnt += 1
+                if cfg.max_es_cnt != -1 and es_cnt > cfg.max_es_cnt:
+                    logger.info("early stop at epoch %d", epoch)
+                    break
+        save_checkpoint(os.path.join(results_dir, "model_latest.ckpt"), model, optimizer,
+                        scheduler, epoch, cfg, best_score=best_score)
+        if max_steps is not None and steps_run >= max_steps:
             break
-    model.eval()
-    result = {
-        "steps": len(history),
-        "losses": history,
-        "loss_means": {k: float(np.mean([h[k] for h in history])) for k in step.loss_keys},
-    }
-    if cfg.eval_path:
-        eval_ds = VTGDataset(eval_data_config(cfg, cfg.eval_path))
-        if cfg.dset_name in HD_SETS:
-            result["metrics"] = run_hl_inference(cfg, model, eval_ds)
-        else:
-            submission, _ = run_mr_inference(cfg, model, eval_ds)
-            result["submission"] = submission
-            result["metrics"] = eval_submission(submission, eval_ds.data)
-    return model, result
+    writer.close()
+
+    finals = bool(cfg.test_path) and eval_dataset is not None
+    if finals:  # the latest model first, as the JAX loop evaluates them
+        test_dataset = VTGDataset(eval_data_config(
+            cfg, cfg.test_path, load_labels=cfg.dset_name in HD_SETS))
+        run_finals(cfg, model, eval_dataset, test_dataset, results_dir, "latest")
+    if have_best:
+        load_model_weights(model, load_torch_checkpoint(best_path, device))
+    elif prior_best_ckpt is not None and best_score > 0.0:
+        # a resumed run that never beat the bar: the best weights are the
+        # prior run's model_best
+        load_model_weights(model, load_torch_checkpoint(prior_best_ckpt, device))
+        have_best = True
+    if finals and have_best:
+        run_finals(cfg, model, eval_dataset, test_dataset, results_dir, "best")
+    return model.eval(), best_score, results_dir
+
+
+def run_finals(cfg, model, eval_dataset, test_dataset, results_dir, which: str) -> None:
+    """The --test_path finals of one model (FlashVTG_ms/train.py:243-286):
+    the val split and the test split, tags `val_{which}` / `test_{which}`.
+    MR metrics on the test split only when every row carries its windows."""
+    n_rows = len(test_dataset.data)
+    n_gt = sum(1 for r in test_dataset.data if "relevant_windows" in r)
+    has_gt = n_rows > 0 and (n_gt == n_rows or cfg.dset_name in HD_SETS)
+    if not has_gt:
+        logger.info("[final] test split: %d/%d rows carry relevant_windows -> writing "
+                    "predictions only, skipping MR metrics", n_gt, n_rows)
+    m_val, _, _ = evaluate(cfg, model, eval_dataset, results_dir, tag=f"val_{which}")
+    m_test, _, _ = evaluate(cfg, model, test_dataset, results_dir, tag=f"test_{which}",
+                            compute_metrics=has_gt, split_name="test")
+    for split, m in (("val", m_val), ("test", m_test)):
+        if m is not None:
+            logger.info("[final] %s model on %s: %s", which, split, dict(m["brief"]))

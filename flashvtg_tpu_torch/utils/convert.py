@@ -1,4 +1,4 @@
-"""JAX parameter tree -> the port's state_dict.
+"""JAX parameter tree -> the port's state_dict; the reference `.ckpt` file.
 
 The port's own copy of the inverse converter in
 flashvtg_tpu/utils/torch_convert.py (`_inv_*`, `export_state_dict`). The
@@ -11,11 +11,20 @@ JAX tree has no counterpart for (txt_position_embed when use_txt_pos is off)
 get their torch init values. Leaves keep their dtype until the end, where
 the whole state_dict is cast to `dtype` (float32 by default; float64 for a
 float64 parameter or gradient tree).
+
+The reference `.ckpt` (a torch.save dict): `load_torch_checkpoint` reads the
+model weights of any such file, the reference trainer's, the JAX package's
+export or the port's own checkpoint (counterpart of
+flashvtg_tpu/utils/torch_convert.py:_lenient_torch_load and
+load_torch_checkpoint); `save_torch_checkpoint` writes the weights under
+`model` and, with the `module.` prefix, `state_dict`, as the JAX export does,
+so the reference's inference.py loads it on either of its branches.
 """
 
 from __future__ import annotations
 
 import math
+import os
 from typing import Dict
 
 import numpy as np
@@ -167,3 +176,66 @@ def state_dict_from_jax(params, cfg, dtype=np.float32) -> Dict[str, torch.Tensor
     return {
         k: torch.tensor(v) for k, v in export_state_dict(params, cfg, dtype).items()
     }
+
+
+def lenient_torch_load(path, map_location="cpu"):
+    """torch.load that tolerates unimportable classes in a checkpoint's
+    extras: the reference trainer pickles its whole opt Namespace (with an
+    nncore Config) into every checkpoint, and only the tensors matter. A
+    class the unpickler cannot import becomes a dummy dict subclass.
+    Unpickling runs code: load only checkpoints from a trusted source."""
+    import pickle
+    import types
+
+    try:
+        return torch.load(path, map_location=map_location, weights_only=False)
+    except (ModuleNotFoundError, AttributeError):
+        pass
+
+    class _LenientUnpickler(pickle.Unpickler):
+        def find_class(self, mod_name, name):
+            try:
+                return super().find_class(mod_name, name)
+            except (ModuleNotFoundError, AttributeError):
+                return type(name, (dict,), {"__setstate__": lambda s, st: None})
+
+    shim = types.ModuleType("flashvtg_tpu_torch_lenient_pickle")
+    shim.Unpickler = _LenientUnpickler
+    shim.load = pickle.load
+    shim.dump = pickle.dump
+    shim.dumps = pickle.dumps
+    shim.HIGHEST_PROTOCOL = pickle.HIGHEST_PROTOCOL
+    return torch.load(path, map_location=map_location, weights_only=False,
+                      pickle_module=shim)
+
+
+def model_state(ckpt: dict) -> Dict[str, torch.Tensor]:
+    """The model weights of a loaded `.ckpt` dict (`model`, else
+    `state_dict`, else the dict itself), `module.` prefixes stripped."""
+    sd = ckpt.get("model", ckpt.get("state_dict", ckpt))
+    return {k.removeprefix("module."): v for k, v in sd.items()}
+
+
+def load_torch_checkpoint(path, map_location="cpu") -> Dict[str, torch.Tensor]:
+    """The model weights of a reference-format `.ckpt` file on
+    `map_location`, ready for load_state_dict(strict=True)."""
+    return model_state(lenient_torch_load(path, map_location))
+
+
+def save_torch_checkpoint(path, state_dict: Dict[str, torch.Tensor], epoch: int = -1,
+                          **extra) -> None:
+    """Write a reference-format `.ckpt`: the weights (on the CPU) under
+    `model` and under `state_dict` with the `module.` prefix, `epoch`, and
+    `extra` entries (the train loop's optimizer, lr_scheduler, opt). The file
+    is written beside its target and renamed, so a reader never sees half of
+    it."""
+    tensors = {k: v.detach().cpu() for k, v in state_dict.items()}
+    payload = {
+        "model": tensors,
+        "state_dict": {f"module.{k}": v for k, v in tensors.items()},
+        "epoch": epoch,
+        **extra,
+    }
+    tmp = f"{path}.tmp"
+    torch.save(payload, tmp)
+    os.replace(tmp, path)

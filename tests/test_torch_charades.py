@@ -100,7 +100,7 @@ def charades_runs(request, tmp_path_factory):
             state_dict_from_jax(jax.tree.map(np.asarray, params), cfg.model_config()),
             strict=True)
         ds = VTGDataset(eval_data_config(cfg, ann))
-        t_sub, t_nms = run_mr_inference(cfg, model, ds)
+        t_sub, t_nms, _ = run_mr_inference(cfg, model, ds)
     finally:
         mp.undo()
     return dict(cfg=cfg, jax=(j_sub, j_nms), port=(t_sub, t_nms), gt=ds.data)

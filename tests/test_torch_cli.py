@@ -1,0 +1,260 @@
+"""The port's CLI (flashvtg_tpu_torch/cli.py, eval/cli.py) on the CPU.
+
+  * parsing, as tests/test_cli_surface.py holds the JAX CLI: preset and
+    overrides, a model-config file, bare bools, an unknown literal,
+    --no_aux_loss, clean errors; --device (default cuda, which raises
+    without CUDA: no fallback); --serving raises (ROADMAP Queue A 5);
+  * `train` -> `infer --resume model_best.ckpt` prints the best epoch's
+    brief metrics exactly; `export` -> `infer` from the export gives the
+    same metrics; the JAX CLI's `infer` of the port's model_best.ckpt gives
+    them within 0.02 points (`__graft_entry__.py:172-197`);
+  * a checkpoint whose opt.json records train_precision bfloat16 (a JAX
+    run's) infers, but `train --resume` of it raises unless
+    --train_precision float32 is given;
+  * the metric CLI: the reference's golden case (scripts/eval_sample.sh,
+    when the reference checkout is present) and, on a synthetic submission,
+    the same metrics file as the JAX package's metric CLI.
+"""
+
+import ast
+import glob
+import json
+import os
+import pathlib
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import REFERENCE_ROOT as REF
+from flashvtg_tpu import cli as jax_cli
+from flashvtg_tpu.eval.cli import main as jax_eval_main
+from flashvtg_tpu_torch import cli
+from flashvtg_tpu_torch.eval.cli import main as eval_main
+from flashvtg_tpu_torch.utils.io import save_jsonl
+from flashvtg_tpu_torch.utils.synthetic import make_synthetic_qvh
+
+FIXTURES = pathlib.Path(__file__).parent / "fixtures"
+SMALL = dict(v_feat_dim=40, t_feat_dim=24, hidden_dim=32, nheads=2, dim_feedforward=48,
+             t2v_layers=1, enc_layers=1, dummy_layers=1, num_dummies=3, num_mlp_layers=2,
+             max_q_l=8, max_v_l=24, bsz=4, eval_bsz=4)
+METRIC_ATOL = 0.02
+
+
+def _flags(kw):
+    return [x for k, v in kw.items() for x in (f"--{k}", str(v))]
+
+
+def test_parse_config_preset_and_overrides():
+    cfg, overrides, device = cli.parse_config(
+        ["qvhighlights_slowclip", "--bsz", "16", "--bucket_eval", "true", "--strides", "1", "2",
+         "--max_es_cnt", "3", "--resume", "auto"])
+    assert cfg.bsz == 16 and cfg.bucket_eval and cfg.strides == (1, 2)
+    assert cfg.max_es_cnt == 3 and cfg.resume == "auto"
+    assert set(overrides) == {"bsz", "bucket_eval", "strides", "max_es_cnt", "resume"}
+    assert cfg.t2v_layers == 6 and cfg.dset_name == "hl"  # the preset's, where not overridden
+    assert device == "cuda"
+    assert cli.parse_config(["tacos", "--device", "cpu"])[2] == "cpu"
+
+
+def test_parse_config_file():
+    cfg, _, _ = cli.parse_config(["configs/HD.py", "--dset_name", "tvsum"])
+    assert cfg.strides == (1,) and cfg.loss_cls == "dynamic_bce"
+    assert cfg.dset_name == "tvsum"
+
+
+def test_bare_bool_flags_parse_like_store_true():
+    cfg = cli.parse_config(["qvhighlights_slowclip", "--debug"])[0]
+    assert cfg.debug is True
+    assert cli.parse_config(["qvhighlights_slowclip", "--debug", "false"])[0].debug is False
+    cfg = cli.parse_config(["qvhighlights_slowclip", "--eval_untrained", "--bsz", "4"])[0]
+    assert cfg.eval_untrained is True and cfg.bsz == 4
+    assert cli.parse_config(["qvhighlights_slowclip", "--no_aux_loss"])[0].aux_loss is False
+
+
+@pytest.mark.parametrize("argv", [["--debug", "qvhighlights_slowclip"],
+                                  ["qvhighlights_slowclip", "--debug", "banana"],
+                                  ["no_such_preset"]])
+def test_bad_arguments_exit_cleanly(argv):
+    with pytest.raises(SystemExit):
+        cli.parse_config(argv)
+
+
+def test_infer_and_export_clean_errors(tmp_path):
+    absent = str(tmp_path / "absent.ckpt")
+    with pytest.raises(SystemExit, match="--resume"):
+        cli.main(["infer", "qvhighlights_slowclip", "--device", "cpu"])
+    with pytest.raises(SystemExit, match="no such checkpoint"):
+        cli.main(["infer", "qvhighlights_slowclip", "--resume", absent])
+    with pytest.raises(SystemExit, match="--export_path"):
+        cli.main(["export", "qvhighlights_slowclip", "--resume", absent])
+    with pytest.raises(SystemExit, match="requires a value"):
+        cli.main(["export", "qvhighlights_slowclip", "--export_path"])
+    with pytest.raises(SystemExit, match="no such checkpoint"):
+        cli.main(["export", "qvhighlights_slowclip", "--resume", absent,
+                  f"--export_path={tmp_path}/out.ckpt"])
+    with pytest.raises(SystemExit, match="unknown mode"):
+        cli.main(["serve", "qvhighlights_slowclip"])
+    with pytest.raises(NotImplementedError, match="Queue A 5"):
+        cli.main(["infer", "qvhighlights_slowclip", "--serving"])
+
+
+@pytest.fixture(scope="module")
+def run(tmp_path_factory):
+    """`cli train` of the SMALL flagship on the CPU, 3 epochs, an eval each."""
+    root = tmp_path_factory.mktemp("cli")
+    ann, vdir, qdir = make_synthetic_qvh(str(root), n_queries=16, v_dim=40, t_dim=24,
+                                         n_clips=24, seed=1, split="train")
+    val, _, _ = make_synthetic_qvh(str(root), n_queries=8, v_dim=40, t_dim=24, n_clips=24,
+                                   seed=2, split="val", min_clips=10)
+    flags = _flags(dict(SMALL, v_feat_dirs=vdir, t_feat_dir=qdir, train_path=ann,
+                        eval_path=val, results_root=root / "results", exp_id="cli",
+                        use_tensorboard="false", device="cpu"))
+    assert cli.main(["train", "qvhighlights_slowclip", *flags, "--n_epoch", "3",
+                     "--eval_epoch", "1"]) == 0
+    (run_dir,) = glob.glob(str(root / "results" / "*"))
+    return root, flags, run_dir
+
+
+def _printed_brief(out):
+    """The brief dict infer prints (the line without a label)."""
+    (line,) = [x for x in out.splitlines() if x.startswith("{'MR-")]
+    return ast.literal_eval(line)
+
+
+def _best_brief(run_dir):
+    """The brief metrics of the eval that made model_best."""
+    with open(os.path.join(run_dir, "model_best.state.json")) as f:
+        best = json.load(f)["best_score"]
+    with open(os.path.join(run_dir, "eval.log.txt")) as f:
+        briefs = [json.loads(line.split("[Metrics] ", 1)[1])["brief"] for line in f]
+    assert len(briefs) == 3
+    (first,) = [b for b in briefs if b["MR-full-mAP"] == best][:1]
+    return first
+
+
+def test_train_then_infer_prints_best_epoch_metrics(run, capsys):
+    root, flags, run_dir = run
+    for name in ("model_best.ckpt", "model_latest.ckpt", "opt.json", "eval.log.txt",
+                 "train.log.txt", "model_cfg.py", "code.zip"):
+        assert os.path.isfile(os.path.join(run_dir, name)), name
+    capsys.readouterr()
+    assert cli.main(["infer", "qvhighlights_slowclip", *flags, "--resume",
+                     os.path.join(run_dir, "model_best.ckpt")]) == 0
+    assert _printed_brief(capsys.readouterr().out) == _best_brief(run_dir)
+
+
+def test_export_then_infer_gives_the_same_metrics(run, capsys):
+    root, flags, run_dir = run
+    best = os.path.join(run_dir, "model_best.ckpt")
+    exported = str(root / "export" / "model.ckpt")
+    assert cli.main(["export", "qvhighlights_slowclip", *flags, "--resume", best,
+                     "--export_path", exported]) == 0
+    ckpt = torch.load(exported, map_location="cpu", weights_only=False)
+    assert set(ckpt) == {"model", "state_dict", "epoch"}  # weights only
+    assert os.path.isfile(str(root / "export" / "opt.json"))
+    with open(root / "export" / "opt.json") as f:
+        assert json.load(f)["eval_bsz"] == 1  # the reference's batch
+    capsys.readouterr()
+    assert cli.main(["infer", "qvhighlights_slowclip", *flags, "--resume", best]) == 0
+    direct = _printed_brief(capsys.readouterr().out)
+    assert cli.main(["infer", "qvhighlights_slowclip", *flags, "--resume", exported]) == 0
+    assert _printed_brief(capsys.readouterr().out) == direct
+    # a directory whose opt.json records another architecture is refused
+    with pytest.raises(SystemExit, match="different architecture"):
+        cli.main(["export", "qvhighlights_slowclip", *flags, "--hidden_dim", "64",
+                  "--resume", best, "--export_path", exported])
+
+
+def test_jax_cli_infers_the_port_checkpoint(run, capsys, tmp_path):
+    root, flags, run_dir = run
+    best = os.path.join(run_dir, "model_best.ckpt")
+    jax_flags = [f for f in flags if f not in ("--device", "cpu")]
+    capsys.readouterr()
+    assert jax_cli.main(["infer", "qvhighlights_slowclip", *jax_flags, "--resume", best,
+                         "--eval_results_dir", str(tmp_path)]) == 0
+    got = _printed_brief(capsys.readouterr().out)
+    want = _best_brief(run_dir)
+    assert set(got) == set(want)
+    for k, v in want.items():
+        assert abs(got[k] - v) <= METRIC_ATOL, (k, got[k], v)
+
+
+def test_train_resume_of_a_bfloat16_run_raises(run, capsys, tmp_path):
+    """A run whose opt.json says train_precision bfloat16 (the JAX default):
+    infer reads no train precision; train --resume raises at the field
+    unless --train_precision float32 is given."""
+    root, flags, run_dir = run
+    jax_dir = tmp_path / "jax_run"
+    jax_dir.mkdir()
+    ckpt = str(jax_dir / "model_best.ckpt")
+    with open(os.path.join(run_dir, "model_best.ckpt"), "rb") as src, open(ckpt, "wb") as dst:
+        dst.write(src.read())
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    opt["train_precision"] = "bfloat16"
+    with open(jax_dir / "opt.json", "w") as f:
+        json.dump(opt, f)
+    assert cli.main(["infer", "qvhighlights_slowclip", *flags, "--resume", ckpt]) == 0
+    with pytest.raises(NotImplementedError, match="train_precision='bfloat16'.*Queue A 5"):
+        cli.main(["train", "qvhighlights_slowclip", *flags, "--resume", ckpt,
+                  "--n_epoch", "1"])
+    assert cli.main(["train", "qvhighlights_slowclip", *flags, "--resume", ckpt,
+                     "--n_epoch", "1", "--train_precision", "float32",
+                     "--results_root", str(tmp_path / "r")]) == 0
+
+
+def test_default_device_is_the_card(run):
+    """--device defaults to cuda: without CUDA the CLI raises, it does not
+    move to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device runs")
+    root, flags, run_dir = run
+    no_device = [f for f in flags if f not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["infer", "qvhighlights_slowclip", *no_device, "--resume",
+                  os.path.join(run_dir, "model_best.ckpt")])
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        cli.main(["train", "qvhighlights_slowclip", *no_device, "--n_epoch", "1"])
+
+
+@pytest.mark.skipif(not (REF / "standalone_eval/sample_val_preds.jsonl").exists(),
+                    reason="reference fixtures absent")
+def test_eval_cli_golden(tmp_path):
+    out = tmp_path / "metrics.json"
+    eval_main(["--submission_path", str(REF / "standalone_eval/sample_val_preds.jsonl"),
+               "--gt_path", str(REF / "data/highlight_val_release.jsonl"),
+               "--save_path", str(out), "--not_verbose"])
+    with open(FIXTURES / "sample_val_preds_metrics_expected.json") as f:
+        assert json.load(open(out))["brief"] == json.load(f)["brief"]
+
+
+def test_eval_cli_matches_jax_on_a_synthetic_submission(tmp_path):
+    ann, _, _ = make_synthetic_qvh(str(tmp_path), n_queries=24, v_dim=4, t_dim=4,
+                                   n_clips=30, seed=3)
+    rows = [json.loads(line) for line in open(ann)]
+    rng = np.random.default_rng(0)
+    sub = []
+    for r in rows:
+        starts = rng.uniform(0, r["duration"] - 4, 10)
+        wins = [[round(s, 2), round(s + rng.uniform(2, 20), 2), round(rng.uniform(), 4)]
+                for s in starts]
+        sal = [round(float(x), 4) for x in rng.standard_normal(int(r["duration"] // 2))]
+        sub.append(dict(qid=r["qid"], query=r["query"], vid=r["vid"],
+                        pred_relevant_windows=wins, pred_saliency_scores=sal))
+    sub_path = str(tmp_path / "sub.jsonl")
+    save_jsonl(sub, sub_path)
+    ours, ref = tmp_path / "ours.json", tmp_path / "ref.json"
+    eval_main(["--submission_path", sub_path, "--gt_path", ann, "--save_path", str(ours),
+               "--not_verbose"])
+    jax_eval_main(["--submission_path", sub_path, "--gt_path", ann, "--save_path", str(ref),
+                   "--not_verbose"])
+    assert ours.read_text() == ref.read_text()
+    assert json.loads(ours.read_text())["brief"]["MR-full-mAP"] > 0
+
+
+def test_eval_cli_missing_file_clean_error(tmp_path):
+    with pytest.raises(SystemExit, match="no such file"):
+        eval_main(["--submission_path", str(tmp_path / "absent.jsonl"),
+                   "--gt_path", str(tmp_path / "absent_gt.jsonl"),
+                   "--save_path", str(tmp_path / "out.json")])

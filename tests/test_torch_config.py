@@ -1,4 +1,5 @@
-"""Every preset's model and eval fields in the port equal the JAX package's."""
+"""Every preset's fields in the port equal the JAX package's, but the
+defaults the port states in PORT_DEFAULTS (ROADMAP Queue A 5)."""
 
 import dataclasses
 
@@ -7,6 +8,9 @@ import pytest
 from flashvtg_tpu.train.config import PRESETS as JAX_PRESETS
 from flashvtg_tpu.train.config import from_preset as jax_preset
 from flashvtg_tpu_torch.train.config import PRESETS, ExperimentConfig, from_preset
+
+# the port's train step runs in float32 only; the JAX default is bfloat16
+PORT_DEFAULTS = {"train_precision": "float32"}
 
 
 def test_preset_table_is_a_copy():
@@ -17,7 +21,8 @@ def test_preset_table_is_a_copy():
 def test_preset_fields_match_jax(name):
     ours, ref = from_preset(name), jax_preset(name)
     for f in dataclasses.fields(ExperimentConfig):
-        assert getattr(ours, f.name) == getattr(ref, f.name), f.name
+        want = PORT_DEFAULTS.get(f.name, getattr(ref, f.name))
+        assert getattr(ours, f.name) == want, f.name
     assert ours.total_v_feat_dim == ref.total_v_feat_dim
     assert dataclasses.asdict(ours.model_config()) == dataclasses.asdict(
         ref.model_config()
@@ -36,7 +41,8 @@ def test_flagship_shapes():
 def test_overrides_and_unknown_keys():
     assert from_preset("qvhighlights_slowclip", eval_bsz=8).eval_bsz == 8
     assert from_preset("qvhighlights_slowclip", lr=1e-3).lr == 1e-3  # a train-step field
+    assert from_preset("qvhighlights_slowclip", max_es_cnt=5).max_es_cnt == 5  # early stop
     with pytest.raises(TypeError):
-        from_preset("qvhighlights_slowclip", max_es_cnt=5)  # early stop: not ported
+        from_preset("qvhighlights_slowclip", no_such_field=5)
     with pytest.raises(KeyError):
         from_preset("no_such_preset")

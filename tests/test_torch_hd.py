@@ -287,16 +287,28 @@ def test_hl_map_of_port_saliency_is_the_metric(hl_runs):
 def test_hd_train_then_eval_on_cpu(tmp_path):
     """train(max_steps=2) on a TVSum domain of 4 train videos at B 2, every
     dropout at its preset value: finite losses, no loss_reg, then the
-    final eval through run_hl_inference on the val video."""
+    epoch's eval through run_hl_inference on the val video (latest_metric.jsonl,
+    no submission file)."""
+    import glob
+    import json
+    import os
+
     root = str(tmp_path)
     ann, vdir, qdir = _write("tvsum", root, 4, seed=5, split="train")
     val, _, _ = _write("tvsum", root, 1, seed=6, split="val")
     cfg = from_preset("tvsum", **SMALL, train_path=ann, eval_path=val, v_feat_dirs=(vdir,),
-                      t_feat_dir=qdir, dset_domain="BK", bsz=2, eval_bsz=1)
-    model, result = train(cfg, device="cpu", max_steps=2)
-    assert result["steps"] == 2 and not model.training
-    assert "loss_reg" not in result["losses"][0]
-    assert all(np.isfinite(v) for h in result["losses"] for v in h.values())
-    assert "submission" not in result
-    assert 0 <= result["metrics"]["brief"]["mAP"] <= 1
-    assert len(result["metrics"]["saliency"]) == 1
+                      t_feat_dir=qdir, dset_domain="BK", bsz=2, eval_bsz=1,
+                      use_tensorboard=False)
+    model, _, run_dir = train(cfg, str(tmp_path / "run"), device="cpu", max_steps=2)
+    assert not model.training
+    with open(os.path.join(run_dir, "tensorboard_log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [{k[6:]: v for k, v in r.items() if k.startswith("train/")}
+              for r in rows if any(k.startswith("train/") for k in r)]
+    assert len(losses) == 2
+    assert "loss_reg" not in losses[0]
+    assert all(np.isfinite(v) for h in losses for v in h.values())
+    assert not glob.glob(os.path.join(run_dir, "*preds*.jsonl"))
+    with open(os.path.join(run_dir, "latest_metric.jsonl")) as f:
+        (metrics,) = [json.loads(line) for line in f]
+    assert 0 <= metrics["brief"]["mAP"] <= 1

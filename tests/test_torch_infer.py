@@ -5,7 +5,10 @@ Tolerances follow the cross-stack scheme of __graft_entry__.py:172-197:
 equal row counts and qids, windows and saliency within 2e-3 (a float32
 ulp can flip a 4th-decimal rounding), brief metrics within 0.02 points. The
 port's metric suite must give exactly the JAX suite's dict on one
-submission.
+submission. With a loss_cfg on a labelled copy of the set, the eval losses
+(means over the split, the 4 + 2 tail weighed by its rows) match the JAX
+package's within rtol 1e-5 (f32 forwards, sums in other orders), and the
+rows are the ones without it.
 """
 
 import jax
@@ -64,8 +67,9 @@ def runs(tmp_path_factory):
         strict=True,
     )
     ds = VTGDataset(eval_data_config(cfg, ann))
-    t_sub, t_nms = run_mr_inference(cfg, model, ds)
-    return dict(jax=(j_sub, j_nms), port=(t_sub, t_nms), gt=ds.data, jds=jds, ds=ds)
+    t_sub, t_nms, _ = run_mr_inference(cfg, model, ds)
+    return dict(jax=(j_sub, j_nms), port=(t_sub, t_nms), gt=ds.data, jds=jds, ds=ds,
+                jax_run=(jcfg, jmodel, params), port_run=(cfg, model, ann))
 
 
 def test_features_match_jax_loader(runs):
@@ -120,3 +124,17 @@ def test_cuda_default_refuses_without_card(runs):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         apply_nms(runs["jax"][0][:2], 0.7, "normal")
+
+
+def test_eval_losses_match_jax(runs):
+    jcfg, jmodel, params = runs["jax_run"]
+    cfg, model, ann = runs["port_run"]
+    jds = JaxDataset(_dataset_cfg(jcfg, ann, load_labels=True))
+    j_sub, _, j_losses = jax_run(jcfg, jmodel, params, jds, loss_cfg=jcfg.loss_config())
+    ds = VTGDataset(eval_data_config(cfg, ann, load_labels=True))
+    t_sub, t_nms, t_losses = run_mr_inference(cfg, model, ds, loss_cfg=cfg.loss_config())
+    assert set(t_losses) == set(j_losses) and "weighted_loss_overall" in t_losses
+    for k, v in j_losses.items():
+        np.testing.assert_allclose(t_losses[k], v, rtol=1e-5, err_msg=k)
+    assert (t_sub, t_nms) == runs["port"]  # the losses change no row
+    assert run_mr_inference(cfg, model, runs["ds"], loss_cfg=cfg.loss_config())[2] == {}

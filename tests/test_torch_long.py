@@ -270,7 +270,7 @@ def tacos_runs(tmp_path_factory):
         strict=True,
     )
     ds = VTGDataset(eval_data_config(cfg, ann))
-    t_sub, t_nms = run_mr_inference(cfg, model, ds)
+    t_sub, t_nms, _ = run_mr_inference(cfg, model, ds)
     return dict(jax=(j_sub, j_nms), port=(t_sub, t_nms), gt=ds.data, ds=ds)
 
 

@@ -17,7 +17,8 @@
     rematerialised chunked branch and the port's its flash Function. On the CPU the
     attention Functions run their plain forward and backward. Both sides
     read one precomputed float32 position embedding (see the test);
-  * a 3-step train(max_steps=3) run on the CPU, with its eval.
+  * a 3-step train(max_steps=3) run on the CPU, with its eval (losses read
+    back from the run's scalars.jsonl, metrics from its _metrics.json).
 """
 
 import dataclasses
@@ -311,14 +312,25 @@ def test_float64_train_step_matches_jax(tmp_path, preset, monkeypatch):
 def test_train_three_steps_on_cpu(tmp_path):
     """train(max_steps=3) on the CPU with every dropout at its preset value:
     finite losses in the step's key order, then one eval."""
+    import json
+    import os
+
     root = str(tmp_path)
     ann, vdir, qdir = _write_split(root, "tacos", "train", 6, seed=7)
     val, _, _ = _write_split(root, "tacos", "val", 3, seed=8)
     cfg = from_preset("tacos", **CASES["tacos"], train_path=ann, eval_path=val,
-                      v_feat_dirs=(vdir,), t_feat_dir=qdir, bsz=2, eval_bsz=2, n_epoch=5)
-    model, result = train(cfg, device="cpu", max_steps=3)
-    assert result["steps"] == 3 and not model.training
-    assert list(result["losses"][0]) == list(declared_loss_keys(cfg.loss_config()))
-    assert all(np.isfinite(v) for h in result["losses"] for v in h.values())
-    assert len(result["submission"]) == 3
-    assert np.isfinite(result["metrics"]["brief"]["MR-full-mIoU"])
+                      v_feat_dirs=(vdir,), t_feat_dir=qdir, bsz=2, eval_bsz=2, n_epoch=5,
+                      eval_epoch=1, use_tensorboard=False)
+    model, _, run_dir = train(cfg, str(tmp_path / "run"), device="cpu", max_steps=3)
+    assert not model.training
+    with open(os.path.join(run_dir, "tensorboard_log", "scalars.jsonl")) as f:
+        rows = [json.loads(line) for line in f]
+    losses = [{k[6:]: v for k, v in r.items() if k.startswith("train/")}
+              for r in rows if any(k.startswith("train/") for k in r)]
+    assert len(losses) == 3
+    assert list(losses[0]) == list(declared_loss_keys(cfg.loss_config()))
+    assert all(np.isfinite(v) for h in losses for v in h.values())
+    with open(os.path.join(run_dir, "latest_tacos_val_preds.jsonl")) as f:
+        assert len(f.read().splitlines()) == 3
+    with open(os.path.join(run_dir, "latest_tacos_val_preds_metrics.json")) as f:
+        assert np.isfinite(json.load(f)["brief"]["MR-full-mIoU"])
