@@ -22,7 +22,11 @@ Phases, each failing loudly:
      every eval kernel at the highlight-detection (HD: B=4, Lv 1000 of
      which 60-330 clips valid, 3 dummies + 32 text keys), Charades (B=128,
      Lv 256, 15-45 clips valid, 40 dummies + 32 text keys) and Charades-VGG
-     (B=16, Lv 2048, 90-270 clips valid) eval shapes;
+     (B=16, Lv 2048, 90-270 clips valid) eval shapes, and the FlashVTG_ms
+     shapes (MS_KERNEL_SHAPES), where the dummies attend over the sentence
+     token alone: the ACA at nd + 1 keys with one past the dummies (HD: B=4,
+     Lv 1000, Lk 4; flagship: B=256, Lv 75, Lk 11) and the short kernel at
+     L = nd + 1, every key valid;
   4. flagship path: QVHighlights eval (preset qvhighlights_slowclip, full
      width and depth, random weights from --seed) over a synthetic set of
      --queries queries written to a temp dir: run_mr_inference (forward,
@@ -50,7 +54,10 @@ Phases, each failing loudly:
      3 dummies, its backward in 4 row chunks, the last one partial; the
      short kernel at L 35, the flash kernel at L 1000, 60-330 clips
      valid); ACA with donor rows and a
-     head-mean gradient; dropout 0.1 on both sides with one seed. Each
+     head-mean gradient; dropout 0.1 on both sides with one seed; and the
+     FlashVTG_ms shapes of phase 3 in training form and backward (the ACA
+     with no donor rows, as the ms trunk calls it, and a head-mean
+     gradient). Each
      kernel through its launcher (timed) and once through the autograd
      Function that the model calls (aca_attention, masked_attention,
      flash_attention on tensors that require grad, then .backward):
@@ -71,12 +78,13 @@ Phases, each failing loudly:
      steps plus the eval's; finite losses (read back from the run's
      scalars.jsonl); a step timed with CUDA events; the step's peak
      memory (< 80 GB); then card vs CPU on one 2-row step with every
-     dropout at 0: losses within rtol 1e-4; clipped gradients leaf by
-     leaf within 1e-3 of the leaf's largest |gradient| (floored at 1e-2 of
-     the largest over all leaves); the AdamW update within 1% of lr where
-     the gradient's sign is sure (|g| over 100 times the leaf's gradient
-     disagreement: a first Adam step moves a weight by about lr sign(g),
-     so elsewhere it carries no information);
+     dropout at 0, the CPU step in float64 as the reference (the CPU's
+     float32 step's distance to it is reported): losses within rtol 1e-4;
+     clipped gradients leaf by leaf within 1e-3 of the leaf's largest
+     |gradient| (floored at 1e-2 of the largest over all leaves); the AdamW
+     update within 1% of lr where the gradient's sign is sure (|g| over 100
+     times the leaf's gradient disagreement: a first Adam step moves a
+     weight by about lr sign(g), so elsewhere it carries no information);
   9. HD eval: youtube_uni at full width and depth (Lv 1000, 2 ACA, 2 short
      and 3 flash launches a batch of 4) over --hd-queries synthetic videos
      of one domain through run_hl_inference (the saliency-only forward and
@@ -105,7 +113,19 @@ Phases, each failing loudly:
      run starting at epoch index 3, the checkpoint files, the card-written
      model_latest.ckpt loading on the CPU (weights, AdamW, StepLR), and each
      kernel's launches over the in-process calls (12 train steps, 6 evals),
-     and prints each call's wall time.
+     and prints each call's wall time;
+ 13. ms: the FlashVTG_ms variant at full width and depth (random weights
+     from --seed): (a) youtube_uni_ms over --hd-queries and tvsum_ms over 8
+     synthetic videos through run_hl_inference, as phase 9 (2 ACA, 2 short
+     at L 4, 3 flash launches a batch; the flash calls memory-linear; card
+     vs CPU on 2 videos); (b) tvsum_ms train() as phase 10 (4 ACA, 2 short,
+     6 flash forward launches a step, as many backward: the negative pass
+     reruns the ACA layers and the encoder, not the dummy encoder); (c) the
+     flagship with variant=ms, use_dfl and use_eos over --queries
+     synthetic queries through run_mr_inference with the eval losses (the
+     negative pass: 12 ACA and 8 short launches a batch) and
+     eval_submission, card vs CPU on 8 queries, the DFL-decoded spans within
+     2e-3.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without CUDA or without the package.
@@ -131,6 +151,7 @@ TF32X3_PEAK = 495e12 / 3
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
 FORWARD_ATOL = 3e-4
+SPAN_ATOL = 2e-3  # decoded windows, seconds (tests/test_torch_model.py)
 GRAD_RTOL = 1e-4  # kernel vs plain gradients, relative to the largest |plain|
 STEP_LOSS_RTOL = 1e-4  # card vs CPU train step
 STEP_GRAD_RTOL = 1e-3  # per leaf, relative to its largest |gradient|
@@ -319,15 +340,17 @@ SLICE_EVAL_SHAPES = {
 }
 
 
-def aca_eval_reading(dev, g, rng, b, lv, nd, lq):
-    """The ACA kernel against its plain version at one eval shape, timed."""
+def aca_eval_reading(dev, g, rng, b, lv, nd, lq, valid=None):
+    """The ACA kernel against its plain version at one eval shape, timed;
+    the key mask ragged text after nd dummies, or `valid`."""
     import torch
 
     from flashvtg_tpu_torch.ops import aca
 
     heads, lk = 8, nd + lq
     q, k, v = qkv_b(g, dev, b, heads, lv, lk)
-    valid = ragged_mask(rng, b, lk, 5, lq + 1, always=nd).to(dev)
+    if valid is None:
+        valid = ragged_mask(rng, b, lk, 5, lq + 1, always=nd).to(dev)
     out, hm = aca.aca_attention(q, k, v, valid, heads, nd)
     ref_out, ref_hm = aca.aca_attention_plain(q, k, v, valid, heads, nd)
     torch.cuda.synchronize()
@@ -395,7 +418,23 @@ def phase_slice_kernels(dev, seed):
             key = f"{path} {reading['kernel']} L={length}"
             shapes[key] = reading
             log(f"[slice kernels] {key}: {json.dumps(reading)}")
+    for path, (b, lv, nd) in MS_KERNEL_SHAPES.items():
+        keys = torch.ones((b, nd + 1), device=dev)  # dummies + the sentence token
+        for length, reading in ((lv, aca_eval_reading(dev, g, rng, b, lv, nd, 1, keys)),
+                                (nd + 1, self_eval_reading(dev, g, b, keys))):
+            key = f"{path}_eval {reading['kernel']} L={length}"
+            shapes[key] = reading
+            log(f"[ms kernels] {key}: {json.dumps(reading)}")
     return shapes
+
+
+# (B, Lv, dummies) of the FlashVTG_ms paths: the HD presets and the flagship.
+# The ACA layers see the nd dummies and the sentence token, every key valid,
+# and the dummy encoder's short self-attention the same nd + 1 tokens
+MS_KERNEL_SHAPES = {
+    "ms_hd": (4, 1000, 3),
+    "ms_flagship": (256, 75, 10),
+}
 
 
 def qkv_b(g, dev, b, heads, lq_, lk_):
@@ -555,8 +594,10 @@ def forward_reading(shape, got, ref, fwd, fwd_plain, bound, library_ms=None):
 
 def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask):
     """The ACA core in training form: lv video queries over nd dummies and
-    the ragged text of `valid`, videos of `vmask`, donor rows, a head-mean
-    gradient. Returns (kernel name, forward reading, backward reading)."""
+    the text keys of `valid`, a head-mean gradient; with `vmask` (the
+    videos' clips) the donor-row mask of the core model's train path,
+    without it none (the FlashVTG_ms trunk). Returns (kernel name, forward
+    reading, backward reading)."""
     import torch
 
     from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
@@ -567,11 +608,12 @@ def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask):
     q, k, v = qkv_b(g, dev, b, heads, lv, lk)
     d_out = torch.randn((b, lv, heads * 32), generator=g).to(dev)
     d_hm = torch.randn((b, lv, lk), generator=g).to(dev)
-    donors = tiled_attn_donors(b, heads, dev)
+    donors = None if vmask is None else tiled_attn_donors(b, heads, dev)
     drop_seed = draw_seed(torch.Generator().manual_seed(seed))
     args = (q, k, v, valid, heads, nd, True, p, drop_seed, vmask, donors)
-    pairs = aca_pairs(valid, vmask, donors, nd)
-    shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd} p={p}, donor rows"
+    pairs = None if vmask is None else aca_pairs(valid, vmask, donors, nd)
+    shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd} p={p}" + (
+        "" if vmask is None else ", donor rows")
     fwd = functools.partial(aca._launch, *args, want_lse=True)
     fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True)
     got, ref = fwd(), fwd_plain()
@@ -685,6 +727,14 @@ def phase_train_kernels(dev, seed):
                     f"flash fwd + bwd peak +{peak} B >= one (B, H, L, L) f32 {bhll} B")
             shapes[f"{path} flash_fwd_bwd_memory"] = dict(peak_above_inputs_bytes=peak,
                                                           bhll_f32_bytes=bhll)
+    for path, (b, lv, nd) in MS_KERNEL_SHAPES.items():
+        keys = torch.ones((b, nd + 1), device=dev)  # dummies + the sentence token
+        cases = (aca_train_case(dev, g, b, lv, nd, heads, p, seed, keys, None),
+                 self_train_case(dev, g, b, heads, p, seed, keys))
+        for (name, fwd, bwd), length in zip(cases, (lv, nd + 1)):
+            shapes[f"{path}_train {name} L={length}"] = fwd
+            shapes[f"{path}_train {name}_bwd L={length}"] = bwd
+            readings[name + "_bwd"].append(bwd)
     source = {"aca_attention_bwd": "aca_attention_bwd.cu",
               "masked_attention_bwd": "aca_attention_bwd.cu",
               "flash_attention_bwd": "flash_attention_bwd.cu"}
@@ -699,8 +749,9 @@ def phase_train_kernels(dev, seed):
     return rows, shapes
 
 
-def make_dataset(root, cfg, n_queries, seed):
-    """The synthetic eval set of a preset, written under `root` and loaded.
+def make_dataset(root, cfg, n_queries, seed, load_labels=False):
+    """The synthetic eval set of a preset, written under `root` and loaded
+    (with its train labels drawn when `load_labels`, for the eval losses).
     Where the dataset reads GloVe text (a "vgg" video directory), a GloVe
     file of the queries' words is written too and FLASHVTG_GLOVE_PATH
     points at it."""
@@ -713,7 +764,7 @@ def make_dataset(root, cfg, n_queries, seed):
         os.environ["FLASHVTG_GLOVE_PATH"] = write_glove(
             os.path.join(root, "glove.6B.300d.txt"), dim=cfg.t_feat_dim, seed=seed)
     cfg = cfg.replace(eval_path=ann, v_feat_dirs=(vdir,), t_feat_dir=qdir)
-    return cfg, VTGDataset(eval_data_config(cfg, ann))
+    return cfg, VTGDataset(eval_data_config(cfg, ann, load_labels=load_labels))
 
 
 def check_submission(sub, ds, cfg):
@@ -785,14 +836,15 @@ def score_hl(cfg, ds, result):
     return dict(brief=result["brief"])
 
 
-def phase_path(dev, cfg, ds, seed, infer, score):
-    """Phases 4, 6, 9 and 11: one preset's eval through the kernels:
+def phase_path(dev, cfg, ds, seed, infer, score, per_batch=None):
+    """Phases 4, 6, 9, 11 and 13: one preset's eval through the kernels:
     infer(cfg, model, ds) (run_mr_inference or run_hl_inference) warmed up,
     then run with the launch counts set to 0 just before and read just
-    after, then score(cfg, ds, output)."""
+    after, each kernel's count equal to `per_batch` (default
+    launches_per_batch) times the batches, then score(cfg, ds, output)."""
     import torch
 
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
 
     model = build_model(cfg.model_config(), dev, seed)
     infer(cfg, model, ds)  # warm-up: cuBLAS / cuDNN plans
@@ -810,7 +862,7 @@ def phase_path(dev, cfg, ds, seed, infer, score):
 
     n_batches = -(-len(ds) // cfg.eval_bsz)
     assert len(ds) % cfg.eval_bsz == 0, "use a multiple of eval_bsz queries"
-    for name, n in launches_per_batch(cfg).items():
+    for name, n in (per_batch or launches_per_batch(cfg)).items():
         assert launches[name] == n * n_batches, (name, launches[name], n * n_batches)
     return model, dict(
         queries=len(ds), batches=n_batches, eval_bsz=cfg.eval_bsz, max_v_l=cfg.max_v_l,
@@ -902,14 +954,17 @@ def step_memory(run, cfg):
     return res
 
 
-def phase_card_vs_cpu(dev, model, cfg, ds, seed, n):
+def phase_card_vs_cpu(dev, model, cfg, ds, seed, n, spans=False):
     """Phases 5 and 6: the same weights on the card and on the CPU, over the
-    first n queries (a short video among them)."""
+    first n queries (a short video among them); with `spans` the decoded
+    windows of the eval step too (phase 13: the DFL decode), within
+    SPAN_ATOL, and their scores within FORWARD_ATOL."""
     import torch
 
     from flashvtg_tpu_torch.data.collate import MODEL_KEYS, Collator
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.models.points import pyramid_masks_strict
+    from flashvtg_tpu_torch.train.infer import make_eval_step
 
     batch = Collator(cfg.max_q_l, cfg.v_buckets, cfg.max_v_l)([ds[i] for i in range(n)])
     assert batch["valid_v_lens"].min() < cfg.max_v_l  # a short video is in
@@ -925,6 +980,17 @@ def phase_card_vs_cpu(dev, model, cfg, ds, seed, n):
         assert torch.isfinite(o).all(), key
         errs[key] = (o - ref[key]).abs().max().item()
         assert errs[key] <= FORWARD_ATOL, (key, errs[key])
+    if spans:
+        decoded = []
+        for m, d in ((cpu_model, "cpu"), (model, dev)):
+            step = make_eval_step(m, cfg.max_num_moment)
+            placed = dict(zip(MODEL_KEYS, (t.to(d) for t in host)))
+            decoded.append([t.cpu() for t in step(placed, host[-1].to(d))[:2]])
+        (ref_spans, ref_scores), (got_spans, got_scores) = decoded
+        errs["spans"] = (got_spans - ref_spans).abs().max().item()
+        errs["span_scores"] = (got_scores - ref_scores).abs().max().item()
+        assert errs["spans"] <= SPAN_ATOL, ("spans", errs["spans"])
+        assert errs["span_scores"] <= FORWARD_ATOL, ("span scores", errs["span_scores"])
     return errs
 
 
@@ -1012,8 +1078,8 @@ def train_step_time(dev, model, cfg, seed):
 
     placed = place_batch(train_batch(cfg, range(cfg.bsz)), dev)
     optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
-    step = make_train_step(model, cfg.loss_config(), optimizer, scheduler, cfg.grad_clip,
-                           torch.Generator().manual_seed(seed))
+    step = make_train_step(model, cfg.loss_config(), optimizer, scheduler,
+                           cfg.grad_clip, torch.Generator().manual_seed(seed))
     step(placed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1023,14 +1089,18 @@ def train_step_time(dev, model, cfg, seed):
 
 def train_card_vs_cpu(dev, cfg, seed, n_rows):
     """One 2-row step at full width with every dropout at 0 (dummy_dropout
-    and input_dropout included), the same weights on the card and on the
-    CPU: losses, clipped gradients, parameters after the AdamW step. The
-    rows: the shortest video of the first 8 (of n_rows) and another."""
+    and input_dropout included), the same weights on the card (float32)
+    and on the CPU in float64, the reference: losses, clipped gradients,
+    parameters after the AdamW step. Not against a CPU float32 step: at a
+    ReLU whose input is within rounding of 0, two float32 runs can take its
+    two sides, and the gradient is discontinuous there (the tvsum_ms step's
+    CPU float32 run takes one such ReLU the other way, 4e-3 of its leaf). The rows: the shortest video of the first 8 (of n_rows) and
+    another."""
     import dataclasses
 
     import torch
 
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step, place_batch
 
     cfg = cfg.replace(dropout=0.0, input_dropout=0.0)
@@ -1040,42 +1110,45 @@ def train_card_vs_cpu(dev, cfg, seed, n_rows):
     assert first["valid_v_lens"][short] < cfg.max_v_l  # a short video is in
     batch = train_batch(cfg, [0 if short else 1, short])
     runs = {}
-    for d in ("cpu", dev):
-        model = build_model(mcfg, d, seed).train()
-        before = {n: p.detach().cpu().clone() for n, p in model.named_parameters()}
+    for name, d, dtype in (("cpu64", "cpu", torch.float64), ("card", dev, torch.float32)):
+        model = build_model(mcfg, d, seed).to(dtype).train()
+        before = {n: p.detach().to("cpu", torch.float64, copy=True)
+                  for n, p in model.named_parameters()}
         optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
-        step = make_train_step(model, cfg.loss_config(), optimizer, scheduler, cfg.grad_clip)
-        losses = {k: v.item() for k, v in step(place_batch(batch, d)).items()}
+        step = make_train_step(model, cfg.loss_config(), optimizer, scheduler,
+                               cfg.grad_clip)
+        losses = {k: v.item() for k, v in step(place_batch(batch, d, dtype)).items()}
         named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
-        runs[str(d)] = (losses, {n: p.grad.cpu() for n, p in named},
-                        {n: p.detach().cpu() - before[n] for n, p in named})
-    (l_cpu, g_cpu, u_cpu), (l_card, g_card, u_card) = runs["cpu"], runs[str(dev)]
-    loss_err = max(abs(l_card[k] - v) / max(abs(v), 1e-6) for k, v in l_cpu.items())
+        runs[name] = (losses, {n: p.grad.cpu().double() for n, p in named},
+                      {n: p.detach().cpu().double() - before[n] for n, p in named})
+    (l_ref, g_ref, u_ref), (l_card, g_card, u_card) = runs["cpu64"], runs["card"]
     # each leaf relative to its own largest gradient, floored at a share of
     # the largest over all leaves (a leaf whose gradients all sit at that
     # floor's rounding is held in absolute terms)
-    floor = STEP_GRAD_FLOOR * max(g.abs().max().item() for g in g_cpu.values())
+    floor = STEP_GRAD_FLOOR * max(g.abs().max().item() for g in g_ref.values())
+
+    loss_err = max(abs(l_card[k] - v) / max(abs(v), 1e-6) for k, v in l_ref.items())
     grad_errs = {n: (g_card[n] - g).abs().max().item() / max(g.abs().max().item(), floor)
-                 for n, g in g_cpu.items()}
+                 for n, g in g_ref.items()}
     worst = max(grad_errs, key=grad_errs.get)
     # the first AdamW step moves a weight by lr (g / (|g| + eps) + wd p):
     # it carries the sign of each gradient, so updates are compared where
     # the sign is beyond the gradients' disagreement, to 1% of lr
     update_err, compared = 0.0, 0
-    for n, g in g_cpu.items():
+    for n, g in g_ref.items():
         sure = g.abs() > 100 * (g_card[n] - g).abs().max()
         if sure.any():
-            update_err = max(update_err, (u_card[n] - u_cpu[n])[sure].abs().max().item())
+            update_err = max(update_err, (u_card[n] - u_ref[n])[sure].abs().max().item())
             compared += int(sure.sum().item())
-    total = sum(g.numel() for g in g_cpu.values())
+    total = sum(g.numel() for g in g_ref.values())
     assert all(np.isfinite(v) for v in l_card.values())
-    assert loss_err <= STEP_LOSS_RTOL, ("losses", loss_err, l_card, l_cpu)
+    assert loss_err <= STEP_LOSS_RTOL, ("losses", loss_err, l_card, l_ref)
     assert grad_errs[worst] <= STEP_GRAD_RTOL, ("gradients", worst, grad_errs[worst])
     assert compared > total // 4, ("updates compared", compared, total)
     assert update_err <= 1e-2 * cfg.lr, ("updates", update_err)
-    return dict(loss_rel_err=loss_err, grad_rel_err=grad_errs[worst], grad_worst_leaf=worst,
-                update_abs_err=update_err, updates_compared=compared, weights=total,
-                rows=len(batch["vid"]), valid_v_lens=batch["valid_v_lens"].tolist())
+    return dict(reference="cpu float64", loss_rel_err=loss_err, grad_rel_err=grad_errs[worst],
+                grad_worst_leaf=worst, update_abs_err=update_err, updates_compared=compared,
+                weights=total, rows=len(batch["vid"]), valid_v_lens=batch["valid_v_lens"].tolist())
 
 
 def read_train_run(run_dir):
@@ -1168,7 +1241,7 @@ def load_on_cpu(cfg, path, steps_per_epoch, seed):
     returns the number of tensors loaded, every one on the CPU."""
     import torch
 
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.train.loop import load_checkpoint, load_model_weights, make_optimizer
     from flashvtg_tpu_torch.utils.convert import model_state
 
@@ -1280,6 +1353,40 @@ def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
                 losses_first=losses[0], losses_last=losses[-1])
 
 
+def run_ms_mr_eval(dev, n_queries, n_compare, seed, **overrides):
+    """Phase 13 (c): the flagship with variant=ms, use_dfl and use_eos at
+    full width (B 256, Lv 75) through run_mr_inference with the eval losses
+    (the forward's negative pass) and eval_submission; the device step
+    (forward + DFL decode); card vs CPU with the decoded spans."""
+    from flashvtg_tpu_torch.losses import declared_loss_keys
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.infer import run_mr_inference
+
+    cfg = from_preset("qvhighlights_slowclip", variant="ms", use_dfl=True, use_eos=True,
+                      **overrides)
+    loss_cfg = cfg.loss_config()
+
+    def infer(cfg, model, ds):
+        return run_mr_inference(cfg, model, ds, loss_cfg=loss_cfg)
+
+    def score(cfg, ds, out):
+        losses = out[2]
+        assert sorted(losses) == list(declared_loss_keys(loss_cfg)), sorted(losses)
+        assert "loss_eos" in losses and all(np.isfinite(v) for v in losses.values()), losses
+        return dict(score_mr(cfg, ds, out), eval_losses=losses)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, ds = make_dataset(tmp, cfg, n_queries, seed, load_labels=True)
+        model, path = phase_path(dev, cfg, ds, seed, infer, score, per_batch=eval_launches(cfg))
+        path["step_ms"] = time_ms(eval_step(dev, model, cfg, ds), iters=20, warmup=3)
+        path["step_qps"] = cfg.eval_bsz / path["step_ms"] * 1e3
+        log(f"[ms mr path] {json.dumps(path)}")
+        path["card_vs_cpu_max_abs_err"] = phase_card_vs_cpu(dev, model, cfg, ds, seed,
+                                                            n_compare, spans=True)
+        log(f"[ms mr card vs cpu] max |err| {json.dumps(path['card_vs_cpu_max_abs_err'])}")
+    return path
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1333,22 +1440,37 @@ def main():
     rows += train_rows
     shapes.update(train_shapes)
 
-    paths = {
-        "flagship": run_preset(dev, "qvhighlights_slowclip", args.queries, 8, args.seed),
-        "tacos": run_preset(dev, "tacos", args.tacos_queries, 2, args.seed),
-        "flagship_train": run_train_preset(dev, "qvhighlights_slowclip", args.train_steps,
-                                           args.seed),
-        "tacos_train": run_train_preset(dev, "tacos", args.train_steps, args.seed),
-        "hd_youtube_eval": run_preset(dev, "youtube_uni", args.hd_queries, 2, args.seed,
-                                      dset_domain="dog"),
-        "hd_tvsum_eval": run_preset(dev, "tvsum", 8, 2, args.seed, dset_domain="BK"),
+    phases = {
+        "flagship": lambda: run_preset(dev, "qvhighlights_slowclip", args.queries, 8,
+                                       args.seed),
+        "tacos": lambda: run_preset(dev, "tacos", args.tacos_queries, 2, args.seed),
+        "flagship_train": lambda: run_train_preset(dev, "qvhighlights_slowclip",
+                                                   args.train_steps, args.seed),
+        "tacos_train": lambda: run_train_preset(dev, "tacos", args.train_steps, args.seed),
+        "hd_youtube_eval": lambda: run_preset(dev, "youtube_uni", args.hd_queries, 2,
+                                              args.seed, dset_domain="dog"),
+        "hd_tvsum_eval": lambda: run_preset(dev, "tvsum", 8, 2, args.seed, dset_domain="BK"),
         # TVSum's own split of a domain: 4 train videos and 1 val video
-        "tvsum_train": run_train_preset(dev, "tvsum", args.train_steps, args.seed, n_train=4,
-                                        n_val=1, dset_domain="BK"),
-        "charades_eval": run_preset(dev, "charades", 256, 2, args.seed),
-        "charades_vgg_eval": run_preset(dev, "charades_vgg", 32, 2, args.seed),
-        "cli": run_cli(dev, args.seed),
+        "tvsum_train": lambda: run_train_preset(dev, "tvsum", args.train_steps, args.seed,
+                                                n_train=4, n_val=1, dset_domain="BK"),
+        "charades_eval": lambda: run_preset(dev, "charades", 256, 2, args.seed),
+        "charades_vgg_eval": lambda: run_preset(dev, "charades_vgg", 32, 2, args.seed),
+        "cli": lambda: run_cli(dev, args.seed),
+        # phase 13: the FlashVTG_ms variant
+        "ms_hd_youtube_eval": lambda: run_preset(dev, "youtube_uni_ms", args.hd_queries, 2,
+                                                 args.seed, dset_domain="dog"),
+        "ms_hd_tvsum_eval": lambda: run_preset(dev, "tvsum_ms", 8, 2, args.seed,
+                                               dset_domain="BK"),
+        "ms_tvsum_train": lambda: run_train_preset(dev, "tvsum_ms", args.train_steps, args.seed,
+                                                   n_train=4, n_val=1, dset_domain="BK"),
+        "ms_mr_dfl_eos_eval": lambda: run_ms_mr_eval(dev, args.queries, 8, args.seed),
     }
+    paths = {}
+    for name, run in phases.items():  # each path with its wall time
+        t0 = time.perf_counter()
+        paths[name] = run()
+        paths[name]["wall_s"] = time.perf_counter() - t0
+        log(f"[{name}] {paths[name]['wall_s']:.2f} s")
 
     for row in rows:  # the largest error over every shape of the kernel
         row["max_abs_err"] = max([row["max_abs_err"]] + [

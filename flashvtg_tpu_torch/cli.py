@@ -145,7 +145,7 @@ def run_train(cfg, overrides, device) -> int:
 
 def run_infer(cfg, device) -> int:
     from flashvtg_tpu_torch.data.dataset import VTGDataset
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.train.infer import eval_data_config
     from flashvtg_tpu_torch.train.loop import (
         evaluate,

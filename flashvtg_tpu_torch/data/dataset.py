@@ -10,7 +10,9 @@ draws them per __getitem__: GT windows (span_windows), saliency labels
 (saliency_sub_as_query for charades / TACoS-style sets, saliency_all for
 QVHighlights, saliency_tvsum / saliency_youtube for the highlight-detection
 sets, whose GT windows are one zero row), and txt_drop_ratio's zeroed text
-rows.
+rows. With eos_first (the FlashVTG_ms InternVideo2 text) a `{qid}.npy`
+query, when no `.npz` one exists, is reordered to its last (EOS) row
+followed by rows 4..-1, before the max_q_l cut and the l2-norm.
 
 The highlight-detection (HD) layouts: TVSum and YouTube-HL train and
 evaluate per domain (dset_domain, refused when missing); their text is
@@ -67,6 +69,8 @@ class DataConfig:
     clip_len: float = 2.0
     max_windows: int = 5
     txt_drop_ratio: float = 0.0
+    # the _ms InternVideo2 text layout of `{qid}.npy`: last row (EOS) first
+    eos_first: bool = False
     seed: int = 2024
 
 
@@ -216,6 +220,15 @@ class VTGDataset:
             (join(cfg.q_feat_dir, f"{qid}.npy"), cfg.q_feat_type),
         ]
         trunc = cfg.max_q_l if cfg.q_feat_type == "last_hidden_state" else 0
+        npy_path = candidates[2][0]
+        if cfg.eos_first and os.path.exists(npy_path) and not any(
+            os.path.exists(p) for p, _ in candidates[:2]
+        ):
+            # the EOS row, then rows 4..-1, before the cut and the l2-norm
+            q = _try_paths([(npy_path, None)])
+            q = np.concatenate([q[-1:], q[4:-1]], axis=0)
+            q = q[:trunc] if trunc else q
+            return l2_normalize(q) if cfg.normalize_t else q
         return _try_paths(candidates, max_rows=trunc, l2norm=cfg.normalize_t)
 
     def _video_feat(self, vid: str) -> np.ndarray:

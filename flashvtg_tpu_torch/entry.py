@@ -6,7 +6,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from flashvtg_tpu_torch.models.flashvtg import build_model
+from flashvtg_tpu_torch.models import build_model
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import from_preset
 from flashvtg_tpu_torch.utils.runtime import resolve_device

@@ -2,7 +2,8 @@
 
 Counterpart of flashvtg_tpu/losses/basic.py (reference blocks/loss.py and
 blocks/utils.py, plus the nncore losses FocalLoss, L1Loss and
-DynamicBCELoss in their mmdet formulations).
+DynamicBCELoss in their mmdet formulations); the quality and distribution
+focal losses serve the FlashVTG_ms criterion (losses/criterion_ms.py).
 """
 
 from __future__ import annotations
@@ -61,6 +62,22 @@ def quality_focal_loss(pred, label, score, weight=None, avg_factor=None, beta=2.
     neg = bce_with_logits(pred, torch.zeros_like(pred)) * p ** beta
     pos = bce_with_logits(pred, score) * (score - p).abs() ** beta
     return weight_reduce(torch.where(label > 0, pos, neg), weight, avg_factor)
+
+
+def distribution_focal_loss(pred, label, weight=None, avg_factor=None):
+    """Distribution focal loss over discretised offsets (reference
+    blocks/loss.py:43-71): cross entropy to the two bins around each
+    continuous label in [0, C - 1), weighted by the distance to the other.
+    pred (B, N, C) bin logits, label (B, N)."""
+    c = pred.shape[-1]
+    disl = label.to(torch.int64).clamp(0, c - 1)  # truncation, as astype(int32)
+    disr = (disl + 1).clamp(0, c - 1)
+    wl = disr.to(pred.dtype) - label
+    wr = label - disl.to(pred.dtype)
+    logp = F.log_softmax(pred, dim=-1)
+    ce_l = -torch.gather(logp, -1, disl[..., None])[..., 0]
+    ce_r = -torch.gather(logp, -1, disr[..., None])[..., 0]
+    return weight_reduce(ce_l * wl + ce_r * wr, weight, avg_factor)
 
 
 def sampled_nce_loss(video_emb, query_emb, video_msk, saliency, pos_clip,

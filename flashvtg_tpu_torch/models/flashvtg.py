@@ -291,6 +291,11 @@ class FlashVTGModel(nn.Module):
             out["real_neg_mask"] = rnm
         return out
 
+    def decode(self, out, point_valid=None, top_k: int = 50):
+        """(spans, scores) of an eval forward's `out`: decode_boundaries."""
+        return decode_boundaries(out["out_class"], out["out_coord"], out["point"],
+                                 self.cfg.clip_length, point_valid=point_valid, top_k=top_k)
+
 
 def decode_boundaries(
     out_class: torch.Tensor,
@@ -322,16 +327,3 @@ def decode_boundaries(
     both = torch.stack([start, end], dim=-1)
     spans = torch.gather(both, 1, idx[..., None].expand(-1, -1, 2))
     return spans, top_scores
-
-
-def build_model(cfg: ModelConfig, device=None, seed: int = 0) -> FlashVTGModel:
-    """A FlashVTGModel with weights drawn from `seed` (torch init on the CPU,
-    outside the global RNG stream), moved to `device` (None: the card), in
-    eval mode (call .train() for the train forward)."""
-    from flashvtg_tpu_torch.utils.runtime import resolve_device
-
-    device = resolve_device(device)
-    with torch.random.fork_rng(devices=[]):
-        torch.manual_seed(seed)
-        model = FlashVTGModel(cfg)
-    return model.to(device).eval()

@@ -3,9 +3,10 @@
     python -m flashvtg_tpu_torch.tools.profile_eval [--preset qvhighlights_slowclip]
         [--bsz <the preset's eval_bsz, or bsz with --train>] [--steps 10] [--train]
 
-Any preset of train/config.py but the `_ms` ones: qvhighlights_slowclip,
-tacos, tvsum, youtube_uni, charades, charades_internvideo2, charades_vgg,
-... Builds the preset's model at full width and depth (random weights from
+Any preset of train/config.py: qvhighlights_slowclip, tacos, tvsum,
+youtube_uni, charades, charades_internvideo2, charades_vgg, and the
+FlashVTG_ms presets tvsum_ms and youtube_uni_ms. Builds the preset's model
+(its variant's) at full width and depth (random weights from
 --seed), one batch of random features at the preset's video bucket with
 ragged video lengths (`video_lengths`: 60-330 clips of Lv 1000 for the HD
 sets, videos of 15-45 s for Charades-STA, max(20, Lv / 32) clips to Lv
@@ -19,7 +20,12 @@ the HD sets, TVSum-like clip scores. Prints the card's name and power
 limit, then one JSON line: host wall time and device-busy time per step,
 the idle share, device time by kernel class (each of the port's attention
 kernels by name, forward and backward, GEMMs, convolutions, the rest) and
-the top kernels by device time.
+the top kernels by device time. For a FlashVTG_ms model it also reports
+`lgi_attention`: the device time of the plain LGI attention modules
+(models/lgi.py MHACore: projections, logits, softmax, dropout, p.v), the
+kernels launched inside them (forward) and by the autograd nodes of their
+ops (backward, matched by sequence number), and its share of the busy time;
+these kernels are also in the classes above.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ import numpy as np
 import torch
 
 from flashvtg_tpu_torch.data.dataset import HD_SETS
-from flashvtg_tpu_torch.models.flashvtg import build_model
+from flashvtg_tpu_torch.models import build_model
+from flashvtg_tpu_torch.models.lgi import MHACore
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import from_preset
 from flashvtg_tpu_torch.train.infer import make_eval_step
@@ -114,6 +121,61 @@ def window_labels(rng, v_lens, lv, clip_length, max_windows):
                 gt_windows=gt, real_neg_mask=np.ones(b, np.float32))
 
 
+LGI_TAG = "lgi_attention"
+
+
+def mark_modules(model, cls, tag):
+    """Wrap every `cls` module's forward in a profiler range named `tag`."""
+    open_ranges = []
+
+    def enter(module, args):
+        rf = torch.profiler.record_function(tag)
+        rf.__enter__()
+        open_ranges.append(rf)
+
+    def leave(module, args, out):
+        open_ranges.pop().__exit__(None, None, None)
+
+    n = 0
+    for m in model.modules():
+        if isinstance(m, cls):
+            m.register_forward_pre_hook(enter)
+            m.register_forward_hook(leave)
+            n += 1
+    return n
+
+
+def marked_device_us(events, tag):
+    """(forward, backward) device microseconds of the `tag` ranges: the
+    kernels launched inside them, and those of the backward nodes whose
+    sequence number is one of an op inside them (outermost such node)."""
+    cpu = [e for e in events if e.device_type == torch.autograd.DeviceType.CPU]
+    ranges = [e for e in cpu if e.name == tag]
+    seqs = set()
+
+    def walk(e):
+        for ch in e.cpu_children:
+            if ch.sequence_nr >= 0:
+                seqs.add((ch.sequence_nr, ch.thread))
+            walk(ch)
+
+    for r in ranges:
+        walk(r)
+    hits = {id(e): e for e in cpu
+            if e.scope == 1 and (e.sequence_nr, e.fwd_thread) in seqs}
+
+    def nested(e):
+        p = e.cpu_parent
+        while p is not None:
+            if id(p) in hits:
+                return True
+            p = p.cpu_parent
+        return False
+
+    bwd = sum(e.device_time_total for e in hits.values() if not nested(e))
+    return sum(r.device_time_total for r in ranges), bwd
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -130,6 +192,7 @@ def main():
     ).stdout.strip().splitlines()[0])
     cfg = from_preset(args.preset)
     model = build_model(cfg.model_config(), dev, args.seed)
+    n_marked = mark_modules(model, MHACore, LGI_TAG)
     rng = np.random.default_rng(args.seed)
     b = args.bsz or (cfg.bsz if args.train else cfg.eval_bsz)
     lv, lq = cfg.max_v_l, cfg.max_q_l
@@ -173,8 +236,11 @@ def main():
         wall = time.perf_counter() - t0
 
     per_name = collections.defaultdict(lambda: [0.0, 0])
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
+    events = prof.events()
+    for e in events:
+        # the ranges' own device-side annotations are not kernels
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             per_name[e.name][0] += e.time_range.elapsed_us()
             per_name[e.name][1] += 1
     busy_us = sum(us for us, _ in per_name.values())
@@ -183,6 +249,12 @@ def main():
         classes[kernel_class(name)] += us
     n = args.steps
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    lgi = None
+    if n_marked:
+        fwd_us, bwd_us = marked_device_us(events, LGI_TAG)
+        lgi = {"modules": n_marked, "fwd_ms_per_step": fwd_us / 1e3 / n,
+               "bwd_ms_per_step": bwd_us / 1e3 / n,
+               "share_of_busy": (fwd_us + bwd_us) / busy_us if busy_us else None}
     print(json.dumps({
         "preset": args.preset, "mode": "train" if args.train else "eval", "bsz": b, "steps": n,
         # the self-attention's valid keys: the flash kernel skips the rest
@@ -191,6 +263,7 @@ def main():
         "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
         "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
         "class_ms_per_step": {k: v / 1e3 / n for k, v in classes.items()},
+        LGI_TAG: lgi,
         "top": [
             {"name": name[:90], "ms_per_step": us / 1e3 / n, "calls_per_step": c / n}
             for name, (us, c) in top

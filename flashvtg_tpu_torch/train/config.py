@@ -21,7 +21,9 @@ import os
 from typing import Optional, Sequence, Tuple
 
 from flashvtg_tpu_torch.losses.criterion import LossConfig
+from flashvtg_tpu_torch.losses.criterion_ms import MSLossConfig
 from flashvtg_tpu_torch.models.flashvtg import ModelConfig
+from flashvtg_tpu_torch.models.flashvtg_ms import MSModelConfig
 
 logger = logging.getLogger(__name__)
 
@@ -50,7 +52,8 @@ class ExperimentConfig:
     no_norm_vfeat: bool = False
     no_norm_tfeat: bool = False
     txt_drop_ratio: float = 0.0
-    eos_first: bool = False  # _ms InternVideo2 text order: Queue A 4
+    # InternVideo2 text rows of the _ms variant: the EOS row first
+    eos_first: bool = False
 
     # lengths / batching
     max_q_l: int = 32
@@ -149,8 +152,9 @@ class ExperimentConfig:
     total_prompts: int = 10
     num_prompts: int = 1
 
-    # FlashVTG_ms variant: Queue A 4
-    variant: str = "core"  # "core"; "ms" is not ported
+    # the FlashVTG_ms variant (models/flashvtg_ms.py); the fields below are
+    # read by it alone
+    variant: str = "core"  # core | ms
     num_phrase: int = 3
     phrase_layers: int = 2
     context_layers: int = 2
@@ -193,7 +197,10 @@ class ExperimentConfig:
         return self.v_feat_dim + (2 if self.use_tef else 0)
 
     def model_config(self) -> ModelConfig:
-        return ModelConfig(
+        """The architecture of the configured variant (what the JAX config's
+        build_model builds): a ModelConfig, or for variant "ms" an
+        MSModelConfig, the core fields and the _ms ones."""
+        core = ModelConfig(
             vid_dim=self.total_v_feat_dim,
             txt_dim=self.t_feat_dim,
             hidden_dim=self.hidden_dim,
@@ -217,9 +224,26 @@ class ExperimentConfig:
             use_neg=self.use_neg,
             attn_chunk=self.attn_chunk,
         )
+        if self.variant != "ms":
+            return core
+        return MSModelConfig(
+            **dataclasses.asdict(core),
+            num_phrase=self.num_phrase,
+            phrase_layers=self.phrase_layers,
+            context_layers=self.context_layers,
+            use_dfl=self.use_dfl,
+            num_bins=self.num_bins,
+            rank=self.rank,
+            t_sa_layers=self.t_sa,
+            sample_radius=self.sample_radius,
+            use_eos=self.use_eos,
+        )
 
-    def loss_config(self) -> LossConfig:
-        return LossConfig(
+    def loss_config(self):
+        """The criterion of the configured variant: a LossConfig, or for
+        variant "ms" an MSLossConfig (losses/criterion_ms.py), which reads no
+        loss_cls / loss_reg / loss_sal choice."""
+        shared = dict(
             label_loss_coef=self.label_loss_coef,
             lw_saliency=self.lw_saliency,
             lw_reg=self.lw_reg,
@@ -228,13 +252,25 @@ class ExperimentConfig:
             lw_wattn=self.lw_wattn,
             saliency_margin=self.saliency_margin,
             sample_radius=self.sample_radius,
+            clip_length=self.clip_length,
+            dset_name=self.dset_name,
+        )
+        if self.variant == "ms":
+            return MSLossConfig(
+                **shared,
+                lw_phrase=self.lw_phrase,
+                use_dfl=self.use_dfl,
+                num_bins=self.num_bins,
+                use_eos=self.use_eos,
+                lw_eos=self.lw_eos,
+            )
+        return LossConfig(
+            **shared,
             loss_cls=self.loss_cls,
             loss_reg=self.loss_reg,
             loss_sal=self.loss_sal,
             nce_direction=tuple(self.nce_direction),
             loss_qfl=self.loss_qfl,
-            clip_length=self.clip_length,
-            dset_name=self.dset_name,
         )
 
     def check_ported(self, train: bool) -> None:
@@ -248,9 +284,9 @@ class ExperimentConfig:
                 "reference's 'ce' path is itself broken for FlashVTG; every shipped "
                 "config uses 'l1'"
             )
+        if self.variant not in ("core", "ms"):
+            raise ValueError(f"unknown variant {self.variant!r}; expected core | ms")
         unported = [
-            (self.variant != "core", f"variant={self.variant!r}", 4),
-            (self.eos_first, "eos_first", 4),
             (self.eval_precision != "float32",
              f"eval_precision={self.eval_precision!r}", 5),
             (self.serving, "serving (tensorfloat32 eval)", 5),

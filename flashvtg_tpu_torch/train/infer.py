@@ -10,7 +10,9 @@ evaluates the criterion on every batch (the forward with the negative pass,
 `force_neg`) and returns its means over the split, weighted by rows, as the
 reference logs eval losses (inference.py:300-306). The highlight-detection
 sets (TVSum, YouTube-HL) take the saliency-only step, the forward with no
-decode, and score the saliency with eval/hl.py's mAP. Not ported yet: the
+decode, and score the saliency with eval/hl.py's mAP. The FlashVTG_ms model
+(models/flashvtg_ms.py) takes the same paths, with its own criterion for the
+eval losses and, under use_dfl, the DFL decode. Not ported yet: the
 device-resident feed, mesh sharding and pipelining (ROADMAP Queue A 6-7).
 """
 
@@ -25,8 +27,7 @@ from flashvtg_tpu_torch.data.collate import MODEL_KEYS, TRAIN_KEYS, Collator
 from flashvtg_tpu_torch.data.dataset import DataConfig, VTGDataset
 from flashvtg_tpu_torch.eval.hl import compute_hl_map
 from flashvtg_tpu_torch.eval.postprocess import build_post_processor
-from flashvtg_tpu_torch.losses import compute_losses, weighted_total
-from flashvtg_tpu_torch.models.flashvtg import FlashVTGModel, decode_boundaries
+from flashvtg_tpu_torch.losses import criterion
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.ops.nms import suppress_overlaps
 
@@ -51,11 +52,12 @@ def eval_data_config(cfg, path: str, load_labels: bool = False) -> DataConfig:
         load_labels=load_labels,
         clip_len=cfg.clip_length,
         max_windows=cfg.max_windows,
+        eos_first=cfg.eos_first,
         seed=cfg.seed,
     )
 
 
-def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32",
+def make_eval_step(model, top_k: int, precision: str = "float32",
                    saliency_only: bool = False, loss_cfg=None):
     """step(batch, point_valid) -> (spans, scores, saliency, losses):
     forward + decode + rank for one batch of device tensors. `saliency_only`
@@ -63,7 +65,8 @@ def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32",
     spans and scores are then None. With `loss_cfg` the batch carries its
     labels (TRAIN_KEYS), the forward takes the negative pass too, and losses
     holds the criterion's batch means (0-d tensors, the weighted total
-    included); else it is {}."""
+    included; the _ms criterion for an MSLossConfig); else it is {}. The
+    model's own `decode` ranks the spans."""
     if precision != "float32":
         raise NotImplementedError(
             f"eval precision {precision!r} is not ported yet (ROADMAP Queue A 5)"
@@ -76,16 +79,10 @@ def make_eval_step(model: FlashVTGModel, top_k: int, precision: str = "float32",
             batch["src_vid_mask"], point_valid=point_valid,
             real_neg_mask=batch.get("real_neg_mask"), force_neg=loss_cfg is not None,
         )
-        losses = {}
-        if loss_cfg is not None:
-            losses = compute_losses(out, batch, loss_cfg)
-            losses["weighted_loss_overall"] = weighted_total(losses, loss_cfg)
+        losses = criterion(loss_cfg, out, batch) if loss_cfg is not None else {}
         if saliency_only:
             return None, None, out["saliency_scores"], losses
-        spans, scores = decode_boundaries(
-            out["out_class"], out["out_coord"], out["point"],
-            model.cfg.clip_length, point_valid=point_valid, top_k=top_k,
-        )
+        spans, scores = model.decode(out, point_valid, top_k)
         return spans, scores, out["saliency_scores"], losses
 
     return step
@@ -160,7 +157,7 @@ def _run_step(step, batch, strides, device, keys=MODEL_KEYS):
 
 
 def run_mr_inference(
-    cfg, model: FlashVTGModel, dataset: VTGDataset, nms_thd: Optional[float] = None,
+    cfg, model, dataset: VTGDataset, nms_thd: Optional[float] = None,
     loss_cfg=None,
 ) -> Tuple[List[dict], Optional[List[dict]], Dict[str, float]]:
     """(submission rows, NMS'd rows or None, eval losses) for an MR dataset,
@@ -225,7 +222,7 @@ def run_mr_inference(
     return submission, submission_nms, eval_losses
 
 
-def run_hl_inference(cfg, model: FlashVTGModel, dataset: VTGDataset) -> dict:
+def run_hl_inference(cfg, model, dataset: VTGDataset) -> dict:
     """TVSum / YouTube-HL: the saliency of every video of one domain on the
     device that holds the model's parameters, then the domain's mAP (TVSum
     top-5, YouTube-HL over the whole ranking). Returns {"brief": {"mAP":

@@ -8,7 +8,9 @@ Counterpart of flashvtg_tpu/train/loop.py, reference FlashVTG/train.py:
   * one step = train forward (negative pass included), every loss, the
     weighted total, backward through the attention kernels' autograd
     Functions, clipping, update; it returns the losses in the JAX step's
-    key order (`declared_loss_keys`);
+    key order (`declared_loss_keys`); the FlashVTG_ms variant (cfg.variant
+    "ms") trains its own model with its own criterion (losses/criterion_ms.py)
+    through the same step and loop;
   * `train`: shuffled epochs from a generator seeded at loop start (the
     short tail batch dropped), an eval every eval_epoch epochs with the eval
     losses (`evaluate`: run_hl_inference for the HD sets, tvsum and
@@ -45,13 +47,14 @@ import torch
 
 from flashvtg_tpu_torch.data.collate import TRAIN_KEYS, Collator
 from flashvtg_tpu_torch.data.dataset import HD_SETS, DataConfig, VTGDataset
-from flashvtg_tpu_torch.losses import compute_losses, declared_loss_keys, weighted_total
+from flashvtg_tpu_torch.losses import criterion, declared_loss_keys
 from flashvtg_tpu_torch.train.infer import (
     eval_data_config,
     run_hl_inference,
     run_mr_inference,
 )
 from flashvtg_tpu_torch.utils.convert import (
+    checkpoint_variant,
     lenient_torch_load,
     load_torch_checkpoint,
     model_state,
@@ -83,6 +86,7 @@ def train_data_config(cfg, path: str) -> DataConfig:
         clip_len=cfg.clip_length,
         max_windows=cfg.max_windows,
         txt_drop_ratio=cfg.txt_drop_ratio,
+        eos_first=cfg.eos_first,
         seed=cfg.seed,
     )
 
@@ -126,7 +130,8 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
                     generator: Optional[torch.Generator] = None):
     """step(batch) -> {loss key: 0-d tensor}: one update of `model` on a
     placed batch (`place_batch`), losses detached, in `step.loss_keys`
-    order. Attention-dropout seeds come from `generator`."""
+    order; `loss_cfg` is a LossConfig or, for the _ms model, an
+    MSLossConfig. Attention-dropout seeds come from `generator`."""
     keys = declared_loss_keys(loss_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
 
@@ -137,11 +142,9 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
             batch["src_vid_mask"], real_neg_mask=batch.get("real_neg_mask"),
             generator=generator,
         )
-        losses = compute_losses(out, batch, loss_cfg)
-        total = weighted_total(losses, loss_cfg)
-        losses["weighted_loss_overall"] = total
+        losses = criterion(loss_cfg, out, batch)
         optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        losses["weighted_loss_overall"].backward()
         # optax updates every leaf: a parameter the losses do not reach (the
         # HD sets' coord head and coef, with no loss_reg) still decays
         for p in params:
@@ -258,8 +261,14 @@ def _fitted(src: torch.Tensor, dst: torch.Tensor) -> Optional[torch.Tensor]:
 
 def load_model_weights(model, sd: Dict[str, torch.Tensor]) -> None:
     """load_state_dict(strict=True) that checks every name and shape first,
-    so a mismatched checkpoint leaves the model as it was."""
+    so a mismatched checkpoint leaves the model as it was; weights of the
+    other variant (FlashVTG_ms against the core model, told apart by the
+    phrase-pipeline keys) are refused by name."""
     own = model.state_dict()
+    have, want = checkpoint_variant(sd), checkpoint_variant(own)
+    if have != want:
+        raise ValueError(f"checkpoint holds {have!r} weights; the model is variant "
+                         f"{want!r} (set --variant {have})")
     missing = sorted(set(own) - set(sd))
     unexpected = sorted(set(sd) - set(own))
     shapes = [k for k in own if k in sd and _fitted(sd[k], own[k]) is None]
@@ -354,7 +363,7 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
     the video length is pinned to max_v_l. `max_steps` caps the steps of
     this run: the epoch that reaches it ends there and is the last, its eval
     and checkpoint made as for any epoch."""
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.utils.observability import ScalarWriter
     from flashvtg_tpu_torch.utils.runtime import resolve_device
     from flashvtg_tpu_torch.utils.snapshot import snapshot_code

@@ -1,10 +1,10 @@
 """JAX parameter tree -> the port's state_dict; the reference `.ckpt` file.
 
-The port's own copy of the inverse converter in
-flashvtg_tpu/utils/torch_convert.py (`_inv_*`, `export_state_dict`). The
-port's parameter names are the reference torch names, so the result loads
-into FlashVTGModel with strict=True, as a reference `.ckpt`'s `model` dict
-does. Flax Dense kernels are (in, out) and become (out, in); Conv kernels
+The port's own copy of the inverse converters in
+flashvtg_tpu/utils/torch_convert.py (`_inv_*`, `export_state_dict`,
+`export_state_dict_ms`). The port's parameter names are the reference torch
+names, so the result loads into FlashVTGModel (FlashVTGMSModel for the _ms
+variant) with strict=True, as a reference `.ckpt`'s `model` dict does. Flax Dense kernels are (in, out) and become (out, in); Conv kernels
 (k, in, out) become (out, in, k), and (out, in, 1, k) for the Conv2d heads;
 PReLU's scalar becomes a (1,) weight. Dead reference parameters that the
 JAX tree has no counterpart for (txt_position_embed when use_txt_pos is off)
@@ -168,6 +168,117 @@ def export_state_dict(params, cfg, dtype=np.float32) -> Dict[str, np.ndarray]:
     return {k: np.asarray(v, dtype=dtype) for k, v in out.items()}
 
 
+def _inv_mha(out, prefix, p):
+    """lgi.MHACore {q, k, v, out} -> nn.MultiheadAttention's packed in_proj."""
+    out[f"{prefix}.in_proj_weight"] = np.concatenate(
+        [_leaf(p[x]["kernel"]).T for x in ("q", "k", "v")], 0
+    )
+    out[f"{prefix}.in_proj_bias"] = np.concatenate([_leaf(p[x]["bias"]) for x in ("q", "k", "v")])
+    _inv_dense(out, f"{prefix}.out_proj", p["out"])
+
+
+def _inv_cross_attention_block(out, prefix, p):
+    _inv_dense(out, f"{prefix}.q_proj", p["q_proj"])
+    _inv_dense(out, f"{prefix}.kv_proj", p["kv_proj"])
+    _inv_mha(out, f"{prefix}.att", p["att"])
+    _inv_norm(out, f"{prefix}.norm", p["norm"])
+    _inv_dense(out, f"{prefix}.linear", p["linear"])
+    _inv_norm(out, f"{prefix}.norm1", p["norm1"])
+
+
+def _inv_self_attention_block(out, prefix, p):
+    for name in ("q_proj", "k_proj", "v_proj"):
+        _inv_dense(out, f"{prefix}.{name}", p[name])
+    _inv_mha(out, f"{prefix}.att", p["att"])
+    _inv_norm(out, f"{prefix}.norm", p["norm"])
+
+
+def _inv_phrase_generate(out, prefix, p, num_layers):
+    _inv_dense(out, f"{prefix}.word_proj", p["word_proj"])
+    _inv_dense(out, f"{prefix}.video_proj", p["video_proj"])
+    out[f"{prefix}.learnable_phrase"] = _leaf(p["learnable_phrase"])
+    for i in range(num_layers):
+        _inv_cross_attention_block(out, f"{prefix}.phrase_att.{i}", p[f"att{i}"])
+
+
+def _inv_local_context(out, prefix, p):
+    _inv_dense(out, f"{prefix}.phrase_proj.0", p["phrase_proj1"])
+    _inv_dense(out, f"{prefix}.phrase_proj.2", p["phrase_proj2"])
+    for k in (1, 3, 5):
+        out[f"{prefix}.kernel_params.k{k}"] = _leaf(p[f"kernel_k{k}"])
+    _inv_dense(out, f"{prefix}.linear_out", p["linear_out"])
+    _inv_norm(out, f"{prefix}.norm", p["norm"])
+
+
+def _inv_phrase_context(out, prefix, p, num_layers):
+    for name in ("fc_1", "fc_2", "fc_3"):
+        _inv_dense(out, f"{prefix}.product.{name}", p["product"][name])
+    _inv_norm(out, f"{prefix}.product.norm", p["product"]["norm"])
+    _inv_norm(out, f"{prefix}.product.norm1", p["product"]["norm1"])
+    for i in range(num_layers):
+        lay, pre = p[f"layer{i}"], f"{prefix}.layers.{i}"
+        _inv_self_attention_block(out, f"{pre}.t_att", lay["t_att"])
+        _inv_dense(out, f"{pre}.fc_t.0", lay["fc_t"])
+        _inv_norm(out, f"{pre}.norm_t", lay["norm_t"])
+    _inv_local_context(out, f"{prefix}.local_context", p["local_context"])
+
+
+def _inv_tsa(out, prefix, p, num_layers, d):
+    """TSA layers; each layer's unread reference `norm1` at its init values."""
+    for i in range(num_layers):
+        lay, pre = p[f"layer{i}"], f"{prefix}.layers.{i}"
+        _inv_self_attention_block(out, f"{pre}.t_att", lay["t_att"])
+        _inv_dense(out, f"{pre}.linear", lay["linear"])
+        _inv_norm(out, f"{pre}.norm", lay["norm"])
+        out[f"{pre}.norm1.weight"] = np.ones(d, np.float32)
+        out[f"{pre}.norm1.bias"] = np.zeros(d, np.float32)
+
+
+def export_state_dict_ms(params, cfg, dtype=np.float32) -> Dict[str, np.ndarray]:
+    """JAX FlashVTG_ms parameter tree (numpy leaves) -> reference-named numpy
+    state_dict in `dtype` (a copy of the JAX export_state_dict_ms, in its
+    key order). `cfg` is an MSModelConfig of either package. The reference
+    parameters no forward reads are synthesised at their init values
+    (pooling.att, t_sa.layers.i.norm1, transformer.fuse_proj,
+    txt_position_embed). Under use_eos the tree's `eos_query` comes last:
+    the JAX export does not write it."""
+    p = params.get("params", params)
+    out: Dict[str, np.ndarray] = {}
+    d = cfg.hidden_dim
+    out["dummy_rep_token"] = _leaf(p["dummy_token"])
+    out["dummy_rep_pos"] = _leaf(p["dummy_pos"])
+    out["coef"] = _leaf(p["coef"])
+    _inv_input_proj(out, "input_vid_proj", p["vid_proj"], cfg.n_input_proj)
+    _inv_input_proj(out, "input_txt_proj", p["txt_proj"], cfg.n_input_proj)
+    _inv_input_proj(out, "input_word_proj", p["word_proj"], cfg.n_input_proj)
+    out["token_type_embeddings.weight"] = _leaf(p["token_type"]["embedding"])
+    _inv_encoder(out, "txtproj_encoder", p["dummy_encoder"], cfg.dummy_layers)
+    _inv_encoder(
+        out, "transformer.t2v_encoder", p["t2v_encoder"], cfg.t2v_layers,
+        layer_fn=_inv_t2v_layer,
+    )
+    _inv_encoder(out, "transformer.encoder", p["encoder"], cfg.enc_layers)
+    _inv_pyramid(out, p.get("pyramid", {}), cfg.strides)
+    out["pooling.att.weight"] = np.zeros((1, d), np.float32)
+    _inv_confidence_scorer(
+        out, "class_head", p["class_head"], cfg.num_conv_layers, cfg.num_mlp_layers
+    )
+    _inv_coord_head(out, p["coord_head"])
+    _inv_dense(out, "saliency_proj.proj1", p["saliency_proj"]["proj1"])
+    _inv_dense(out, "saliency_proj.proj2", p["saliency_proj"]["proj2"])
+    _inv_phrase_generate(out, "phrase_generate", p["phrase_generate"], cfg.phrase_layers)
+    _inv_phrase_context(out, "phrase_context", p["phrase_context"], cfg.context_layers)
+    _inv_tsa(out, "t_sa", p["t_sa"], cfg.t_sa_layers, d)
+    out["transformer.fuse_proj.0.weight"] = np.zeros((d, 2 * d), np.float32)
+    out["transformer.fuse_proj.0.bias"] = np.zeros(d, np.float32)
+    out["transformer.fuse_proj.1.weight"] = np.ones(d, np.float32)
+    out["transformer.fuse_proj.1.bias"] = np.zeros(d, np.float32)
+    _inv_txt_position_embed(out, p, cfg)
+    if "eos_query" in p:
+        out["eos_query"] = _leaf(p["eos_query"])
+    return {k: np.asarray(v, dtype=dtype) for k, v in out.items()}
+
+
 def state_dict_from_jax(params, cfg, dtype=np.float32) -> Dict[str, torch.Tensor]:
     """The port's state_dict (CPU tensors in `dtype`) from a JAX parameter
     tree whose leaves are numpy arrays; load it with
@@ -176,6 +287,20 @@ def state_dict_from_jax(params, cfg, dtype=np.float32) -> Dict[str, torch.Tensor
     return {
         k: torch.tensor(v) for k, v in export_state_dict(params, cfg, dtype).items()
     }
+
+
+def state_dict_from_jax_ms(params, cfg, dtype=np.float32) -> Dict[str, torch.Tensor]:
+    """state_dict_from_jax for a JAX FlashVTG_ms tree: loads into
+    FlashVTGMSModel with strict=True."""
+    return {
+        k: torch.tensor(v) for k, v in export_state_dict_ms(params, cfg, dtype).items()
+    }
+
+
+def checkpoint_variant(state_dict) -> str:
+    """"ms" for FlashVTG_ms weights (the phrase-pipeline keys, as the JAX
+    load_torch_checkpoint detects them), else "core"."""
+    return "ms" if any(k.startswith("phrase_generate.") for k in state_dict) else "core"
 
 
 def lenient_torch_load(path, map_location="cpu"):

@@ -15,7 +15,13 @@
   * opt.json: both packages' `save` give the same keys and values and the
     same model_cfg.py for the same flags, and each `load`s the other's file.
     The one difference is a default: the port's train_precision is
-    "float32" (the JAX package's "bfloat16"; ROADMAP Queue A 5).
+    "float32" (the JAX package's "bfloat16"; ROADMAP Queue A 5);
+  * the FlashVTG_ms variant: a JAX `cli export` of a tvsum_ms checkpoint
+    loads into the port's FlashVTGMSModel with strict=True and gives the
+    JAX forward; a port ms checkpoint goes through the JAX package's
+    load_torch_checkpoint (its phrase-key variant detection) to the port's
+    forward; the core model refuses ms weights by name; an ms opt.json
+    (variant, num_phrase, use_dfl, use_eos) round-trips both ways.
 """
 
 import dataclasses
@@ -32,11 +38,12 @@ import torch
 
 from flashvtg_tpu import cli as jax_cli
 from flashvtg_tpu.models.flashvtg import FlashVTGModel as JaxModel
+from flashvtg_tpu.models.flashvtg_ms import FlashVTGMSModel as JaxMSModel
 from flashvtg_tpu.train.config import ExperimentConfig as JaxConfig
 from flashvtg_tpu.train.config import from_preset as jax_preset
 from flashvtg_tpu.train.loop import save_checkpoint as jax_save_checkpoint
 from flashvtg_tpu.utils.torch_convert import load_torch_checkpoint as jax_load_ckpt
-from flashvtg_tpu_torch.models.flashvtg import build_model
+from flashvtg_tpu_torch.models import build_model
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import ExperimentConfig, from_preset
 from flashvtg_tpu_torch.train.loop import (
@@ -301,6 +308,8 @@ OPT_CASES = {
                                       v_feat_dirs=("a", "b"), resume="x.ckpt")),
     "tvsum_hd": ("tvsum", dict(dset_domain="BK", nce_direction=("row",), eval_untrained=True)),
     "qfl_loss": ("qvhighlights", dict(loss_qfl=True, strides=(1, 2))),
+    "tvsum_ms_dfl_eos": ("tvsum_ms", dict(dset_domain="BK", num_phrase=4, use_dfl=True,
+                                          use_eos=True, eos_first=True)),
 }
 
 
@@ -336,3 +345,76 @@ def test_opt_json_interchange(tmp_path, case):
         {**dataclasses.asdict(ref), "eval_bsz": 1})
     assert _normalised(dataclasses.asdict(jax_from_port)) == _normalised(
         {**dataclasses.asdict(ours), "eval_bsz": 1})
+
+
+MS_SMALL = dict(v_feat_dim=24, t_feat_dim=16, hidden_dim=32, nheads=4, dim_feedforward=48,
+                num_dummies=2, t2v_layers=1, enc_layers=1, dummy_layers=1, num_conv_layers=1,
+                num_mlp_layers=2, num_phrase=2, phrase_layers=1, context_layers=1, rank=2,
+                t_sa=1, max_q_l=8, max_v_l=40)
+MS_V_LENS = (40, 23, 9)
+
+
+def _ms_forward_pair(jcfg, params, model, seed):
+    """(port, JAX) eval outputs of one ragged tvsum_ms batch."""
+    rng = np.random.default_rng(seed)
+    lv, lq = jcfg.max_v_l, jcfg.max_q_l
+    vid_mask = (np.arange(lv)[None] < np.asarray(MS_V_LENS)[:, None]).astype(np.float32)
+    txt_mask = (np.arange(lq)[None] < np.asarray(Q_LENS)[:, None]).astype(np.float32)
+    arrs = (rng.standard_normal((B, lq, jcfg.t_feat_dim), dtype=np.float32) * txt_mask[..., None],
+            txt_mask,
+            rng.standard_normal((B, lv, jcfg.total_v_feat_dim), dtype=np.float32)
+            * vid_mask[..., None],
+            vid_mask)
+    jout = JaxMSModel(jcfg.ms_model_config()).apply(params, *map(jnp.asarray, arrs),
+                                                     train=False)
+    with torch.no_grad():
+        tout = model(*map(torch.from_numpy, arrs))
+    return tout, jout, vid_mask
+
+
+def test_jax_ms_export_loads_into_the_port(tmp_path):
+    """The JAX CLI's export of a JAX tvsum_ms checkpoint -> the port's
+    strict load: the port's forward gives the JAX model's; the core model
+    refuses the file by name."""
+    jcfg = jax_preset("tvsum_ms", **MS_SMALL)
+    lv, lq = jcfg.max_v_l, jcfg.max_q_l
+    params = jax.tree.map(np.asarray, jax.jit(jcfg.build_model().init, static_argnames="train")(
+        {"params": jax.random.PRNGKey(4)},
+        jnp.zeros((1, lq, jcfg.t_feat_dim)), jnp.ones((1, lq)),
+        jnp.zeros((1, lv, jcfg.total_v_feat_dim)), jnp.ones((1, lv)), train=False,
+    ))
+    ckpt_dir = str(tmp_path / "run" / "model_best")
+    jax_save_checkpoint(ckpt_dir, params, {}, 2, jcfg)
+    exported = str(tmp_path / "export" / "model.ckpt")
+    assert jax_cli.main(["export", "tvsum_ms", *_flags(MS_SMALL), "--resume", ckpt_dir,
+                         "--export_path", exported]) == 0
+    cfg = from_preset("tvsum_ms", **MS_SMALL)
+    model = build_model(cfg.model_config(), "cpu", 0)
+    load_model_weights(model, model_state_of(exported))
+    tout, jout, vid_mask = _ms_forward_pair(jcfg, params, model, seed=2)
+    _assert_forward_close(tout, jout, vid_mask)
+    core = build_model(cfg.replace(variant="core").model_config(), "cpu", 0)
+    with pytest.raises(ValueError, match="'ms' weights"):
+        load_model_weights(core, load_torch_checkpoint(exported))
+
+
+def test_port_ms_checkpoint_loads_into_jax(tmp_path):
+    """A port ms model_best.ckpt (optimizer state and all) through the JAX
+    package's load_torch_checkpoint, which takes the ms branch by the
+    phrase keys: the JAX forward gives the port's."""
+    cfg = from_preset("tvsum_ms", **MS_SMALL)
+    model = build_model(cfg.model_config(), "cpu", 5).train()
+    optimizer, scheduler = make_optimizer(cfg, model.parameters(), steps_per_epoch=1)
+    g = torch.Generator().manual_seed(5)
+    for p in model.parameters():
+        p.grad = torch.randn(p.shape, generator=g) * 1e-2
+    optimizer.step()
+    scheduler.step()
+    model.eval()
+    path = str(tmp_path / "model_best.ckpt")
+    save_checkpoint(path, model, optimizer, scheduler, 1, cfg, best_score=0.5)
+    jcfg = jax_preset("tvsum_ms", **MS_SMALL)
+    params = jax_load_ckpt(path, jcfg.ms_model_config())
+    assert "phrase_generate" in params["params"]
+    tout, jout, vid_mask = _ms_forward_pair(jcfg, params, model, seed=3)
+    _assert_forward_close(tout, jout, vid_mask)

@@ -13,7 +13,11 @@
     --train_precision float32 is given;
   * the metric CLI: the reference's golden case (scripts/eval_sample.sh,
     when the reference checkout is present) and, on a synthetic submission,
-    the same metrics file as the JAX package's metric CLI.
+    the same metrics file as the JAX package's metric CLI;
+  * the FlashVTG_ms variant: `train tvsum_ms` at tiny widths on a synthetic
+    TVSum domain, then `infer` of its model_best.ckpt prints the best
+    epoch's mAP exactly, `export` -> `infer` the same, and the JAX CLI's
+    `infer --resume` of the port's model_best.ckpt within 2e-4 of it.
 """
 
 import ast
@@ -32,7 +36,7 @@ from flashvtg_tpu.eval.cli import main as jax_eval_main
 from flashvtg_tpu_torch import cli
 from flashvtg_tpu_torch.eval.cli import main as eval_main
 from flashvtg_tpu_torch.utils.io import save_jsonl
-from flashvtg_tpu_torch.utils.synthetic import make_synthetic_qvh
+from flashvtg_tpu_torch.utils.synthetic import make_synthetic_qvh, make_synthetic_tvsum
 
 FIXTURES = pathlib.Path(__file__).parent / "fixtures"
 SMALL = dict(v_feat_dim=40, t_feat_dim=24, hidden_dim=32, nheads=2, dim_feedforward=48,
@@ -258,3 +262,65 @@ def test_eval_cli_missing_file_clean_error(tmp_path):
         eval_main(["--submission_path", str(tmp_path / "absent.jsonl"),
                    "--gt_path", str(tmp_path / "absent_gt.jsonl"),
                    "--save_path", str(tmp_path / "out.json")])
+
+
+MS_SMALL = dict(v_feat_dim=24, t_feat_dim=16, hidden_dim=32, nheads=4, dim_feedforward=48,
+                num_dummies=2, t2v_layers=1, enc_layers=1, dummy_layers=1, num_conv_layers=1,
+                num_mlp_layers=2, num_phrase=2, phrase_layers=1, context_layers=1, rank=2,
+                t_sa=1, max_q_l=8, max_v_l=40, bsz=2, eval_bsz=2, dset_domain="BK")
+
+
+@pytest.fixture(scope="module")
+def ms_run(tmp_path_factory):
+    """`cli train tvsum_ms` on the CPU at tiny widths: 4 train and 2 val
+    videos of one domain, 2 epochs, an eval each."""
+    root = tmp_path_factory.mktemp("cli_ms")
+    kw = dict(v_dim=24, t_dim=16, min_clips=20, max_clips=40, max_q_tokens=9)
+    ann, vdir, qdir = make_synthetic_tvsum(str(root), n_queries=4, seed=1, split="train", **kw)
+    val, _, _ = make_synthetic_tvsum(str(root), n_queries=2, seed=2, split="val", **kw)
+    flags = _flags(dict(MS_SMALL, v_feat_dirs=vdir, t_feat_dir=qdir, train_path=ann,
+                        eval_path=val, results_root=root / "results", exp_id="ms",
+                        use_tensorboard="false", device="cpu"))
+    assert cli.main(["train", "tvsum_ms", *flags, "--n_epoch", "2"]) == 0
+    (run_dir,) = glob.glob(str(root / "results" / "*"))
+    return root, flags, run_dir
+
+
+def _printed_map(out):
+    (line,) = [x for x in out.splitlines() if x.startswith("{'mAP'")]
+    return ast.literal_eval(line)["mAP"]
+
+
+def _best_map(run_dir):
+    with open(os.path.join(run_dir, "model_best.state.json")) as f:
+        best = json.load(f)["best_score"]
+    with open(os.path.join(run_dir, "eval.log.txt")) as f:
+        maps = [json.loads(line.split("[Metrics] ", 1)[1])["brief"]["mAP"] for line in f]
+    assert len(maps) == 2 and best in maps and 0 < best <= 1
+    return best
+
+
+def test_ms_train_infer_export(ms_run, capsys, tmp_path):
+    root, flags, run_dir = ms_run
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    assert (opt["variant"], opt["num_phrase"], opt["rank"]) == ("ms", 2, 2)
+    best = os.path.join(run_dir, "model_best.ckpt")
+    sd = torch.load(best, map_location="cpu", weights_only=False)["model"]
+    assert "phrase_generate.learnable_phrase" in sd and "conf_head.fc.layers.0.weight" not in sd
+    capsys.readouterr()
+    assert cli.main(["infer", "tvsum_ms", *flags, "--resume", best]) == 0
+    assert _printed_map(capsys.readouterr().out) == _best_map(run_dir)
+    exported = str(root / "export" / "model.ckpt")
+    assert cli.main(["export", "tvsum_ms", *flags, "--resume", best,
+                     "--export_path", exported]) == 0
+    capsys.readouterr()
+    assert cli.main(["infer", "tvsum_ms", *flags, "--resume", exported]) == 0
+    assert _printed_map(capsys.readouterr().out) == _best_map(run_dir)
+    # a core-variant infer of the ms checkpoint is refused by name
+    with pytest.raises(ValueError, match="'ms' weights"):
+        cli.main(["infer", "tvsum_ms", *flags, "--variant", "core", "--resume", best])
+    jax_flags = [f for f in flags if f not in ("--device", "cpu")]
+    assert jax_cli.main(["infer", "tvsum_ms", *jax_flags, "--resume", best,
+                         "--eval_results_dir", str(tmp_path)]) == 0
+    assert abs(_printed_map(capsys.readouterr().out) - _best_map(run_dir)) <= 2e-4

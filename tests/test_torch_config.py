@@ -1,5 +1,7 @@
 """Every preset's fields in the port equal the JAX package's, but the
-defaults the port states in PORT_DEFAULTS (ROADMAP Queue A 5)."""
+defaults the port states in PORT_DEFAULTS (ROADMAP Queue A 5); the
+FlashVTG_ms presets' model and loss configs equal the JAX ones; and
+check_ported raises for exactly the fields whose feature is not ported."""
 
 import dataclasses
 
@@ -7,6 +9,8 @@ import pytest
 
 from flashvtg_tpu.train.config import PRESETS as JAX_PRESETS
 from flashvtg_tpu.train.config import from_preset as jax_preset
+from flashvtg_tpu_torch.losses import LossConfig
+from flashvtg_tpu_torch.models import ModelConfig
 from flashvtg_tpu_torch.train.config import PRESETS, ExperimentConfig, from_preset
 
 # the port's train step runs in float32 only; the JAX default is bfloat16
@@ -24,9 +28,9 @@ def test_preset_fields_match_jax(name):
         want = PORT_DEFAULTS.get(f.name, getattr(ref, f.name))
         assert getattr(ours, f.name) == want, f.name
     assert ours.total_v_feat_dim == ref.total_v_feat_dim
-    assert dataclasses.asdict(ours.model_config()) == dataclasses.asdict(
-        ref.model_config()
-    )
+    # the architecture the JAX build_model builds for the preset's variant
+    want = ref.ms_model_config() if ref.variant == "ms" else ref.model_config()
+    assert dataclasses.asdict(ours.model_config()) == dataclasses.asdict(want)
 
 
 def test_flagship_shapes():
@@ -46,3 +50,41 @@ def test_overrides_and_unknown_keys():
         from_preset("qvhighlights_slowclip", no_such_field=5)
     with pytest.raises(KeyError):
         from_preset("no_such_preset")
+
+
+@pytest.mark.parametrize("name", ["tvsum_ms", "youtube_uni_ms"])
+def test_ms_presets_match_jax(name):
+    ours, ref = from_preset(name, use_dfl=True, use_eos=True), jax_preset(
+        name, use_dfl=True, use_eos=True)
+    assert ours.variant == "ms"
+    assert dataclasses.asdict(ours.model_config()) == dataclasses.asdict(
+        ref.ms_model_config())
+    assert dataclasses.asdict(ours.loss_config()) == dataclasses.asdict(
+        ref.ms_loss_config())
+    # the core preset of the same set keeps the core model and criterion
+    core, ref_core = from_preset(name.removesuffix("_ms")), jax_preset(name.removesuffix("_ms"))
+    assert type(core.model_config()) is ModelConfig and type(core.loss_config()) is LossConfig
+    assert dataclasses.asdict(core.model_config()) == dataclasses.asdict(ref_core.model_config())
+    assert dataclasses.asdict(core.loss_config()) == dataclasses.asdict(ref_core.loss_config())
+
+
+CHECK_CASES = {
+    "ms": (dict(variant="ms"), None),
+    "ms_dfl_eos": (dict(variant="ms", use_dfl=True, use_eos=True), None),
+    "eos_first": (dict(eos_first=True), None),
+    "eval_bfloat16": (dict(eval_precision="bfloat16"), "Queue A 5"),
+    "device_feed_on": (dict(device_feed="on"), "Queue A 6"),
+    "profile_dir": (dict(profile_dir="prof"), "Queue A 8"),
+    "unknown_variant": (dict(variant="xl"), "unknown variant"),
+}
+
+
+@pytest.mark.parametrize("case", list(CHECK_CASES))
+def test_check_ported(case):
+    fields, raises = CHECK_CASES[case]
+    cfg = from_preset("tvsum_ms", **fields)
+    if raises is None:
+        cfg.check_ported(train=True)
+    else:
+        with pytest.raises((NotImplementedError, ValueError), match=raises):
+            cfg.check_ported(train=True)

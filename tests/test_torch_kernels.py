@@ -109,7 +109,7 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 def test_model_forward_on_card_matches_cpu(cuda):
     """A small model (head dim 32) on the card vs the same weights on the
     CPU (plain twins): every attention core runs the kernel."""
-    from flashvtg_tpu_torch.models.flashvtg import ModelConfig, build_model
+    from flashvtg_tpu_torch.models import ModelConfig, build_model
     from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 
     cfg = ModelConfig(vid_dim=40, txt_dim=24, hidden_dim=64, nheads=2, dummy_nheads=2,
@@ -231,7 +231,7 @@ def test_tacos_forward_on_card_matches_cpu(cuda):
     dummy-encoder layers), two videos padded to the 2048-clip bucket, one of
     them short: the encoder runs the flash kernel, the dummy encoder and the
     ACA layers the short one; the CPU runs the plain versions."""
-    from flashvtg_tpu_torch.models.flashvtg import build_model
+    from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.models.points import pyramid_masks_strict
     from flashvtg_tpu_torch.train.config import from_preset
 

@@ -34,7 +34,7 @@ from flashvtg_tpu.train.config import from_preset as jax_preset
 from flashvtg_tpu.train.loop import load_checkpoint as jax_load_checkpoint
 from flashvtg_tpu.train.loop import train as jax_train
 from flashvtg_tpu.utils.torch_convert import save_torch_checkpoint as jax_save_torch
-from flashvtg_tpu_torch.models.flashvtg import build_model
+from flashvtg_tpu_torch.models import build_model
 from flashvtg_tpu_torch.train import config as port_config
 from flashvtg_tpu_torch.train.config import from_preset
 from flashvtg_tpu_torch.train.loop import (
@@ -260,8 +260,8 @@ def test_other_train_precision_raises(tmp_path, split):
         _port_run(tmp_path, split, "run", n_epoch=1, train_precision="bfloat16")
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         _port_run(tmp_path, split, "run", n_epoch=1, device_feed="on")
-    with pytest.raises(NotImplementedError, match="Queue A 4"):
-        _port_run(tmp_path, split, "run", n_epoch=1, variant="ms")
+    with pytest.raises(NotImplementedError, match="Queue A 8"):
+        _port_run(tmp_path, split, "run", n_epoch=1, profile_dir=str(tmp_path / "prof"))
 
 
 def test_debug_runs_one_short_epoch(tmp_path, split):
