@@ -4,14 +4,17 @@
     python3 chip_smoke.py [--seed 0] [--queries 512] [--tacos-queries 64]
                           [--train-steps 3] [--hd-queries 64]
 
-Phases, each failing loudly:
+Phases, each failing loudly; phases 3-13 run at float32 by name (the
+attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
   1. device: prints the card's name and power limit, requires CUDA, sets
      float32 without TF32 for matmuls and cuDNN;
   2. build: compiles every CUDA kernel of the port from its sources, one
      nvcc per source, all at once, and counts each kernel's tensor-core
      instructions in its SASS (cuobjdump): every kernel that takes a dot
-     product (3xTF32 on mma.sync) must have some, all but the flash
-     backward's D pre-pass and the ACA backward's chunk-sum pass;
+     product (on mma.sync) must have some, all but the flash backward's D
+     pre-pass and the ACA backward's chunk-sum pass; and per product form
+     (each kernel is a template on it): the 1xTF32 and the bf16 instances
+     must hold fewer than the 3xTF32 ones;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
      two eval paths give them (atol 1e-5: both are f32-accurate, the
      kernels' products in 3xTF32, and differ in the order of their sums),
@@ -125,9 +128,30 @@ Phases, each failing loudly:
      synthetic queries through run_mr_inference with the eval losses (the
      negative pass: 12 ACA and 8 short launches a batch) and
      eval_submission, card vs CPU on 8 queries, the DFL-decoded spans within
-     2e-3.
+     2e-3;
+ 14. precision: (a) every kernel at the 1xTF32 and the bf16 form against its
+     plain version at the same form (which rounds its product operands as
+     the kernel does), at every shape of phases 3 and 7, within FORM_RTOL
+     of max(max |plain|, 0.1), timed beside its bound at the rate of the
+     form's function (bf16 at the bf16 rate) and sdpa (bf16 operands, or
+     the TF32 flag); each of the six kernels at each of the three forms
+     within its form's band of error against the f32-accurate plain version
+     (FORM_F32_BAND) and nearest the plain version at its own form; (b) at float32, tensorfloat32 and bfloat16: the
+     flagship eval (B 256, 512 queries), the TACoS eval and the YouTube-HL
+     eval through run_mr_inference / run_hl_inference, each mode's forward
+     against the card's own float32 forward (within PRECISION_FWD_BAND);
+     the TACoS train step at B 32 (bfloat16 also with transfer_dtype
+     bfloat16) and the tvsum_ms train step through make_train_step, time,
+     peak memory and, at dropout 0, the total loss and the gradients
+     against the float32 step's (PRECISION_GRAD_BAND);
+     train() of tvsum at tensorfloat32 and at bfloat16 (with the bf16
+     wire); the CLI: `train` at its default bfloat16, `infer --serving`
+     (1xTF32) and `infer --serving --eval_precision bfloat16`. Every launch
+     of a path is counted at its dial's form; every dial restores the TF32
+     flags, checked at the end.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
-Then one line {"kernels": [...]} and, last, {"ok": true, "device": {...}}.
+Then one line {"kernels": [...]}, a row per kernel and form, and, last,
+{"ok": true, "device": {...}}.
 Exits non-zero, printing no result, without CUDA or without the package.
 """
 
@@ -145,11 +169,41 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
-# f32-accurate dot products on the tensor cores: the H100 SXM data sheet's
-# dense TF32 rate, 495 TFLOP/s, over the three TF32 products of 3xTF32
-TF32X3_PEAK = 495e12 / 3
+# dot products on the tensor cores at the rate of the function each product
+# form computes (flashvtg_tpu_torch/ops/forms.py), from the H100 SXM data
+# sheet's dense rates: f32-accurate products (3xTF32) at the TF32 rate,
+# 495 TFLOP/s, over its three TF32 products; TF32 products at 495; bf16
+# operands with f32 sums at the bf16 rate, 989, whatever instruction a
+# kernel takes them on (the port's take them on the TF32 one, so they can
+# reach half this bound at best)
+DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
+# phase 14: a kernel against its plain version at the same form (which
+# rounds the same operands), relative to max(max |plain|, 0.1): about 2-3
+# times the largest gap the card has shown over the shapes of phases 3 and 7
+# (4.2e-4 at 1xTF32, the ACA training forward's; 2.6e-3 at bf16, the short
+# backward's); the forms' arithmetic against float64 is held within
+# 2e-3 / 1.6e-2 in tests/test_torch_tf32x3.py
+FORM_RTOL = {"1xtf32": 1e-3, "bf16": 6e-3}
+# phase 14: each kernel at each form, its relative RMS distance
+# (rms(kernel - plain) / rms(plain)) to the f32-accurate plain version, the
+# form's own error, within a band per form; the bands do not meet, so they
+# tell the three forms apart (the HMMA count cannot tell 1xTF32 from bf16).
+# The card read at most 1.0e-6 at 3xTF32, 4.0e-4 - 5.9e-4 at 1xTF32 and
+# 3.2e-3 - 4.8e-3 at bf16. And the plain version at the kernel's own form
+# must be the nearest of the three
+FORM_F32_BAND = {"3xtf32": (0.0, 1e-5), "1xtf32": (1e-4, 1.2e-3), "bf16": (1.5e-3, 1.2e-2)}
+# phase 14: a mode's eval forward against the card's own float32 forward
+# (the worst output, each relative to max(max |float32|, 0.1)), and a train
+# step's gradients at dropout 0 (|g - g32| / |g32| over every parameter),
+# each within a band (floor, limit); the bands of the two modes do not meet,
+# so each dial is told from the other and from float32. The card read
+# 8.6e-4 - 1.2e-3 / 9.4e-3 - 1.25e-2 (forwards, tensorfloat32 / bfloat16)
+# and 1.7e-3 - 6.4e-3 / 1.2e-2 - 2.2e-2 (gradients)
+PRECISION_FWD_BAND = {"tensorfloat32": (1e-4, 4e-3), "bfloat16": (4e-3, 3e-2)}
+PRECISION_LOSS_RTOL = 1e-2  # the total loss at dropout 0, against float32's
+PRECISION_GRAD_BAND = {"tensorfloat32": (1e-4, 9e-3), "bfloat16": (9e-3, 5e-2)}
 FORWARD_ATOL = 3e-4
 SPAN_ATOL = 2e-3  # decoded windows, seconds (tests/test_torch_model.py)
 GRAD_RTOL = 1e-4  # kernel vs plain gradients, relative to the largest |plain|
@@ -181,12 +235,12 @@ def time_ms(fn, iters=50, warmup=5):
 
 
 def attention_bound(b, lv, lk, heads, nd, key_valid, want_head_mean, backward=False,
-                    pairs=None):
+                    pairs=None, form="3xtf32"):
     """(bound_ms, bound_by) for one attention kernel call, the same for the
     same work whatever implements it: each input read once and each output
     written once over the memory rate, against the operations this data
-    needs, dot products at the f32-accurate tensor-core rate (3xTF32) and
-    the rest at the f32 peak. A masked key's probability is 0, so it needs
+    needs, dot products at the tensor-core rate of `form` (DOT_PEAK: 3xTF32
+    for f32 accuracy) and the rest at the f32 peak. A masked key's probability is 0, so it needs
     no work: q.k and the softmax (about five operations a probability, one
     more for the head mean) run over the valid (b, h, i, j) pairs, p.v over
     those past the nd dummies. `pairs` gives
@@ -218,8 +272,64 @@ def attention_bound(b, lv, lk, heads, nd, key_valid, want_head_mean, backward=Fa
         dots = 2 * 32 * valid_pairs + 2 * 32 * value_pairs  # q.k, p.v
         other = (6 if want_head_mean else 5) * valid_pairs  # softmax
     t_bytes = nbytes / HBM_RATE
-    t_ops = max(dots / TF32X3_PEAK, other / F32_PEAK)
+    t_ops = max(dots / DOT_PEAK[form], other / F32_PEAK)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def mode_of(form):
+    """The precision dial whose attention kernels take `form`."""
+    from flashvtg_tpu_torch.utils.runtime import KERNEL_FORMS
+
+    (mode,) = (m for m, f in KERNEL_FORMS.items() if f == form)
+    return mode
+
+
+def in_dial(form, fn, *args, **kwargs):
+    """fn(*args, **kwargs) inside the precision dial whose attention
+    kernels take `form` (float32 by name for 3xTF32)."""
+    from flashvtg_tpu_torch.utils.runtime import matmul_precision
+
+    with matmul_precision(mode_of(form), "cuda"):
+        return fn(*args, **kwargs)
+
+
+def time_in_dial(form, fn, **kw):
+    """time_ms of fn with the dial of `form` entered once around the whole
+    loop (its own cost is not the kernel's)."""
+    from flashvtg_tpu_torch.utils.runtime import matmul_precision
+
+    with matmul_precision(mode_of(form), "cuda"):
+        return time_ms(fn, **kw)
+
+
+def form_name(name, form):
+    """A kernel's row name: its own at 3xTF32, name@form at the others."""
+    return name if form == "3xtf32" else f"{name}@{form}"
+
+
+def check_kernel(what, pairs, form):
+    """(max |kernel - plain|, the same over max(max |plain|, 0.1)) over the
+    (kernel, plain) output pairs (None skipped); fails above KERNEL_ATOL
+    (absolute) at 3xTF32, above FORM_RTOL (relative) at the other forms."""
+    import torch
+
+    pairs = [(x, y) for x, y in pairs if x is not None]
+    torch.cuda.synchronize()
+    err = max((x - y).abs().max().item() for x, y in pairs)
+    rel = max(rel_err(x, y) for x, y in pairs)
+    if not (err <= KERNEL_ATOL if form == "3xtf32" else rel <= FORM_RTOL[form]):
+        raise AssertionError(f"{what} [{form}] vs plain: max |err| {err}, relative {rel}")
+    return err, rel
+
+
+def library_ms(form, fn, *tensors, **kw):
+    """A yardstick PyTorch call's time in the dial of `form` (the TF32 flag
+    is the tensorfloat32 dial's), its operands in bf16 for the bf16 form."""
+    import torch
+
+    if form == "bf16":
+        tensors = tuple(t.to(torch.bfloat16) if t.is_floating_point() else t for t in tensors)
+    return time_in_dial(form, lambda: fn(*tensors), **kw)
 
 
 def ragged_mask(rng, b, n, lo, hi, always=0):
@@ -231,10 +341,10 @@ def ragged_mask(rng, b, n, lo, hi, always=0):
     return torch.from_numpy((np.arange(n)[None] < lens[:, None]).astype(np.float32))
 
 
-def phase_kernels(dev, seed):
-    """Phase 3: each kernel against its plain version, timed beside its
-    bound. Returns the rows of the kernels line and the other shapes'
-    readings, which are logged."""
+def phase_kernels(dev, seed, form="3xtf32"):
+    """Phase 3 (and phase 14 at the other forms): each kernel against its
+    plain version at `form`, timed beside its bound. Returns the rows of the
+    kernels line and the other shapes' readings, which are logged."""
     import torch
     import torch.nn.functional as F
 
@@ -252,23 +362,20 @@ def phase_kernels(dev, seed):
     # ACA: 75 video queries over 10 dummies + up to 32 text keys
     q, k, v = qkv(lv, lk)
     valid = ragged_mask(rng, b, lk, 5, lq + 1, always=nd).to(dev)
-    out, hm = aca.aca_attention(q, k, v, valid, heads, nd)
-    ref_out, ref_hm = aca.aca_attention_plain(q, k, v, valid, heads, nd)
-    torch.cuda.synchronize()
-    err = max((out - ref_out).abs().max().item(), (hm - ref_hm).abs().max().item())
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"aca_attention kernel vs twin: max |err| {err} > {KERNEL_ATOL}")
-    bound, by = attention_bound(b, lv, lk, heads, nd, valid, True)
+    out, hm = in_dial(form, aca.aca_attention, q, k, v, valid, heads, nd)
+    ref_out, ref_hm = aca.aca_attention_plain(q, k, v, valid, heads, nd, form=form)
+    err, rel = check_kernel("aca_attention", ((out, ref_out), (hm, ref_hm)), form)
+    bound, by = attention_bound(b, lv, lk, heads, nd, valid, True, form=form)
     log("aca_attention: library_ms is null: no single PyTorch call computes a "
         "softmax over dummies + text, values without the dummies and the head mean")
     rows.append(dict(
-        name="aca_attention", route="cuda",
-        source="flashvtg_tpu_torch/csrc/aca_attention.cu",
+        name=form_name("aca_attention", form), kernel="aca_attention", form=form,
+        route="cuda", source="flashvtg_tpu_torch/csrc/aca_attention.cu",
         replaces="scripts/bench_aca.py:40",
         shape=f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd}",
-        max_abs_err=err,
-        ms=time_ms(lambda: aca.aca_attention(q, k, v, valid, heads, nd)),
-        plain_ms=time_ms(lambda: aca.aca_attention_plain(q, k, v, valid, heads, nd)),
+        max_abs_err=err, max_rel_err=rel,
+        ms=time_in_dial(form, lambda: aca.aca_attention(q, k, v, valid, heads, nd)),
+        plain_ms=time_ms(lambda: aca.aca_attention_plain(q, k, v, valid, heads, nd, form=form)),
         bound_ms=bound, bound_by=by, library_ms=None,
     ))
 
@@ -282,51 +389,54 @@ def phase_kernels(dev, seed):
     ):
         q, k, v = qkv(length, length)
         mask = mask.to(dev)
-        out = aca.masked_attention(q, k, v, mask, heads)
-        ref = aca.masked_attention_plain(q, k, v, mask, heads)
-        torch.cuda.synchronize()
-        err = (out - ref).abs().max().item()
-        if not err <= KERNEL_ATOL:
-            raise AssertionError(f"masked_attention L={length}: max |err| {err}")
+        out = in_dial(form, aca.masked_attention, q, k, v, mask, heads)
+        ref = aca.masked_attention_plain(q, k, v, mask, heads, form)
+        err, rel = check_kernel(f"masked_attention L={length}", ((out, ref),), form)
         qh, kh, vh = (
             x.view(b, length, heads, 32).transpose(1, 2).contiguous() for x in (q, k, v)
         )
-        flash_err = (chunked_attn.flash_attention(q, k, v, mask, heads) - ref).abs().max()
-        if not flash_err.item() <= KERNEL_ATOL:
-            raise AssertionError(f"flash_attention L={length}: max |err| {flash_err}")
+        flash = in_dial(form, chunked_attn.flash_attention, q, k, v, mask, heads)
+        # the flash kernel's plain version rounds p before its normalisation:
+        # held against its own plain version at the other forms
+        flash_ref = ref if form == "3xtf32" else chunked_attn.flash_attention_plain(
+            q, k, v, mask, heads, form=form)
+        flash_err, _ = check_kernel(f"flash_attention L={length}", ((flash, flash_ref),), form)
         bool_mask = (mask > 0)[:, None, None, :]
-        bound, by = attention_bound(b, length, length, heads, 0, mask, False)
-        shapes[name] = dict(
-            shape=f"B={b} H={heads} L={length} Dh=32", max_abs_err=err,
-            ms=time_ms(lambda: aca.masked_attention(q, k, v, mask, heads)),
+        bound, by = attention_bound(b, length, length, heads, 0, mask, False, form=form)
+        shapes[form_name(name, form)] = dict(
+            form=form, shape=f"B={b} H={heads} L={length} Dh=32", max_abs_err=err,
+            max_rel_err=rel,
+            ms=time_in_dial(form, lambda: aca.masked_attention(q, k, v, mask, heads)),
             # the flash kernel on the same inputs: is the short one worth keeping?
-            flash_ms=time_ms(lambda: chunked_attn.flash_attention(q, k, v, mask, heads)),
-            flash_max_abs_err=flash_err.item(),
-            plain_ms=time_ms(lambda: aca.masked_attention_plain(q, k, v, mask, heads)),
+            flash_ms=time_in_dial(form, lambda: chunked_attn.flash_attention(q, k, v, mask,
+                                                                             heads)),
+            flash_max_abs_err=flash_err,
+            plain_ms=time_ms(lambda: aca.masked_attention_plain(q, k, v, mask, heads, form)),
             bound_ms=bound, bound_by=by,
-            library_ms=time_ms(
-                lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bool_mask)
-            ),
+            library_ms=library_ms(
+                form, lambda *t: F.scaled_dot_product_attention(*t[:3], attn_mask=t[3]),
+                qh, kh, vh, bool_mask),
         )
-        log(f"masked_attention[{name}]: {json.dumps(shapes[name])}")
-    enc = shapes["encoder"]
+        log(f"masked_attention[{name}, {form}]: {json.dumps(shapes[form_name(name, form)])}")
+    enc = shapes[form_name("encoder", form)]
     rows.append(dict(
-        name="masked_attention", route="cuda",
-        source="flashvtg_tpu_torch/csrc/aca_attention.cu",
+        name=form_name("masked_attention", form), kernel="masked_attention",
+        route="cuda", source="flashvtg_tpu_torch/csrc/aca_attention.cu",
         replaces="scripts/bench_flash.py:57",
-        **{**enc, "max_abs_err": max(m["max_abs_err"] for m in shapes.values())},
+        **{**enc, "max_abs_err": max(m["max_abs_err"] for m in shapes.values()),
+           "max_rel_err": max(m["max_rel_err"] for m in shapes.values())},
     ))
 
     # TACoS: 2048 clips over 35 dummies + up to 40 text tokens (logged), and
     # the encoder's self-attention over 2048 clips of 64-2048 valid
-    shapes["tacos_aca"] = aca_eval_reading(dev, g, rng, 8, 2048, 35, 40)
-    log(f"aca_attention[tacos]: {json.dumps(shapes['tacos_aca'])}")
-    reading = self_eval_reading(dev, g, 8, ragged_mask(rng, 8, 2048, 64, 2049).to(dev))
+    shapes[form_name("tacos_aca", form)] = aca_eval_reading(dev, g, rng, 8, 2048, 35, 40,
+                                                            form=form)
+    log(f"aca_attention[tacos, {form}]: {json.dumps(shapes[form_name('tacos_aca', form)])}")
+    reading = self_eval_reading(dev, g, 8, ragged_mask(rng, 8, 2048, 64, 2049).to(dev), form)
     rows.append(dict(
-        name="flash_attention", route="cuda",
+        name=form_name("flash_attention", form), route="cuda",
         source="flashvtg_tpu_torch/csrc/flash_attention.cu",
-        replaces="scripts/bench_flash.py:57",
-        **{k: v for k, v in reading.items() if k != "kernel"},
+        replaces="scripts/bench_flash.py:57", **reading,
     ))
     return rows, shapes
 
@@ -340,38 +450,35 @@ SLICE_EVAL_SHAPES = {
 }
 
 
-def aca_eval_reading(dev, g, rng, b, lv, nd, lq, valid=None):
-    """The ACA kernel against its plain version at one eval shape, timed;
-    the key mask ragged text after nd dummies, or `valid`."""
-    import torch
-
+def aca_eval_reading(dev, g, rng, b, lv, nd, lq, valid=None, form="3xtf32"):
+    """The ACA kernel against its plain version at one eval shape and
+    `form`, timed; the key mask ragged text after nd dummies, or `valid`."""
     from flashvtg_tpu_torch.ops import aca
 
     heads, lk = 8, nd + lq
     q, k, v = qkv_b(g, dev, b, heads, lv, lk)
     if valid is None:
         valid = ragged_mask(rng, b, lk, 5, lq + 1, always=nd).to(dev)
-    out, hm = aca.aca_attention(q, k, v, valid, heads, nd)
-    ref_out, ref_hm = aca.aca_attention_plain(q, k, v, valid, heads, nd)
-    torch.cuda.synchronize()
-    err = max((out - ref_out).abs().max().item(), (hm - ref_hm).abs().max().item())
+    out, hm = in_dial(form, aca.aca_attention, q, k, v, valid, heads, nd)
+    ref_out, ref_hm = aca.aca_attention_plain(q, k, v, valid, heads, nd, form=form)
     shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd}"
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"aca_attention {shape}: max |err| {err} > {KERNEL_ATOL}")
-    bound, by = attention_bound(b, lv, lk, heads, nd, valid, True)
+    err, rel = check_kernel(f"aca_attention {shape}", ((out, ref_out), (hm, ref_hm)), form)
+    bound, by = attention_bound(b, lv, lk, heads, nd, valid, True, form=form)
     return dict(
-        kernel="aca_attention", shape=shape, max_abs_err=err,
-        ms=time_ms(lambda: aca.aca_attention(q, k, v, valid, heads, nd), iters=20),
-        plain_ms=time_ms(lambda: aca.aca_attention_plain(q, k, v, valid, heads, nd), iters=10),
+        kernel="aca_attention", form=form, shape=shape, max_abs_err=err, max_rel_err=rel,
+        ms=time_in_dial(form, lambda: aca.aca_attention(q, k, v, valid, heads, nd), iters=20),
+        plain_ms=time_ms(lambda: aca.aca_attention_plain(q, k, v, valid, heads, nd, form=form),
+                         iters=10),
         bound_ms=bound, bound_by=by, library_ms=None,
     )
 
 
-def self_eval_reading(dev, g, b, valid):
+def self_eval_reading(dev, g, b, valid, form="3xtf32"):
     """Masked self-attention over the keys of `valid` against its plain
-    version: the short kernel up to 128 keys, the flash kernel past; timed
-    beside scaled_dot_product_attention with the same boolean mask."""
-    import torch
+    version at `form`: the short kernel up to 128 keys, the flash kernel
+    past; timed beside scaled_dot_product_attention with the same boolean
+    mask (on bf16 operands for the bf16 form, with the TF32 flag for
+    1xTF32)."""
     import torch.nn.functional as F
 
     from flashvtg_tpu_torch.ops import aca, chunked_attn
@@ -383,27 +490,29 @@ def self_eval_reading(dev, g, b, valid):
     else:
         name, fn, plain = "masked_attention", aca.masked_attention, aca.masked_attention_plain
     q, k, v = qkv_b(g, dev, b, heads, length, length)
-    err = (fn(q, k, v, valid, heads) - plain(q, k, v, valid, heads)).abs().max().item()
     shape = f"B={b} H={heads} L={length} Dh=32, valid keys {int(valid.sum().item())} of {b * length}"
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"{name} {shape}: max |err| {err} > {KERNEL_ATOL}")
+    err, rel = check_kernel(f"{name} {shape}", ((in_dial(form, fn, q, k, v, valid, heads),
+                                                 plain(q, k, v, valid, heads, form=form)),),
+                            form)
     qh, kh, vh = (x.view(b, length, heads, 32).transpose(1, 2).contiguous() for x in (q, k, v))
     bool_mask = (valid > 0)[:, None, None, :]
-    bound, by = attention_bound(b, length, length, heads, 0, valid, False)
+    bound, by = attention_bound(b, length, length, heads, 0, valid, False, form=form)
     return dict(
-        kernel=name, shape=shape, max_abs_err=err,
-        ms=time_ms(lambda: fn(q, k, v, valid, heads), iters=20),
-        plain_ms=time_ms(lambda: plain(q, k, v, valid, heads), iters=10),
+        kernel=name, form=form, shape=shape, max_abs_err=err, max_rel_err=rel,
+        ms=time_in_dial(form, lambda: fn(q, k, v, valid, heads), iters=20),
+        plain_ms=time_ms(lambda: plain(q, k, v, valid, heads, form=form), iters=10),
         bound_ms=bound, bound_by=by,
-        library_ms=time_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=bool_mask), iters=20),
+        library_ms=library_ms(
+            form, lambda *t: F.scaled_dot_product_attention(*t[:3], attn_mask=t[3]),
+            qh, kh, vh, bool_mask, iters=20),
     )
 
 
-def phase_slice_kernels(dev, seed):
-    """Phase 3, second part: each eval kernel of the HD and Charades paths
-    (the ACA layers, the dummy encoder's short self-attention, the
-    encoder's flash attention) at SLICE_EVAL_SHAPES."""
+def phase_slice_kernels(dev, seed, form="3xtf32"):
+    """Phase 3, second part (and phase 14's at the other forms): each eval
+    kernel of the HD and Charades paths (the ACA layers, the dummy
+    encoder's short self-attention, the encoder's flash attention) at
+    SLICE_EVAL_SHAPES, and the FlashVTG_ms shapes."""
     import torch
 
     rng = np.random.default_rng(seed + 2)
@@ -412,17 +521,17 @@ def phase_slice_kernels(dev, seed):
     for path, (b, lv, nd, lq, lo, hi) in SLICE_EVAL_SHAPES.items():
         text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
         video = ragged_mask(rng, b, lv, lo, hi + 1).to(dev)
-        for length, reading in ((lv, aca_eval_reading(dev, g, rng, b, lv, nd, lq)),
-                                (nd + lq, self_eval_reading(dev, g, b, text)),
-                                (lv, self_eval_reading(dev, g, b, video))):
-            key = f"{path} {reading['kernel']} L={length}"
+        for length, reading in ((lv, aca_eval_reading(dev, g, rng, b, lv, nd, lq, form=form)),
+                                (nd + lq, self_eval_reading(dev, g, b, text, form)),
+                                (lv, self_eval_reading(dev, g, b, video, form))):
+            key = form_name(f"{path} {reading['kernel']} L={length}", form)
             shapes[key] = reading
             log(f"[slice kernels] {key}: {json.dumps(reading)}")
     for path, (b, lv, nd) in MS_KERNEL_SHAPES.items():
         keys = torch.ones((b, nd + 1), device=dev)  # dummies + the sentence token
-        for length, reading in ((lv, aca_eval_reading(dev, g, rng, b, lv, nd, 1, keys)),
-                                (nd + 1, self_eval_reading(dev, g, b, keys))):
-            key = f"{path}_eval {reading['kernel']} L={length}"
+        for length, reading in ((lv, aca_eval_reading(dev, g, rng, b, lv, nd, 1, keys, form)),
+                                (nd + 1, self_eval_reading(dev, g, b, keys, form))):
+            key = form_name(f"{path}_eval {reading['kernel']} L={length}", form)
             shapes[key] = reading
             log(f"[ms kernels] {key}: {json.dumps(reading)}")
     return shapes
@@ -490,41 +599,47 @@ def rel_err(got, ref):
     return ((got - ref).abs().max() / ref.abs().max().clamp_min(0.1)).item()
 
 
-def sdpa_backward_ms(q, k, v, valid, heads, d_out):
+def sdpa_backward_ms(q, k, v, valid, heads, d_out, form="3xtf32"):
     """The backward's yardstick: torch.autograd.grad through
     scaled_dot_product_attention with the same boolean key mask (and no
-    dropout), forward + backward minus forward, ms."""
+    dropout), forward + backward minus forward, ms; on bf16 operands for
+    the bf16 form, with the TF32 flag for 1xTF32."""
     import torch
     import torch.nn.functional as F
 
     b = q.shape[0]
-    qh, kh, vh = (x.view(b, -1, heads, 32).transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
-    d_oh = d_out.view(b, -1, heads, 32).transpose(1, 2).contiguous()
+    dtype = torch.bfloat16 if form == "bf16" else q.dtype
+    qh, kh, vh = (x.view(b, -1, heads, 32).transpose(1, 2).contiguous().to(dtype)
+                  .requires_grad_() for x in (q, k, v))
+    d_oh = d_out.view(b, -1, heads, 32).transpose(1, 2).contiguous().to(dtype)
     mask = (valid > 0)[:, None, None, :]
 
     def fwd():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-    both = time_ms(lambda: torch.autograd.grad(fwd(), (qh, kh, vh), d_oh), iters=10, warmup=2)
-    return both - time_ms(fwd, iters=10, warmup=2)
+    def both():
+        return torch.autograd.grad(fwd(), (qh, kh, vh), d_oh)
+
+    return (time_in_dial(form, both, iters=10, warmup=2)
+            - time_in_dial(form, fwd, iters=10, warmup=2))
 
 
-def sdpa_train_forward_ms(q, k, v, valid, heads, p):
+def sdpa_train_forward_ms(q, k, v, valid, heads, p, form="3xtf32"):
     """The training forward's yardstick: scaled_dot_product_attention with
     the same boolean key mask and dropout_p on tensors that require grad
-    (so that it also keeps what its backward needs, the log-sum-exp), ms.
-    Its dropout mask is Philox's, not the port's hash: the same function up
-    to which probabilities drop."""
+    (so that it also keeps what its backward needs, the log-sum-exp), ms;
+    operands as sdpa_backward_ms's. Its dropout mask is Philox's, not the
+    port's hash: the same function up to which probabilities drop."""
+    import torch
     import torch.nn.functional as F
 
     b = q.shape[0]
-    qh, kh, vh = (x.view(b, -1, heads, 32).transpose(1, 2).contiguous().requires_grad_()
-                  for x in (q, k, v))
+    dtype = torch.bfloat16 if form == "bf16" else q.dtype
+    qh, kh, vh = (x.view(b, -1, heads, 32).transpose(1, 2).contiguous().to(dtype)
+                  .requires_grad_() for x in (q, k, v))
     mask = (valid > 0)[:, None, None, :]
-    return time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
-                                                          dropout_p=p),
-                   iters=10, warmup=2)
+    return time_in_dial(form, lambda: F.scaled_dot_product_attention(
+        qh, kh, vh, attn_mask=mask, dropout_p=p), iters=10, warmup=2)
 
 
 def aca_pairs(key_valid, query_valid, donor_rows, nd):
@@ -553,24 +668,26 @@ def function_grads(call, inputs, d_outs):
     return [x.grad for x in leaves], torch.cuda.max_memory_allocated() - before
 
 
-def backward_reading(shape, bwd, bwd_plain, fn, bound, library_ms):
+def backward_reading(shape, bwd, bwd_plain, fn, bound, library_ms, form="3xtf32"):
     """A backward kernel against its plain version, through its launcher and
     through its autograd Function (`fn`, function_grads' result): relative
-    errors, bit-for-bit repeat, times. `bound` is attention_bound's (ms,
-    by)."""
+    errors (within GRAD_RTOL at 3xTF32, the form's FORM_RTOL at the others),
+    bit-for-bit repeat, times. `bound` is attention_bound's (ms, by)."""
     import torch
 
     got, ref = bwd(), bwd_plain()
     torch.cuda.synchronize()
     errs = [rel_err(x, y) for x, y in zip(got, ref)]
     fn_errs = [rel_err(x, y) for x, y in zip(fn[0], ref)]
-    if not max(errs + fn_errs) <= GRAD_RTOL:
-        raise AssertionError(f"backward {shape} vs plain: relative errors {errs} (launcher), "
-                             f"{fn_errs} (autograd Function) > {GRAD_RTOL}")
+    limit = GRAD_RTOL if form == "3xtf32" else FORM_RTOL[form]
+    if not max(errs + fn_errs) <= limit:
+        raise AssertionError(f"backward {shape} [{form}] vs plain: relative errors {errs} "
+                             f"(launcher), {fn_errs} (autograd Function) > {limit}")
     if not all(torch.equal(x, y) for x, y in zip(got, bwd())):
-        raise AssertionError(f"backward {shape}: two launches disagree")
+        raise AssertionError(f"backward {shape} [{form}]: two launches disagree")
     return dict(
-        shape=shape, max_abs_err=max((x - y).abs().max().item() for x, y in zip(got, ref)),
+        form=form, shape=shape,
+        max_abs_err=max((x - y).abs().max().item() for x, y in zip(got, ref)),
         max_rel_err=max(errs), function_rel_err=max(fn_errs),
         function_fwd_bwd_peak_bytes=fn[1], ms=time_ms(bwd, iters=10, warmup=2),
         plain_ms=time_ms(bwd_plain, iters=3, warmup=1), bound_ms=bound[0],
@@ -578,26 +695,22 @@ def backward_reading(shape, bwd, bwd_plain, fn, bound, library_ms):
     )
 
 
-def forward_reading(shape, got, ref, fwd, fwd_plain, bound, library_ms=None):
+def forward_reading(shape, got, ref, fwd, fwd_plain, bound, library_ms=None, form="3xtf32"):
     """A training-form forward (out, head mean, log-sum-exp) against its
     plain version with the same dropout seed, timed."""
-    import torch
-
-    torch.cuda.synchronize()
-    err = max((x - y).abs().max().item() for x, y in zip(got, ref) if x is not None)
-    if not err <= KERNEL_ATOL:
-        raise AssertionError(f"training forward {shape}: max |err| {err} > {KERNEL_ATOL}")
-    return dict(shape=shape, max_abs_err=err, ms=time_ms(fwd, iters=10, warmup=2),
+    err, rel = check_kernel(f"training forward {shape}", zip(got, ref), form)
+    return dict(form=form, shape=shape, max_abs_err=err, max_rel_err=rel,
+                ms=time_ms(fwd, iters=10, warmup=2),
                 plain_ms=time_ms(fwd_plain, iters=3, warmup=1), bound_ms=bound[0],
                 bound_by=bound[1], library_ms=library_ms)
 
 
-def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask):
-    """The ACA core in training form: lv video queries over nd dummies and
-    the text keys of `valid`, a head-mean gradient; with `vmask` (the
-    videos' clips) the donor-row mask of the core model's train path,
-    without it none (the FlashVTG_ms trunk). Returns (kernel name, forward
-    reading, backward reading)."""
+def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask, form="3xtf32"):
+    """The ACA core in training form at `form`: lv video queries over nd
+    dummies and the text keys of `valid`, a head-mean gradient; with
+    `vmask` (the videos' clips) the donor-row mask of the core model's train
+    path, without it none (the FlashVTG_ms trunk). Returns (kernel name,
+    forward reading, backward reading)."""
     import torch
 
     from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
@@ -614,16 +727,16 @@ def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask):
     pairs = None if vmask is None else aca_pairs(valid, vmask, donors, nd)
     shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd} p={p}" + (
         "" if vmask is None else ", donor rows")
-    fwd = functools.partial(aca._launch, *args, want_lse=True)
-    fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True)
+    fwd = functools.partial(aca._launch, *args, want_lse=True, form=form)
+    fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True, form=form)
     got, ref = fwd(), fwd_plain()
     fwd_reading = forward_reading(
         shape, got, ref, fwd, fwd_plain,
-        attention_bound(b, lv, lk, heads, nd, valid, True, pairs=pairs),
+        attention_bound(b, lv, lk, heads, nd, valid, True, pairs=pairs, form=form), form=form,
     )
     rest = (d_out, d_hm, heads, nd, p, drop_seed, vmask, donors)
     fn = function_grads(
-        functools.partial(aca.aca_attention, key_valid=valid, num_heads=heads,
+        functools.partial(in_dial, form, aca.aca_attention, key_valid=valid, num_heads=heads,
                           num_dummies=nd, dropout=p,
                           generator=torch.Generator().manual_seed(seed),
                           query_valid=vmask, donor_rows=donors),
@@ -631,17 +744,19 @@ def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask):
     )
     return "aca_attention", fwd_reading, backward_reading(
         shape,
-        functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest),
-        functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest),
-        fn, attention_bound(b, lv, lk, heads, nd, valid, True, backward=True, pairs=pairs),
-        None,
+        functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest, form=form),
+        functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest,
+                          form=form),
+        fn, attention_bound(b, lv, lk, heads, nd, valid, True, backward=True, pairs=pairs,
+                            form=form),
+        None, form,
     )
 
 
-def self_train_case(dev, g, b, heads, p, seed, valid):
-    """Masked self-attention in training form over the keys of `valid`: the
-    short kernel up to 128 keys, the flash kernel past. Returns (kernel
-    name, forward reading, backward reading)."""
+def self_train_case(dev, g, b, heads, p, seed, valid, form="3xtf32"):
+    """Masked self-attention in training form at `form` over the keys of
+    `valid`: the short kernel up to 128 keys, the flash kernel past.
+    Returns (kernel name, forward reading, backward reading)."""
     import torch
 
     from flashvtg_tpu_torch.ops import aca, chunked_attn
@@ -658,31 +773,35 @@ def self_train_case(dev, g, b, heads, p, seed, valid):
         name = "flash_attention"
         shape += f", valid keys {int(valid.sum().item())} of {b * length}"
         args = (q, k, v, valid, heads, p, drop_seed)
-        fwd = functools.partial(chunked_attn._launch, *args, want_lse=True)
-        fwd_plain = functools.partial(chunked_attn.flash_attention_plain, *args, want_lse=True)
+        fwd = functools.partial(chunked_attn._launch, *args, want_lse=True, form=form)
+        fwd_plain = functools.partial(chunked_attn.flash_attention_plain, *args, want_lse=True,
+                                      form=form)
         got, ref = fwd(), fwd_plain()
         bwd = functools.partial(chunked_attn._launch_bwd, q, k, v, valid, *got, d_out, heads,
-                                p, drop_seed)
+                                p, drop_seed, form=form)
         bwd_plain = functools.partial(chunked_attn.flash_attention_bwd_plain, q, k, v, valid,
-                                      *ref, d_out, heads, p, drop_seed)
-        call = functools.partial(chunked_attn.flash_attention, **call)
+                                      *ref, d_out, heads, p, drop_seed, form=form)
+        call = functools.partial(in_dial, form, chunked_attn.flash_attention, **call)
     else:
         name = "masked_attention"
         args = (q, k, v, valid, heads, 0, False, p, drop_seed)
-        fwd = functools.partial(aca._launch, *args, want_lse=True)
-        fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True)
+        fwd = functools.partial(aca._launch, *args, want_lse=True, form=form)
+        fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True, form=form)
         got, ref = fwd(), fwd_plain()
         rest = (d_out, None, heads, 0, p, drop_seed)
-        bwd = functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest)
-        bwd_plain = functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest)
-        call = functools.partial(aca.masked_attention, **call)
-    fwd_reading = forward_reading(shape, got, ref, fwd, fwd_plain,
-                                  attention_bound(b, length, length, heads, 0, valid, False),
-                                  sdpa_train_forward_ms(q, k, v, valid, heads, p))
+        bwd = functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest, form=form)
+        bwd_plain = functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2],
+                                      *rest, form=form)
+        call = functools.partial(in_dial, form, aca.masked_attention, **call)
+    fwd_reading = forward_reading(
+        shape, got, ref, fwd, fwd_plain,
+        attention_bound(b, length, length, heads, 0, valid, False, form=form),
+        sdpa_train_forward_ms(q, k, v, valid, heads, p, form), form,
+    )
     return name, fwd_reading, backward_reading(
         shape, bwd, bwd_plain, function_grads(call, (q, k, v), (d_out,)),
-        attention_bound(b, length, length, heads, 0, valid, False, backward=True),
-        sdpa_backward_ms(q, k, v, valid, heads, d_out),
+        attention_bound(b, length, length, heads, 0, valid, False, backward=True, form=form),
+        sdpa_backward_ms(q, k, v, valid, heads, d_out, form), form,
     )
 
 
@@ -695,12 +814,13 @@ TRAIN_KERNEL_SHAPES = {
 }
 
 
-def phase_train_kernels(dev, seed):
-    """Phase 7: the training forms and the backward kernels at each train
-    path's shapes, dropout on, through their launchers (timed) and through
-    the autograd Functions that the model calls. Returns the backward
-    kernels' rows (at the TACoS train shapes, errors the largest over every
-    shape) and every shape's readings, which are logged."""
+def phase_train_kernels(dev, seed, form="3xtf32"):
+    """Phase 7 (and phase 14's at the other forms): the training forms and
+    the backward kernels at each train path's shapes and `form`, dropout on,
+    through their launchers (timed) and through the autograd Functions that
+    the model calls. Returns the backward kernels' rows (at the TACoS train
+    shapes, errors the largest over every shape) and every shape's
+    readings, which are logged."""
     import torch
 
     rng = np.random.default_rng(seed + 1)
@@ -711,29 +831,30 @@ def phase_train_kernels(dev, seed):
         text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
         video = ragged_mask(rng, b, lv, min_clips, max_clips + 1).to(dev)
         cases = (  # the ACA layers, the dummy encoder, the encoder
-            aca_train_case(dev, g, b, lv, nd, heads, p, seed, text, video),
-            self_train_case(dev, g, b, heads, p, seed, text),
-            self_train_case(dev, g, b, heads, p, seed, video),
+            aca_train_case(dev, g, b, lv, nd, heads, p, seed, text, video, form),
+            self_train_case(dev, g, b, heads, p, seed, text, form),
+            self_train_case(dev, g, b, heads, p, seed, video, form),
         )
         for (name, fwd, bwd), length in zip(cases, (lv, nd + lq, lv)):
-            shapes[f"{path} {name} L={length}"] = fwd
-            shapes[f"{path} {name}_bwd L={length}"] = bwd
+            shapes[form_name(f"{path} {name} L={length}", form)] = fwd
+            shapes[form_name(f"{path} {name}_bwd L={length}", form)] = bwd
             readings.setdefault(name + "_bwd", []).append(bwd)
         bhll = 4 * b * heads * lv * lv
         if lv > 128:  # the flash forward + backward's peak: memory-linear
-            peak = shapes[f"{path} flash_attention_bwd L={lv}"]["function_fwd_bwd_peak_bytes"]
+            peak = shapes[form_name(f"{path} flash_attention_bwd L={lv}", form)][
+                "function_fwd_bwd_peak_bytes"]
             if not peak < bhll:
                 raise AssertionError(
                     f"flash fwd + bwd peak +{peak} B >= one (B, H, L, L) f32 {bhll} B")
-            shapes[f"{path} flash_fwd_bwd_memory"] = dict(peak_above_inputs_bytes=peak,
-                                                          bhll_f32_bytes=bhll)
+            shapes[form_name(f"{path} flash_fwd_bwd_memory", form)] = dict(
+                peak_above_inputs_bytes=peak, bhll_f32_bytes=bhll)
     for path, (b, lv, nd) in MS_KERNEL_SHAPES.items():
         keys = torch.ones((b, nd + 1), device=dev)  # dummies + the sentence token
-        cases = (aca_train_case(dev, g, b, lv, nd, heads, p, seed, keys, None),
-                 self_train_case(dev, g, b, heads, p, seed, keys))
+        cases = (aca_train_case(dev, g, b, lv, nd, heads, p, seed, keys, None, form),
+                 self_train_case(dev, g, b, heads, p, seed, keys, form))
         for (name, fwd, bwd), length in zip(cases, (lv, nd + 1)):
-            shapes[f"{path}_train {name} L={length}"] = fwd
-            shapes[f"{path}_train {name}_bwd L={length}"] = bwd
+            shapes[form_name(f"{path}_train {name} L={length}", form)] = fwd
+            shapes[form_name(f"{path}_train {name}_bwd L={length}", form)] = bwd
             readings[name + "_bwd"].append(bwd)
     source = {"aca_attention_bwd": "aca_attention_bwd.cu",
               "masked_attention_bwd": "aca_attention_bwd.cu",
@@ -741,8 +862,8 @@ def phase_train_kernels(dev, seed):
     rows = []
     for name, found in readings.items():
         rows.append(dict(
-            found[0], name=name, route="cuda", source="flashvtg_tpu_torch/csrc/" + source[name],
-            replaces="scripts/bench_flash.py:67",
+            found[0], name=form_name(name, form), kernel=name, route="cuda",
+            source="flashvtg_tpu_torch/csrc/" + source[name], replaces="scripts/bench_flash.py:67",
             **{key: max(r[key] for r in found)
                for key in ("max_abs_err", "max_rel_err", "function_rel_err")},
         ))
@@ -792,7 +913,27 @@ def reset_launch_counts():
 def launch_counts():
     from flashvtg_tpu_torch.ops import aca, chunked_attn
 
-    return {**aca.LAUNCHES, **chunked_attn.LAUNCHES}
+    return {**aca.launch_counts(), **chunked_attn.launch_counts()}
+
+
+def form_launch_counts():
+    """{product form: {kernel: launches}} since the last reset."""
+    from flashvtg_tpu_torch.ops import aca, chunked_attn
+
+    return {form: {**aca.FORM_LAUNCHES[form], **chunked_attn.FORM_LAUNCHES[form]}
+            for form in aca.FORM_LAUNCHES}
+
+
+def counted(mode):
+    """Each kernel's launches since the last reset, all of them at the
+    form of the precision dial `mode` (every launch of a path runs in its
+    dial's form), and those by form."""
+    from flashvtg_tpu_torch.utils.runtime import KERNEL_FORMS
+
+    form = KERNEL_FORMS[mode]
+    launches, by_form = launch_counts(), form_launch_counts()
+    assert by_form[form] == launches, (form, by_form, launches)
+    return launches, by_form
 
 
 def launches_per_batch(cfg):
@@ -856,7 +997,7 @@ def phase_path(dev, cfg, ds, seed, infer, score, per_batch=None):
     out = infer(cfg, model, ds)
     torch.cuda.synchronize()
     t_infer = time.perf_counter() - t0
-    launches = launch_counts()
+    launches, by_form = counted(cfg.eval_precision)
     scored = score(cfg, ds, out)
     t_total = time.perf_counter() - t0
 
@@ -866,7 +1007,7 @@ def phase_path(dev, cfg, ds, seed, infer, score, per_batch=None):
         assert launches[name] == n * n_batches, (name, launches[name], n * n_batches)
     return model, dict(
         queries=len(ds), batches=n_batches, eval_bsz=cfg.eval_bsz, max_v_l=cfg.max_v_l,
-        launches=launches,
+        eval_precision=cfg.eval_precision, launches=launches, form_launches=by_form,
         launches_per_batch=sum(launches.values()) / n_batches,
         infer_s=t_infer, infer_qps=len(ds) / t_infer,
         with_metrics_s=t_total, with_metrics_qps=len(ds) / t_total,
@@ -891,13 +1032,14 @@ def step_inputs(dev, cfg, ds):
 
 
 def eval_step(dev, model, cfg, ds):
-    """One full eval batch's step (forward + decode; the HD sets' forward
-    alone) as a call on tensors already on the card."""
+    """One full eval batch's step at cfg.eval_precision (forward + decode;
+    the HD sets' forward alone) as a call on tensors already on the card."""
     from flashvtg_tpu_torch.data.dataset import HD_SETS
     from flashvtg_tpu_torch.train.infer import make_eval_step
 
     placed, pv = step_inputs(dev, cfg, ds)
-    step = make_eval_step(model, cfg.max_num_moment, saliency_only=cfg.dset_name in HD_SETS)
+    step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision,
+                          saliency_only=cfg.dset_name in HD_SETS)
     return lambda: step(placed, pv)
 
 
@@ -1002,7 +1144,7 @@ def run_preset(dev, preset, n_queries, n_compare, seed, **overrides):
     from flashvtg_tpu_torch.train.config import from_preset
     from flashvtg_tpu_torch.train.infer import run_hl_inference, run_mr_inference
 
-    cfg = from_preset(preset, **overrides)
+    cfg = from_preset(preset, **{"eval_precision": "float32", **overrides})
     glove_before = os.environ.get("FLASHVTG_GLOVE_PATH")
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -1069,22 +1211,30 @@ def train_batch(cfg, rows):
     return collate([ds[i] for i in rows])
 
 
-def train_step_time(dev, model, cfg, seed):
-    """Device time of one train step on a batch already on the card (CUDA
-    events over 5 steps), ms, and the step's peak memory, bytes."""
+def train_step_time(dev, model, cfg, seed, batch=None):
+    """Device time of one train step at cfg.train_precision on a batch
+    already on the card (CUDA events over 5 steps), ms, the step's peak
+    memory, bytes, and the time of the same step with the batch's copy to
+    the card (place_batch at cfg.transfer_dtype) in it, ms. `batch`: a
+    collated batch (default: the first bsz rows of cfg.train_path)."""
     import torch
 
     from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step, place_batch
 
-    placed = place_batch(train_batch(cfg, range(cfg.bsz)), dev)
+    batch = train_batch(cfg, range(cfg.bsz)) if batch is None else batch
+    placed = place_batch(batch, dev, transfer_dtype=cfg.transfer_dtype)
     optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
     step = make_train_step(model, cfg.loss_config(), optimizer, scheduler,
-                           cfg.grad_clip, torch.Generator().manual_seed(seed))
+                           cfg.grad_clip, torch.Generator().manual_seed(seed),
+                           cfg.train_precision)
     step(placed)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ms = time_ms(lambda: step(placed), iters=5, warmup=1)
-    return ms, torch.cuda.max_memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    with_copy = time_ms(lambda: step(place_batch(batch, dev, transfer_dtype=cfg.transfer_dtype)),
+                        iters=5, warmup=1)
+    return ms, peak, with_copy
 
 
 def train_card_vs_cpu(dev, cfg, seed, n_rows):
@@ -1116,7 +1266,7 @@ def train_card_vs_cpu(dev, cfg, seed, n_rows):
                   for n, p in model.named_parameters()}
         optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
         step = make_train_step(model, cfg.loss_config(), optimizer, scheduler,
-                               cfg.grad_clip)
+                               cfg.grad_clip, precision="float32")
         losses = {k: v.item() for k, v in step(place_batch(batch, d, dtype)).items()}
         named = [(n, p) for n, p in model.named_parameters() if p.grad is not None]
         runs[name] = (losses, {n: p.grad.cpu().double() for n, p in named},
@@ -1189,7 +1339,8 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
     from flashvtg_tpu_torch.train.infer import _tail_bucket
     from flashvtg_tpu_torch.train.loop import train
 
-    cfg = from_preset(preset, use_tensorboard=False, **overrides)
+    cfg = from_preset(preset, **{"use_tensorboard": False, "train_precision": "float32",
+                                 "eval_precision": "float32", **overrides})
     n_train = n_train or steps * cfg.bsz
     n_val = n_val or cfg.eval_bsz
     epochs = -(-steps // max(1, n_train // cfg.bsz))
@@ -1206,7 +1357,8 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
         model, _, run_dir = train(cfg, os.path.join(tmp, "run"), dev, max_steps=steps)
         torch.cuda.synchronize()
         t_train = time.perf_counter() - t0
-        launches = launch_counts()
+        launches, by_form = counted(cfg.train_precision)
+        assert cfg.eval_precision == cfg.train_precision
         peak = torch.cuda.max_memory_allocated()
         losses, evals = read_train_run(run_dir)
         assert len(losses) == steps and len(evals) == 1, (len(losses), len(evals))
@@ -1220,18 +1372,22 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
             want = n * steps + per_eval.get(name, 0)
             assert launches[name] == want, (name, launches[name], want)
         assert peak < 80e9, f"train peak {peak} B"
-        step_ms, step_peak = train_step_time(dev, model.train(), cfg, seed)
+        step_ms, step_peak, step_copy_ms = train_step_time(dev, model.train(), cfg, seed)
         path = dict(
             preset=preset, bsz=cfg.bsz, max_v_l=cfg.max_v_l, steps=steps, eval_rows=n_val,
-            launches=launches, launches_per_step=per_step, train_s=t_train,
+            train_precision=cfg.train_precision, transfer_dtype=cfg.transfer_dtype,
+            launches=launches, form_launches=by_form, launches_per_step=per_step,
+            train_s=t_train,
             losses_first=losses[0], losses_last=losses[-1],
             brief=brief, peak_mem_bytes=peak, step_ms=step_ms,
             step_rows_per_s=cfg.bsz / step_ms * 1e3, step_peak_mem_bytes=step_peak,
+            step_with_copy_ms=step_copy_ms,
         )
         log(f"[{preset} train path] {json.dumps(path)}")
         del model
-        path["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, seed, n_train)
-        log(f"[{preset} train card vs cpu] {json.dumps(path['card_vs_cpu'])}")
+        if cfg.train_precision == "float32":  # the other dials: phase 14
+            path["card_vs_cpu"] = train_card_vs_cpu(dev, cfg, seed, n_train)
+            log(f"[{preset} train card vs cpu] {json.dumps(path['card_vs_cpu'])}")
     return path
 
 
@@ -1277,7 +1433,8 @@ def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
             "--train_path", cfg.train_path, "--eval_path", cfg.eval_path,
             "--v_feat_dirs", *cfg.v_feat_dirs, "--t_feat_dir", cfg.t_feat_dir,
             "--results_root", os.path.join(tmp, "results"), "--exp_id", "cli",
-            "--use_tensorboard", "false",
+            "--use_tensorboard", "false", "--train_precision", "float32",
+            "--eval_precision", "float32",
         ]
 
         def call(name, *argv):
@@ -1309,7 +1466,7 @@ def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
         time.sleep(max(0.0, 1.05 - (time.time() % 1.0)))
         call("train_resume_auto", "train", preset, *flags, "--n_epoch", str(epochs + 1),
              "--resume", "auto")
-        launches = launch_counts()
+        launches, by_form = counted("float32")
 
         sub_dir = os.path.join(tmp, "sub")
         t0 = time.perf_counter()
@@ -1349,7 +1506,7 @@ def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
     return dict(preset=preset, bsz=bsz, train_rows=n_train, val_rows=n_val, epochs=epochs,
                 best_epoch=best_epoch, best_brief=best_brief, call_s=times,
                 card_ckpt_tensors_loaded_on_cpu=cpu_loaded,
-                launches=launches, resumed_first_epoch=r_evals[0][0],
+                launches=launches, form_launches=by_form, resumed_first_epoch=r_evals[0][0],
                 losses_first=losses[0], losses_last=losses[-1])
 
 
@@ -1363,7 +1520,7 @@ def run_ms_mr_eval(dev, n_queries, n_compare, seed, **overrides):
     from flashvtg_tpu_torch.train.infer import run_mr_inference
 
     cfg = from_preset("qvhighlights_slowclip", variant="ms", use_dfl=True, use_eos=True,
-                      **overrides)
+                      **{"eval_precision": "float32", **overrides})
     loss_cfg = cfg.loss_config()
 
     def infer(cfg, model, ds):
@@ -1385,6 +1542,291 @@ def run_ms_mr_eval(dev, n_queries, n_compare, seed, **overrides):
                                                             n_compare, spans=True)
         log(f"[ms mr card vs cpu] max |err| {json.dumps(path['card_vs_cpu_max_abs_err'])}")
     return path
+
+
+PRECISION_MODES = ("float32", "tensorfloat32", "bfloat16")
+
+
+def phase_form_identity(dev, seed):
+    """Phase 14: each of the six kernels at each of the three forms,
+    through its launcher, against the plain versions at all three, on one
+    set of inputs a kernel: the flagship's ACA (B 64, Lv 75, 10 dummies,
+    ragged text; in training form with donor rows for the backward), the
+    encoder's short self-attention at L 75, the flash kernel at B 2 and
+    L 2048; the backwards at dropout 0.1 with a head-mean gradient for the
+    ACA. The distance of the kernel at F to the plain version at G is
+    rms(kernel - plain) / rms(plain), the largest over the outputs; the
+    distance to the 3xTF32 (f32-accurate) plain version must lie in
+    FORM_F32_BAND[F], and that to F's be the least of the three. Returns
+    {kernel: {form: {plain's form: distance}}}."""
+    import torch
+
+    from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
+    from flashvtg_tpu_torch.ops import aca, chunked_attn
+    from flashvtg_tpu_torch.ops.forms import FORMS
+
+    g = torch.Generator().manual_seed(seed + 3)
+    rng = np.random.default_rng(seed + 3)
+    heads, p, drop_seed = 8, TRAIN_DROPOUT, 1234
+    b, lv, nd, lq = 64, 75, 10, 32
+
+    def grads_of(b_, lq_):
+        return torch.randn((b_, lq_, heads * 32), generator=g).to(dev)
+
+    q, k, v = qkv_b(g, dev, b, heads, lv, nd + lq)
+    text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
+    video = ragged_mask(rng, b, lv, 20, lv + 1).to(dev)
+    donors = tiled_attn_donors(b, heads, dev)
+    aca_train = (q, k, v, text, heads, nd, True, p, drop_seed, video, donors)
+    lse = aca.aca_attention_plain(*aca_train, want_lse=True)[2]
+    d_hm = torch.randn((b, lv, nd + lq), generator=g).to(dev)
+    qs, ks, vs = qkv_b(g, dev, b, heads, lv, lv)
+    lse_s = aca.aca_attention_plain(qs, ks, vs, video, heads, 0, False, p, drop_seed,
+                                    want_lse=True)[2]
+    bf, lf = 2, 2048
+    qf, kf, vf = qkv_b(g, dev, bf, heads, lf, lf)
+    keys = ragged_mask(rng, bf, lf, 1024, lf + 1).to(dev)
+    out_f, lse_f = chunked_attn.flash_attention_plain(qf, kf, vf, keys, heads, p, drop_seed,
+                                                      want_lse=True)
+    cases = {  # kernel: (launcher, plain version, arguments)
+        "aca_attention": (aca._launch, aca.aca_attention_plain, (q, k, v, text, heads, nd)),
+        "masked_attention": (aca._launch, aca.aca_attention_plain,
+                             (qs, ks, vs, video, heads, 0, False)),
+        "flash_attention": (chunked_attn._launch, chunked_attn.flash_attention_plain,
+                            (qf, kf, vf, keys, heads)),
+        "aca_attention_bwd": (aca._launch_bwd, aca.aca_attention_bwd_plain,
+                              (q, k, v, text, lse, grads_of(b, lv), d_hm, heads, nd, p,
+                               drop_seed, video, donors)),
+        "masked_attention_bwd": (aca._launch_bwd, aca.aca_attention_bwd_plain,
+                                 (qs, ks, vs, video, lse_s, grads_of(b, lv), None, heads, 0, p,
+                                  drop_seed)),
+        "flash_attention_bwd": (chunked_attn._launch_bwd, chunked_attn.flash_attention_bwd_plain,
+                                (qf, kf, vf, keys, out_f, lse_f, grads_of(bf, lf), heads, p,
+                                 drop_seed)),
+    }
+
+    def outputs(res):
+        return [t for t in (res if isinstance(res, tuple) else (res,)) if t is not None]
+
+    def distance(got, ref):
+        return max(((x - y).double().pow(2).mean().sqrt()
+                    / y.double().pow(2).mean().sqrt()).item() for x, y in zip(got, ref))
+
+    found = {}
+    for name, (launch, plain, args) in cases.items():
+        plains = {f: outputs(plain(*args, form=f)) for f in FORMS}
+        found[name] = {}
+        for form in FORMS:
+            got = outputs(launch(*args, form=form))
+            torch.cuda.synchronize()
+            dist = {f: distance(got, ref) for f, ref in plains.items()}
+            found[name][form] = dist
+            floor, limit = FORM_F32_BAND[form]
+            if not (floor <= dist["3xtf32"] <= limit
+                    and dist[form] == min(dist.values())):
+                raise AssertionError(f"{name} at {form}: distances to the plain versions "
+                                     f"{dist}, to 3xtf32's outside {(floor, limit)} or not "
+                                     "nearest its own form's")
+    return found
+FORWARD_KEYS = ("saliency_scores", "t2vattnvalues", "attn_weights", "out_class", "out_coord")
+
+
+def forward_at(mode, model, placed, pv):
+    """The eval forward of a placed batch at `mode`, outputs in float32."""
+    import torch
+
+    from flashvtg_tpu_torch.data.collate import MODEL_KEYS
+    from flashvtg_tpu_torch.utils.runtime import float32_outputs, matmul_precision
+
+    with torch.no_grad(), matmul_precision(mode, pv.device):
+        out = model(*(placed[k] for k in MODEL_KEYS), point_valid=pv)
+    return float32_outputs(out)
+
+
+def in_band(what, mode, value, bands):
+    """Fails unless floor <= value <= limit, (floor, limit) = bands[mode]."""
+    floor, limit = bands[mode]
+    assert floor <= value <= limit, (what, mode, value, (floor, limit))
+
+
+def vs_float32(mode, got, ref, what):
+    """Each output's max |got - ref| over max(max |ref|, 0.1), and a failure
+    where the worst lies outside PRECISION_FWD_BAND[mode]."""
+    import torch
+
+    errs = {}
+    for key in ref:
+        assert torch.isfinite(got[key]).all(), (what, mode, key)
+        errs[key] = rel_err(got[key], ref[key])
+    in_band(what, mode, max(errs.values()), PRECISION_FWD_BAND)
+    return errs
+
+
+def run_precision_eval(dev, preset, n_queries, seed, **overrides):
+    """Phase 14: one preset's eval at each precision dial: phase_path
+    (run_mr_inference or run_hl_inference; every launch at the dial's
+    form), the eval step's time, the metrics, and the forward of one full
+    eval batch held against the card's own float32 forward
+    (PRECISION_FWD_BAND). Returns {mode: path}."""
+    from flashvtg_tpu_torch.data.dataset import HD_SETS
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.infer import run_hl_inference, run_mr_inference
+
+    cfg = from_preset(preset, **overrides)
+    infer, score = ((run_hl_inference, score_hl) if cfg.dset_name in HD_SETS
+                    else (run_mr_inference, score_mr))
+    out, ref = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg, ds = make_dataset(tmp, cfg, n_queries, seed)
+        for mode in PRECISION_MODES:
+            cfg_m = cfg.replace(eval_precision=mode)
+            model, path = phase_path(dev, cfg_m, ds, seed, infer, score)
+            path["step_ms"] = time_ms(eval_step(dev, model, cfg_m, ds), iters=20, warmup=3)
+            path["step_qps"] = cfg.eval_bsz / path["step_ms"] * 1e3
+            fwd = forward_at(mode, model, *step_inputs(dev, cfg, ds))
+            fwd = {k: fwd[k] for k in FORWARD_KEYS}
+            if ref is None:
+                ref = fwd
+            else:
+                path["vs_float32_rel_err"] = vs_float32(mode, fwd, ref, preset)
+            log(f"[{preset} {mode}] {json.dumps(path)}")
+            out[mode] = path
+    return out
+
+
+def zero_dropout_step(dev, cfg, batch, seed):
+    """One train step at cfg.train_precision and cfg.transfer_dtype with
+    every dropout at 0, unclipped: (total loss, every parameter's gradient
+    in one float64 vector)."""
+    import dataclasses
+
+    import torch
+
+    from flashvtg_tpu_torch.models import build_model
+    from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step, place_batch
+
+    cfg = cfg.replace(dropout=0.0, input_dropout=0.0)
+    model = build_model(dataclasses.replace(cfg.model_config(), dummy_dropout=0.0), dev,
+                        seed).train()
+    optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
+    step = make_train_step(model, cfg.loss_config(), optimizer, scheduler, 0.0,
+                           precision=cfg.train_precision)
+    loss = step(place_batch(batch, dev, transfer_dtype=cfg.transfer_dtype))
+    grads = torch.cat([p.grad.flatten().double() for p in model.parameters()])
+    return loss["weighted_loss_overall"].item(), grads
+
+
+def run_precision_train(dev, preset, seed, configs, n_rows=None, **overrides):
+    """Phase 14: one preset's train step (make_train_step) at each
+    (train_precision, transfer_dtype) of `configs`, the first float32: the
+    step's time on a batch already on the card and with its copy to the card
+    in it, the step's peak memory, launches by form (every one at the dial's
+    form); and one step with every dropout at 0 from the same weights against
+    the float32 step's: total loss within PRECISION_LOSS_RTOL, gradients
+    (|g - g32| / |g32| over every parameter) within PRECISION_GRAD_BAND.
+    Returns {"mode/transfer_dtype": reading}."""
+    import torch
+
+    from flashvtg_tpu_torch.models import build_model
+    from flashvtg_tpu_torch.train.config import from_preset
+
+    cfg = from_preset(preset, use_tensorboard=False, **overrides)
+    out, ref = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = make_train_split(tmp, cfg, n_rows or cfg.bsz, cfg.eval_bsz, seed)
+        batch = train_batch(cfg, range(cfg.bsz))
+        for mode, wire in configs:
+            cfg_m = cfg.replace(train_precision=mode, transfer_dtype=wire)
+            model = build_model(cfg_m.model_config(), dev, seed).train()
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            step_ms, peak, with_copy = train_step_time(dev, model, cfg_m, seed, batch)
+            launches, by_form = counted(mode)
+            del model
+            loss, grads = zero_dropout_step(dev, cfg_m, batch, seed)
+            reading = dict(preset=preset, bsz=cfg.bsz, max_v_l=cfg.max_v_l, train_precision=mode,
+                           transfer_dtype=wire, step_ms=step_ms,
+                           step_rows_per_s=cfg.bsz / step_ms * 1e3, step_with_copy_ms=with_copy,
+                           step_peak_mem_bytes=peak, launches=launches,
+                           form_launches=by_form, dropout0_total_loss=loss)
+            if ref is None:
+                assert (mode, wire) == ("float32", "float32")
+                ref = (loss, grads)
+            else:
+                reading["loss_rel_err"] = abs(loss - ref[0]) / abs(ref[0])
+                reading["grad_rel_err"] = ((grads - ref[1]).norm() / ref[1].norm()).item()
+                assert reading["loss_rel_err"] <= PRECISION_LOSS_RTOL, reading
+                in_band(f"{preset} train step", mode, reading["grad_rel_err"],
+                        PRECISION_GRAD_BAND)
+            del grads
+            torch.cuda.empty_cache()
+            log(f"[{preset} train step {mode}/{wire}] {json.dumps(reading)}")
+            out[f"{mode}/{wire}"] = reading
+    return out
+
+
+def run_precision_cli(dev, seed, n_train=32, n_val=64, bsz=32):
+    """Phase 14: the CLI at the flagship's full width at its default train
+    precision (bfloat16, as the JAX CLI's): `train` for one epoch (its steps
+    on bf16 operands, its eval at the default eval_precision, float32;
+    opt.json records bfloat16 and no serving flag), then `infer --serving`
+    of its model_latest.ckpt (every launch in 1xTF32) and `infer --serving
+    --eval_precision bfloat16` (the explicit flag wins: every launch on bf16
+    operands); last `train` at tensorfloat32 with the bf16 wire (its steps
+    in 1xTF32), into a results root of its own."""
+    import glob
+
+    import torch
+
+    from flashvtg_tpu_torch import cli
+    from flashvtg_tpu_torch.train.config import from_preset
+
+    preset = "qvhighlights_slowclip"
+    cfg = from_preset(preset, bsz=bsz)
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = make_train_split(tmp, cfg, n_train, n_val, seed)
+        flags = [
+            "--device", str(dev), "--seed", str(seed), "--bsz", str(bsz), "--eval_epoch", "1",
+            "--train_path", cfg.train_path, "--eval_path", cfg.eval_path,
+            "--v_feat_dirs", *cfg.v_feat_dirs, "--t_feat_dir", cfg.t_feat_dir,
+            "--results_root", os.path.join(tmp, "results"), "--exp_id", "cli",
+            "--use_tensorboard", "false",
+        ]
+        tf32_root = os.path.join(tmp, "results_tf32")
+        # (name, argv, the forms its launches take, the opt.json's train dials)
+        calls = (
+            ("train", ["train", preset, *flags, "--n_epoch", "1"], ("bf16", "3xtf32"),
+             ("bfloat16", "float32")),
+            ("infer_serving", ["infer", preset, *flags, "--serving"], ("1xtf32",), None),
+            ("infer_serving_bf16", ["infer", preset, *flags, "--serving", "--eval_precision",
+                                    "bfloat16"], ("bf16",), None),
+            ("train_tf32", ["train", preset, *flags, "--n_epoch", "1", "--train_precision",
+                            "tensorfloat32", "--transfer_dtype", "bfloat16", "--results_root",
+                            tf32_root], ("1xtf32", "3xtf32"), ("tensorfloat32", "bfloat16")),
+        )
+        for name, argv, forms, dials in calls:
+            if dials is None:  # infer the first train's model_latest.ckpt
+                (run_dir,) = glob.glob(os.path.join(tmp, "results", "*"))
+                argv += ["--resume", os.path.join(run_dir, "model_latest.ckpt")]
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            assert cli.main(argv) == 0, name
+            torch.cuda.synchronize()
+            by_form = form_launch_counts()
+            n = {form: sum(counts.values()) for form, counts in by_form.items()}
+            assert all(n[f] > 0 for f in forms) and sum(n.values()) == sum(
+                n[f] for f in forms), (name, forms, by_form)
+            res[name] = dict(call_s=time.perf_counter() - t0, forms=forms, form_launches=by_form)
+            log(f"[cli {name}] {json.dumps(res[name])}")
+            if dials is not None:
+                root = tf32_root if name == "train_tf32" else os.path.join(tmp, "results")
+                (run_dir,) = glob.glob(os.path.join(root, "*"))
+                with open(os.path.join(run_dir, "opt.json")) as f:
+                    opt = json.load(f)
+                assert (opt["train_precision"], opt["transfer_dtype"]) == dials, opt
+                assert "serving" not in opt, opt
+    return res
 
 
 def main():
@@ -1424,12 +1866,20 @@ def main():
     log(f"[build] {time.perf_counter() - t0:.2f} s")
     hmma = {name: kernels.sass_mma_counts(name) for name in kernels.SOURCES}
     log(f"[build] tensor-core instructions (SASS HMMA lines) per kernel: {json.dumps(hmma)}")
-    for name in kernels.SOURCES:  # every product in 3xTF32 on mma.sync
+    for name in kernels.SOURCES:  # every product on mma.sync
         for fn, n in hmma[name].items():
             # the flash pre-pass D = rowsum(dO O) and the ACA backward's sum of
             # its chunks' partial dk and dv have no product
             if "delta" not in fn and "reduce" not in fn:
                 assert n > 0, f"{fn}: no tensor-core instruction"
+    # every kernel with a product in each form, summed over its instances:
+    # one TF32 product a dot in the 1xTF32 and bf16 forms, three in 3xTF32
+    hmma_forms = {k: v for name in kernels.SOURCES
+                  for k, v in kernels.hmma_by_form(hmma[name]).items()}
+    log(f"[build] SASS HMMA lines per kernel and form: {json.dumps(hmma_forms)}")
+    assert len(hmma_forms) == 5, hmma_forms
+    for fn, per in hmma_forms.items():
+        assert 0 < per["1xtf32"] < per["3xtf32"] and 0 < per["bf16"] < per["3xtf32"], (fn, per)
 
     rows, shapes = phase_kernels(dev, args.seed)
     log(f"[kernels] {json.dumps(rows)}")
@@ -1472,16 +1922,69 @@ def main():
         paths[name]["wall_s"] = time.perf_counter() - t0
         log(f"[{name}] {paths[name]['wall_s']:.2f} s")
 
-    for row in rows:  # the largest error over every shape of the kernel
-        row["max_abs_err"] = max([row["max_abs_err"]] + [
-            r["max_abs_err"] for r in shapes.values() if r.get("kernel") == row["name"]])
-        by_path = {name: p["launches"][row["name"]] for name, p in paths.items()}
+    # phase 14: the precision dials. Every kernel at the 1xTF32 and bf16
+    # forms against its plain version at the same form, at every shape of
+    # phases 3 and 7; then the paths at tensorfloat32 and bfloat16, each
+    # against the card's own float32 run
+    t0 = time.perf_counter()
+    for form in ("1xtf32", "bf16"):
+        form_rows, form_shapes = phase_kernels(dev, args.seed, form)
+        form_shapes.update(phase_slice_kernels(dev, args.seed, form))
+        bwd_rows, bwd_shapes = phase_train_kernels(dev, args.seed, form)
+        form_shapes.update(bwd_shapes)
+        log(f"[precision kernels {form}] {json.dumps(form_rows + bwd_rows)} "
+            f"{json.dumps(form_shapes)}")
+        rows += form_rows + bwd_rows
+        shapes.update(form_shapes)
+    form_identity = phase_form_identity(dev, args.seed)
+    log(f"[precision form identity] {json.dumps(form_identity)}")
+    log(f"[precision kernels] {time.perf_counter() - t0:.2f} s")
+    precision_phases = {
+        "flagship_eval": lambda: run_precision_eval(dev, "qvhighlights_slowclip", args.queries,
+                                                    args.seed),
+        "tacos_eval": lambda: run_precision_eval(dev, "tacos", args.tacos_queries, args.seed),
+        "hd_youtube_eval": lambda: run_precision_eval(dev, "youtube_uni", args.hd_queries,
+                                                      args.seed, dset_domain="dog"),
+        "tacos_train_step": lambda: run_precision_train(
+            dev, "tacos", args.seed, [(m, "float32") for m in PRECISION_MODES]
+            + [("bfloat16", "bfloat16")]),
+        "ms_tvsum_train_step": lambda: run_precision_train(
+            dev, "tvsum_ms", args.seed, [(m, "float32") for m in PRECISION_MODES], n_rows=4,
+            dset_domain="BK"),
+        "tvsum_train": lambda: {mode: run_train_preset(
+            dev, "tvsum", 1, args.seed, n_train=4, n_val=1, dset_domain="BK",
+            train_precision=mode, eval_precision=mode, transfer_dtype=wire)
+            for mode, wire in (("tensorfloat32", "float32"), ("bfloat16", "bfloat16"))},
+        "cli": lambda: run_precision_cli(dev, args.seed),
+    }
+    precision = {}
+    for name, run in precision_phases.items():
+        t0 = time.perf_counter()
+        precision[name] = run()
+        precision[name]["wall_s"] = time.perf_counter() - t0
+        log(f"[precision {name}] {precision[name]['wall_s']:.2f} s")
+        for mode, p in precision[name].items():
+            if isinstance(p, dict):
+                paths[f"precision_{name}/{mode}"] = p
+    # every dial restored the flags: outside them the card stays in true f32
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+
+    for row in rows:  # the largest errors over every shape of the kernel and form
+        for key in ("max_abs_err", "max_rel_err"):
+            row[key] = max([row[key]] + [
+                r[key] for r in shapes.values()
+                if r.get("kernel") == row["kernel"] and r.get("form") == row["form"]])
+        by_path = {name: p["form_launches"][row["form"]][row["kernel"]]
+                   for name, p in paths.items() if "form_launches" in p}
         row["launches"] = sum(by_path.values())
-        row["launches_by_path"] = by_path
+        row["launches_by_path"] = {k: v for k, v in by_path.items() if v}
         assert row["launches"] > 0, f"{row['name']} never launched on the paths"
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape", "launches_by_path")
-    print(json.dumps({"paths": paths, "kernel_shapes": shapes, "sass_hmma": hmma}))
+    keys = ("name", "form", "route", "source", "replaces", "launches", "max_abs_err",
+            "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
+            "launches_by_path")
+    print(json.dumps({"paths": paths, "kernel_shapes": shapes, "sass_hmma": hmma,
+                      "sass_hmma_by_form": hmma_forms, "form_identity": form_identity}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,8 @@ Counterpart of flashvtg_tpu/cli.py. The positional config is a reference-
 style python model-config file (data/MR*.py, data/HD.py) or a preset name;
 every ExperimentConfig field is also a --flag. One flag is the port's own:
 --device (default cuda; cpu runs the kernels' plain PyTorch versions).
+`infer --serving` evaluates at tensorfloat32 unless --eval_precision is
+given; the other modes ignore it with a warning, and it never persists.
 Checkpoints are reference-format `.ckpt` files: the port's model_best /
 model_latest, a JAX `cli export`, or a reference trainer's. infer and export
 restore the training-time flags from the opt.json beside --resume, as the
@@ -127,17 +129,9 @@ def _require_file(flag: str, path, what: str) -> None:
         raise SystemExit(f"{flag}: no such {what}: {path}")
 
 
-def run_train(cfg, overrides, device) -> int:
+def run_train(cfg, device) -> int:
     from flashvtg_tpu_torch.train.loop import train
 
-    if cfg.resume and cfg.resume != "auto" and "train_precision" not in overrides:
-        # a run trained at another precision (a JAX opt.json says bfloat16)
-        # resumes here only when f32 is asked for by name
-        opt_json = os.path.join(os.path.dirname(cfg.resume) or ".", "opt.json")
-        if os.path.exists(opt_json):
-            with open(opt_json) as f:
-                saved = json.load(f).get("train_precision", "float32")
-            cfg = cfg.replace(train_precision=saved)
     _, best_score, results_dir = train(cfg, device=device)
     print(f"best score {best_score:.4f}; results in {results_dir}")
     return 0
@@ -234,10 +228,10 @@ def main(argv=None) -> int:
     if mode == "export":
         export_path, rest = _pop_export_path(rest)
     cfg, overrides, device = parse_config(rest)
-    if cfg.serving:
-        raise NotImplementedError(
-            "--serving (the tensorfloat32 eval profile) is not ported yet "
-            "(ROADMAP Queue A 5)"
+    if mode != "infer" and cfg.serving:
+        logging.getLogger(__name__).warning(
+            "--serving only affects `infer`; it is ignored for %s and is never persisted "
+            "to opt.json", mode,
         )
     if mode in ("infer", "export") and cfg.resume:
         # TestOptions (config.py:189-203): the opt.json beside the checkpoint
@@ -248,8 +242,11 @@ def main(argv=None) -> int:
             keep = {k: getattr(cfg, k) for k in KEEP_ON_RELOAD if hasattr(cfg, k)}
             cfg = ExperimentConfig.load(opt_json).replace(**{**keep, **overrides})
     if mode == "train":
-        return run_train(cfg, overrides, device)
+        return run_train(cfg, device)
     if mode == "infer":
+        if cfg.serving and "eval_precision" not in overrides:
+            # the serving profile; an explicit --eval_precision wins
+            cfg = cfg.replace(eval_precision="tensorfloat32")
         return run_infer(cfg, device)
     return run_export(cfg, export_path)
 

@@ -1,6 +1,6 @@
 // Fused masked attention with dummy-dropping values and a fused head mean,
 // for Hopper (sm_90a): the products on the tensor cores in 3xTF32
-// (f32-accurate).
+// (f32-accurate), 1xTF32 or bf16, as the precision dial asks.
 //
 // Replaces: scripts/bench_aca.py:_aca_kernel / aca_attention, the Pallas ACA
 // kernel written for the TPU. Its function runs at every Adaptive
@@ -43,7 +43,7 @@
 //  * keys are padded to a multiple of 8 (the mma n-tile), not of 32: 42 ->
 //    48, 75 -> 80; S = (scale Q) K^T goes to mma accumulators with each
 //    k-step's big product in a fresh accumulator (attn_common.cuh
-//    dot_3xtf32, the same helper and order as the backward, which recomputes
+//    dot_form, the same helper and order as the backward, which recomputes
 //    S bit for bit);
 //  * the softmax runs on the C fragments: a lane holds two rows, and the row
 //    max and sum are taken across the four lanes of a quad with shuffles;
@@ -61,8 +61,11 @@
 // Why 3xTF32 is the f32 parity mode: each operand is split into two TF32
 // parts (attn_common.cuh), and the three products keep about 22 significant
 // bits, the accuracy of f32 on CUDA cores (CUTLASS's OpMultiplyAddFastF32);
-// a single TF32 product keeps about three decimal digits and is not used
-// (tests/test_torch_tf32x3.py emulates both).
+// a single TF32 product keeps about three decimal digits
+// (tests/test_torch_tf32x3.py emulates each form). That single product is
+// the tensorfloat32 form, and bf16 operands with f32 sums the bfloat16
+// form: every kernel is a template on the form (F), the C entries' `form`
+// picks the instance, and nothing else changes between the three.
 //
 // Training form (flashvtg_aca_attention_train_f32, template TRAIN; the eval
 // entry point compiles without it): it also writes the row log-sum-exp
@@ -131,11 +134,12 @@ struct TrainArgs {
   float keep_scale;    // 1 / (1 - p)
 };
 
-// NT = round16(lk) / 8, the key n-tiles (8 keys each) of this instance (2,
-// 4, ..., 16); the launch's own count is round8(lk) / 8 (NT or NT - 1). HM = write the head
-// mean; TRAIN = the training form. A lane's keys are 8 n + 2 t + c (n < NT,
-// c in {0, 1}), bit 2 n + c of its key masks.
-template <int NT, bool HM, bool TRAIN>
+// F = the product form (attn_common.cuh); NT = round16(lk) / 8, the key
+// n-tiles (8 keys each) of this instance (2, 4, ..., 16); the launch's own
+// count is round8(lk) / 8 (NT or NT - 1). HM = write the head mean; TRAIN =
+// the training form. A lane's keys are 8 n + 2 t + c (n < NT, c in {0, 1}),
+// bit 2 n + c of its key masks.
+template <int F, int NT, bool HM, bool TRAIN>
 __global__ void __launch_bounds__(kMaxWarps * 32, NT <= 10 ? 3 : 2)
 aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ key_valid,
@@ -244,12 +248,12 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* q1 = q0 + 8 * kKStride;
 #pragma unroll
       for (int ks = 0; ks < kDh / 8; ++ks) {
-        qf[ks] = frag_a(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
+        qf[ks] = frag_a<F>(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
                         q1[8 * ks + 4] * scale);
       }
 #pragma unroll
       for (int n = 0; n < NT; ++n) {
-        if (n < nt) dot_3xtf32(s[n], qf, k_s + (8 * n + g) * kKStride + t, 1.f);
+        if (n < nt) dot_form<F>(s[n], qf, k_s + (8 * n + g) * kKStride + t, 1.f);
       }
     }
 
@@ -328,11 +332,11 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int kk = c0; kk < c0 + kPvChunk && kk < NT; ++kk) {
         if (kk < kk0 || kk >= nt) continue;
-        const FragA pa = frag_a_from_c(s[kk]);
+        const FragA pa = frag_a_from_c<F>(s[kk]);
         const float* vr = v_s + (8 * kk + 2 * t) * kKStride + g;
 #pragma unroll
         for (int n = 0; n < kDh / 8; ++n) {
-          mma_3xtf32(pv[n], pa, frag_b(vr[8 * n], vr[kKStride + 8 * n]));
+          mma_form<F>(pv[n], pa, frag_b<F>(vr[8 * n], vr[kKStride + 8 * n]));
         }
       }
 #pragma unroll
@@ -369,7 +373,7 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int NT, bool HM, bool TRAIN>
+template <int F, int NT, bool HM, bool TRAIN>
 cudaError_t launch(const float* q, const float* k, const float* v, const float* key_valid,
                    float* out, float* head_mean, int batch, int lv, int lk, int heads, int nd,
                    float scale, const TrainArgs& tr, cudaStream_t stream) {
@@ -392,21 +396,21 @@ cudaError_t launch(const float* q, const float* k, const float* v, const float* 
   const int warps = (warp_tiles + tiles - 1) / tiles;
   const int tile_rows = warps * 16;
   const size_t smem = sizeof(float) * 2 * stage_floats(lk, tile_rows);
-  cudaError_t err = cudaFuncSetAttribute(aca_attention_kernel<NT, HM, TRAIN>,
+  cudaError_t err = cudaFuncSetAttribute(aca_attention_kernel<F, NT, HM, TRAIN>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   dim3 grid((lv + tile_rows - 1) / tile_rows, batch);
-  aca_attention_kernel<NT, HM, TRAIN><<<grid, warps * 32, smem, stream>>>(
+  aca_attention_kernel<F, NT, HM, TRAIN><<<grid, warps * 32, smem, stream>>>(
       q, k, v, key_valid, out, head_mean, lv, lk, heads, nd, tile_rows, scale, tr);
   return cudaGetLastError();
 }
 
-template <bool HM, bool TRAIN>
+template <int F, bool HM, bool TRAIN>
 cudaError_t launch_nt(const float* q, const float* k, const float* v, const float* key_valid,
                       float* out, float* head_mean, int batch, int lv, int lk, int heads,
                       int nd, float scale, const TrainArgs& tr, cudaStream_t stream) {
 #define ACA_LAUNCH(NT) \
-  launch<NT, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream)
+  launch<F, NT, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream)
   switch ((lk + 15) / 16) {
     case 1: return ACA_LAUNCH(2);
     case 2: return ACA_LAUNCH(4);
@@ -425,6 +429,22 @@ bool bad_shape(int batch, int lv, int lk, int heads, int head_dim, int nd) {
          batch > 65535 || lv < 1 || heads < 1;
 }
 
+template <bool HM, bool TRAIN>
+cudaError_t launch_form(int form, const float* q, const float* k, const float* v,
+                        const float* key_valid, float* out, float* head_mean, int batch, int lv,
+                        int lk, int heads, int nd, float scale, const TrainArgs& tr,
+                        cudaStream_t stream) {
+#define ACA_FORM(F) \
+  launch_nt<F, HM, TRAIN>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, stream)
+  switch (form) {
+    case kForm3xTF32: return ACA_FORM(kForm3xTF32);
+    case kForm1xTF32: return ACA_FORM(kForm1xTF32);
+    case kFormBF16: return ACA_FORM(kFormBF16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef ACA_FORM
+}
+
 }  // namespace
 
 extern "C" {
@@ -432,30 +452,32 @@ extern "C" {
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // q (B, Lv, H*Dh), k and v (B, Lk, H*Dh), key_valid (B, Lk), out
 // (B, Lv, H*Dh), head_mean (B, Lv, Lk) or null; all f32, contiguous and
-// 16-byte aligned.
+// 16-byte aligned. form: the products' form, 0 3xTF32, 1 1xTF32, 2 bf16
+// (attn_common.cuh); any other value is refused.
 int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
                                const float* key_valid, float* out, float* head_mean, int batch,
                                int lv, int lk, int heads, int head_dim, int nd, float scale,
-                               void* stream) {
+                               int form, void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   const TrainArgs none = {nullptr, nullptr, nullptr, 0u, 0u, 1.f};
   if (head_mean != nullptr) {
-    return (int)launch_nt<true, false>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
+    return (int)launch_form<true, false>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
   }
-  return (int)launch_nt<false, false>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
+  return (int)launch_form<false, false>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
 }
 
 // The training form: as above, plus lse (B, H, Lv), attention dropout
 // (threshold = floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none)
 // and the donor-row mask (query_valid (B, Lv) f32 and donor_rows (B, H)
-// int32, or both null).
+// int32, or both null), and the form as above.
 int flashvtg_aca_attention_train_f32(const float* q, const float* k, const float* v,
                                      const float* key_valid, const float* query_valid,
                                      const int* donor_rows, float* out, float* head_mean,
                                      float* lse, int batch, int lv, int lk, int heads,
                                      int head_dim, int nd, float scale, unsigned seed,
-                                     unsigned threshold, float keep_scale, void* stream) {
+                                     unsigned threshold, float keep_scale, int form,
+                                     void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd) || lse == nullptr ||
       (donor_rows == nullptr) != (query_valid == nullptr)) {
     return (int)cudaErrorInvalidValue;
@@ -463,9 +485,9 @@ int flashvtg_aca_attention_train_f32(const float* q, const float* k, const float
   cudaStream_t s = (cudaStream_t)stream;
   const TrainArgs tr = {query_valid, donor_rows, lse, seed, threshold, keep_scale};
   if (head_mean != nullptr) {
-    return (int)launch_nt<true, true>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
+    return (int)launch_form<true, true>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
   }
-  return (int)launch_nt<false, true>(q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
+  return (int)launch_form<false, true>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Backward of the fused ACA / short self-attention (aca_attention.cu), for
 // Hopper (sm_90a): every product on the tensor cores in 3xTF32
-// (f32-accurate), the query rows split over blocks.
+// (f32-accurate), 1xTF32 or bf16 (the forward's form), the query rows split
+// over blocks.
 //
 // Replaces: the VJP that JAX's library Pallas flash_attention brings with it
 // (its short form, scripts/bench_flash.py:50-74), which the JAX train step
@@ -41,7 +42,7 @@
 //    at Lk 75; prefetching the next tile into registers instead spilled and
 //    ran slower on the card);
 //  * a warp owns 16 query rows: S = (scale Q) K^T with the forward's helper
-//    and order (dot_3xtf32, so s is bit-equal to the forward's) and dO V^T
+//    and order (dot_form, so s is bit-equal to the forward's) and dO V^T
 //    (skipped for key tiles of dummies only, where z = 0) go to mma
 //    accumulators (the head-mean gradient at the lane's positions is
 //    loaded before them, its latency hidden behind the products);
@@ -60,8 +61,9 @@
 //    them; with more, into a workspace (2, B, H, chunks, Lk, 32) that the
 //    wrapper allocates, and a second pass sums the chunks in their order.
 //    No float atomics anywhere: two launches agree bit for bit.
-// Why 3xTF32 is the f32 parity mode: see aca_attention.cu and
-// attn_common.cuh; a single TF32 product is not used.
+// Why 3xTF32 is the f32 parity mode, and what the 1xTF32 and bf16 forms
+// are: see aca_attention.cu and attn_common.cuh. The chunk-sum pass has no
+// product and no form.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -112,10 +114,11 @@ __host__ __device__ constexpr int smem_floats(int lk, int tile_rows) {
   return 2 * (round8(lk) + tile_rows) * kKStride + 2 * tile_rows * (round16(lk) + 4);
 }
 
-// NT = round16(lk) / 8, the key n-tiles of the instance (2, 4, ..., 16);
-// the launch's own count is round8(lk) / 8 (NT or NT - 1). A lane's keys in
-// the S phase are 8 n + 2 t + c, bit 2 n + c of its key masks.
-template <int NT>
+// F = the product form (attn_common.cuh); NT = round16(lk) / 8, the key
+// n-tiles of the instance (2, 4, ..., 16); the launch's own count is
+// round8(lk) / 8 (NT or NT - 1). A lane's keys in the S phase are
+// 8 n + 2 t + c, bit 2 n + c of its key masks.
+template <int F, int NT>
 __global__ void __launch_bounds__(warps_for(NT) * 32, NT <= 10 ? 2 : 1)
 aca_attention_bwd_kernel(const Operands a) {
   constexpr int kWarps = warps_for(NT);
@@ -251,18 +254,18 @@ aca_attention_bwd_kernel(const Operands a) {
         const float* q1 = q0 + 8 * kKStride;
 #pragma unroll
         for (int ks = 0; ks < kDh / 8; ++ks) {
-          f[ks] = frag_a(q0[8 * ks] * a.scale, q1[8 * ks] * a.scale, q0[8 * ks + 4] * a.scale,
+          f[ks] = frag_a<F>(q0[8 * ks] * a.scale, q1[8 * ks] * a.scale, q0[8 * ks + 4] * a.scale,
                          q1[8 * ks + 4] * a.scale);
         }
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          if (n < nt) dot_3xtf32(s[n], f, k_s + (8 * n + g) * kKStride + t, 1.f);
+          if (n < nt) dot_form<F>(s[n], f, k_s + (8 * n + g) * kKStride + t, 1.f);
         }
         const float* o0 = do_s + (wrow + g) * kKStride + t;
         const float* o1 = o0 + 8 * kKStride;
 #pragma unroll
         for (int ks = 0; ks < kDh / 8; ++ks) {
-          f[ks] = frag_a(o0[8 * ks], o1[8 * ks], o0[8 * ks + 4], o1[8 * ks + 4]);
+          f[ks] = frag_a<F>(o0[8 * ks], o1[8 * ks], o0[8 * ks + 4], o1[8 * ks + 4]);
         }
       }
 
@@ -273,7 +276,7 @@ aca_attention_bwd_kernel(const Operands a) {
       for (int n = 0; n < NT; ++n) {
         if (n >= nt) continue;
         float dov[4] = {0.f, 0.f, 0.f, 0.f};  // z is 0 at the dummies
-        if (8 * n + 8 > nd) dot_3xtf32(dov, f, v_s + (8 * n + g) * kKStride + t, 1.f);
+        if (8 * n + 8 > nd) dot_form<F>(dov, f, v_s + (8 * n + g) * kKStride + t, 1.f);
         float pz[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -328,11 +331,11 @@ aca_attention_bwd_kernel(const Operands a) {
 #pragma unroll
         for (int kk = c0; kk < c0 + kDqChunk && kk < NT; ++kk) {
           if (kk >= nt) continue;
-          const FragA da = frag_a_from_c(dp[kk]);
+          const FragA da = frag_a_from_c<F>(dp[kk]);
           const float* kr = k_s + (8 * kk + 2 * t) * kKStride + g;
 #pragma unroll
           for (int n = 0; n < kDh / 8; ++n) {
-            mma_3xtf32(pdq[n], da, frag_b(kr[8 * n], kr[kKStride + 8 * n]));
+            mma_form<F>(pdq[n], da, frag_b<F>(kr[8 * n], kr[kKStride + 8 * n]));
           }
         }
 #pragma unroll
@@ -382,14 +385,14 @@ aca_attention_bwd_kernel(const Operands a) {
           const int ra = rg + 8 * ks + 2 * t;  // rows ra (slot t) and ra + 1 (slot t + 4)
           const float* d0 = ds_s + ra * ps + key0;
           const float* p0 = pz_s + ra * ps + key0;
-          const FragA da = frag_a(d0[0], d0[8], d0[ps], d0[ps + 8]);
-          const FragA pa = frag_a(p0[0], p0[8], p0[ps], p0[ps + 8]);
+          const FragA da = frag_a<F>(d0[0], d0[8], d0[ps], d0[ps + 8]);
+          const FragA pa = frag_a<F>(p0[0], p0[8], p0[ps], p0[ps + 8]);
           const float* qr = q_s + ra * kKStride + g;
           const float* orr = do_s + ra * kKStride + g;
 #pragma unroll
           for (int n = 0; n < kDh / 8; ++n) {
-            mma_3xtf32(pdk[n], da, frag_b(qr[8 * n], qr[kKStride + 8 * n]));
-            mma_3xtf32(pdv[n], pa, frag_b(orr[8 * n], orr[kKStride + 8 * n]));
+            mma_form<F>(pdk[n], da, frag_b<F>(qr[8 * n], qr[kKStride + 8 * n]));
+            mma_form<F>(pdv[n], pa, frag_b<F>(orr[8 * n], orr[kKStride + 8 * n]));
           }
         }
 #pragma unroll
@@ -456,7 +459,7 @@ aca_attention_bwd_reduce_kernel(const Operands a) {
   a.dv[idx] = sv;
 }
 
-template <int NT>
+template <int F, int NT>
 cudaError_t launch(Operands a, cudaStream_t stream) {
   constexpr int kTileRows = 16 * warps_for(NT);
   // chunks of whole row tiles, as ops/aca.py:bwd_tiling computes them
@@ -468,15 +471,29 @@ cudaError_t launch(Operands a, cudaStream_t stream) {
   }
   const size_t smem = sizeof(float) * smem_floats(a.lk, kTileRows);
   cudaError_t err = cudaFuncSetAttribute(
-      aca_attention_bwd_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      aca_attention_bwd_kernel<F, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  aca_attention_bwd_kernel<NT><<<dim3(a.heads, a.chunks, a.batch), warps_for(NT) * 32, smem,
-                                 stream>>>(a);
+  aca_attention_bwd_kernel<F, NT><<<dim3(a.heads, a.chunks, a.batch), warps_for(NT) * 32,
+                                    smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess || a.chunks == 1) return err;
   const size_t total = (size_t)a.batch * a.lk * a.heads * kDh;
   aca_attention_bwd_reduce_kernel<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(a);
   return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t launch_nt(const Operands& a, cudaStream_t s) {
+  switch (round16(a.lk) / 16) {
+    case 1: return launch<F, 2>(a, s);
+    case 2: return launch<F, 4>(a, s);
+    case 3: return launch<F, 6>(a, s);
+    case 4: return launch<F, 8>(a, s);
+    case 5: return launch<F, 10>(a, s);
+    case 6: return launch<F, 12>(a, s);
+    case 7: return launch<F, 14>(a, s);
+    default: return launch<F, 16>(a, s);
+  }
 }
 
 }  // namespace
@@ -489,8 +506,9 @@ extern "C" {
 // (B, H, Lv) from the training forward; d_head_mean (B, Lv, Lk) or null;
 // workspace (2, B, H, chunks, Lk, Dh) f32 scratch when chunks > 1, else
 // null, with chunks from ops/aca.py:bwd_tiling; threshold = floor(p * 2^24)
-// (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's. f32,
-// contiguous and 16-byte aligned.
+// (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's; form
+// the products' form, 0 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh), any
+// other value refused. f32, contiguous and 16-byte aligned.
 int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* v,
                                    const float* key_valid, const float* query_valid,
                                    const int* donor_rows, const float* lse,
@@ -498,7 +516,7 @@ int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* 
                                    float* dk, float* dv, float* workspace, int batch, int lv,
                                    int lk, int heads, int head_dim, int nd, int chunks,
                                    float scale, unsigned seed, unsigned threshold,
-                                   float keep_scale, void* stream) {
+                                   float keep_scale, int form, void* stream) {
   if (head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk || batch < 1 ||
       batch > 65535 || lv < 1 || heads < 1 || heads > 65535 ||
       (donor_rows == nullptr) != (query_valid == nullptr)) {
@@ -508,15 +526,11 @@ int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* 
                       dq, dk, dv, workspace, batch, lv, lk, heads, nd, chunks, 0, scale, seed,
                       threshold, keep_scale};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (round16(lk) / 16) {
-    case 1: return (int)launch<2>(a, s);
-    case 2: return (int)launch<4>(a, s);
-    case 3: return (int)launch<6>(a, s);
-    case 4: return (int)launch<8>(a, s);
-    case 5: return (int)launch<10>(a, s);
-    case 6: return (int)launch<12>(a, s);
-    case 7: return (int)launch<14>(a, s);
-    default: return (int)launch<16>(a, s);
+  switch (form) {
+    case kForm3xTF32: return (int)launch_nt<kForm3xTF32>(a, s);
+    case kForm1xTF32: return (int)launch_nt<kForm1xTF32>(a, s);
+    case kFormBF16: return (int)launch_nt<kFormBF16>(a, s);
+    default: return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -1,5 +1,6 @@
 // Memory-linear masked self-attention over any number of keys, for Hopper
-// (sm_90a): the products on the tensor cores in 3xTF32 (f32-accurate).
+// (sm_90a): the products on the tensor cores in 3xTF32 (f32-accurate),
+// 1xTF32 or bf16, as the precision dial asks.
 //
 // Replaces: the long, memory-linear form of JAX's library Pallas kernel
 // jax.experimental.pallas.ops.tpu.flash_attention (called at
@@ -54,7 +55,7 @@
 //    with its key rows in that order instead of moving P;
 //  * the tensor core's f32 accumulation truncates, so no chain of products
 //    runs long: each S tile takes each k-step's hi.hi product in a fresh
-//    accumulator (attn_common.cuh dot_3xtf32), and each chunk's p.v goes to
+//    accumulator (attn_common.cuh dot_form), and each chunk's p.v goes to
 //    fresh accumulators added to O on the CUDA cores (one chain over 4096
 //    keys missed the 1e-5 tolerance);
 //  * each lane keeps its own share of the row sums; the quad sums them once
@@ -65,7 +66,9 @@
 // bits, the accuracy of f32 on CUDA cores (CUTLASS's OpMultiplyAddFastF32);
 // forwards agree with the f32 plain version within 1e-5. A single TF32
 // product keeps about three decimal digits (it misses that tolerance in
-// the emulation of tests/test_torch_tf32x3.py) and is not used.
+// the emulation of tests/test_torch_tf32x3.py): that is the tensorfloat32
+// form, and bf16 operands with f32 sums the bfloat16 form (attn_common.cuh;
+// the template F, chosen by the C entries' `form`).
 //
 // Training form (flashvtg_flash_attention_train_f32, template TRAIN; the
 // eval entry point compiles without it): it also writes the row log-sum-exp
@@ -96,7 +99,8 @@ constexpr int kMaxLen = kTileKeys * (kMaskWords / 4);
 constexpr int kStageFloats = 2 * kTileKeys * kKStride;  // K, V
 constexpr int kSmemBytes = sizeof(float) * 2 * kStageFloats;
 
-template <bool TRAIN>
+// F = the product form (attn_common.cuh); TRAIN = the training form
+template <int F, bool TRAIN>
 __global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
@@ -141,7 +145,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float* q1 = qb + (size_t)min(row[1], len - 1) * d_model + h * kDh + t;
 #pragma unroll
     for (int ks = 0; ks < kDh / 8; ++ks) {
-      qf[ks] = frag_a(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
+      qf[ks] = frag_a<F>(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
                       q1[8 * ks + 4] * scale);
     }
   }
@@ -187,7 +191,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       float s[kChunkTiles][4];
 #pragma unroll
       for (int n = 0; n < kChunkTiles; ++n) {
-        dot_3xtf32(s[n], qf, k_s + (c0 + 8 * n + g) * kKStride + t, 1.f);
+        dot_form<F>(s[n], qf, k_s + (c0 + 8 * n + g) * kKStride + t, 1.f);
       }
 
       // masked keys to -inf, then the chunk's row max across the quad
@@ -245,11 +249,11 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kChunkTiles; ++kk) {
-        const FragA pa = frag_a_from_c(s[kk]);
+        const FragA pa = frag_a_from_c<F>(s[kk]);
         const float* vr = v_s + (c0 + 8 * kk + 2 * t) * kKStride + g;
 #pragma unroll
         for (int n = 0; n < kDh / 8; ++n) {
-          mma_3xtf32(pv[n], pa, frag_b(vr[8 * n], vr[kKStride + 8 * n]));
+          mma_form<F>(pv[n], pa, frag_b<F>(vr[8 * n], vr[kKStride + 8 * n]));
         }
       }
 #pragma unroll
@@ -279,7 +283,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <bool TRAIN>
+template <int F, bool TRAIN>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* key_valid, float* out, int batch, int len,
                    int heads, int head_dim, float scale, float* lse, uint32_t seed,
@@ -289,17 +293,34 @@ cudaError_t launch(const float* q, const float* k, const float* v,
     return cudaErrorInvalidValue;
   }
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_attention_kernel<F, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute(flash_attention_kernel<TRAIN>,
+  err = cudaFuncSetAttribute(flash_attention_kernel<F, TRAIN>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid((len + kTileRows - 1) / kTileRows, heads, batch);
-  flash_attention_kernel<TRAIN><<<grid, kWarps * 32, kSmemBytes, stream>>>(
+  flash_attention_kernel<F, TRAIN><<<grid, kWarps * 32, kSmemBytes, stream>>>(
       q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold, keep_scale);
   return cudaGetLastError();
+}
+
+template <bool TRAIN>
+cudaError_t launch_form(int form, const float* q, const float* k, const float* v,
+                        const float* key_valid, float* out, int batch, int len, int heads,
+                        int head_dim, float scale, float* lse, uint32_t seed,
+                        uint32_t threshold, float keep_scale, cudaStream_t stream) {
+#define FLASH_FORM(F)                                                                     \
+  launch<F, TRAIN>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale, lse, seed, \
+                   threshold, keep_scale, stream)
+  switch (form) {
+    case kForm3xTF32: return FLASH_FORM(kForm3xTF32);
+    case kForm1xTF32: return FLASH_FORM(kForm1xTF32);
+    case kFormBF16: return FLASH_FORM(kFormBF16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef FLASH_FORM
 }
 
 }  // namespace
@@ -308,13 +329,14 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // q, k, v and out (B, L, H*Dh), key_valid (B, L); all f32, contiguous and
-// 16-byte aligned; 1 <= L <= 4096, Dh = 32.
+// 16-byte aligned; 1 <= L <= 4096, Dh = 32. form: the products' form, 0
+// 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh); any other value is refused.
 int flashvtg_flash_attention_f32(const float* q, const float* k, const float* v,
                                  const float* key_valid, float* out, int batch,
                                  int len, int heads, int head_dim, float scale,
-                                 void* stream) {
-  return (int)launch<false>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale,
-                            nullptr, 0u, 0u, 1.f, (cudaStream_t)stream);
+                                 int form, void* stream) {
+  return (int)launch_form<false>(form, q, k, v, key_valid, out, batch, len, heads, head_dim,
+                                 scale, nullptr, 0u, 0u, 1.f, (cudaStream_t)stream);
 }
 
 // The training form: as above, plus lse (B, H, L) and attention dropout
@@ -323,10 +345,10 @@ int flashvtg_flash_attention_train_f32(const float* q, const float* k, const flo
                                        const float* key_valid, float* out, float* lse,
                                        int batch, int len, int heads, int head_dim,
                                        float scale, unsigned seed, unsigned threshold,
-                                       float keep_scale, void* stream) {
+                                       float keep_scale, int form, void* stream) {
   if (lse == nullptr) return (int)cudaErrorInvalidValue;
-  return (int)launch<true>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale,
-                           lse, seed, threshold, keep_scale, (cudaStream_t)stream);
+  return (int)launch_form<true>(form, q, k, v, key_valid, out, batch, len, heads, head_dim,
+                                scale, lse, seed, threshold, keep_scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -1,6 +1,7 @@
 // Memory-linear backward of the masked self-attention (flash_attention.cu),
 // for Hopper (sm_90a): the FlashAttention-2 backward with every product on
-// the tensor cores in 3xTF32 (f32-accurate).
+// the tensor cores in 3xTF32 (f32-accurate), 1xTF32 or bf16 (the forward's
+// form).
 //
 // Replaces: the VJP of JAX's library Pallas flash_attention, long form (timed
 // as forward + backward at scripts/bench_flash.py:62-74) and, on the JAX
@@ -52,7 +53,7 @@
 //    feeds it to dq += dS K from registers;
 //  * the tensor core's f32 accumulation truncates, so no chain of products
 //    runs long: S and dP tiles take each k-step's hi.hi product in a fresh
-//    accumulator (attn_common.cuh dot_3xtf32, as accurate as an f32 FMA
+//    accumulator (attn_common.cuh dot_form, as accurate as an f32 FMA
 //    loop), and each set's dk, dv and dq products go to fresh accumulators
 //    added on the CUDA cores;
 //  * dS = P (z dP - D) cancels to 0 at a row with one valid key, and dk sums
@@ -61,7 +62,7 @@
 //    dq kernel, which runs first, also sums D' = rowsum(P z dP) from the
 //    very P and dP it forms, and the dk/dv kernel takes D' for D; its S^T
 //    and dP^T take the dq kernel's products in the same order
-//    (dot_3xtf32<true>), and P = exp2((s - lse) log2 e) is exactly 1 at a
+//    (dot_form<F, true>), and P = exp2((s - lse) log2 e) is exactly 1 at a
 //    row's only key (the forward's lse is then exactly m): dS is exactly 0
 //    there, as in exact arithmetic. Mathematically D' = D.
 // This recomputes q.k and dO.v in both kernels: 14 B H L^2 Dh FLOP in all
@@ -70,8 +71,10 @@
 // parts (attn_common.cuh), and the three products keep about 22 significant
 // bits, the accuracy of f32 on CUDA cores (CUTLASS's OpMultiplyAddFastF32);
 // gradients agree with the f32 plain version within 1e-4 of their largest
-// value. A single TF32 product keeps about three decimal digits and is not
-// used.
+// value. A single TF32 product keeps about three decimal digits: the
+// tensorfloat32 form; bf16 operands with f32 sums are the bfloat16 form
+// (attn_common.cuh; the dq and dk/dv kernels are templates on it, the D
+// pre-pass has no product).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -172,6 +175,8 @@ __device__ __forceinline__ void load_query_stage(const Operands& a, float* stage
   }
 }
 
+// F = the product form (attn_common.cuh), as in the dq kernel
+template <int F>
 __global__ void __launch_bounds__(kWarps * 32, 3)
 flash_bwd_dkdv_kernel(const Operands a) {
   extern __shared__ float4 smem4[];
@@ -213,8 +218,8 @@ flash_bwd_dkdv_kernel(const Operands a) {
 #pragma unroll
       for (int ks = 0; ks < kDh / 8; ++ks) {
         const int c = 8 * ks;
-        kf[ks] = frag_a(a.k[g0 + c], a.k[g1 + c], a.k[g0 + c + 4], a.k[g1 + c + 4]);
-        vf[ks] = frag_a(a.v[g0 + c], a.v[g1 + c], a.v[g0 + c + 4], a.v[g1 + c + 4]);
+        kf[ks] = frag_a<F>(a.k[g0 + c], a.k[g1 + c], a.k[g0 + c + 4], a.k[g1 + c + 4]);
+        vf[ks] = frag_a<F>(a.v[g0 + c], a.v[g1 + c], a.v[g0 + c + 4], a.v[g1 + c + 4]);
       }
     }
 
@@ -240,8 +245,8 @@ flash_bwd_dkdv_kernel(const Operands a) {
 #pragma unroll
         for (int n = 0; n < kQSub / 8; ++n) {
           const int off = (sub + 8 * n + g) * kKStride + t;
-          dot_3xtf32<true>(st[n], kf, q_s + off, a.scale);
-          dot_3xtf32<true>(dpt[n], vf, do_s + off, 1.f);
+          dot_form<F, true>(st[n], kf, q_s + off, a.scale);
+          dot_form<F, true>(dpt[n], vf, do_s + off, 1.f);
         }
 
         // P^T z and dS^T in place; this lane's query rows are 2t, 2t + 1
@@ -276,13 +281,13 @@ flash_bwd_dkdv_kernel(const Operands a) {
           }
 #pragma unroll
         for (int kk = 0; kk < kQSub / 8; ++kk) {
-          const FragA pa = frag_a_from_c(st[kk]);
-          const FragA da = frag_a_from_c(dpt[kk]);
+          const FragA pa = frag_a_from_c<F>(st[kk]);
+          const FragA da = frag_a_from_c<F>(dpt[kk]);
           const int off = (sub + 8 * kk + 2 * t) * kKStride + g;
 #pragma unroll
           for (int n = 0; n < kDh / 8; ++n) {
-            mma_3xtf32(pdv[n], pa, frag_b(do_s[off + 8 * n], do_s[off + kKStride + 8 * n]));
-            mma_3xtf32(pdk[n], da, frag_b(q_s[off + 8 * n], q_s[off + kKStride + 8 * n]));
+            mma_form<F>(pdv[n], pa, frag_b<F>(do_s[off + 8 * n], do_s[off + kKStride + 8 * n]));
+            mma_form<F>(pdk[n], da, frag_b<F>(q_s[off + 8 * n], q_s[off + kKStride + 8 * n]));
           }
         }
 #pragma unroll
@@ -311,6 +316,7 @@ flash_bwd_dkdv_kernel(const Operands a) {
   }
 }
 
+template <int F>
 __global__ void __launch_bounds__(kWarps * 32, 3)
 flash_bwd_dq_kernel(const Operands a) {
   extern __shared__ float4 smem4[];
@@ -352,9 +358,9 @@ flash_bwd_dq_kernel(const Operands a) {
 #pragma unroll
     for (int ks = 0; ks < kDh / 8; ++ks) {
       const int c = 8 * ks;
-      qf[ks] = frag_a(a.q[g0 + c] * a.scale, a.q[g1 + c] * a.scale, a.q[g0 + c + 4] * a.scale,
+      qf[ks] = frag_a<F>(a.q[g0 + c] * a.scale, a.q[g1 + c] * a.scale, a.q[g0 + c + 4] * a.scale,
                       a.q[g1 + c + 4] * a.scale);
-      of[ks] = frag_a(a.d_out[g0 + c], a.d_out[g1 + c], a.d_out[g0 + c + 4],
+      of[ks] = frag_a<F>(a.d_out[g0 + c], a.d_out[g1 + c], a.d_out[g0 + c + 4],
                       a.d_out[g1 + c + 4]);
     }
     const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
@@ -401,8 +407,8 @@ flash_bwd_dq_kernel(const Operands a) {
 #pragma unroll
       for (int n = 0; n < kDqChunk / 8; ++n) {
         const int off = (c0 + 8 * n + g) * kKStride + t;
-        dot_3xtf32(s[n], qf, k_s + off, 1.f);
-        dot_3xtf32(dp[n], of, v_s + off, 1.f);
+        dot_form<F>(s[n], qf, k_s + off, 1.f);
+        dot_form<F>(dp[n], of, v_s + off, 1.f);
       }
 
       // dS in place of S
@@ -432,11 +438,11 @@ flash_bwd_dq_kernel(const Operands a) {
         for (int e = 0; e < 4; ++e) pdq[n][e] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < kDqChunk / 8; ++kk) {
-        const FragA da = frag_a_from_c(s[kk]);
+        const FragA da = frag_a_from_c<F>(s[kk]);
         const float* kr = k_s + (c0 + 8 * kk + 2 * t) * kKStride + g;
 #pragma unroll
         for (int n = 0; n < kDh / 8; ++n) {
-          mma_3xtf32(pdq[n], da, frag_b(kr[8 * n], kr[kKStride + 8 * n]));
+          mma_form<F>(pdq[n], da, frag_b<F>(kr[8 * n], kr[kKStride + 8 * n]));
         }
       }
 #pragma unroll
@@ -470,6 +476,30 @@ flash_bwd_dq_kernel(const Operands a) {
 constexpr int kDkdvSmem = sizeof(float) * 2 * kQStageFloats;
 constexpr int kDqSmem = sizeof(float) * 2 * 2 * kDqKeys * kKStride;
 
+// the dq kernel, then the dk/dv kernel, which reads the D' the dq kernel
+// leaves in a.delta
+template <int F>
+cudaError_t launch_products(const Operands& a, int batch, cudaStream_t s) {
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<F>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(flash_bwd_dq_kernel<F>,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<F><<<dim3((a.len + kDqRows - 1) / kDqRows, a.heads, batch), kWarps * 32,
+                           kDqSmem, s>>>(a);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<F>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkdv_kernel<F><<<dim3((a.len + kKvKeys - 1) / kKvKeys, a.heads, batch),
+                             kWarps * 32, kDkdvSmem, s>>>(a);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -478,16 +508,19 @@ extern "C" {
 // returns cudaGetLastError() (0 = launched). q, k, v, out, d_out, dq, dk, dv
 // (B, L, H*Dh); key_valid (B, L); lse and delta (B, H, L), delta scratch
 // (the pre-pass writes D there, the dq kernel D'); threshold = floor(p *
-// 2^24) (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's.
-// f32, contiguous and 16-byte aligned; 1 <= L <= 4096, Dh = 32.
+// 2^24) (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's;
+// form the products' form, 0 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh),
+// any other value refused. f32, contiguous and 16-byte aligned;
+// 1 <= L <= 4096, Dh = 32.
 int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float* v,
                                      const float* key_valid, const float* out,
                                      const float* lse, const float* d_out, float* delta,
                                      float* dq, float* dk, float* dv, int batch, int len,
                                      int heads, int head_dim, float scale, unsigned seed,
-                                     unsigned threshold, float keep_scale, void* stream) {
+                                     unsigned threshold, float keep_scale, int form,
+                                     void* stream) {
   if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 || batch > 65535 ||
-      heads < 1 || heads > 65535) {
+      heads < 1 || heads > 65535 || form < kForm3xTF32 || form > kFormBF16) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
@@ -498,24 +531,11 @@ int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float
 
   const Operands a = {q, k, v, key_valid, lse, d_out, delta, dq, dk, dv,
                       len, heads, scale, seed, threshold, keep_scale};
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             kDqSmem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(flash_bwd_dq_kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dq_kernel<<<dim3((len + kDqRows - 1) / kDqRows, heads, batch), kWarps * 32,
-                        kDqSmem, s>>>(a);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  // after the dq kernel: it leaves D' in delta
-  err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
-  if (err != cudaSuccess) return (int)err;
-  flash_bwd_dkdv_kernel<<<dim3((len + kKvKeys - 1) / kKvKeys, heads, batch), kWarps * 32,
-                          kDkdvSmem, s>>>(a);
-  return (int)cudaGetLastError();
+  switch (form) {
+    case kForm1xTF32: return (int)launch_products<kForm1xTF32>(a, batch, s);
+    case kFormBF16: return (int)launch_products<kFormBF16>(a, batch, s);
+    default: return (int)launch_products<kForm3xTF32>(a, batch, s);
+  }
 }
 
 }  // extern "C"

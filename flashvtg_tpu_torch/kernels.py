@@ -6,6 +6,9 @@ library, at first use, into `_build/` beside this file (listed in
 csrc/ and the flags, so an edited source or header is rebuilt and a stale
 library is never loaded.
 `build_all()` starts one nvcc per source, all at once, and waits for them.
+Every kernel with a product is a template on its product form (ops/forms.py,
+csrc/attn_common.cuh), so a library holds each kernel three times, and
+every C entry takes the form as an int before its stream.
 Nothing here runs at import: the tests import every module on machines
 without nvcc or a card.
 """
@@ -15,6 +18,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -106,6 +110,25 @@ def sass_mma_counts(name: str) -> Dict[str, int]:
     return counts
 
 
+_FORM_OF = re.compile(r"\d+([a-z_]+_kernel)ILi(\d)E")
+
+
+def hmma_by_form(counts: Dict[str, int]) -> Dict[str, Dict[str, int]]:
+    """{kernel: {form: tensor-core instructions over its instances}} of
+    sass_mma_counts' result: the form is the first template argument of
+    every kernel with a product (its mangled name's `ILi<form>E`); kernels
+    without one (no product) are left out."""
+    from flashvtg_tpu_torch.ops.forms import FORMS
+
+    out: Dict[str, Dict[str, int]] = {}
+    for fn, n in counts.items():
+        m = _FORM_OF.search(fn)
+        if m:
+            per = out.setdefault(m.group(1), dict.fromkeys(FORMS, 0))
+            per[FORMS[int(m.group(2))]] += n
+    return out
+
+
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of `name`, built first if needed."""
     lib = _libs.get(name)
@@ -123,17 +146,18 @@ def load(name: str) -> ctypes.CDLL:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    train = [f, u, u, f, p]  # scale, seed, dropout threshold, keep scale, stream
+    # scale, seed, dropout threshold, keep scale, form, stream
+    train = [f, u, u, f, i, p]
     signatures = {
         "aca_attention": {
-            "flashvtg_aca_attention_f32": [p] * 6 + [i] * 6 + [f, p],
+            "flashvtg_aca_attention_f32": [p] * 6 + [i] * 6 + [f, i, p],
             "flashvtg_aca_attention_train_f32": [p] * 9 + [i] * 6 + train,
         },
         "aca_attention_bwd": {
             "flashvtg_aca_attention_bwd_f32": [p] * 13 + [i] * 7 + train,
         },
         "flash_attention": {
-            "flashvtg_flash_attention_f32": [p] * 5 + [i] * 4 + [f, p],
+            "flashvtg_flash_attention_f32": [p] * 5 + [i] * 4 + [f, i, p],
             "flashvtg_flash_attention_train_f32": [p] * 6 + [i] * 4 + train,
         },
         "flash_attention_bwd": {

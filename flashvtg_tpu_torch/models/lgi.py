@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from flashvtg_tpu_torch.models.components import sine_position_embedding
+from flashvtg_tpu_torch.utils.runtime import widened
 
 
 def _split_heads(x, num_heads):
@@ -41,8 +42,8 @@ def _merge_heads(x):
 class MHACore(nn.Module):
     """torch nn.MultiheadAttention's function and parameters (packed
     in_proj, out_proj): q, k, v projected, q scaled by head_dim^-0.5 after
-    its projection, keys with key_valid <= 0 masked to -inf, softmax,
-    dropout on the probabilities, out projection. With `need_weights` the
+    its projection, keys with key_valid <= 0 masked to -inf, softmax in
+    float32, dropout on the probabilities, out projection. With `need_weights` the
     head mean of the undropped probabilities is returned too."""
 
     def __init__(self, d: int, num_heads: int, dropout: float = 0.1):
@@ -61,7 +62,10 @@ class MHACore(nn.Module):
         q = _split_heads(F.linear(q_in, w[:d], b[:d]) * hd ** -0.5, self.num_heads)
         k = _split_heads(F.linear(k_in, w[d : 2 * d], b[d : 2 * d]), self.num_heads)
         v = _split_heads(F.linear(v_in, w[2 * d :], b[2 * d :]), self.num_heads)
-        logits = torch.einsum("bhqd,bhkd->bhqk", q, k)
+        # the einsums follow the precision dial (bf16 under autocast); the
+        # mask, the softmax and the head mean stay in float32 (or float64), so the -inf
+        # fill and the probabilities keep f32 range and rounding
+        (logits,) = widened(torch.einsum("bhqd,bhkd->bhqk", q, k))
         if key_valid is not None:
             logits = logits.masked_fill((key_valid <= 0)[:, None, None, :], float("-inf"))
         weights = torch.softmax(logits, dim=-1)

@@ -3,7 +3,9 @@ versions, forward and backward.
 
 Kernels: csrc/aca_attention.cu (forward) and csrc/aca_attention_bwd.cu
 (backward), hand-written CUDA for sm_90a, their products on the tensor cores
-in 3xTF32 (f32-accurate). The forward
+in the form of the current precision dial (ops/forms.py): 3xTF32
+(f32-accurate) at float32, 1xTF32 at tensorfloat32, bf16 operands with f32
+sums at bfloat16. The forward
 replaces the Pallas kernel scripts/bench_aca.py:_aca_kernel (the TPU's fused
 ACA attention), whose function runs at every ACA layer of the model
 (flashvtg_tpu/models/transformer.py:80-128); with no dummies and no head
@@ -33,8 +35,15 @@ probabilities from q, k and the log-sum-exp.
 A CPU tensor goes to the plain PyTorch versions (`*_plain`, and
 `aca_attention_bwd_plain` for the backward, inside the same Function); a
 CUDA tensor launches the kernels or raises, with no fallback. Each wrapper
-counts its launches in LAUNCHES, where it launches and nowhere else; a
-backward counts under its forward's name + "_bwd".
+counts its launches by product form in FORM_LAUNCHES, where it launches and
+nowhere else (launch_counts sums the forms); a backward counts under its
+forward's name + "_bwd".
+
+The wrappers read the product form at the call (utils/runtime.py:
+kernel_form; the Function keeps it for its backward) and take q, k, v in
+float32 with autocast off: under the bfloat16 dial the projections arrive in
+bf16, and the kernels, like their plain versions (`form=`), round the
+operands of each product themselves.
 """
 
 from __future__ import annotations
@@ -44,11 +53,12 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from flashvtg_tpu_torch.ops.attn_dropout import draw_seed, keep_scale, threshold
+from flashvtg_tpu_torch.ops.forms import FORM_IDS, FORMS, autocast_off, product
+from flashvtg_tpu_torch.utils.runtime import kernel_form, widened
 
-LAUNCHES: Dict[str, int] = {
-    "aca_attention": 0, "masked_attention": 0,
-    "aca_attention_bwd": 0, "masked_attention_bwd": 0,
-}
+KERNELS = ("aca_attention", "masked_attention", "aca_attention_bwd", "masked_attention_bwd")
+# each kernel's launches by product form (ops/forms.py)
+FORM_LAUNCHES: Dict[str, Dict[str, int]] = {form: dict.fromkeys(KERNELS, 0) for form in FORMS}
 
 HEAD_DIM = 32
 MAX_KEYS = 128
@@ -77,9 +87,18 @@ def bwd_workspace_shape(b: int, num_heads: int, lv: int, lk: int):
     return None if chunks == 1 else (2, b, num_heads, chunks, lk, HEAD_DIM)
 
 
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launches over every form since the last reset."""
+    return {name: sum(counts[name] for counts in FORM_LAUNCHES.values()) for name in KERNELS}
+
+
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    for counts in FORM_LAUNCHES.values():
+        counts.update(dict.fromkeys(KERNELS, 0))
+
+
+def _count(name: str, form: str) -> None:
+    FORM_LAUNCHES[form][name] += 1
 
 
 def _split_heads(x, num_heads):
@@ -92,14 +111,15 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, l, h * hd)
 
 
-def _masked_logits(q, k, key_valid, num_heads, query_valid=None, donor_rows=None):
+def _masked_logits(q, k, key_valid, num_heads, query_valid=None, donor_rows=None,
+                   form="3xtf32"):
     """Scaled logits (B, H, Lq, Lk), -inf where masked: invalid keys, and
     with donor rows also where !query_valid[d, i] && !key_valid[d, j],
-    d = donor_rows[b, h]."""
+    d = donor_rows[b, h]. The products in `form` (ops/forms.py)."""
     head_dim = q.shape[-1] // num_heads
-    logits = torch.einsum(
+    logits = product(
         "bhqd,bhkd->bhqk",
-        _split_heads(q * head_dim ** -0.5, num_heads), _split_heads(k, num_heads),
+        _split_heads(q * head_dim ** -0.5, num_heads), _split_heads(k, num_heads), form,
     )
     masked = (key_valid <= 0)[:, None, None, :]
     if donor_rows is not None:
@@ -116,54 +136,75 @@ def _dropout_scale(seed, p, logits):
     return keep_scale(seed, p, b, h, rows, lk, logits.dtype)
 
 
+def _softmax(logits, form, want_lse):
+    """(softmax of logits over the last axis, its log-sum-exp or None). At
+    "3xtf32" torch's own softmax; at the rounded forms the kernel's order,
+    e = exp(s - max), p = e / l, lse = max + log(l), so that the operands
+    that p.v rounds are the kernel's."""
+    if form == "3xtf32":
+        return torch.softmax(logits, dim=-1), (
+            torch.logsumexp(logits, dim=-1) if want_lse else None)
+    m = logits.amax(dim=-1, keepdim=True)
+    e = torch.exp(logits - m)
+    l = e.sum(dim=-1, keepdim=True)
+    return e / l, (m + torch.log(l)).squeeze(-1)
+
+
 def aca_attention_plain(q, k, v, key_valid, num_heads: int, num_dummies: int,
                         want_head_mean: bool = True, dropout: float = 0.0,
                         seed: int = 0, query_valid=None, donor_rows=None,
-                        want_lse: bool = False):
+                        want_lse: bool = False, form: str = "3xtf32"):
     """The plain version: einsum, masked_fill, softmax, dropout, slice,
-    einsum. Returns (out, head_mean or None), and the row log-sum-exp
-    (B, H, Lq) third when `want_lse`."""
+    einsum, the two products' operands rounded as the kernel's `form`
+    rounds them (tests/test_torch_tf32x3.py holds it to that arithmetic).
+    Returns (out, head_mean or None), and the row log-sum-exp (B, H, Lq)
+    third when `want_lse`."""
     nd = num_dummies
-    logits = _masked_logits(q, k, key_valid, num_heads, query_valid, donor_rows)
-    weights = torch.softmax(logits, dim=-1)  # dummies included
+    logits = _masked_logits(q, k, key_valid, num_heads, query_valid, donor_rows, form)
+    weights, lse = _softmax(logits, form, want_lse)  # dummies included
     head_mean = weights.sum(dim=1) / num_heads if want_head_mean else None
     if dropout > 0:
         weights = weights * _dropout_scale(seed, dropout, logits)
-    out = torch.einsum(
-        "bhqk,bhkd->bhqd", weights[..., nd:], _split_heads(v, num_heads)[:, :, nd:]
+    out = product(
+        "bhqk,bhkd->bhqd", weights[..., nd:], _split_heads(v, num_heads)[:, :, nd:], form
     )
     if want_lse:
-        return _merge_heads(out), head_mean, torch.logsumexp(logits, dim=-1)
+        return _merge_heads(out), head_mean, lse
     return _merge_heads(out), head_mean
 
 
-def masked_attention_plain(q, k, v, key_valid, num_heads: int):
-    return aca_attention_plain(q, k, v, key_valid, num_heads, 0, False)[0]
+def masked_attention_plain(q, k, v, key_valid, num_heads: int, form: str = "3xtf32"):
+    return aca_attention_plain(q, k, v, key_valid, num_heads, 0, False, form=form)[0]
 
 
 def aca_attention_bwd_plain(q, k, v, key_valid, lse, d_out, d_head_mean,
                             num_heads: int, num_dummies: int, dropout: float = 0.0,
-                            seed: int = 0, query_valid=None, donor_rows=None):
+                            seed: int = 0, query_valid=None, donor_rows=None,
+                            form: str = "3xtf32"):
     """(dq, dk, dv) of aca_attention_plain, by the formulas the backward
     kernel uses: P = exp(logits - lse),
     dP_ij = [j >= nd] z_ij (dO_i . v_j) + dHeadMean_ij / H,
-    dS = P (dP - rowsum(P dP)), dq = scale dS k, dk = dS^T (scale q),
-    dv = (P z)^T dO over keys j >= nd, with z the dropout scale."""
+    dS = P (dP - rowsum(P dP)), dq = scale dS k, dk = dS^T (scale q) (at
+    the rounded forms scale dS^T q, as the kernel), dv = (P z)^T dO over keys j >= nd, with z the dropout scale; every
+    product's operands rounded as the kernel's `form` rounds them."""
     nd = num_dummies
     head_dim = q.shape[-1] // num_heads
     scale = head_dim ** -0.5
-    logits = _masked_logits(q, k, key_valid, num_heads, query_valid, donor_rows)
+    logits = _masked_logits(q, k, key_valid, num_heads, query_valid, donor_rows, form)
     p = torch.exp(logits - lse[..., None])
     z = _dropout_scale(seed, dropout, logits) if dropout > 0 else torch.ones_like(p)
     z[..., :nd] = 0  # the dummies' probabilities never reach p.v
     d_oh = _split_heads(d_out, num_heads)
-    dp = z * torch.einsum("bhqd,bhkd->bhqk", d_oh, _split_heads(v, num_heads))
+    dp = z * product("bhqd,bhkd->bhqk", d_oh, _split_heads(v, num_heads), form)
     if d_head_mean is not None:
         dp = dp + d_head_mean[:, None] / num_heads
     ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
-    dq = torch.einsum("bhqk,bhkd->bhqd", ds, _split_heads(k, num_heads)) * scale
-    dk = torch.einsum("bhqk,bhqd->bhkd", ds, _split_heads(q * scale, num_heads))
-    dv = torch.einsum("bhqk,bhqd->bhkd", p * z, d_oh)
+    dq = product("bhqk,bhkd->bhqd", ds, _split_heads(k, num_heads), form) * scale
+    if form == "3xtf32":
+        dk = product("bhqk,bhqd->bhkd", ds, _split_heads(q * scale, num_heads), form)
+    else:  # the kernel scales after the product, which rounds q itself
+        dk = product("bhqk,bhqd->bhkd", ds, _split_heads(q, num_heads), form) * scale
+    dv = product("bhqk,bhqd->bhkd", p * z, d_oh, form)
     return _merge_heads(dq), _merge_heads(dk), _merge_heads(dv)
 
 
@@ -242,7 +283,8 @@ def _donor_operands(tag, query_valid, donor_rows, b, lv, num_heads, q):
 
 
 def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
-            dropout=0.0, seed=0, query_valid=None, donor_rows=None, want_lse=False):
+            dropout=0.0, seed=0, query_valid=None, donor_rows=None, want_lse=False,
+            form="3xtf32"):
     """The forward kernel, with aca_attention_plain's arguments and results.
     Without LSE, dropout or donor rows it launches the eval entry; otherwise
     the training entry, which also writes the row log-sum-exp."""
@@ -257,7 +299,8 @@ def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
         rc = lib.flashvtg_aca_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
             out.data_ptr(), _ptr(head_mean),
-            b, lv, lk, num_heads, HEAD_DIM, num_dummies, HEAD_DIM ** -0.5, _stream(q),
+            b, lv, lk, num_heads, HEAD_DIM, num_dummies, HEAD_DIM ** -0.5, FORM_IDS[form],
+            _stream(q),
         )
         _check_rc(tag, rc)
         return out, head_mean
@@ -268,14 +311,14 @@ def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(query_valid), _ptr(donor_rows), out.data_ptr(), _ptr(head_mean),
         lse.data_ptr(), b, lv, lk, num_heads, HEAD_DIM, num_dummies, HEAD_DIM ** -0.5,
-        seed, threshold(dropout), 1.0 / (1.0 - dropout), _stream(q),
+        seed, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
     _check_rc(tag, rc)
     return (out, head_mean, lse) if want_lse else (out, head_mean)
 
 
 def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dummies,
-                dropout=0.0, seed=0, query_valid=None, donor_rows=None):
+                dropout=0.0, seed=0, query_valid=None, donor_rows=None, form="3xtf32"):
     """The backward kernel, with aca_attention_bwd_plain's arguments."""
     from flashvtg_tpu_torch import kernels
 
@@ -298,7 +341,7 @@ def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dumm
         _ptr(query_valid), _ptr(donor_rows), lse.data_ptr(), d_out.data_ptr(),
         _ptr(d_head_mean), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(workspace),
         b, lv, lk, num_heads, HEAD_DIM, num_dummies, bwd_tiling(lv, lk)[1], HEAD_DIM ** -0.5,
-        seed, threshold(dropout), 1.0 / (1.0 - dropout), _stream(q),
+        seed, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
     _check_rc(tag, rc)
     return dq, dk, dv
@@ -306,37 +349,39 @@ def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dumm
 
 class _AttentionFn(torch.autograd.Function):
     """Training form of the short/ACA attention: the forward (with LSE,
-    dropout and donor rows) and its backward, kernels on the card and the
-    plain versions on the CPU. Returns out, and head_mean when asked."""
+    dropout and donor rows) and its backward, in the forward's product form,
+    kernels on the card and the plain versions on the CPU. Returns out, and
+    head_mean when asked."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, query_valid, donor_rows, num_heads,
-                num_dummies, want_head_mean, dropout, seed, name):
+                num_dummies, want_head_mean, dropout, seed, name, form):
         on_cpu = q.device.type == "cpu"
         out, head_mean, lse = (aca_attention_plain if on_cpu else _launch)(
             q, k, v, key_valid, num_heads, num_dummies, want_head_mean, dropout, seed,
-            query_valid, donor_rows, want_lse=True,
+            query_valid, donor_rows, want_lse=True, form=form,
         )
         if not on_cpu:
-            LAUNCHES[name] += 1
+            _count(name, form)
         ctx.save_for_backward(q, k, v, key_valid, query_valid, donor_rows, lse)
-        ctx.args = (num_heads, num_dummies, dropout, seed, name)
+        ctx.args = (num_heads, num_dummies, dropout, seed, name, form)
         return (out, head_mean) if want_head_mean else out
 
     @staticmethod
     def backward(ctx, d_out, d_head_mean=None):
         q, k, v, key_valid, query_valid, donor_rows, lse = ctx.saved_tensors
-        num_heads, num_dummies, dropout, seed, name = ctx.args
+        num_heads, num_dummies, dropout, seed, name, form = ctx.args
         if d_out is None:
             d_out = torch.zeros_like(q)
         on_cpu = q.device.type == "cpu"
-        dq, dk, dv = (aca_attention_bwd_plain if on_cpu else _launch_bwd)(
-            q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dummies, dropout,
-            seed, query_valid, donor_rows,
-        )
+        with autocast_off(q):
+            dq, dk, dv = (aca_attention_bwd_plain if on_cpu else _launch_bwd)(
+                q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dummies,
+                dropout, seed, query_valid, donor_rows, form=form,
+            )
         if not on_cpu:
-            LAUNCHES[name + "_bwd"] += 1
-        return (dq, dk, dv) + (None,) * 9
+            _count(name + "_bwd", form)
+        return (dq, dk, dv) + (None,) * 10
 
 
 def _train_form(q, k, v, dropout, donor_rows):
@@ -351,29 +396,39 @@ def aca_attention(q, k, v, key_valid, num_heads: int, num_dummies: int,
                   want_head_mean: bool = True, dropout: float = 0.0,
                   generator: Optional[torch.Generator] = None, query_valid=None,
                   donor_rows=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """ACA core: (out (B, Lv, H*Dh), head_mean (B, Lv, Lk) or None)."""
-    if not _train_form(q, k, v, dropout, donor_rows):
-        if q.device.type == "cpu":
-            return aca_attention_plain(q, k, v, key_valid, num_heads, num_dummies,
-                                       want_head_mean)
-        result = _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean)
-        LAUNCHES["aca_attention"] += 1
-        return result
-    seed = draw_seed(generator) if dropout > 0 else 0
-    res = _AttentionFn.apply(q, k, v, key_valid, query_valid, donor_rows, num_heads,
-                             num_dummies, want_head_mean, dropout, seed, "aca_attention")
+    """ACA core: (out (B, Lv, H*Dh), head_mean (B, Lv, Lk) or None), in the
+    current dial's product form; bf16 operands are taken in float32."""
+    form = kernel_form()
+    q, k, v = widened(q, k, v)
+    with autocast_off(q):
+        if not _train_form(q, k, v, dropout, donor_rows):
+            if q.device.type == "cpu":
+                return aca_attention_plain(q, k, v, key_valid, num_heads, num_dummies,
+                                           want_head_mean, form=form)
+            result = _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean,
+                             form=form)
+            _count("aca_attention", form)
+            return result
+        seed = draw_seed(generator) if dropout > 0 else 0
+        res = _AttentionFn.apply(q, k, v, key_valid, query_valid, donor_rows, num_heads,
+                                 num_dummies, want_head_mean, dropout, seed, "aca_attention",
+                                 form)
     return res if want_head_mean else (res, None)
 
 
 def masked_attention(q, k, v, key_valid, num_heads: int, dropout: float = 0.0,
                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
-    """Self-attention core softmax(q k^T / sqrt(Dh), key mask) v, (B, L, H*Dh)."""
-    if not _train_form(q, k, v, dropout, None):
-        if q.device.type == "cpu":
-            return masked_attention_plain(q, k, v, key_valid, num_heads)
-        out, _ = _launch(q, k, v, key_valid, num_heads, 0, False)
-        LAUNCHES["masked_attention"] += 1
-        return out
-    seed = draw_seed(generator) if dropout > 0 else 0
-    return _AttentionFn.apply(q, k, v, key_valid, None, None, num_heads, 0, False,
-                              dropout, seed, "masked_attention")
+    """Self-attention core softmax(q k^T / sqrt(Dh), key mask) v, (B, L, H*Dh),
+    in the current dial's product form; bf16 operands are taken in float32."""
+    form = kernel_form()
+    q, k, v = widened(q, k, v)
+    with autocast_off(q):
+        if not _train_form(q, k, v, dropout, None):
+            if q.device.type == "cpu":
+                return masked_attention_plain(q, k, v, key_valid, num_heads, form)
+            out, _ = _launch(q, k, v, key_valid, num_heads, 0, False, form=form)
+            _count("masked_attention", form)
+            return out
+        seed = draw_seed(generator) if dropout > 0 else 0
+        return _AttentionFn.apply(q, k, v, key_valid, None, None, num_heads, 0, False,
+                                  dropout, seed, "masked_attention", form)

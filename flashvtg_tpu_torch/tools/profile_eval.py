@@ -2,6 +2,7 @@
 
     python -m flashvtg_tpu_torch.tools.profile_eval [--preset qvhighlights_slowclip]
         [--bsz <the preset's eval_bsz, or bsz with --train>] [--steps 10] [--train]
+        [--precision float32 [tensorfloat32 bfloat16]]
 
 Any preset of train/config.py: qvhighlights_slowclip, tacos, tvsum,
 youtube_uni, charades, charades_internvideo2, charades_vgg, and the
@@ -16,11 +17,15 @@ with torch.profiler; with --train, train steps instead (train forward with
 both passes, losses, backward, clipping, AdamW; every dropout at its
 preset value), on labels of one window per video (saliency 1 inside it,
 two positive and two negative clips, as TACoS labels are drawn) or, for
-the HD sets, TVSum-like clip scores. Prints the card's name and power
-limit, then one JSON line: host wall time and device-busy time per step,
-the idle share, device time by kernel class (each of the port's attention
-kernels by name, forward and backward, GEMMs, convolutions, the rest) and
-the top kernels by device time. For a FlashVTG_ms model it also reports
+the HD sets, TVSum-like clip scores. Each --precision mode (the
+eval or train step's dial, utils/runtime.py:matmul_precision) is profiled
+in turn on the same model and batch. Prints the card's name and power
+limit, then one JSON line a mode: host wall time and device-busy time per
+step, the idle share, device time by kernel class (each of the port's
+attention kernels by name, forward and backward, GEMMs, convolutions,
+casts: the kernels of every dtype conversion, autocast's included, found
+by their `aten::_to_copy` op; the rest) and the top kernels by device
+time. For a FlashVTG_ms model it also reports
 `lgi_attention`: the device time of the plain LGI attention modules
 (models/lgi.py MHACore: projections, logits, softmax, dropout, p.v), the
 kernels launched inside them (forward) and by the autograd nodes of their
@@ -47,7 +52,7 @@ from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import from_preset
 from flashvtg_tpu_torch.train.infer import make_eval_step
 from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step
-from flashvtg_tpu_torch.utils.runtime import resolve_device
+from flashvtg_tpu_torch.utils.runtime import PRECISIONS, resolve_device
 
 
 def kernel_class(name: str) -> str:
@@ -58,12 +63,14 @@ def kernel_class(name: str) -> str:
         return "flash_attention_bwd"
     if "aca_attention_bwd" in low:  # the kernel and its chunk-sum pass
         return "aca_attention_bwd"  # the ACA and the short self-attention's
-    hm = re.search(r"aca_attention_kernel<\d+,\s*(true|false)", low)
+    hm = re.search(r"aca_attention_kernel<\d+,\s*\d+,\s*(true|false)", low)
     if hm:
-        # one template: with the head mean it is the ACA core, without it
-        # the short masked self-attention
+        # one template <form, key tiles, head mean, train>: with the head
+        # mean it is the ACA core, without it the short masked self-attention
         return "aca_attention" if hm.group(1) == "true" else "masked_attention"
-    if "gemm" in low or "cutlass" in low or "xmma" in low or "matmul" in low:
+    # cuBLAS's bf16 GEMMs on this card are its "nvjet" kernels
+    if ("gemm" in low or "cutlass" in low or "xmma" in low or "matmul" in low
+            or "nvjet" in low):
         return "gemm"
     if "conv" in low or "cudnn" in low:
         return "conv"
@@ -122,6 +129,25 @@ def window_labels(rng, v_lens, lv, clip_length, max_windows):
 
 
 LGI_TAG = "lgi_attention"
+CAST_OP = "aten::_to_copy"  # every dtype conversion; autocast's casts call it
+
+
+def cast_device_us(events):
+    """Device microseconds of the kernels under the outermost CAST_OP ops
+    (the conversions; their kernels are elementwise copies, "other" by
+    name)."""
+    total = 0.0
+    for e in events:
+        if e.device_type != torch.autograd.DeviceType.CPU or e.name != CAST_OP:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != CAST_OP:
+            p = p.cpu_parent
+        if p is None:
+            total += sum(k.duration for k in e.kernels if "memcpy" not in k.name.lower()
+                         and "memset" not in k.name.lower())
+            total += sum(ch.device_time_total for ch in e.cpu_children)
+    return total
 
 
 def mark_modules(model, cls, tag):
@@ -176,6 +202,57 @@ def marked_device_us(events, tag):
     return sum(r.device_time_total for r in ranges), bwd
 
 
+def profile(step, steps, n_marked):
+    """Profile `steps` calls of step() (after 3 warm-up calls): the JSON
+    fields of one mode."""
+    for _ in range(3):
+        step()
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    events = prof.events()
+    for e in events:
+        # the ranges' own device-side annotations are not kernels
+        if (e.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
+            per_name[e.name][0] += e.time_range.elapsed_us()
+            per_name[e.name][1] += 1
+    busy_us = sum(us for us, _ in per_name.values())
+    classes = collections.defaultdict(float)
+    for name, (us, _) in per_name.items():
+        classes[kernel_class(name)] += us
+    casts = cast_device_us(events)
+    classes["casts"] = casts
+    classes["other"] -= casts
+    n = steps
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
+    lgi = None
+    if n_marked:
+        fwd_us, bwd_us = marked_device_us(events, LGI_TAG)
+        lgi = {"modules": n_marked, "fwd_ms_per_step": fwd_us / 1e3 / n,
+               "bwd_ms_per_step": bwd_us / 1e3 / n,
+               "share_of_busy": (fwd_us + bwd_us) / busy_us if busy_us else None}
+    return {
+        "wall_ms_per_step": wall * 1e3 / n,
+        "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
+        "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
+        "class_ms_per_step": {k: v / 1e3 / n for k, v in classes.items()},
+        LGI_TAG: lgi,
+        "top": [
+            {"name": name[:90], "ms_per_step": us / 1e3 / n, "calls_per_step": c / n}
+            for name, (us, c) in top
+        ],
+    }
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -183,6 +260,8 @@ def main():
     ap.add_argument("--bsz", type=int, default=None)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--train", action="store_true", help="profile train steps")
+    ap.add_argument("--precision", nargs="+", default=["float32"], choices=PRECISIONS,
+                    help="the step's dial; each mode given is profiled in turn")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -210,65 +289,28 @@ def main():
     elif args.train:
         batch.update(window_labels(rng, v_lens, lv, cfg.clip_length, cfg.max_windows))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
-    if args.train:
-        optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
-        train_step = make_train_step(model.train(), cfg.loss_config(), optimizer, scheduler,
-                                     cfg.grad_clip, torch.Generator().manual_seed(args.seed))
+    for mode in args.precision:
+        if args.train:
+            optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
+            train_step = make_train_step(
+                model.train(), cfg.loss_config(), optimizer, scheduler, cfg.grad_clip,
+                torch.Generator().manual_seed(args.seed), mode)
 
-        def step():
-            train_step(batch)
-    else:
-        pv = torch.from_numpy(pyramid_masks_strict(v_lens, lv, cfg.strides)[0]).to(dev)
-        eval_step = make_eval_step(model, cfg.max_num_moment, saliency_only=hd)
+            def step():
+                train_step(batch)
+        else:
+            pv = torch.from_numpy(pyramid_masks_strict(v_lens, lv, cfg.strides)[0]).to(dev)
+            eval_step = make_eval_step(model, cfg.max_num_moment, mode, saliency_only=hd)
 
-        def step():
-            eval_step(batch, pv)
-    for _ in range(3):
-        step()
-    torch.cuda.synchronize()
-
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.steps):
-            step()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-
-    per_name = collections.defaultdict(lambda: [0.0, 0])
-    events = prof.events()
-    for e in events:
-        # the ranges' own device-side annotations are not kernels
-        if (e.device_type == torch.autograd.DeviceType.CUDA
-                and not getattr(e, "is_user_annotation", False)):
-            per_name[e.name][0] += e.time_range.elapsed_us()
-            per_name[e.name][1] += 1
-    busy_us = sum(us for us, _ in per_name.values())
-    classes = collections.defaultdict(float)
-    for name, (us, _) in per_name.items():
-        classes[kernel_class(name)] += us
-    n = args.steps
-    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:12]
-    lgi = None
-    if n_marked:
-        fwd_us, bwd_us = marked_device_us(events, LGI_TAG)
-        lgi = {"modules": n_marked, "fwd_ms_per_step": fwd_us / 1e3 / n,
-               "bwd_ms_per_step": bwd_us / 1e3 / n,
-               "share_of_busy": (fwd_us + bwd_us) / busy_us if busy_us else None}
-    print(json.dumps({
-        "preset": args.preset, "mode": "train" if args.train else "eval", "bsz": b, "steps": n,
-        # the self-attention's valid keys: the flash kernel skips the rest
-        "valid_clips": int(v_lens.sum()), "padded_clips": b * lv,
-        "wall_ms_per_step": wall * 1e3 / n,
-        "device_busy_ms_per_step": busy_us / 1e3 / n if busy_us else None,
-        "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
-        "class_ms_per_step": {k: v / 1e3 / n for k, v in classes.items()},
-        LGI_TAG: lgi,
-        "top": [
-            {"name": name[:90], "ms_per_step": us / 1e3 / n, "calls_per_step": c / n}
-            for name, (us, c) in top
-        ],
-    }))
+            def step():
+                eval_step(batch, pv)
+        print(json.dumps({
+            "preset": args.preset, "mode": "train" if args.train else "eval",
+            "precision": mode, "bsz": b, "steps": args.steps,
+            # the self-attention's valid keys: the flash kernel skips the rest
+            "valid_clips": int(v_lens.sum()), "padded_clips": b * lv,
+            **profile(step, args.steps, n_marked),
+        }), flush=True)
 
 
 if __name__ == "__main__":

@@ -2,10 +2,8 @@
 
 Counterpart of flashvtg_tpu/train/config.py. `ExperimentConfig` has every
 field of the JAX package's, under the same name, in the same order and with
-the same default but one: `train_precision` defaults to "float32" here
-(JAX: "bfloat16"), the only precision the port's train step has (ROADMAP
-Queue A 5). So an opt.json written by either package loads in the other,
-field for field (`save` / `load`, with the reference sidecar keys and the
+the same default. So an opt.json written by either package loads in the
+other, field for field (`save` / `load`, with the reference sidecar keys and the
 `model_cfg.py` beside it). A field whose feature is not ported raises
 NotImplementedError where it is read, naming its ROADMAP item
 (`check_ported`); the reference's dead flags are accepted and warned about
@@ -24,6 +22,7 @@ from flashvtg_tpu_torch.losses.criterion import LossConfig
 from flashvtg_tpu_torch.losses.criterion_ms import MSLossConfig
 from flashvtg_tpu_torch.models.flashvtg import ModelConfig
 from flashvtg_tpu_torch.models.flashvtg_ms import MSModelConfig
+from flashvtg_tpu_torch.utils.runtime import PRECISIONS, TRANSFER_DTYPES
 
 logger = logging.getLogger(__name__)
 
@@ -167,13 +166,18 @@ class ExperimentConfig:
     lw_eos: float = 1.0
 
     # runtime
-    eval_precision: str = "float32"  # float32 only: Queue A 5
-    # `infer --serving` (tensorfloat32 eval) is Queue A 5; never persisted
+    # the precision dials (utils/runtime.py:matmul_precision): float32 |
+    # tensorfloat32 | bfloat16
+    eval_precision: str = "float32"
+    # `cli infer --serving`: tensorfloat32 eval unless --eval_precision is
+    # given; never persisted
     serving: bool = False
-    train_precision: str = "float32"  # JAX default "bfloat16": Queue A 5
+    train_precision: str = "bfloat16"
     # the JAX package's dropout PRNG; the port's dropout is its own hash
     dropout_rng_impl: str = "auto"  # auto | rbg | threefry
-    transfer_dtype: str = "float32"  # bfloat16 wire: Queue A 5
+    # the features' dtype on the host-to-card copy in training: float32 |
+    # bfloat16 (half the bytes; widened on the card)
+    transfer_dtype: str = "float32"
     # the device-resident feed and the scan epoch: Queue A 6. "auto" takes
     # the streamed feed here (the same math); "on" raises
     device_feed: str = "auto"  # auto | on | off
@@ -275,8 +279,10 @@ class ExperimentConfig:
 
     def check_ported(self, train: bool) -> None:
         """Raise NotImplementedError, naming its ROADMAP item, for a field
-        set to a feature the port does not have; `train` adds the fields the
-        train loop reads. The reference's dead flags only warn."""
+        set to a feature the port does not have, and ValueError for an
+        unknown value of a field with a fixed set (the precision dials
+        among them); `train` adds the fields the train loop reads. The
+        reference's dead flags only warn."""
         self.warn_inert_flags()
         if self.span_loss_type != "l1":
             raise ValueError(
@@ -286,22 +292,18 @@ class ExperimentConfig:
             )
         if self.variant not in ("core", "ms"):
             raise ValueError(f"unknown variant {self.variant!r}; expected core | ms")
-        unported = [
-            (self.eval_precision != "float32",
-             f"eval_precision={self.eval_precision!r}", 5),
-            (self.serving, "serving (tensorfloat32 eval)", 5),
-        ]
+        dials = [("eval_precision", PRECISIONS)]
         if train:
-            unported += [
-                (self.train_precision != "float32",
-                 f"train_precision={self.train_precision!r} (pass --train_precision "
-                 "float32 for the port's f32 step)", 5),
-                (self.transfer_dtype != "float32",
-                 f"transfer_dtype={self.transfer_dtype!r}", 5),
-                (self.device_feed == "on", "device_feed='on' (and its scan_steps)", 6),
-                (self.debug_nans, "debug_nans", 8),
-                (bool(self.profile_dir), "profile_dir", 8),
-            ]
+            dials += [("train_precision", PRECISIONS), ("transfer_dtype", TRANSFER_DTYPES)]
+        for name, allowed in dials:
+            if getattr(self, name) not in allowed:
+                raise ValueError(f"unknown {name} {getattr(self, name)!r}; expected one of "
+                                 f"{allowed}")
+        unported = [
+            (self.device_feed == "on", "device_feed='on' (and its scan_steps)", 6),
+            (self.debug_nans, "debug_nans", 8),
+            (bool(self.profile_dir), "profile_dir", 8),
+        ] if train else []
         for bad, what, item in unported:
             if bad:
                 raise NotImplementedError(

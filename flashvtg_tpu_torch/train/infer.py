@@ -12,8 +12,12 @@ reference logs eval losses (inference.py:300-306). The highlight-detection
 sets (TVSum, YouTube-HL) take the saliency-only step, the forward with no
 decode, and score the saliency with eval/hl.py's mAP. The FlashVTG_ms model
 (models/flashvtg_ms.py) takes the same paths, with its own criterion for the
-eval losses and, under use_dfl, the DFL decode. Not ported yet: the
-device-resident feed, mesh sharding and pipelining (ROADMAP Queue A 6-7).
+eval losses and, under use_dfl, the DFL decode. The forward runs at the
+config's eval_precision (utils/runtime.py:matmul_precision, the counterpart
+of the JAX step's jax.default_matmul_precision scope); its outputs are cast
+to float32 before the decode, the criterion and NMS, which run in f32. Not
+ported yet: the device-resident feed, mesh sharding and pipelining (ROADMAP
+Queue A 6-7).
 """
 
 from __future__ import annotations
@@ -30,6 +34,7 @@ from flashvtg_tpu_torch.eval.postprocess import build_post_processor
 from flashvtg_tpu_torch.losses import criterion
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.ops.nms import suppress_overlaps
+from flashvtg_tpu_torch.utils.runtime import check_precision, float32_outputs, matmul_precision
 
 
 def eval_data_config(cfg, path: str, load_labels: bool = False) -> DataConfig:
@@ -66,19 +71,21 @@ def make_eval_step(model, top_k: int, precision: str = "float32",
     labels (TRAIN_KEYS), the forward takes the negative pass too, and losses
     holds the criterion's batch means (0-d tensors, the weighted total
     included; the _ms criterion for an MSLossConfig); else it is {}. The
-    model's own `decode` ranks the spans."""
-    if precision != "float32":
-        raise NotImplementedError(
-            f"eval precision {precision!r} is not ported yet (ROADMAP Queue A 5)"
-        )
+    model's own `decode` ranks the spans. `precision` is the forward's dial
+    (float32, tensorfloat32 or bfloat16; anything else raises); the outputs
+    leave it in float32."""
+    check_precision(precision)
+    device = next(model.parameters()).device
 
     @torch.no_grad()
     def step(batch, point_valid):
-        out = model(
-            batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
-            batch["src_vid_mask"], point_valid=point_valid,
-            real_neg_mask=batch.get("real_neg_mask"), force_neg=loss_cfg is not None,
-        )
+        with matmul_precision(precision, device):
+            out = model(
+                batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
+                batch["src_vid_mask"], point_valid=point_valid,
+                real_neg_mask=batch.get("real_neg_mask"), force_neg=loss_cfg is not None,
+            )
+        out = float32_outputs(out)
         losses = criterion(loss_cfg, out, batch) if loss_cfg is not None else {}
         if saliency_only:
             return None, None, out["saliency_scores"], losses

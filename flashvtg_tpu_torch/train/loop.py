@@ -27,9 +27,14 @@ best-score sidecar and opt.json beside them. The JAX package writes orbax
 directories, which the port does not read; its `cli export` `.ckpt` is what
 the two packages share, and the JAX `cli infer --resume` /
 `--resume_adapter` read the port's files.
-Not ported yet (ROADMAP Queue A 5-7): the scan epoch, the device-resident
-feed, the data-parallel mesh and multi-host rows, and the bf16 / tf32 train
-precision (the step runs in true f32 on the card).
+The step runs at the config's train_precision (default bfloat16, as the
+JAX package's): the forward and the backward inside the dial
+(utils/runtime.py:matmul_precision), the criterion, the clip and AdamW in
+float32 on float32 weights (no GradScaler: bf16 keeps f32's range).
+transfer_dtype bfloat16 narrows the features to bf16 on the host before the
+copy to the card and widens them there (`place_batch`). Not ported yet
+(ROADMAP Queue A 6-7): the scan epoch, the device-resident feed, the
+data-parallel mesh and multi-host rows.
 """
 
 from __future__ import annotations
@@ -61,6 +66,12 @@ from flashvtg_tpu_torch.utils.convert import (
     save_torch_checkpoint,
 )
 from flashvtg_tpu_torch.utils.io import AverageMeter, save_json, save_jsonl
+from flashvtg_tpu_torch.utils.runtime import (
+    TRANSFER_DTYPES,
+    check_precision,
+    float32_outputs,
+    matmul_precision,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -91,14 +102,29 @@ def train_data_config(cfg, path: str) -> DataConfig:
     )
 
 
-def place_batch(batch: Dict, device, dtype=torch.float32) -> Dict[str, torch.Tensor]:
+NARROWED_KEYS = ("src_vid", "src_txt")  # the features: most of a batch's bytes
+
+
+def place_batch(batch: Dict, device, dtype=torch.float32,
+                transfer_dtype: str = "float32") -> Dict[str, torch.Tensor]:
     """The train step's tensors of a collated batch on `device`: floating
-    arrays in `dtype`, integer labels as int64."""
+    arrays in `dtype`, integer labels as int64. With transfer_dtype
+    "bfloat16" the features (NARROWED_KEYS) cross to the device in bf16,
+    rounded on the host to nearest even (the JAX loop's astype(bfloat16)),
+    half the bytes, and are widened to `dtype` there."""
+    if transfer_dtype not in TRANSFER_DTYPES:
+        raise ValueError(f"unknown transfer_dtype {transfer_dtype!r}; expected one of "
+                         f"{TRANSFER_DTYPES}")
     out = {}
     for key in TRAIN_KEYS:
         if key in batch:
             t = torch.from_numpy(np.asarray(batch[key]))
-            out[key] = t.to(device, dtype if t.is_floating_point() else torch.int64)
+            if not t.is_floating_point():
+                out[key] = t.to(device, torch.int64)
+            elif transfer_dtype == "bfloat16" and key in NARROWED_KEYS:
+                out[key] = t.to(torch.bfloat16).to(device).to(dtype)
+            else:
+                out[key] = t.to(device, dtype)
     return out
 
 
@@ -127,24 +153,35 @@ def clip_by_global_norm_(params, max_norm: float) -> None:
 
 
 def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    precision: str = "bfloat16"):
     """step(batch) -> {loss key: 0-d tensor}: one update of `model` on a
     placed batch (`place_batch`), losses detached, in `step.loss_keys`
     order; `loss_cfg` is a LossConfig or, for the _ms model, an
-    MSLossConfig. Attention-dropout seeds come from `generator`."""
+    MSLossConfig. Attention-dropout seeds come from `generator`.
+    `precision` is the dial of the forward and the backward (the JAX
+    function's default, bfloat16; float32 for parity); the model's outputs
+    leave the dial in float32, and the criterion runs outside it, in f32."""
+    check_precision(precision)
     keys = declared_loss_keys(loss_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
+    device = params[0].device
 
     def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
-        out = model(
-            batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
-            batch["src_vid_mask"], real_neg_mask=batch.get("real_neg_mask"),
-            generator=generator,
-        )
-        losses = criterion(loss_cfg, out, batch)
+        with matmul_precision(precision, device):
+            out = model(
+                batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
+                batch["src_vid_mask"], real_neg_mask=batch.get("real_neg_mask"),
+                generator=generator,
+            )
+        losses = criterion(loss_cfg, float32_outputs(out), batch)
         optimizer.zero_grad(set_to_none=True)
-        losses["weighted_loss_overall"].backward()
+        # the backward under the dial's TF32 flags (the attention Functions
+        # keep their forward's form), autocast off as torch advises: each
+        # op's backward takes the dtypes its forward saved
+        with matmul_precision(precision, device), torch.autocast(device.type, enabled=False):
+            losses["weighted_loss_overall"].backward()
         # optax updates every leaf: a parameter the losses do not reach (the
         # HD sets' coord head and coef, with no loss_reg) still decays
         for p in params:
@@ -441,7 +478,7 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
             if os.path.isfile(cand):
                 prior_best_ckpt = cand
     step = make_train_step(model, loss_cfg, optimizer, scheduler, cfg.grad_clip,
-                           torch.Generator().manual_seed(cfg.seed))
+                           torch.Generator().manual_seed(cfg.seed), cfg.train_precision)
     keys = step.loss_keys
 
     writer = ScalarWriter(
@@ -514,7 +551,7 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
             if len(idx) < cfg.bsz:
                 continue
             batch = collator([train_dataset[j] for j in idx])
-            losses = step(place_batch(batch, device))
+            losses = step(place_batch(batch, device, transfer_dtype=cfg.transfer_dtype))
             vecs.append(torch.stack([losses[k] for k in keys]))
             steps_run += 1
         meters: Dict[str, AverageMeter] = {}

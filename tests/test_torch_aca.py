@@ -135,8 +135,8 @@ def test_cpu_tensors_take_the_twin_and_count_nothing():
     sa = aca.masked_attention(*t, num_heads=8)
     assert torch.equal(sa, aca.masked_attention_plain(*t, 8))
     assert aca.aca_attention(*t, num_heads=8, num_dummies=4, want_head_mean=False)[1] is None
-    assert aca.LAUNCHES == {"aca_attention": 0, "masked_attention": 0,
-                            "aca_attention_bwd": 0, "masked_attention_bwd": 0}
+    assert aca.launch_counts() == {"aca_attention": 0, "masked_attention": 0,
+                                   "aca_attention_bwd": 0, "masked_attention_bwd": 0}
 
 
 def test_masked_attention_is_aca_with_no_dummies():

@@ -238,13 +238,13 @@ def test_aca_function_gradcheck_with_dropout():
 
     def fn(q, k, v):
         return aca._AttentionFn.apply(q, k, v, kv, qv, donors, heads, nd, True, 0.4, 77,
-                                      "aca_attention")
+                                      "aca_attention", "3xtf32")
 
     assert torch.autograd.gradcheck(fn, (q, k, v), fast_mode=True)
 
     def masked(q, k, v):
         return aca._AttentionFn.apply(q, k, v, kv, None, None, heads, 0, False, 0.4, 78,
-                                      "masked_attention")
+                                      "masked_attention", "3xtf32")
 
     assert torch.autograd.gradcheck(masked, (q[:, :lk].detach().requires_grad_(), k, v),
                                     fast_mode=True)
@@ -258,7 +258,7 @@ def test_flash_function_gradcheck_with_dropout(monkeypatch):
     kv = torch.from_numpy(_valid(b, length, rng).astype(np.float64))
 
     def fn(q, k, v):
-        return chunked_attn._FlashFn.apply(q, k, v, kv, heads, 0.4, 79)
+        return chunked_attn._FlashFn.apply(q, k, v, kv, heads, 0.4, 79, "3xtf32")
 
     assert torch.autograd.gradcheck(fn, (q, k, v), fast_mode=True)
 

@@ -2,7 +2,8 @@
 nvcc nor a card is needed): a library's name follows its source, every
 header of csrc/ and the nvcc flags, so an edit is rebuilt and a stale
 library never loads; the tensor-core count is taken per kernel function
-from cuobjdump's SASS; a missing nvcc is reported by name; the ACA
+from cuobjdump's SASS, and summed per product form; a missing nvcc is
+reported by name; the ACA
 backward's row chunks and workspace (ops/aca.py:bwd_tiling, the formula
 csrc/aca_attention_bwd.cu repeats) cover every query row once."""
 
@@ -53,6 +54,27 @@ def test_sass_mma_counts_per_kernel_function(monkeypatch):
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
     assert kernels.sass_mma_counts("flash_attention") == {
         "_Z6kernelILb1EEvPf": 2, "_Z7prepassPf": 0}
+
+
+def test_hmma_by_form_sums_each_kernels_instances_per_form():
+    """Every kernel with a product is a template whose first argument is its
+    product form (ops/forms.py FORMS): the counts of its instances add up
+    per form, and kernels without a form (no product) are left out."""
+    counts = {
+        "_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi2ELi6"
+        "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 96,
+        "_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi2ELi8"
+        "ELb0ELb1EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 128,
+        "_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi0ELi6"
+        "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 288,
+        "_ZN51_GLOBAL__N__e895d2d6_18_flash_attention_cu_bc10f23522flash_attention_kernelILi1"
+        "ELb1EEEvPKfS2_S2_S2_PfiifS3_jjf": 64,
+        "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii": 0,
+    }
+    assert kernels.hmma_by_form(counts) == {
+        "aca_attention_kernel": {"3xtf32": 288, "1xtf32": 0, "bf16": 224},
+        "flash_attention_kernel": {"3xtf32": 0, "1xtf32": 64, "bf16": 0},
+    }
 
 
 def test_missing_nvcc_is_named(tmp_path, monkeypatch):

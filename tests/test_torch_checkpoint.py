@@ -13,9 +13,9 @@
     2e-4 (saliency) / 3e-4 (logits, coordinates), the tolerances of
     tests/test_torch_model.py;
   * opt.json: both packages' `save` give the same keys and values and the
-    same model_cfg.py for the same flags, and each `load`s the other's file.
-    The one difference is a default: the port's train_precision is
-    "float32" (the JAX package's "bfloat16"; ROADMAP Queue A 5);
+    same model_cfg.py for the same flags (train_precision included, whose
+    default is bfloat16 in both since the precision dials were ported), and
+    each `load`s the other's file;
   * the FlashVTG_ms variant: a JAX `cli export` of a tvsum_ms checkpoint
     loads into the port's FlashVTGMSModel with strict=True and gives the
     JAX forward; a port ms checkpoint goes through the JAX package's
@@ -332,9 +332,7 @@ def test_opt_json_interchange(tmp_path, case):
     assert list(port_json) == list(jax_json)  # same keys, same order
     differ = {k for k in port_json if port_json[k] != jax_json[k]}
     # results_dir and config name each file's own directory
-    assert differ - {"results_dir", "config"} == (
-        set() if "train_precision" in flags else {"train_precision"}
-    )
+    assert differ - {"results_dir", "config"} == set()
     assert (tmp_path / "port" / "model_cfg.py").read_text() == (
         tmp_path / "jax" / "model_cfg.py").read_text()
 

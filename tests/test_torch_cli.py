@@ -3,14 +3,18 @@
   * parsing, as tests/test_cli_surface.py holds the JAX CLI: preset and
     overrides, a model-config file, bare bools, an unknown literal,
     --no_aux_loss, clean errors; --device (default cuda, which raises
-    without CUDA: no fallback); --serving raises (ROADMAP Queue A 5);
+    without CUDA: no fallback); `infer --serving` evaluates at
+    tensorfloat32, an explicit --eval_precision wins, the other modes warn
+    and ignore it, and it never reaches opt.json; `train` and `infer` at
+    each precision dial;
   * `train` -> `infer --resume model_best.ckpt` prints the best epoch's
     brief metrics exactly; `export` -> `infer` from the export gives the
     same metrics; the JAX CLI's `infer` of the port's model_best.ckpt gives
     them within 0.02 points (`__graft_entry__.py:172-197`);
   * a checkpoint whose opt.json records train_precision bfloat16 (a JAX
-    run's) infers, but `train --resume` of it raises unless
-    --train_precision float32 is given;
+    run's) infers, and `train --resume` of it takes this invocation's
+    flags, as the JAX CLI does (the default bfloat16, or
+    --train_precision float32);
   * the metric CLI: the reference's golden case (scripts/eval_sample.sh,
     when the reference checkout is present) and, on a synthetic submission,
     the same metrics file as the JAX package's metric CLI;
@@ -84,7 +88,7 @@ def test_bad_arguments_exit_cleanly(argv):
         cli.parse_config(argv)
 
 
-def test_infer_and_export_clean_errors(tmp_path):
+def test_infer_and_export_clean_errors(tmp_path, monkeypatch, caplog):
     absent = str(tmp_path / "absent.ckpt")
     with pytest.raises(SystemExit, match="--resume"):
         cli.main(["infer", "qvhighlights_slowclip", "--device", "cpu"])
@@ -99,8 +103,21 @@ def test_infer_and_export_clean_errors(tmp_path):
                   f"--export_path={tmp_path}/out.ckpt"])
     with pytest.raises(SystemExit, match="unknown mode"):
         cli.main(["serve", "qvhighlights_slowclip"])
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        cli.main(["infer", "qvhighlights_slowclip", "--serving"])
+    # --serving is no error: the tensorfloat32 eval profile, unless
+    # --eval_precision is given; train and export warn and ignore it
+    seen = []
+    monkeypatch.setattr(cli, "run_infer", lambda cfg, device: seen.append(cfg) or 0)
+    monkeypatch.setattr(cli, "run_train", lambda cfg, device: seen.append(cfg) or 0)
+    for argv in (["--serving"], ["--serving", "--eval_precision", "bfloat16"], []):
+        assert cli.main(["infer", "qvhighlights_slowclip", *argv]) == 0
+    with caplog.at_level("WARNING"):
+        assert cli.main(["train", "qvhighlights_slowclip", "--serving"]) == 0
+    assert "--serving only affects `infer`" in caplog.text
+    assert [c.eval_precision for c in seen] == ["tensorfloat32", "bfloat16", "float32",
+                                                "float32"]
+    seen[0].save(str(tmp_path / "opt.json"), reference_sidecar=False)
+    with open(tmp_path / "opt.json") as f:
+        assert "serving" not in json.load(f)
 
 
 @pytest.fixture(scope="module")
@@ -186,8 +203,9 @@ def test_jax_cli_infers_the_port_checkpoint(run, capsys, tmp_path):
 
 def test_train_resume_of_a_bfloat16_run_raises(run, capsys, tmp_path):
     """A run whose opt.json says train_precision bfloat16 (the JAX default):
-    infer reads no train precision; train --resume raises at the field
-    unless --train_precision float32 is given."""
+    infer reads no train precision; train --resume no longer raises: it
+    takes this invocation's flags, as the JAX CLI does (the preset's
+    default, bfloat16, or --train_precision float32), and records them."""
     root, flags, run_dir = run
     jax_dir = tmp_path / "jax_run"
     jax_dir.mkdir()
@@ -200,12 +218,36 @@ def test_train_resume_of_a_bfloat16_run_raises(run, capsys, tmp_path):
     with open(jax_dir / "opt.json", "w") as f:
         json.dump(opt, f)
     assert cli.main(["infer", "qvhighlights_slowclip", *flags, "--resume", ckpt]) == 0
-    with pytest.raises(NotImplementedError, match="train_precision='bfloat16'.*Queue A 5"):
-        cli.main(["train", "qvhighlights_slowclip", *flags, "--resume", ckpt,
-                  "--n_epoch", "1"])
-    assert cli.main(["train", "qvhighlights_slowclip", *flags, "--resume", ckpt,
-                     "--n_epoch", "1", "--train_precision", "float32",
-                     "--results_root", str(tmp_path / "r")]) == 0
+    for root, extra, want in ((tmp_path / "bf16", [], "bfloat16"),
+                              (tmp_path / "f32", ["--train_precision", "float32"], "float32")):
+        assert cli.main(["train", "qvhighlights_slowclip", *flags, "--resume", ckpt,
+                         "--n_epoch", "1", "--results_root", str(root), *extra]) == 0
+        (resumed,) = glob.glob(str(root / "*"))
+        with open(os.path.join(resumed, "opt.json")) as f:
+            assert json.load(f)["train_precision"] == want
+
+
+@pytest.mark.parametrize("mode", ["float32", "tensorfloat32", "bfloat16"])
+def test_train_and_infer_at_each_precision(run, tmp_path, capsys, mode):
+    """`cli train` for one epoch at train_precision = eval_precision = `mode`
+    (bfloat16 with the bf16 wire) records the dials in opt.json, and `cli
+    infer --eval_precision <mode>` of its model_latest.ckpt prints finite
+    brief metrics."""
+    _, flags, _ = run
+    wire = "bfloat16" if mode == "bfloat16" else "float32"
+    dials = ["--train_precision", mode, "--eval_precision", mode, "--transfer_dtype", wire]
+    assert cli.main(["train", "qvhighlights_slowclip", *flags, "--n_epoch", "1",
+                     "--results_root", str(tmp_path), *dials]) == 0
+    (run_dir,) = glob.glob(str(tmp_path / "*"))
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        opt = json.load(f)
+    assert (opt["train_precision"], opt["eval_precision"], opt["transfer_dtype"]) == (
+        mode, mode, wire)
+    capsys.readouterr()
+    assert cli.main(["infer", "qvhighlights_slowclip", *flags, "--eval_precision", mode,
+                     "--resume", os.path.join(run_dir, "model_latest.ckpt")]) == 0
+    brief = _printed_brief(capsys.readouterr().out)
+    assert brief and all(np.isfinite(v) for v in brief.values())
 
 
 def test_default_device_is_the_card(run):

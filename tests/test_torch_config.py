@@ -1,7 +1,9 @@
 """Every preset's fields in the port equal the JAX package's, but the
-defaults the port states in PORT_DEFAULTS (ROADMAP Queue A 5); the
+defaults the port states in PORT_DEFAULTS (none since the precision dials
+were ported: train_precision defaults to bfloat16 on both sides); the
 FlashVTG_ms presets' model and loss configs equal the JAX ones; and
-check_ported raises for exactly the fields whose feature is not ported."""
+check_ported raises for exactly the fields whose feature is not ported, and
+for an unknown precision."""
 
 import dataclasses
 
@@ -13,8 +15,8 @@ from flashvtg_tpu_torch.losses import LossConfig
 from flashvtg_tpu_torch.models import ModelConfig
 from flashvtg_tpu_torch.train.config import PRESETS, ExperimentConfig, from_preset
 
-# the port's train step runs in float32 only; the JAX default is bfloat16
-PORT_DEFAULTS = {"train_precision": "float32"}
+# fields whose default differs from the JAX package's: none
+PORT_DEFAULTS = {}
 
 
 def test_preset_table_is_a_copy():
@@ -72,7 +74,12 @@ CHECK_CASES = {
     "ms": (dict(variant="ms"), None),
     "ms_dfl_eos": (dict(variant="ms", use_dfl=True, use_eos=True), None),
     "eos_first": (dict(eos_first=True), None),
-    "eval_bfloat16": (dict(eval_precision="bfloat16"), "Queue A 5"),
+    "eval_bfloat16": (dict(eval_precision="bfloat16"), None),
+    "train_tf32_bf16_wire": (dict(train_precision="tensorfloat32", transfer_dtype="bfloat16",
+                                  serving=True), None),
+    "unknown_eval_precision": (dict(eval_precision="float16"), "unknown eval_precision"),
+    "unknown_train_precision": (dict(train_precision="highest"), "unknown train_precision"),
+    "unknown_transfer_dtype": (dict(transfer_dtype="float16"), "unknown transfer_dtype"),
     "device_feed_on": (dict(device_feed="on"), "Queue A 6"),
     "profile_dir": (dict(profile_dir="prof"), "Queue A 8"),
     "unknown_variant": (dict(variant="xl"), "unknown variant"),

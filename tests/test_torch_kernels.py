@@ -82,9 +82,9 @@ def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
 )
 def test_masked_attention_kernel_matches_twin(cuda, b, l, pad_from):
     t = tuple(x.to(cuda) for x in _inputs(b, l, l, 8, 1, pad_from))
-    before = aca.LAUNCHES["masked_attention"]
+    before = aca.launch_counts()["masked_attention"]
     out = aca.masked_attention(*t, num_heads=8)
-    assert aca.LAUNCHES["masked_attention"] == before + 1
+    assert aca.launch_counts()["masked_attention"] == before + 1
     ref = aca.masked_attention_plain(*t, 8)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= ATOL
@@ -130,8 +130,8 @@ def test_model_forward_on_card_matches_cpu(cuda):
     with torch.no_grad():
         ref = cpu_model(*map(torch.from_numpy, arrs))
         out = gpu_model(*(torch.from_numpy(a).to(cuda) for a in arrs))
-    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 3,
-                            "aca_attention_bwd": 0, "masked_attention_bwd": 0}
+    assert aca.launch_counts() == {"aca_attention": 2, "masked_attention": 3,
+                                   "aca_attention_bwd": 0, "masked_attention_bwd": 0}
     for key in ("saliency_scores", "t2vattnvalues", "out_class", "out_coord"):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4)
 
@@ -161,9 +161,9 @@ def _ragged(b, length, seed):
 def test_flash_kernel_matches_plain(cuda, b, length):
     q, k, v, _ = _inputs(b, length, length, 8, 3)
     t = tuple(x.to(cuda) for x in (q, k, v, _ragged(b, length, length)))
-    before = chunked_attn.LAUNCHES["flash_attention"]
+    before = chunked_attn.launch_counts()["flash_attention"]
     out = chunked_attn.flash_attention(*t, num_heads=8)
-    assert chunked_attn.LAUNCHES["flash_attention"] == before + 1
+    assert chunked_attn.launch_counts()["flash_attention"] == before + 1
     ref = chunked_attn.flash_attention_plain(*t, 8)
     torch.cuda.synchronize()
     assert (out - ref).abs().max().item() <= ATOL
@@ -255,9 +255,9 @@ def test_tacos_forward_on_card_matches_cpu(cuda):
     with torch.no_grad():
         ref = cpu_model(*map(torch.from_numpy, arrs))
         out = gpu_model(*(torch.from_numpy(a).to(cuda) for a in arrs))
-    assert aca.LAUNCHES == {"aca_attention": 2, "masked_attention": 1,
-                            "aca_attention_bwd": 0, "masked_attention_bwd": 0}
-    assert chunked_attn.LAUNCHES == {"flash_attention": 2, "flash_attention_bwd": 0}
+    assert aca.launch_counts() == {"aca_attention": 2, "masked_attention": 1,
+                                   "aca_attention_bwd": 0, "masked_attention_bwd": 0}
+    assert chunked_attn.launch_counts() == {"flash_attention": 2, "flash_attention_bwd": 0}
     for key in ("saliency_scores", "t2vattnvalues", "attn_weights", "out_class", "out_coord"):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4,
                                    err_msg=key)
@@ -472,11 +472,98 @@ def test_attention_functions_count_and_match_cpu(cuda):
         chunked_attn.reset_launch_counts()
         ((out ** 2).sum() + (hm * 3).sum() + (sa ** 2).sum() + sm.sum()).backward()
         grads[str(dev)] = [x.grad.cpu() for x in leaves]
-    assert aca.LAUNCHES == {"aca_attention": 0, "masked_attention": 0,
-                            "aca_attention_bwd": 1, "masked_attention_bwd": 1}
-    assert chunked_attn.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 1}
+    assert aca.launch_counts() == {"aca_attention": 0, "masked_attention": 0,
+                                   "aca_attention_bwd": 1, "masked_attention_bwd": 1}
+    assert chunked_attn.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 1}
     for got, want in zip(grads["cuda"], grads["cpu"]):
         assert _rel_err(got, want) <= GRAD_RTOL
+
+
+# --- the product forms -------------------------------------------------------
+#
+# At each product form (ops/forms.py) each kernel is held against its plain
+# version at the same form, which rounds the same product operands:
+# max |kernel - plain| <= FORM_RTOL x max(max |plain|, 0.1) (3xTF32 at
+# GRAD_RTOL; at the others about 2-3 times the widest gap chip_smoke.py's
+# phase 14 read at the model's shapes, 4.2e-4 at 1xTF32 and 2.6e-3 at bf16).
+# And the kernel at a form reads that form's own error: its relative RMS
+# distance (rms(kernel - plain) / rms(plain)) to the f32-accurate plain
+# version lies in a band per form (the card read at most 1.0e-6 at 3xTF32,
+# 4.0e-4 - 5.9e-4 at 1xTF32, 3.2e-3 - 4.8e-3 at bf16); the bands do not
+# meet, so they tell the forms apart (the SASS count cannot tell 1xTF32 from
+# bf16). The plain version at its own form is the nearest of the three.
+
+FORM_RTOL = {"3xtf32": GRAD_RTOL, "1xtf32": 1e-3, "bf16": 6e-3}
+FORM_F32_BAND = {"3xtf32": (0.0, 1e-5), "1xtf32": (1e-4, 1.2e-3), "bf16": (1.5e-3, 1.2e-2)}
+FORMS = ("3xtf32", "1xtf32", "bf16")
+
+
+def _form_case(kernel, cuda):
+    """(launcher, plain version, arguments) of `kernel` on seeded inputs:
+    the ACA at the flagship's widths (B 8, Lv 75, 10 dummies, ragged text;
+    the backward with donor rows and a head-mean gradient), the short
+    self-attention at L 75, the flash kernel at L 700; backwards at dropout
+    0.1, from the 3xTF32 plain forward's log-sum-exp."""
+    from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
+
+    b, lv, nd, lk, heads, p, seed = 8, 75, 10, 42, 8, 0.1, 77
+    g = torch.Generator().manual_seed(31)
+    if kernel.startswith("aca"):
+        q, k, v, valid = (x.to(cuda) for x in _inputs(b, lv, lk, heads, 32, pad_from=30))
+        if kernel == "aca_attention":
+            return aca._launch, aca.aca_attention_plain, (q, k, v, valid, heads, nd)
+        vmask = _ragged(b, lv, 33).to(cuda)
+        donors = tiled_attn_donors(b, heads, cuda)
+        train = (q, k, v, valid, heads, nd, True, p, seed, vmask, donors)
+        lse = aca.aca_attention_plain(*train, want_lse=True)[2]
+        d_out, d_hm = (torch.randn(shape, generator=g).to(cuda)
+                       for shape in ((b, lv, heads * 32), (b, lv, lk)))
+        return aca._launch_bwd, aca.aca_attention_bwd_plain, (
+            q, k, v, valid, lse, d_out, d_hm, heads, nd, p, seed, vmask, donors)
+    length = 700 if kernel.startswith("flash") else lv
+    q, k, v, _ = (x.to(cuda) for x in _inputs(b, length, length, heads, 34))
+    valid = _ragged(b, length, 35).to(cuda)
+    d_out = torch.randn(q.shape, generator=g).to(cuda)
+    if kernel == "masked_attention":
+        return aca._launch, aca.aca_attention_plain, (q, k, v, valid, heads, 0, False)
+    if kernel == "masked_attention_bwd":
+        lse = aca.aca_attention_plain(q, k, v, valid, heads, 0, False, p, seed,
+                                      want_lse=True)[2]
+        return aca._launch_bwd, aca.aca_attention_bwd_plain, (
+            q, k, v, valid, lse, d_out, None, heads, 0, p, seed)
+    if kernel == "flash_attention":
+        return chunked_attn._launch, chunked_attn.flash_attention_plain, (q, k, v, valid, heads)
+    out, lse = chunked_attn.flash_attention_plain(q, k, v, valid, heads, p, seed, want_lse=True)
+    return chunked_attn._launch_bwd, chunked_attn.flash_attention_bwd_plain, (
+        q, k, v, valid, out, lse, d_out, heads, p, seed)
+
+
+def _outputs(res):
+    return [t for t in (res if isinstance(res, tuple) else (res,)) if t is not None]
+
+
+def _rms_distance(got, ref):
+    return max(((x - y).double().pow(2).mean().sqrt()
+                / y.double().pow(2).mean().sqrt()).item() for x, y in zip(got, ref))
+
+
+@pytest.mark.parametrize("form", FORMS)
+@pytest.mark.parametrize("kernel", ["aca_attention", "masked_attention", "flash_attention",
+                                    "aca_attention_bwd", "masked_attention_bwd",
+                                    "flash_attention_bwd"])
+def test_kernel_at_each_form_matches_its_plain_version(cuda, kernel, form):
+    launch, plain, args = _form_case(kernel, cuda)
+    got = _outputs(launch(*args, form=form))
+    plains = {f: _outputs(plain(*args, form=f)) for f in FORMS}
+    torch.cuda.synchronize()
+    for x, y in zip(got, plains[form]):
+        assert torch.isfinite(x).all()
+        assert _rel_err(x, y) <= FORM_RTOL[form]
+    dist = {f: _rms_distance(got, ref) for f, ref in plains.items()}
+    print(kernel, form, dist)
+    floor, limit = FORM_F32_BAND[form]
+    assert floor <= dist["3xtf32"] <= limit, dist
+    assert dist[form] == min(dist.values()), dist
 
 
 # --- the accuracy of the 3xTF32 sums ---------------------------------------
@@ -485,7 +572,7 @@ _DOTS_SOURCE = r"""
 #include "attn_common.cuh"
 
 // C = A B^T for 16 x 8 tiles of A (16 x kDh) and B (8 x kDh): way 0 an f32
-// FMA loop, way 1 dot_3xtf32, way 2 the twelve products chained into one
+// FMA loop, way 1 dot_form (3xTF32), way 2 the twelve products chained into one
 // accumulator
 __global__ void dots(const float* A, const float* B, float* C, int way) {
   const int tile = blockIdx.x * 4 + (threadIdx.x >> 5);
@@ -505,11 +592,11 @@ __global__ void dots(const float* A, const float* B, float* C, int way) {
       for (int k = 0; k < kDh; ++k) c[e] = fmaf(ar[k], br[k], c[e]);
     }
   } else if (way == 1) {
-    dot_3xtf32(c, fa, b + g * kDh + t, 1.f);
+    dot_form(c, fa, b + g * kDh + t, 1.f);
   } else {
     for (int ks = 0; ks < kDh / 8; ++ks) {
       const float* br = b + g * kDh + 8 * ks + t;
-      mma_3xtf32(c, fa[ks], frag_b(br[0], br[4]));
+      mma_form(c, fa[ks], frag_b(br[0], br[4]));
     }
   }
   float* o = C + (size_t)tile * 16 * 8;
@@ -525,7 +612,7 @@ extern "C" int run(const float* A, const float* B, float* C, int tiles, int way)
 
 def test_dot_3xtf32_as_accurate_as_an_fma_loop(cuda, tmp_path):
     """The tensor core's f32 accumulation truncates, so the flash kernels'
-    dot_3xtf32 takes each k-step's big product in a fresh accumulator. On
+    dot_form (3xTF32) takes each k-step's big product in a fresh accumulator. On
     524,288 dot products of 32 standard-normal terms (dP = dO V^T's shape),
     its error against float64 is no larger than an f32 FMA loop's, at the
     largest and in rms. Prints each way's errors (-s shows them); the

@@ -93,7 +93,7 @@ def test_flash_plain_matches_jax(length, chunk):
     chunked_attn.reset_launch_counts()
     got = chunked_attn.flash_attention(*t, num_heads=h)
     # the CPU launches nothing
-    assert chunked_attn.LAUNCHES == {"flash_attention": 0, "flash_attention_bwd": 0}
+    assert chunked_attn.launch_counts() == {"flash_attention": 0, "flash_attention_bwd": 0}
     assert torch.equal(got, chunked_attn.flash_attention_plain(*t, h))
     np.testing.assert_allclose(got.numpy(), ref, rtol=RTOL, atol=ATOL)
 

@@ -256,8 +256,16 @@ def test_test_path_finals(tmp_path, split):
 
 
 def test_other_train_precision_raises(tmp_path, split):
-    with pytest.raises(NotImplementedError, match="Queue A 5"):
-        _port_run(tmp_path, split, "run", n_epoch=1, train_precision="bfloat16")
+    """Every dial is ported: an unknown train_precision or transfer_dtype
+    raises, bfloat16 (the JAX default) trains, with the bf16 wire too; the
+    features still to port raise, naming their ROADMAP item."""
+    with pytest.raises(ValueError, match="unknown train_precision"):
+        _port_run(tmp_path, split, "run", n_epoch=1, train_precision="float16")
+    with pytest.raises(ValueError, match="unknown transfer_dtype"):
+        _port_run(tmp_path, split, "run", n_epoch=1, transfer_dtype="float16")
+    _, _, run = _port_run(tmp_path, split, "bf16", n_epoch=1, train_precision="bfloat16",
+                          transfer_dtype="bfloat16")
+    assert _train_epochs(run) == [1]
     with pytest.raises(NotImplementedError, match="Queue A 6"):
         _port_run(tmp_path, split, "run", n_epoch=1, device_feed="on")
     with pytest.raises(NotImplementedError, match="Queue A 8"):

@@ -475,7 +475,8 @@ def test_float64_train_step_matches_jax(tmp_path, case, monkeypatch):
 
     model = fresh_model()
     optimizer, scheduler = make_optimizer(cfg, model.parameters(), steps_per_epoch=1)
-    step = make_train_step(model, loss_cfg, optimizer, scheduler, cfg.grad_clip)
+    step = make_train_step(model, loss_cfg, optimizer, scheduler, cfg.grad_clip,
+                           precision="float32")
     step_losses = step(tb)
     assert list(step_losses) == list(step.loss_keys) == sorted(jlosses)
     for key, want in jlosses.items():
