@@ -76,9 +76,13 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      B=32 and Lv 2048; full width and depth, every dropout at its preset
      value): train() on a synthetic train split for --train-steps steps
      (one epoch) and its eval through run_mr_inference with the eval
-     losses (the forward with the negative pass), each kernel's launch
-     count, set to 0 just before, equal to its launches per step times the
-     steps plus the eval's; finite losses (read back from the run's
+     losses (the forward with the negative pass), under torch.profiler:
+     each kernel's launches as the card ran them (the profiler's kernel
+     records; with the feed and scan_steps by default the steps after two
+     eager warm-up steps are CUDA-graph replays) equal to its launches per
+     step times the steps plus the eval's, and its wrapper's count, set to
+     0 just before (eager launches only), above 0 and at most that; finite
+     losses (read back from the run's
      scalars.jsonl); a step timed with CUDA events; the step's peak
      memory (< 80 GB); then card vs CPU on one 2-row step with every
      dropout at 0, the CPU step in float64 as the reference (the CPU's
@@ -115,8 +119,8 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      epoch's brief metrics (eval.log.txt) equal every infer's, the resumed
      run starting at epoch index 3, the checkpoint files, the card-written
      model_latest.ckpt loading on the CPU (weights, AdamW, StepLR), and each
-     kernel's launches over the in-process calls (12 train steps, 6 evals),
-     and prints each call's wall time;
+     kernel's launches over the in-process calls (12 train steps, 6 evals)
+     as in phase 8, and prints each call's wall time;
  13. ms: the FlashVTG_ms variant at full width and depth (random weights
      from --seed): (a) youtube_uni_ms over --hd-queries and tvsum_ms over 8
      synthetic videos through run_hl_inference, as phase 9 (2 ACA, 2 short
@@ -149,6 +153,29 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      (1xTF32) and `infer --serving --eval_precision bfloat16`. Every launch
      of a path is counted at its dial's form; every dial restores the TF32
      flags, checked at the end.
+ 15. feed: the device-resident feed and the scan epoch (CUDA-graph replays):
+     (a) the flagship train step (B 64, full width, the default bfloat16
+     dial, preset dropout) through utils/scanbench.py on a 2048-row feed
+     (1.74 GiB f32, 32 steps an epoch) in three modes, streamed per step,
+     feed per step, feed + scan (chunks of SCAN_K = 8 replays), each on a
+     fresh model from --seed: steps/s, wall and device-busy ms a step, the
+     idle share, peak memory, the feed's copy seconds and bytes; the graph
+     path's loss vectors against the eager feed path's within
+     GRAPH_LOSS_RTOL; each mode's launches as the card ran them, read from
+     the profiler's kernel records of its profiled steps, a step's times
+     the steps, the wrappers' counts equal to them in the eager modes and 0
+     in the replays (the scan's counts: its two eager warm-up steps'); at
+     float32 and dropout 0, 8 steps a mode, the
+     parameters within GRAPH_PARAM_RTOL of each leaf's largest |value|
+     (graph against eager is also reported bit for bit); (b) the same for
+     tvsum_ms (B 4, Lv 1000); (c) with phases 4 and 9, the flagship eval
+     (B 256, --queries) and the YouTube-HL eval (B 4) with the feed against
+     streamed: outputs bit-equal, one device-to-host fetch a batch, q/s and
+     idle shares; (d) the CLI `train --device_feed on --scan_steps 4` (two
+     epochs of 4 steps at bsz 32, the flagship's full width, its default
+     dials) in a fresh process, and `infer` on its model_best.ckpt, the
+     brief metrics identical; and a TACoS split of 9,790 rows under the default
+     budget: its estimate, streamed by "auto", nothing built.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]}, a row per kernel and form, and, last,
 {"ok": true, "device": {...}}.
@@ -156,9 +183,11 @@ Exits non-zero, printing no result, without CUDA or without the package.
 """
 
 import argparse
+import contextlib
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -936,6 +965,84 @@ def counted(mode):
     return launches, by_form
 
 
+# the device function that one launch of each kernel runs exactly once, by
+# a pattern on its demangled name in the profiler's kernel records (the
+# first template argument is the product form's id, ops/forms.py); the
+# other device functions of a launch (the ACA backward's chunk sum, the
+# flash backward's D and dk / dv passes) are left out. The ACA and the
+# short self-attention's backwards are one device function, read as one.
+BWD_PAIR = "aca_attention_bwd+masked_attention_bwd"
+DEVICE_FUNCTIONS = (
+    (r"aca_attention_kernel<(\d+),\s*\d+,\s*true", "aca_attention"),
+    (r"aca_attention_kernel<(\d+),\s*\d+,\s*false", "masked_attention"),
+    (r"aca_attention_bwd_kernel<(\d+)", BWD_PAIR),
+    (r"flash_attention_kernel<(\d+)", "flash_attention"),
+    (r"flash_bwd_dq_kernel<(\d+)", "flash_attention_bwd"),
+)
+
+
+def group_of(kernel):
+    return BWD_PAIR if kernel in ("aca_attention_bwd", "masked_attention_bwd") else kernel
+
+
+def grouped(counts):
+    """{kernel: n} summed into DEVICE_FUNCTIONS' groups."""
+    out = {group: 0 for _, group in DEVICE_FUNCTIONS}
+    for name, n in counts.items():
+        out[group_of(name)] += n
+    return out
+
+
+def device_launch_table(per_name):
+    """{form: {group: launches}} of a profiled run's {device name: [us,
+    calls]} (tools/profile_eval.py:profiled): the kernels' launches as the
+    card ran them, those of eager calls and of CUDA-graph replays alike."""
+    from flashvtg_tpu_torch.ops.forms import FORMS
+
+    table = {form: grouped({}) for form in FORMS}
+    for name, (_, calls) in per_name.items():
+        for pattern, group in DEVICE_FUNCTIONS:
+            m = re.search(pattern, name)
+            if m:
+                table[FORMS[int(m.group(1))]][group] += calls
+                break
+    return table
+
+
+def device_launches(run):
+    """(run()'s result, device_launch_table of run() under torch.profiler)."""
+    from flashvtg_tpu_torch.tools.profile_eval import profiled
+
+    box = []
+    _, per_name = profiled(lambda: box.append(run()))
+    return box[0], device_launch_table(per_name)
+
+
+def at_form(form, counts):
+    """{form: counts} with every other form's counts at 0."""
+    from flashvtg_tpu_torch.ops.forms import FORMS
+
+    return {f: counts if f == form else dict.fromkeys(counts, 0) for f in FORMS}
+
+
+def add_tables(*tables):
+    return {form: {g: sum(t[form][g] for t in tables) for g in tables[0][form]}
+            for form in tables[0]}
+
+
+def check_device_launches(what, table, want, eager):
+    """A path's launches as the card ran them (`table`, device_launch_table)
+    equal `want` ({form: {kernel: n}}: every step, eager or a graph replay,
+    and every eval batch) in every form; the launches its wrappers counted
+    (`eager`, {form: {kernel: n}}: eager calls only, a capture counts
+    nothing) are at most those, and more than 0 for each kernel `want` has."""
+    for form, counts in want.items():
+        assert table[form] == grouped(counts), (what, form, table[form], grouped(counts))
+        seen = grouped(eager[form])
+        assert all(seen[g] <= n for g, n in table[form].items()), (what, form, seen)
+        assert all(eager[form][k] > 0 for k, n in counts.items() if n), (what, form, eager)
+
+
 def launches_per_batch(cfg):
     """Each kernel's launches in one eval forward: the ACA layers; the
     dummy encoder (num_dummies + max_q_l tokens) on the short kernel; the
@@ -1136,10 +1243,11 @@ def phase_card_vs_cpu(dev, model, cfg, ds, seed, n, spans=False):
     return errs
 
 
-def run_preset(dev, preset, n_queries, n_compare, seed, **overrides):
+def run_preset(dev, preset, n_queries, n_compare, seed, feed_compare=False, **overrides):
     """Data, the eval path (phase_path through run_mr_inference, or
     run_hl_inference for the HD sets), its device step and card vs CPU for
-    one preset."""
+    one preset; with `feed_compare`, phase 15 (c) on the same split
+    (feed_vs_streamed_eval)."""
     from flashvtg_tpu_torch.data.dataset import HD_SETS
     from flashvtg_tpu_torch.train.config import from_preset
     from flashvtg_tpu_torch.train.infer import run_hl_inference, run_mr_inference
@@ -1155,6 +1263,9 @@ def run_preset(dev, preset, n_queries, n_compare, seed, **overrides):
             infer, score = ((run_hl_inference, score_hl) if cfg.dset_name in HD_SETS
                             else (run_mr_inference, score_mr))
             model, path = phase_path(dev, cfg, ds, seed, infer, score)
+            if feed_compare:
+                path["feed_vs_streamed"] = feed_vs_streamed_eval(cfg, model, ds, infer)
+                log(f"[feed eval {preset}] {json.dumps(path['feed_vs_streamed'])}")
             run = eval_step(dev, model, cfg, ds)
             path["step_ms"] = time_ms(run, iters=20, warmup=3)
             path["step_qps"] = cfg.eval_bsz / path["step_ms"] * 1e3
@@ -1225,7 +1336,7 @@ def train_step_time(dev, model, cfg, seed, batch=None):
     placed = place_batch(batch, dev, transfer_dtype=cfg.transfer_dtype)
     optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
     step = make_train_step(model, cfg.loss_config(), optimizer, scheduler,
-                           cfg.grad_clip, torch.Generator().manual_seed(seed),
+                           cfg.grad_clip, torch.Generator(device=dev).manual_seed(seed),
                            cfg.train_precision)
     step(placed)
     torch.cuda.synchronize()
@@ -1338,6 +1449,7 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
     from flashvtg_tpu_torch.train.config import from_preset
     from flashvtg_tpu_torch.train.infer import _tail_bucket
     from flashvtg_tpu_torch.train.loop import train
+    from flashvtg_tpu_torch.utils.runtime import KERNEL_FORMS
 
     cfg = from_preset(preset, **{"use_tensorboard": False, "train_precision": "float32",
                                  "eval_precision": "float32", **overrides})
@@ -1354,8 +1466,8 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
         torch.cuda.reset_peak_memory_stats()
         reset_launch_counts()
         t0 = time.perf_counter()
-        model, _, run_dir = train(cfg, os.path.join(tmp, "run"), dev, max_steps=steps)
-        torch.cuda.synchronize()
+        (model, _, run_dir), table = device_launches(
+            lambda: train(cfg, os.path.join(tmp, "run"), dev, max_steps=steps))
         t_train = time.perf_counter() - t0
         launches, by_form = counted(cfg.train_precision)
         assert cfg.eval_precision == cfg.train_precision
@@ -1368,16 +1480,16 @@ def run_train_preset(dev, preset, steps, seed, n_train=None, n_val=None, **overr
         assert _tail_bucket(n_val, cfg.eval_bsz) == n_val  # the eval is one full batch
         per_step = train_launches_per_step(cfg)
         per_eval = eval_launches(cfg)
-        for name, n in per_step.items():
-            want = n * steps + per_eval.get(name, 0)
-            assert launches[name] == want, (name, launches[name], want)
+        want = {name: n * steps + per_eval.get(name, 0) for name, n in per_step.items()}
+        check_device_launches(f"{preset} train", table,
+                              at_form(KERNEL_FORMS[cfg.train_precision], want), by_form)
         assert peak < 80e9, f"train peak {peak} B"
         step_ms, step_peak, step_copy_ms = train_step_time(dev, model.train(), cfg, seed)
         path = dict(
             preset=preset, bsz=cfg.bsz, max_v_l=cfg.max_v_l, steps=steps, eval_rows=n_val,
             train_precision=cfg.train_precision, transfer_dtype=cfg.transfer_dtype,
-            launches=launches, form_launches=by_form, launches_per_step=per_step,
-            train_s=t_train,
+            launches=launches, form_launches=by_form, device_launches=table,
+            launches_per_step=per_step, train_s=t_train,
             losses_first=losses[0], losses_last=losses[-1],
             brief=brief, peak_mem_bytes=peak, step_ms=step_ms,
             step_rows_per_s=cfg.bsz / step_ms * 1e3, step_peak_mem_bytes=step_peak,
@@ -1437,10 +1549,13 @@ def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
             "--eval_precision", "float32",
         ]
 
+        tables = []
+
         def call(name, *argv):
             t0 = time.perf_counter()
-            assert cli.main(list(argv)) == 0, name
-            torch.cuda.synchronize()
+            rc, table = device_launches(lambda: cli.main(list(argv)))
+            assert rc == 0, name
+            tables.append(table)
             times[name] = time.perf_counter() - t0
             log(f"[cli] {name}: {times[name]:.2f} s")
 
@@ -1500,13 +1615,14 @@ def run_cli(dev, seed, n_train=96, n_val=64, epochs=3, bsz=32):
         steps = (epochs + 1) * (n_train // bsz)
         evals_run = epochs + 1 + 2  # the train-time evals and the two in-process infers
         per_step, per_eval = train_launches_per_step(cfg), eval_launches(cfg)
-        for name, n in per_step.items():
-            want = n * steps + per_eval.get(name, 0) * evals_run
-            assert launches[name] == want, (name, launches[name], want)
+        want = {name: n * steps + per_eval.get(name, 0) * evals_run
+                for name, n in per_step.items()}
+        table = add_tables(*tables)
+        check_device_launches("cli", table, at_form("3xtf32", want), by_form)
     return dict(preset=preset, bsz=bsz, train_rows=n_train, val_rows=n_val, epochs=epochs,
                 best_epoch=best_epoch, best_brief=best_brief, call_s=times,
-                card_ckpt_tensors_loaded_on_cpu=cpu_loaded,
-                launches=launches, form_launches=by_form, resumed_first_epoch=r_evals[0][0],
+                card_ckpt_tensors_loaded_on_cpu=cpu_loaded, launches=launches,
+                form_launches=by_form, device_launches=table, resumed_first_epoch=r_evals[0][0],
                 losses_first=losses[0], losses_last=losses[-1])
 
 
@@ -1829,6 +1945,292 @@ def run_precision_cli(dev, seed, n_train=32, n_val=64, bsz=32):
     return res
 
 
+# phase 15: the device-resident feed, the scan epoch, the pipelined eval
+FEED_TRAIN = {  # preset: (Lv, Lq, text dim, feed rows, timed steps)
+    # 2048 rows of the flagship (1.74 GiB of f32 features, 32 steps of B 64)
+    "qvhighlights_slowclip": (75, 32, 512, 2048, 32),
+    "tvsum_ms": (1000, 32, 512, 32, 16),  # B 4, Lv 1000
+}
+SCAN_K = 8  # steps a chunk of the scan epoch
+GRAPH_PARAM_RTOL = 1e-6  # modes' parameters after 8 f32 steps at dropout 0, of each leaf's max
+GRAPH_LOSS_RTOL = 1e-5  # the graph path's loss vectors against the eager per-step path's
+
+
+def busy_ms(run):
+    """(wall seconds, device-busy microseconds, device_launch_table) of run()
+    under torch.profiler."""
+    from flashvtg_tpu_torch.tools.profile_eval import profiled
+
+    wall, per_name = profiled(run)
+    return wall, sum(us for us, _ in per_name.values()), device_launch_table(per_name)
+
+
+def params_of(model):
+    return {n: p.detach().clone() for n, p in model.named_parameters()}
+
+
+def leaf_gap(a, b):
+    """The largest |a - b| of any leaf over that leaf's largest |b|."""
+    return max(((a[n] - b[n]).abs().max() / b[n].abs().max().clamp_min(1e-30)).item() for n in b)
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside: two eager runs of the same
+    train step otherwise differ in the convolutions' weight gradients (the
+    card read 8-step parameter gaps of 0.1-0.5 of a leaf between two runs
+    of one mode), which AdamW carries into every leaf; with them, every
+    mode is bit-equal run to run."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def feed_train_modes(dev, preset, seed, **overrides):
+    """Phase 15 (a) and (b): ScanHarness (utils/scanbench.py) at the preset's
+    full width in three modes (streamed per step, feed per step, feed + scan
+    in chunks of SCAN_K graph replays), each on a fresh model from `seed`,
+    as a user runs them: ScanHarness.time_scan (one chunk of warm-up: the
+    scan's eager warm-up steps and its capture; then the timed steps, wall
+    time) and the same number of steps again under torch.profiler
+    (device-busy time, idle share), whose kernel records give each
+    kernel's launches as the card ran them: a step's times the steps in
+    every mode, the wrappers' counts equal to them in the eager modes and 0
+    in the replays (the scan's counts are its eager warm-up steps'). Then,
+    under deterministic_cudnn,
+    the equalities: the graph path's loss vectors against the eager feed
+    path's over 2 chunks at the preset's dropout; at float32 and dropout 0,
+    one chunk a mode from one init, the parameters leaf by leaf."""
+    import dataclasses
+
+    import torch
+
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.graph import WARMUP_STEPS
+    from flashvtg_tpu_torch.utils.runtime import KERNEL_FORMS
+    from flashvtg_tpu_torch.utils.scanbench import ScanHarness
+
+    lv, lq, t_dim, rows, steps = FEED_TRAIN[preset]
+    cfg = from_preset(preset, use_tensorboard=False, **overrides)
+    per_step = train_launches_per_step(cfg)
+    form = KERNEL_FORMS[cfg.train_precision]
+    out = {"preset": preset, "bsz": cfg.bsz, "max_v_l": lv, "feed_rows": rows,
+           "scan_steps": SCAN_K, "train_precision": cfg.train_precision, "dropout": cfg.dropout}
+    for mode in ("streamed", "feed", "scan"):
+        reset_launch_counts()
+        h = ScanHarness(cfg, lv, lq, t_dim, device=dev, n_feed_batches=rows // cfg.bsz,
+                        seed=seed)
+        reading = {}
+        if mode != "streamed":
+            h.feed
+            reading.update(feed_s=h.feed_s, feed_bytes=h.feed_bytes)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        sps, warm_s, losses = h.time_scan(SCAN_K, steps, mode)
+        assert torch.isfinite(losses).all(), mode
+        peak = torch.cuda.max_memory_allocated()
+        counted_before = form_launch_counts()
+        prof_wall, busy_us, table = busy_ms(
+            lambda: h.run(mode, steps, SCAN_K, i0=SCAN_K + steps).cpu())
+        counted_in = {f: {k: n - counted_before[f][k] for k, n in c.items()}
+                      for f, c in form_launch_counts().items()}
+        # the profiled steps as the card ran them: every kernel of a step,
+        # eager or replayed; the wrappers count the eager launches alone
+        want = at_form(form, {k: n * steps for k, n in per_step.items()})
+        assert all(table[f] == grouped(want[f]) for f in want), (preset, mode, table)
+        if mode == "scan":
+            assert not any(n for c in counted_in.values() for n in c.values()), counted_in
+        else:
+            assert all(table[f] == grouped(counted_in[f]) for f in table), (mode, counted_in)
+        wall = steps / sps
+        reading.update(
+            warmup_chunk_s=warm_s, steps_per_s=sps, wall_ms_per_step=wall * 1e3 / steps,
+            device_busy_ms_per_step=busy_us / 1e3 / steps,
+            idle_share=1 - busy_us / 1e6 / wall, profiled_wall_ms_per_step=prof_wall * 1e3 / steps,
+            peak_mem_bytes=peak)
+        if mode == "scan":
+            fs = h.feed_steps(graph=True)
+            reading.update(capture_s=fs.capture_s, replays=fs.replays)
+            # counted at the wrappers: the eager warm-up steps alone
+            launches, by_form = counted(cfg.train_precision)
+            assert fs.warm == WARMUP_STEPS and launches == {
+                k: n * WARMUP_STEPS for k, n in per_step.items()}, (launches, fs.warm)
+            out["launches"], out["form_launches"] = launches, by_form
+            out["device_launches"], out["profiled_replays"] = table, steps
+        out[mode] = reading
+        log(f"[feed train {preset} {mode}] {json.dumps(reading)}")
+        del h
+        torch.cuda.empty_cache()
+
+    with deterministic_cudnn():
+        losses = {}
+        for mode in ("feed", "scan"):
+            h = ScanHarness(cfg, lv, lq, t_dim, device=dev, n_feed_batches=2, seed=seed)
+            losses[mode] = h.run(mode, 2 * SCAN_K, SCAN_K).cpu()
+            del h
+        gap = ((losses["scan"] - losses["feed"]).abs()
+               / losses["feed"].abs().clamp_min(1e-6)).max().item()
+        out["scan_vs_feed_loss_rel_gap"] = gap
+        assert gap <= GRAPH_LOSS_RTOL, gap
+
+        cfg32 = cfg.replace(train_precision="float32", dropout=0.0, input_dropout=0.0)
+        mcfg = dataclasses.replace(cfg32.model_config(), dummy_dropout=0.0)
+        params = {}
+        for mode in ("streamed", "feed", "scan"):
+            h = ScanHarness(cfg32, lv, lq, t_dim, device=dev, n_feed_batches=2, seed=seed,
+                            model_config=mcfg)
+            h.run(mode, SCAN_K, SCAN_K).cpu()
+            params[mode] = params_of(h.model)
+            del h
+        torch.cuda.empty_cache()
+    pairs = (("scan", "feed"), ("feed", "streamed"), ("scan", "streamed"))
+    out["f32_param_gap"] = {f"{a}_vs_{b}": leaf_gap(params[a], params[b]) for a, b in pairs}
+    out["f32_bit_equal"] = {f"{a}_vs_{b}": all(torch.equal(params[a][n], params[b][n])
+                                               for n in params[b]) for a, b in pairs}
+    assert max(out["f32_param_gap"].values()) <= GRAPH_PARAM_RTOL, out["f32_param_gap"]
+    summary = {k: v for k, v in out.items() if k not in ("streamed", "feed", "scan")}
+    log(f"[feed train {preset}] {json.dumps(summary)}")
+    return out
+
+
+def feed_vs_streamed_eval(cfg, model, ds, infer):
+    """Phase 15 (c): one eval split through `infer` with the device feed and
+    streamed (each warmed up, then timed, then profiled): the outputs bit
+    for bit equal (the submissions with and without NMS and the eval
+    losses; the HD mAP and saliency rows), one device-to-host fetch a batch
+    in both, the queries (videos) a second and the idle share of each."""
+    import torch
+
+    from flashvtg_tpu_torch.train.infer import FETCHES
+
+    res, outs = {}, {}
+    batches = -(-len(ds) // cfg.eval_bsz)
+    for mode in ("on", "off"):
+        c = cfg.replace(device_feed=mode)
+        infer(c, model, ds)
+        assert (getattr(ds, "_device_feed_cache", None) is not None) or mode == "off"
+        fetches = FETCHES["d2h"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[mode] = infer(c, model, ds)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_batch = (FETCHES["d2h"] - fetches) / batches
+        assert per_batch == 1, (mode, per_batch)
+        _, busy_us, _ = busy_ms(lambda: infer(c, model, ds))
+        res["feed" if mode == "on" else "streamed"] = dict(
+            queries_per_s=len(ds) / wall, wall_s=wall, fetches_per_batch=per_batch,
+            device_busy_ms_per_batch=busy_us / 1e3 / batches, idle_share=1 - busy_us / 1e6 / wall)
+    on, off = outs["on"], outs["off"]
+    if isinstance(on, dict):  # run_hl_inference
+        assert on["brief"] == off["brief"], (on["brief"], off["brief"])
+        assert list(on["saliency"]) == list(off["saliency"])
+        assert all(np.array_equal(on["saliency"][q], off["saliency"][q]) for q in on["saliency"])
+    else:
+        assert on == off, "eval with the feed differs from the streamed eval"
+    res["bit_equal"] = True
+    return res
+
+
+class _Rows:
+    """A stand-in split of n rows for the budget gates (nothing is read)."""
+
+    def __init__(self, n):
+        self.n = n
+        self.cfg = type("DataCfg", (), {"txt_drop_ratio": 0.0})()
+
+    def __len__(self):
+        return self.n
+
+
+def tacos_feed_gate(dev):
+    """Phase 15 (d), second part: a TACoS split of 9,790 rows under the
+    default budget: its estimate, and "auto" streaming it (the train and the
+    eval gate), with nothing built."""
+    from flashvtg_tpu_torch.data.feed import estimate_feed_bytes, resident_feed_bytes
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.infer import _maybe_device_feed
+    from flashvtg_tpu_torch.train.loop import train_feed
+
+    cfg = from_preset("tacos")
+    est = estimate_feed_bytes(9790, cfg.max_v_l, cfg.total_v_feat_dim, cfg.max_q_l,
+                              cfg.t_feat_dim, 2 if cfg.transfer_dtype == "bfloat16" else 4)
+    before = resident_feed_bytes()
+    assert cfg.device_feed == "auto" and est > cfg.device_feed_budget_gb * 2**30
+    assert train_feed(cfg, _Rows(9790), None, dev) is None
+    assert _maybe_device_feed(cfg, _Rows(9790), cfg.max_v_l, dev) is None
+    assert resident_feed_bytes() == before
+    return dict(rows=9790, estimate_bytes=est, budget_gb=cfg.device_feed_budget_gb,
+                auto_streams=True)
+
+
+def run_cli_feed(dev, seed, n_train=128, n_val=64, epochs=2, bsz=32, scan=4):
+    """Phase 15 (d): the CLI's `train` with --device_feed on --scan_steps 4
+    at the flagship's full width and its default dials (4 steps an epoch:
+    two eager warm-up steps and the capture in the first chunk, replays
+    after), in a fresh process as a user starts it (nothing of this one
+    warmed: the forward's device constants, the kernels' libraries, cuBLAS),
+    then `infer` on its model_best.ckpt in this one: the best epoch's brief
+    metrics equal infer's; the infer's launches, one eval's."""
+    import glob
+
+    import torch
+
+    from flashvtg_tpu_torch import cli
+    from flashvtg_tpu_torch.train.config import from_preset
+
+    preset = "qvhighlights_slowclip"
+    cfg = from_preset(preset, bsz=bsz)
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = make_train_split(tmp, cfg, n_train, n_val, seed)
+        flags = [
+            "--device", str(dev), "--seed", str(seed), "--bsz", str(bsz), "--eval_epoch", "1",
+            "--train_path", cfg.train_path, "--eval_path", cfg.eval_path,
+            "--v_feat_dirs", *cfg.v_feat_dirs, "--t_feat_dir", cfg.t_feat_dir,
+            "--results_root", os.path.join(tmp, "results"), "--exp_id", "feed",
+            "--use_tensorboard", "false",
+        ]
+        t0 = time.perf_counter()
+        done = subprocess.run(
+            [sys.executable, "-m", "flashvtg_tpu_torch.cli", "train", preset, *flags,
+             "--n_epoch", str(epochs), "--device_feed", "on", "--scan_steps", str(scan)],
+            cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
+            timeout=600,
+        )
+        train_s = time.perf_counter() - t0
+        assert done.returncode == 0, done.stderr[-4000:]
+        (run_dir,) = glob.glob(os.path.join(tmp, "results", "*"))
+        with open(os.path.join(run_dir, "opt.json")) as f:
+            opt = json.load(f)
+        assert (opt["train_precision"], opt["device_feed"], opt["scan_steps"]) == (
+            cfg.train_precision, "on", scan), opt
+        losses, evals = read_train_run(run_dir)
+        assert len(losses) == epochs * (n_train // bsz)
+        assert all(np.isfinite(v) for h in losses for v in h.values())
+        best = os.path.join(run_dir, "model_best.ckpt")
+        best_epoch = torch.load(best, map_location="cpu", weights_only=False)["epoch"]
+        best_brief = dict(evals)[best_epoch]["brief"]
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        assert cli.main(["infer", preset, *flags, "--resume", best]) == 0
+        infer_s = time.perf_counter() - t0
+        launches, by_form = counted(cfg.eval_precision)
+        with open(os.path.join(run_dir, f"infer_{cfg.dset_name}_val_preds_metrics.json")) as f:
+            infer_brief = json.load(f)["brief"]
+        assert infer_brief == best_brief, (infer_brief, best_brief)
+        want = eval_launches(cfg)
+        assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
+    return dict(preset=preset, bsz=bsz, train_rows=n_train, epochs=epochs, scan_steps=scan,
+                train_precision=cfg.train_precision, train_subprocess_s=train_s,
+                infer_s=infer_s, best_epoch=best_epoch, best_brief=best_brief,
+                launches=launches, form_launches=by_form, losses_last=losses[-1])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1892,13 +2294,13 @@ def main():
 
     phases = {
         "flagship": lambda: run_preset(dev, "qvhighlights_slowclip", args.queries, 8,
-                                       args.seed),
+                                       args.seed, feed_compare=True),
         "tacos": lambda: run_preset(dev, "tacos", args.tacos_queries, 2, args.seed),
         "flagship_train": lambda: run_train_preset(dev, "qvhighlights_slowclip",
                                                    args.train_steps, args.seed),
         "tacos_train": lambda: run_train_preset(dev, "tacos", args.train_steps, args.seed),
         "hd_youtube_eval": lambda: run_preset(dev, "youtube_uni", args.hd_queries, 2,
-                                              args.seed, dset_domain="dog"),
+                                              args.seed, feed_compare=True, dset_domain="dog"),
         "hd_tvsum_eval": lambda: run_preset(dev, "tvsum", 8, 2, args.seed, dset_domain="BK"),
         # TVSum's own split of a domain: 4 train videos and 1 val video
         "tvsum_train": lambda: run_train_preset(dev, "tvsum", args.train_steps, args.seed,
@@ -1970,6 +2372,21 @@ def main():
     assert not torch.backends.cuda.matmul.allow_tf32
     assert not torch.backends.cudnn.allow_tf32
 
+    # phase 15: the device feed and the scan epoch's graph replays (the
+    # eval's feed against streamed ran with phases 4 and 9)
+    feed_phases = {
+        "feed_train_flagship": lambda: feed_train_modes(dev, "qvhighlights_slowclip",
+                                                        args.seed),
+        "feed_train_tvsum_ms": lambda: feed_train_modes(dev, "tvsum_ms", args.seed),
+        "feed_cli": lambda: {**run_cli_feed(dev, args.seed),
+                             "tacos_gate": tacos_feed_gate(dev)},
+    }
+    for name, run in feed_phases.items():
+        t0 = time.perf_counter()
+        paths[name] = run()
+        paths[name]["wall_s"] = time.perf_counter() - t0
+        log(f"[{name}] {paths[name]['wall_s']:.2f} s")
+
     for row in rows:  # the largest errors over every shape of the kernel and form
         for key in ("max_abs_err", "max_rel_err"):
             row[key] = max([row[key]] + [
@@ -1980,9 +2397,14 @@ def main():
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = {k: v for k, v in by_path.items() if v}
         assert row["launches"] > 0, f"{row['name']} never launched on the paths"
+        # the train paths' launches as the card ran them (graph replays
+        # included), read from the profiler's kernel records
+        row["device_function"] = group_of(row["kernel"])
+        row["device_launches"] = sum(p["device_launches"][row["form"]][row["device_function"]]
+                                     for p in paths.values() if "device_launches" in p)
     keys = ("name", "form", "route", "source", "replaces", "launches", "max_abs_err",
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
-            "launches_by_path")
+            "launches_by_path", "device_function", "device_launches")
     print(json.dumps({"paths": paths, "kernel_shapes": shapes, "sass_hmma": hmma,
                       "sass_hmma_by_form": hmma_forms, "form_identity": form_identity}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))

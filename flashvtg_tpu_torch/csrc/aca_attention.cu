@@ -129,7 +129,7 @@ struct TrainArgs {
   const float* query_valid;  // (B, Lv), with donor_rows
   const int* donor_rows;     // (B, H)
   float* lse;                // (B, H, Lv)
-  uint32_t seed;
+  const uint32_t* seed;      // device memory, attn_dropout.cuh; null without dropout
   uint32_t threshold;  // attn_dropout.cuh; 0 = no dropout
   float keep_scale;    // 1 / (1 - p)
 };
@@ -234,7 +234,7 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
       }
       if (drop) {
-        const uint32_t drop_h = drop_head(tr.seed, b * heads + h);
+        const uint32_t drop_h = drop_head(drop_seed(tr.seed), b * heads + h);
         drop_r[0] = drop_row(drop_h, row[0]);
         drop_r[1] = drop_row(drop_h, row[1]);
       }
@@ -460,7 +460,7 @@ int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
                                int form, void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const TrainArgs none = {nullptr, nullptr, nullptr, 0u, 0u, 1.f};
+  const TrainArgs none = {nullptr, nullptr, nullptr, nullptr, 0u, 1.f};
   if (head_mean != nullptr) {
     return (int)launch_form<true, false>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
   }
@@ -468,18 +468,21 @@ int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
 }
 
 // The training form: as above, plus lse (B, H, Lv), attention dropout
-// (threshold = floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none)
+// (seed a uint32 in device memory, read by the kernel; threshold =
+// floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none, and then
+// seed may be null)
 // and the donor-row mask (query_valid (B, Lv) f32 and donor_rows (B, H)
 // int32, or both null), and the form as above.
 int flashvtg_aca_attention_train_f32(const float* q, const float* k, const float* v,
                                      const float* key_valid, const float* query_valid,
                                      const int* donor_rows, float* out, float* head_mean,
                                      float* lse, int batch, int lv, int lk, int heads,
-                                     int head_dim, int nd, float scale, unsigned seed,
+                                     int head_dim, int nd, float scale, const unsigned* seed,
                                      unsigned threshold, float keep_scale, int form,
                                      void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd) || lse == nullptr ||
-      (donor_rows == nullptr) != (query_valid == nullptr)) {
+      (donor_rows == nullptr) != (query_valid == nullptr) ||
+      (threshold != 0u && seed == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

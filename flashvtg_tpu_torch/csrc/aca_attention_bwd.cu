@@ -102,7 +102,8 @@ struct Operands {
   float* ws;  // (2, B, H, chunks, Lk, 32) partial dk and dv; null with one chunk
   int batch, lv, lk, heads, nd, chunks, chunk_rows;
   float scale;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // device memory, attn_dropout.cuh; null without dropout
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -190,7 +191,7 @@ aca_attention_bwd_kernel(const Operands a) {
       const int j = 8 * n + 2 * t + c;
       if (j < lk && a.key_valid[(size_t)b * lk + j] > 0.f) ok_bits |= 1u << (2 * n + c);
     }
-  const uint32_t drop_h = drop_head(a.seed, bh);
+  const uint32_t drop_h = drop_head(drop_seed(a.seed), bh);
   const float inv_heads = 1.f / (float)a.heads;
 
   // this warp's key tile of dk and dv (keys 16 warp + g and + 8)
@@ -506,7 +507,8 @@ extern "C" {
 // (B, H, Lv) from the training forward; d_head_mean (B, Lv, Lk) or null;
 // workspace (2, B, H, chunks, Lk, Dh) f32 scratch when chunks > 1, else
 // null, with chunks from ops/aca.py:bwd_tiling; threshold = floor(p * 2^24)
-// (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's; form
+// (0 = no dropout), keep_scale = 1 / (1 - p), seed the forward's (device
+// memory; null without dropout); form
 // the products' form, 0 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh), any
 // other value refused. f32, contiguous and 16-byte aligned.
 int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* v,
@@ -515,11 +517,12 @@ int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* 
                                    const float* d_out, const float* d_head_mean, float* dq,
                                    float* dk, float* dv, float* workspace, int batch, int lv,
                                    int lk, int heads, int head_dim, int nd, int chunks,
-                                   float scale, unsigned seed, unsigned threshold,
+                                   float scale, const unsigned* seed, unsigned threshold,
                                    float keep_scale, int form, void* stream) {
   if (head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk || batch < 1 ||
       batch > 65535 || lv < 1 || heads < 1 || heads > 65535 ||
-      (donor_rows == nullptr) != (query_valid == nullptr)) {
+      (donor_rows == nullptr) != (query_valid == nullptr) ||
+      (threshold != 0u && seed == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   const Operands a = {q,  k,  v,  key_valid, query_valid, donor_rows, lse, d_out, d_head_mean,

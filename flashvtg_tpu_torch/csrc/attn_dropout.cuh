@@ -14,6 +14,9 @@
 //
 // threshold = floor(p * 2^24), so a key survives with probability 1 - p up
 // to 2^-24; a survivor is scaled by 1 / (1 - p), as nn.Dropout scales it.
+// The seed lives in device memory (a uint32 the caller draws on the card)
+// and is read once where a block starts its head: a captured CUDA graph
+// then takes each replay's new seed.
 // Both multipliers are odd and below 2^31, so the torch version's int64
 // products never overflow.
 
@@ -28,6 +31,11 @@ __device__ __forceinline__ uint32_t drop_mix32(uint32_t x) {
   x *= 0x2c1b3c6du;
   x ^= x >> 16;
   return x;
+}
+
+// the call's seed from device memory; null (no dropout) reads 0
+__device__ __forceinline__ uint32_t drop_seed(const uint32_t* seed) {
+  return seed != nullptr ? __ldg(seed) : 0u;
 }
 
 // the hash of one (batch row, head): computed once per head

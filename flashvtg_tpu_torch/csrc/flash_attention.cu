@@ -106,8 +106,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ key_valid,
                        float* __restrict__ out, int len, int heads,
-                       float scale, float* __restrict__ lse, uint32_t seed,
-                       uint32_t threshold, float keep_scale) {
+                       float scale, float* __restrict__ lse,
+                       const uint32_t* __restrict__ seed, uint32_t threshold,
+                       float keep_scale) {
   extern __shared__ float4 smem4[];
   float* stages = reinterpret_cast<float*>(smem4);
   __shared__ uint32_t key_bits[kMaskWords];
@@ -151,7 +152,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
   uint32_t drop_r[2] = {0u, 0u};
   if (drop) {
-    const uint32_t drop_h = drop_head(seed, b * heads + h);
+    const uint32_t drop_h = drop_head(drop_seed(seed), b * heads + h);
     drop_r[0] = drop_row(drop_h, row[0]);
     drop_r[1] = drop_row(drop_h, row[1]);
   }
@@ -286,7 +287,7 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int F, bool TRAIN>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* key_valid, float* out, int batch, int len,
-                   int heads, int head_dim, float scale, float* lse, uint32_t seed,
+                   int heads, int head_dim, float scale, float* lse, const uint32_t* seed,
                    uint32_t threshold, float keep_scale, cudaStream_t stream) {
   if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 ||
       batch > 65535 || heads < 1 || heads > 65535) {
@@ -309,7 +310,7 @@ cudaError_t launch(const float* q, const float* k, const float* v,
 template <bool TRAIN>
 cudaError_t launch_form(int form, const float* q, const float* k, const float* v,
                         const float* key_valid, float* out, int batch, int len, int heads,
-                        int head_dim, float scale, float* lse, uint32_t seed,
+                        int head_dim, float scale, float* lse, const uint32_t* seed,
                         uint32_t threshold, float keep_scale, cudaStream_t stream) {
 #define FLASH_FORM(F)                                                                     \
   launch<F, TRAIN>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale, lse, seed, \
@@ -336,17 +337,19 @@ int flashvtg_flash_attention_f32(const float* q, const float* k, const float* v,
                                  int len, int heads, int head_dim, float scale,
                                  int form, void* stream) {
   return (int)launch_form<false>(form, q, k, v, key_valid, out, batch, len, heads, head_dim,
-                                 scale, nullptr, 0u, 0u, 1.f, (cudaStream_t)stream);
+                                 scale, nullptr, nullptr, 0u, 1.f, (cudaStream_t)stream);
 }
 
 // The training form: as above, plus lse (B, H, L) and attention dropout
-// (threshold = floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none).
+// (seed a uint32 in device memory, read by the kernel; threshold =
+// floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none, and then
+// seed may be null).
 int flashvtg_flash_attention_train_f32(const float* q, const float* k, const float* v,
                                        const float* key_valid, float* out, float* lse,
                                        int batch, int len, int heads, int head_dim,
-                                       float scale, unsigned seed, unsigned threshold,
+                                       float scale, const unsigned* seed, unsigned threshold,
                                        float keep_scale, int form, void* stream) {
-  if (lse == nullptr) return (int)cudaErrorInvalidValue;
+  if (lse == nullptr || (threshold != 0u && seed == nullptr)) return (int)cudaErrorInvalidValue;
   return (int)launch_form<true>(form, q, k, v, key_valid, out, batch, len, heads, head_dim,
                                 scale, lse, seed, threshold, keep_scale, (cudaStream_t)stream);
 }

@@ -109,7 +109,8 @@ struct Operands {
   float* dv;
   int len, heads;
   float scale;
-  uint32_t seed, threshold;
+  const uint32_t* seed;  // device memory, attn_dropout.cuh; null without dropout
+  uint32_t threshold;
   float keep_scale;
 };
 
@@ -206,7 +207,7 @@ flash_bwd_dkdv_kernel(const Operands a) {
     }
 
   if (__syncthreads_or(key_ok[0] || key_ok[1])) {
-    const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
+    const uint32_t drop_h = drop_head(drop_seed(a.seed), b * a.heads + h);
     load_query_stage(a, stages, b, h, 0, drop_h);
     cp_async_commit();
 
@@ -363,7 +364,7 @@ flash_bwd_dq_kernel(const Operands a) {
       of[ks] = frag_a<F>(a.d_out[g0 + c], a.d_out[g1 + c], a.d_out[g0 + c + 4],
                       a.d_out[g1 + c + 4]);
     }
-    const uint32_t drop_h = drop_head(a.seed, b * a.heads + h);
+    const uint32_t drop_h = drop_head(drop_seed(a.seed), b * a.heads + h);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       const size_t gi = ((size_t)b * a.heads + h) * a.len + rc[r];
@@ -508,7 +509,8 @@ extern "C" {
 // returns cudaGetLastError() (0 = launched). q, k, v, out, d_out, dq, dk, dv
 // (B, L, H*Dh); key_valid (B, L); lse and delta (B, H, L), delta scratch
 // (the pre-pass writes D there, the dq kernel D'); threshold = floor(p *
-// 2^24) (0 = no dropout), keep_scale = 1 / (1 - p), seed as the forward's;
+// 2^24) (0 = no dropout), keep_scale = 1 / (1 - p), seed the forward's (device
+// memory; null without dropout);
 // form the products' form, 0 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh),
 // any other value refused. f32, contiguous and 16-byte aligned;
 // 1 <= L <= 4096, Dh = 32.
@@ -516,11 +518,12 @@ int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float
                                      const float* key_valid, const float* out,
                                      const float* lse, const float* d_out, float* delta,
                                      float* dq, float* dk, float* dv, int batch, int len,
-                                     int heads, int head_dim, float scale, unsigned seed,
+                                     int heads, int head_dim, float scale, const unsigned* seed,
                                      unsigned threshold, float keep_scale, int form,
                                      void* stream) {
   if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 || batch > 65535 ||
-      heads < 1 || heads > 65535 || form < kForm3xTF32 || form > kFormBF16) {
+      heads < 1 || heads > 65535 || form < kForm3xTF32 || form > kFormBF16 ||
+      (threshold != 0u && seed == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;

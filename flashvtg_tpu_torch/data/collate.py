@@ -3,7 +3,9 @@
 Features and masks are padded to (max_q_l, video bucket) shapes; with labels
 (training) the saliency labels are padded to the video length, the GT
 windows to (max_windows, 2) with +inf, and every batch carries the
-negative-pair indicator real_neg_mask.
+negative-pair indicator real_neg_mask. With pad_features off (the
+device-resident feed, data/feed.py, holds the features) a batch carries no
+feature or mask tensors (MODEL_KEYS), only labels and bookkeeping.
 """
 
 from __future__ import annotations
@@ -46,25 +48,25 @@ class Collator:
     fixed_v_len: Optional[int] = None  # pin the video length (single bucket)
     max_windows: int = 5
     dset_name: str = "hl"
+    pad_features: bool = True  # False: no MODEL_KEYS (the device feed has them)
 
     def __call__(self, samples: List[tuple]) -> Dict[str, object]:
         inputs = [x for _, x in samples]
         v_lens = [len(x["video_feat"]) for x in inputs]
         lv = self.fixed_v_len or bucket_length(max(v_lens), self.v_buckets)
-        src_vid, vid_mask = pad_batch([x["video_feat"] for x in inputs], lv)
-        src_txt, txt_mask = pad_batch([x["query_feat"] for x in inputs], self.max_q_l)
         vids = [x["vid"] for x in inputs]
         batch = {
             "valid_v_lens": np.asarray([min(l, lv) for l in v_lens], np.int64),
             "vid": vids,
             "qid": [x["qid"] for x in inputs],
             "meta": [m for m, _ in samples],
-            "src_txt": src_txt,
-            "src_txt_mask": txt_mask,
-            "src_vid": src_vid,
-            "src_vid_mask": vid_mask,
             "real_neg_mask": rolled_neg_mask(neg_pair_base(vids, self.dset_name)),
         }
+        if self.pad_features:
+            src_vid, vid_mask = pad_batch([x["video_feat"] for x in inputs], lv)
+            src_txt, txt_mask = pad_batch([x["query_feat"] for x in inputs], self.max_q_l)
+            batch.update(src_txt=src_txt, src_txt_mask=txt_mask, src_vid=src_vid,
+                         src_vid_mask=vid_mask)
         if "saliency_all_labels" in inputs[0]:
             batch["saliency_all_labels"] = pad_batch(
                 [x["saliency_all_labels"] for x in inputs], lv

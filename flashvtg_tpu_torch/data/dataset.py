@@ -166,6 +166,14 @@ class VTGDataset:
             self._attach_labels(self.data[index], out)
         return self.data[index], out
 
+    def features_only(self, index):
+        """(meta, inputs) with the cached features alone: no labels and no
+        txt_drop, so no draw of the label stream is consumed (the device
+        feed's bulk pass, data/feed.py)."""
+        if self._cache[index] is None:
+            self._cache[index] = self._build(self.data[index])
+        return self.data[index], dict(self._cache[index])
+
     def _drop_rows(self, emb):
         k = round(len(emb) * self.cfg.txt_drop_ratio)
         if k > 0:

@@ -146,8 +146,9 @@ def load(name: str) -> ctypes.CDLL:
 
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     p, i, f, u = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_uint
-    # scale, seed, dropout threshold, keep scale, form, stream
-    train = [f, u, u, f, i, p]
+    # scale, seed (a pointer to a uint32 in device memory), dropout
+    # threshold, keep scale, form, stream
+    train = [f, p, u, f, i, p]
     signatures = {
         "aca_attention": {
             "flashvtg_aca_attention_f32": [p] * 6 + [i] * 6 + [f, i, p],

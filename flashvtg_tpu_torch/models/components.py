@@ -10,12 +10,36 @@ module.1 / module.3, blocks.j.{5i+1, 5i+3}).
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+# host-made constant arrays of the forward, one copy per (key, device), with
+# the pinned host array each was copied from: a forward that a CUDA graph
+# captures, or that runs under torch.cuda.set_sync_debug_mode("error") (the
+# graph's warm-up steps, train/graph.py), may not copy from pageable host
+# memory, so the copy is made once, from pinned memory and without a sync,
+# at the first call, and the pinned source is kept for as long as its copy
+_CONSTANTS: Dict[tuple, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def device_constant(key: tuple, device, make: Callable[[], np.ndarray]) -> torch.Tensor:
+    """The array `make()` as a tensor on `device`, made and copied there at
+    the first call for (`key`, device), on the current stream without a
+    host sync (pinned, non-blocking on the card), and reused after."""
+    device = torch.device(device)
+    full = key + (device,)
+    hit = _CONSTANTS.get(full)
+    if hit is None:
+        host = torch.from_numpy(make())
+        if device.type == "cuda":
+            host = host.pin_memory()
+        hit = _CONSTANTS[full] = (host, host.to(device, non_blocking=True))
+    return hit[1]
 
 
 def sine_position_embedding(
@@ -31,10 +55,11 @@ def sine_position_embedding(
     if normalize:
         x_embed = x_embed / (x_embed[:, -1:] + 1e-6) * scale
     # dim_t built in float64 and rounded once, as the JAX package does
-    dim_np = np.arange(num_pos_feats, dtype=np.float64)
-    dim_t = torch.from_numpy(
-        (temperature ** (2 * (dim_np // 2) / num_pos_feats)).astype(np.float32)
-    ).to(mask.device)
+    def make():
+        dim_np = np.arange(num_pos_feats, dtype=np.float64)
+        return (temperature ** (2 * (dim_np // 2) / num_pos_feats)).astype(np.float32)
+
+    dim_t = device_constant(("sine_dim_t", num_pos_feats, temperature), mask.device, make)
     pos = x_embed[:, :, None] / dim_t
     pos = torch.stack([torch.sin(pos[:, :, 0::2]), torch.cos(pos[:, :, 1::2])], dim=3)
     return pos.reshape(pos.shape[0], pos.shape[1], -1)
@@ -198,9 +223,8 @@ class AdaPooling(nn.Module):
 
     def forward(self, x, mask):
         a = self.att(x)
-        a = a + torch.where(
-            mask[..., None] == 1, a.new_tensor(0.0), a.new_tensor(float("-inf"))
-        )
+        # -inf at the masked tokens (a + where(mask, 0, -inf) for finite a)
+        a = a.masked_fill(mask[..., None] != 1, float("-inf"))
         a = torch.softmax(a, dim=1)  # (B, L, 1)
         return torch.einsum("bld,blo->bod", x, a)  # (B, 1, D)
 

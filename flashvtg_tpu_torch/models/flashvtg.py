@@ -33,6 +33,7 @@ from flashvtg_tpu_torch.models.components import (
     ConvPyramid,
     InputProj,
     TrainablePositionalEncoding,
+    device_constant,
     sine_position_embedding,
 )
 from flashvtg_tpu_torch.models.points import generate_points, pyramid_masks_pool
@@ -209,9 +210,8 @@ class FlashVTGModel(nn.Module):
             video_emb = video_emb * src_vid_mask[..., None]
         pymid, video_emb = self.pyramid(video_emb)
         pymid_msk = pyramid_masks_pool(src_vid_mask, cfg.strides)
-        points = torch.from_numpy(generate_points(lv, cfg.strides)).to(
-            src_vid.device
-        )
+        points = device_constant(("points", lv, tuple(cfg.strides)), src_vid.device,
+                                 lambda: generate_points(lv, cfg.strides))
         level_masks = [None] * len(pymid)
         if point_valid is not None:
             masked, level_masks, off = [], [], 0
@@ -320,7 +320,7 @@ def decode_boundaries(
     end = (center + out_coord[..., 1] * stride) * clip_length
     scores = torch.sigmoid(out_class[..., 0])
     if point_valid is not None:
-        scores = torch.where(point_valid > 0, scores, scores.new_tensor(-1.0))
+        scores = scores.masked_fill(point_valid <= 0, -1.0)
     k = min(top_k, scores.shape[1])
     sorted_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     top_scores, idx = sorted_scores[:, :k], idx[:, :k]

@@ -50,6 +50,7 @@ from flashvtg_tpu_torch.models.components import (
     ConvPyramid,
     InputProj,
     TrainablePositionalEncoding,
+    device_constant,
     sine_position_embedding,
 )
 from flashvtg_tpu_torch.models.flashvtg import ModelConfig, decode_boundaries
@@ -192,7 +193,8 @@ class FlashVTGMSModel(nn.Module):
         # pyramid and heads on the fused embedding
         pymid, _ = self.pyramid(src_emb if train else src_emb * src_vid_mask[..., None])
         pymid_msk = pyramid_masks_pool(src_vid_mask, cfg.strides)
-        points = torch.from_numpy(generate_points(lv, cfg.strides)).to(src_vid.device)
+        points = device_constant(("points", lv, tuple(cfg.strides)), src_vid.device,
+                                 lambda: generate_points(lv, cfg.strides))
         level_masks = [None] * len(pymid)
         if point_valid is not None:
             masked, level_masks, off = [], [], 0
@@ -242,7 +244,7 @@ class FlashVTGMSModel(nn.Module):
             # the video-side EOS summary: the learned query attention-pools
             # the valid clips of the context aggregate
             att = torch.einsum("d,btd->bt", self.eos_query, context_agg) / math.sqrt(d)
-            att = torch.where(src_vid_mask > 0, att, att.new_tensor(-1e30))
+            att = att.masked_fill(src_vid_mask <= 0, -1e30)
             w = torch.softmax(att, dim=-1)
             out["eos_slot"] = torch.einsum("bt,btd->bd", w, context_agg)[:, None]
             out["eos_emb"] = glob
@@ -300,7 +302,7 @@ def decode_boundaries_dfl(
     end = (center + end_off * stride) * clip_length
     scores = torch.sigmoid(out_class[..., 0])
     if point_valid is not None:
-        scores = torch.where(point_valid > 0, scores, scores.new_tensor(-1.0))
+        scores = scores.masked_fill(point_valid <= 0, -1.0)
     k = min(top_k, scores.shape[1])
     sorted_scores, idx = torch.sort(scores, dim=1, descending=True, stable=True)
     top_scores, idx = sorted_scores[:, :k], idx[:, :k]

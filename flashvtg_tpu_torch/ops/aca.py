@@ -37,13 +37,21 @@ A CPU tensor goes to the plain PyTorch versions (`*_plain`, and
 CUDA tensor launches the kernels or raises, with no fallback. Each wrapper
 counts its launches by product form in FORM_LAUNCHES, where it launches and
 nowhere else (launch_counts sums the forms); a backward counts under its
-forward's name + "_bwd".
+forward's name + "_bwd". A call inside a CUDA-graph capture launches
+nothing (the graph records the kernel) and is not counted; the graph's
+replays launch it without a Python call, so their launches are read from
+the device (the profiler's kernel records), not from these counts.
 
 The wrappers read the product form at the call (utils/runtime.py:
 kernel_form; the Function keeps it for its backward) and take q, k, v in
 float32 with autocast off: under the bfloat16 dial the projections arrive in
 bf16, and the kernels, like their plain versions (`form=`), round the
 operands of each product themselves.
+
+A dropout seed is a 0-d int32 tensor on the device (ops/attn_dropout.py:
+draw_seed), drawn there from `generator` and read by the kernels from
+device memory, so a captured CUDA graph draws a new one at every replay;
+the launchers also take an int, copied to the card at the call.
 """
 
 from __future__ import annotations
@@ -52,7 +60,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from flashvtg_tpu_torch.ops.attn_dropout import draw_seed, keep_scale, threshold
+from flashvtg_tpu_torch.ops.attn_dropout import draw_seed, keep_scale, seed_tensor, threshold
 from flashvtg_tpu_torch.ops.forms import FORM_IDS, FORMS, autocast_off, product
 from flashvtg_tpu_torch.utils.runtime import kernel_form, widened
 
@@ -97,8 +105,15 @@ def reset_launch_counts() -> None:
         counts.update(dict.fromkeys(KERNELS, 0))
 
 
+def _launching() -> bool:
+    """Whether a kernel call on the card launches now: not inside a
+    CUDA-graph capture, which only records it."""
+    return not torch.cuda.is_current_stream_capturing()
+
+
 def _count(name: str, form: str) -> None:
-    FORM_LAUNCHES[form][name] += 1
+    if _launching():
+        FORM_LAUNCHES[form][name] += 1
 
 
 def _split_heads(x, num_heads):
@@ -262,6 +277,15 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def _seed_ptr(seed, dropout, device):
+    """(the kernel's seed pointer, or None without dropout; the 0-d int32
+    tensor it points into, kept alive by the caller until the launch)."""
+    if dropout <= 0:
+        return None, None
+    t = seed_tensor(seed, device)
+    return t.data_ptr(), t
+
+
 def _check_rc(tag, rc):
     if rc != 0:
         raise RuntimeError(f"{tag} launch failed: CUDA error {rc}")
@@ -307,11 +331,12 @@ def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
     query_valid, donor_rows = _donor_operands(tag, query_valid, donor_rows, b, lv,
                                               num_heads, q)
     lse = q.new_empty((b, num_heads, lv))
+    seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = lib.flashvtg_aca_attention_train_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(query_valid), _ptr(donor_rows), out.data_ptr(), _ptr(head_mean),
         lse.data_ptr(), b, lv, lk, num_heads, HEAD_DIM, num_dummies, HEAD_DIM ** -0.5,
-        seed, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
+        seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
     _check_rc(tag, rc)
     return (out, head_mean, lse) if want_lse else (out, head_mean)
@@ -336,12 +361,13 @@ def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dumm
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     ws_shape = bwd_workspace_shape(b, num_heads, lv, lk)
     workspace = None if ws_shape is None else q.new_empty(ws_shape)
+    seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = kernels.load("aca_attention_bwd").flashvtg_aca_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         _ptr(query_valid), _ptr(donor_rows), lse.data_ptr(), d_out.data_ptr(),
         _ptr(d_head_mean), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(workspace),
         b, lv, lk, num_heads, HEAD_DIM, num_dummies, bwd_tiling(lv, lk)[1], HEAD_DIM ** -0.5,
-        seed, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
+        seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
     _check_rc(tag, rc)
     return dq, dk, dv
@@ -350,27 +376,31 @@ def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dumm
 class _AttentionFn(torch.autograd.Function):
     """Training form of the short/ACA attention: the forward (with LSE,
     dropout and donor rows) and its backward, in the forward's product form,
-    kernels on the card and the plain versions on the CPU. Returns out, and
-    head_mean when asked."""
+    kernels on the card and the plain versions on the CPU. `seed` is the
+    call's 0-d seed tensor (an int is put on the device; None without
+    dropout), saved for the backward.
+    Returns out, and head_mean when asked."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, query_valid, donor_rows, num_heads,
                 num_dummies, want_head_mean, dropout, seed, name, form):
         on_cpu = q.device.type == "cpu"
+        if dropout > 0 and not isinstance(seed, torch.Tensor):
+            seed = seed_tensor(seed, q.device)
         out, head_mean, lse = (aca_attention_plain if on_cpu else _launch)(
             q, k, v, key_valid, num_heads, num_dummies, want_head_mean, dropout, seed,
             query_valid, donor_rows, want_lse=True, form=form,
         )
         if not on_cpu:
             _count(name, form)
-        ctx.save_for_backward(q, k, v, key_valid, query_valid, donor_rows, lse)
-        ctx.args = (num_heads, num_dummies, dropout, seed, name, form)
+        ctx.save_for_backward(q, k, v, key_valid, query_valid, donor_rows, lse, seed)
+        ctx.args = (num_heads, num_dummies, dropout, name, form)
         return (out, head_mean) if want_head_mean else out
 
     @staticmethod
     def backward(ctx, d_out, d_head_mean=None):
-        q, k, v, key_valid, query_valid, donor_rows, lse = ctx.saved_tensors
-        num_heads, num_dummies, dropout, seed, name, form = ctx.args
+        q, k, v, key_valid, query_valid, donor_rows, lse, seed = ctx.saved_tensors
+        num_heads, num_dummies, dropout, name, form = ctx.args
         if d_out is None:
             d_out = torch.zeros_like(q)
         on_cpu = q.device.type == "cpu"
@@ -409,7 +439,7 @@ def aca_attention(q, k, v, key_valid, num_heads: int, num_dummies: int,
                              form=form)
             _count("aca_attention", form)
             return result
-        seed = draw_seed(generator) if dropout > 0 else 0
+        seed = draw_seed(generator, q.device) if dropout > 0 else None
         res = _AttentionFn.apply(q, k, v, key_valid, query_valid, donor_rows, num_heads,
                                  num_dummies, want_head_mean, dropout, seed, "aca_attention",
                                  form)
@@ -429,6 +459,6 @@ def masked_attention(q, k, v, key_valid, num_heads: int, dropout: float = 0.0,
             out, _ = _launch(q, k, v, key_valid, num_heads, 0, False, form=form)
             _count("masked_attention", form)
             return out
-        seed = draw_seed(generator) if dropout > 0 else 0
+        seed = draw_seed(generator, q.device) if dropout > 0 else None
         return _AttentionFn.apply(q, k, v, key_valid, None, None, num_heads, 0, False,
                                   dropout, seed, "masked_attention", form)

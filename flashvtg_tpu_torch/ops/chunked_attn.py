@@ -35,8 +35,8 @@ torch.autograd.Function holding both kernels. A CPU tensor goes to the plain
 versions (inside the same Function); a CUDA tensor launches the kernels or
 raises, with no fallback. FORM_LAUNCHES counts each kernel's launches by
 product form where it launches and nowhere else (launch_counts sums the
-forms). As
-ops/aca.py's wrappers, flash_attention reads the product form at the call
+forms; a call inside a CUDA-graph capture launches nothing and is not
+counted, as in ops/aca.py). As ops/aca.py's wrappers, flash_attention reads the product form at the call
 and takes float32 operands with autocast off.
 """
 
@@ -51,11 +51,13 @@ from flashvtg_tpu_torch.ops.aca import (
     _aligned,
     _check_operands,
     _check_rc,
+    _launching,
     _merge_heads,
+    _seed_ptr,
     _split_heads,
     _stream,
 )
-from flashvtg_tpu_torch.ops.attn_dropout import draw_seed, keep_scale, threshold
+from flashvtg_tpu_torch.ops.attn_dropout import draw_seed, keep_scale, seed_tensor, threshold
 from flashvtg_tpu_torch.ops.forms import FORM_IDS, FORMS, autocast_off, product
 from flashvtg_tpu_torch.utils.runtime import kernel_form, widened
 
@@ -79,7 +81,8 @@ def reset_launch_counts() -> None:
 
 
 def _count(name: str, form: str) -> None:
-    FORM_LAUNCHES[form][name] += 1
+    if _launching():  # a capture records the kernel, it launches nothing
+        FORM_LAUNCHES[form][name] += 1
 
 
 def _chunk_scale(seed, p, q_c, i, length):
@@ -240,10 +243,11 @@ def _launch(q, k, v, key_valid, num_heads, dropout=0.0, seed=0, want_lse=False,
         _check_rc(tag, rc)
         return out
     lse = q.new_empty((b, num_heads, length))
+    seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = lib.flashvtg_flash_attention_train_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), b, length, num_heads, HEAD_DIM,
-        HEAD_DIM ** -0.5, seed, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form],
+        HEAD_DIM ** -0.5, seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form],
         _stream(q),
     )
     _check_rc(tag, rc)
@@ -265,11 +269,12 @@ def _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads, dropout=0.0, see
     # place with D' = rowsum(P z dP) by the dq kernel, which must run before
     # the dk/dv kernel that reads D'
     delta = q.new_empty((b, num_heads, length))
+    seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = kernels.load("flash_attention_bwd").flashvtg_flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), d_out.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, length, num_heads, HEAD_DIM,
-        HEAD_DIM ** -0.5, seed, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form],
+        HEAD_DIM ** -0.5, seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form],
         _stream(q),
     )
     _check_rc(tag, rc)
@@ -279,24 +284,28 @@ def _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads, dropout=0.0, see
 class _FlashFn(torch.autograd.Function):
     """Training form of the long self-attention: the forward with LSE and
     dropout, and its backward in the forward's product form; kernels on the
-    card, plain versions on the CPU."""
+    card, plain versions on the CPU. `seed` is the call's 0-d seed tensor
+    (an int is put on the device; None without dropout), saved for the
+    backward."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, num_heads, dropout, seed, form):
         on_cpu = q.device.type == "cpu"
+        if dropout > 0 and not isinstance(seed, torch.Tensor):
+            seed = seed_tensor(seed, q.device)
         out, lse = (flash_attention_plain if on_cpu else _launch)(
             q, k, v, key_valid, num_heads, dropout, seed, want_lse=True, form=form
         )
         if not on_cpu:
             _count("flash_attention", form)
-        ctx.save_for_backward(q, k, v, key_valid, out, lse)
-        ctx.args = (num_heads, dropout, seed, form)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse, seed)
+        ctx.args = (num_heads, dropout, form)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, key_valid, out, lse = ctx.saved_tensors
-        num_heads, dropout, seed, form = ctx.args
+        q, k, v, key_valid, out, lse, seed = ctx.saved_tensors
+        num_heads, dropout, form = ctx.args
         on_cpu = q.device.type == "cpu"
         with autocast_off(q):
             dq, dk, dv = (flash_attention_bwd_plain if on_cpu else _launch_bwd)(
@@ -322,5 +331,5 @@ def flash_attention(q, k, v, key_valid, num_heads: int, dropout: float = 0.0,
             out = _launch(q, k, v, key_valid, num_heads, form=form)
             _count("flash_attention", form)
             return out
-        seed = draw_seed(generator) if dropout > 0 else 0
+        seed = draw_seed(generator, q.device) if dropout > 0 else None
         return _FlashFn.apply(q, k, v, key_valid, num_heads, dropout, seed, form)

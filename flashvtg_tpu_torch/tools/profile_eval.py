@@ -2,7 +2,7 @@
 
     python -m flashvtg_tpu_torch.tools.profile_eval [--preset qvhighlights_slowclip]
         [--bsz <the preset's eval_bsz, or bsz with --train>] [--steps 10] [--train]
-        [--precision float32 [tensorfloat32 bfloat16]]
+        [--precision float32 [tensorfloat32 bfloat16]] [--feed] [--scan K]
 
 Any preset of train/config.py: qvhighlights_slowclip, tacos, tvsum,
 youtube_uni, charades, charades_internvideo2, charades_vgg, and the
@@ -31,6 +31,19 @@ time. For a FlashVTG_ms model it also reports
 kernels launched inside them (forward) and by the autograd nodes of their
 ops (backward, matched by sequence number), and its share of the busy time;
 these kernels are also in the classes above.
+
+--feed and --scan K profile the feeding modes instead, each on its own
+line, at the first --precision: with --train, the streamed step (the batch
+placed per step), the feed step (labels and row indices uploaded per step,
+the features gathered from a device-resident feed) and, with --scan K, the
+scan epoch (K steps a chunk, each a CUDA-graph replay), all through
+utils/scanbench.py's harness (the production step at the preset's shapes,
+synthetic features); for eval (--scan does not apply), the streamed and the
+feed path of train/infer.py (one upload, the packed step, one non-blocking
+fetch a batch, PIPELINE_DEPTH batches in flight) over --steps batches of a
+synthetic split. Each line has the host wall time and device-busy time per
+step and the idle share; a graph's replayed kernels are in the class
+breakdown by name.
 """
 
 from __future__ import annotations
@@ -202,6 +215,40 @@ def marked_device_us(events, tag):
     return sum(r.device_time_total for r in ranges), bwd
 
 
+def profiled(run):
+    """run() under torch.profiler (device activity only), fenced by a
+    synchronize: (its wall seconds, {device kernel or copy name:
+    [microseconds, calls]}). It reads the profiler's raw device records:
+    building its op tree (`prof.events()`) takes minutes for a few dozen
+    eager train steps."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_name = collections.defaultdict(lambda: [0.0, 0])
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation():
+            per_name[e.name()][0] += e.duration_ns() / 1e3
+            per_name[e.name()][1] += 1
+    return wall, per_name
+
+
+def busy_summary(wall, per_name, steps):
+    """The per-step wall and device-busy ms, the idle share and the device
+    time by kernel class of a profiled run of `steps` steps."""
+    busy_us = sum(us for us, _ in per_name.values())
+    classes = collections.defaultdict(float)
+    for name, (us, _) in per_name.items():
+        classes[kernel_class(name)] += us
+    return {
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_busy_ms_per_step": busy_us / 1e3 / steps,
+        "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
+        "class_ms_per_step": {k: v / 1e3 / steps for k, v in classes.items()},
+    }
+
+
 def profile(step, steps, n_marked):
     """Profile `steps` calls of step() (after 3 warm-up calls): the JSON
     fields of one mode."""
@@ -262,6 +309,10 @@ def main():
     ap.add_argument("--train", action="store_true", help="profile train steps")
     ap.add_argument("--precision", nargs="+", default=["float32"], choices=PRECISIONS,
                     help="the step's dial; each mode given is profiled in turn")
+    ap.add_argument("--feed", action="store_true",
+                    help="profile the streamed and the device-feed paths instead")
+    ap.add_argument("--scan", type=int, default=0, metavar="K",
+                    help="with --train: also the scan epoch, K steps a chunk")
     args = ap.parse_args()
 
     dev = resolve_device("cuda")
@@ -270,6 +321,10 @@ def main():
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0])
     cfg = from_preset(args.preset)
+    if args.feed or args.scan:
+        for line in feed_modes(cfg, args, dev):
+            print(json.dumps(line), flush=True)
+        return
     model = build_model(cfg.model_config(), dev, args.seed)
     n_marked = mark_modules(model, MHACore, LGI_TAG)
     rng = np.random.default_rng(args.seed)
@@ -294,7 +349,7 @@ def main():
             optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
             train_step = make_train_step(
                 model.train(), cfg.loss_config(), optimizer, scheduler, cfg.grad_clip,
-                torch.Generator().manual_seed(args.seed), mode)
+                torch.Generator(device=dev).manual_seed(args.seed), mode)
 
             def step():
                 train_step(batch)
@@ -311,6 +366,74 @@ def main():
             "valid_clips": int(v_lens.sum()), "padded_clips": b * lv,
             **profile(step, args.steps, n_marked),
         }), flush=True)
+
+
+def feed_modes(cfg, args, dev):
+    """The --feed / --scan lines (see the module's doc)."""
+    from flashvtg_tpu_torch.utils.scanbench import ScanHarness
+
+    cfg = cfg.replace(train_precision=args.precision[0], eval_precision=args.precision[0])
+    if not args.train:
+        yield from eval_feed_modes(cfg, args, dev)
+        return
+    b = args.bsz or cfg.bsz
+    k = args.scan or args.steps
+    steps = max(k, args.steps - args.steps % k)
+    for mode in ["streamed", "feed"] + (["scan"] if args.scan else []):
+        h = ScanHarness(cfg.replace(bsz=b), cfg.max_v_l, cfg.max_q_l, cfg.t_feat_dim,
+                        device=dev, n_feed_batches=4, seed=args.seed)
+        h.run(mode, k, k).cpu()  # warm-up (and the capture)
+        wall, per_name = profiled(lambda: h.run(mode, steps, k, i0=k).cpu())
+        yield {"preset": args.preset, "mode": "train", "feed_mode": mode,
+               "scan_steps": k if mode == "scan" else 0, "precision": cfg.train_precision,
+               "bsz": b, "steps": steps, **busy_summary(wall, per_name, steps)}
+        del h
+        torch.cuda.empty_cache()
+
+
+def eval_feed_modes(cfg, args, dev):
+    """Streamed and feed eval over args.steps batches of a synthetic split
+    at the preset's shapes, through train/infer.py's pipelined loop."""
+    import tempfile
+
+    from flashvtg_tpu_torch.data.dataset import VTGDataset
+    from flashvtg_tpu_torch.train.infer import (
+        FETCHES,
+        eval_data_config,
+        run_hl_inference,
+        run_mr_inference,
+    )
+    from flashvtg_tpu_torch.utils import synthetic
+
+    b = args.bsz or cfg.eval_bsz
+    hd = cfg.dset_name in HD_SETS
+    writer = {"tvsum": synthetic.make_synthetic_tvsum,
+              "youtube_uni": synthetic.make_synthetic_youtube,
+              "tacos": synthetic.make_synthetic_tacos}.get(cfg.dset_name,
+                                                           synthetic.make_synthetic_qvh)
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(n_queries=b * args.steps, v_dim=cfg.v_feat_dim, t_dim=cfg.t_feat_dim,
+                  seed=args.seed)
+        if writer is synthetic.make_synthetic_qvh:
+            kw["n_clips"] = cfg.max_v_l
+        ann, vdir, qdir = writer(tmp, **kw)
+        domain = cfg.dset_domain or {"tvsum": "BK", "youtube_uni": "dog"}.get(cfg.dset_name)
+        cfg = cfg.replace(eval_path=ann, v_feat_dirs=(vdir,), t_feat_dir=qdir, eval_bsz=b,
+                          dset_domain=domain)
+        model = build_model(cfg.model_config(), dev, args.seed)
+        infer = run_hl_inference if hd else run_mr_inference
+        for mode in ("off", "on"):
+            c = cfg.replace(device_feed=mode)
+            ds = VTGDataset(eval_data_config(c, ann))
+            infer(c, model, ds)  # warm-up (and the feed's build)
+            fetches = FETCHES["d2h"]
+            wall, per_name = profiled(lambda: infer(c, model, ds))
+            batches = -(-len(ds) // b)
+            yield {"preset": args.preset, "mode": "eval",
+                   "feed_mode": "feed" if mode == "on" else "streamed",
+                   "precision": c.eval_precision, "bsz": b, "steps": batches,
+                   "fetches_per_batch": (FETCHES["d2h"] - fetches) / batches,
+                   "queries_per_s": len(ds) / wall, **busy_summary(wall, per_name, batches)}
 
 
 if __name__ == "__main__":

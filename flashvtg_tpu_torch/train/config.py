@@ -178,8 +178,11 @@ class ExperimentConfig:
     # the features' dtype on the host-to-card copy in training: float32 |
     # bfloat16 (half the bytes; widened on the card)
     transfer_dtype: str = "float32"
-    # the device-resident feed and the scan epoch: Queue A 6. "auto" takes
-    # the streamed feed here (the same math); "on" raises
+    # the device-resident feed (data/feed.py): "auto" puts a split's
+    # features on the device when they fit what is left of the budget
+    # (fixed max_v_l, no txt_drop), "on" whatever their size; with it the
+    # train epoch runs scan_steps steps a chunk, each a CUDA-graph replay
+    # on the card (train/graph.py), unless scan_steps <= 1 or debug
     device_feed: str = "auto"  # auto | on | off
     device_feed_budget_gb: float = 8.0
     scan_steps: int = 128  # read with the device feed only
@@ -300,7 +303,6 @@ class ExperimentConfig:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}; expected one of "
                                  f"{allowed}")
         unported = [
-            (self.device_feed == "on", "device_feed='on' (and its scan_steps)", 6),
             (self.debug_nans, "debug_nans", 8),
             (bool(self.profile_dir), "profile_dir", 8),
         ] if train else []

@@ -15,13 +15,25 @@ decode, and score the saliency with eval/hl.py's mAP. The FlashVTG_ms model
 eval losses and, under use_dfl, the DFL decode. The forward runs at the
 config's eval_precision (utils/runtime.py:matmul_precision, the counterpart
 of the JAX step's jax.default_matmul_precision scope); its outputs are cast
-to float32 before the decode, the criterion and NMS, which run in f32. Not
-ported yet: the device-resident feed, mesh sharding and pipelining (ROADMAP
-Queue A 6-7).
+to float32 before the decode, the criterion and NMS, which run in f32.
+
+A batch costs one host-to-device copy, the step, and one device-to-host
+copy. With a fixed video length the split's features go on the device once
+(data/feed.py; `_maybe_device_feed`, gated by device_feed and its budget,
+cached on the dataset; always float32), and a batch uploads its labels,
+row indices and point mask alone (data/feed.py:upload, one pinned,
+non-blocking copy); else the whole collated batch goes up in that one copy.
+The packed step returns one (B, C) float32 tensor per batch (spans,
+scores, saliency, the loss vector), copied without blocking into pinned
+memory with a CUDA event; `_pipelined` keeps PIPELINE_DEPTH batches in
+flight and waits on the oldest one's event only. The rows, rounding, NMS
+and eval losses are those of one fetch per output. Not ported yet: mesh
+sharding (ROADMAP Queue A 7).
 """
 
 from __future__ import annotations
 
+from collections import deque
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -29,12 +41,24 @@ import torch
 
 from flashvtg_tpu_torch.data.collate import MODEL_KEYS, TRAIN_KEYS, Collator
 from flashvtg_tpu_torch.data.dataset import DataConfig, VTGDataset
+from flashvtg_tpu_torch.data.feed import (
+    build_device_feed,
+    estimate_feed_bytes,
+    gather_rows,
+    resident_feed_bytes,
+    upload,
+)
 from flashvtg_tpu_torch.eval.hl import compute_hl_map
 from flashvtg_tpu_torch.eval.postprocess import build_post_processor
 from flashvtg_tpu_torch.losses import criterion
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.ops.nms import suppress_overlaps
 from flashvtg_tpu_torch.utils.runtime import check_precision, float32_outputs, matmul_precision
+
+# batches in flight before the host waits on the oldest one's fetch
+PIPELINE_DEPTH = 4
+# device-to-host copies made by the eval loops (one a batch)
+FETCHES = {"d2h": 0}
 
 
 def eval_data_config(cfg, path: str, load_labels: bool = False) -> DataConfig:
@@ -63,7 +87,7 @@ def eval_data_config(cfg, path: str, load_labels: bool = False) -> DataConfig:
 
 
 def make_eval_step(model, top_k: int, precision: str = "float32",
-                   saliency_only: bool = False, loss_cfg=None):
+                   saliency_only: bool = False, loss_cfg=None, packed: bool = False):
     """step(batch, point_valid) -> (spans, scores, saliency, losses):
     forward + decode + rank for one batch of device tensors. `saliency_only`
     (the HD sets, which read only the saliency channel) skips the decode:
@@ -73,7 +97,14 @@ def make_eval_step(model, top_k: int, precision: str = "float32",
     included; the _ms criterion for an MSLossConfig); else it is {}. The
     model's own `decode` ranks the spans. `precision` is the forward's dial
     (float32, tensorfloat32 or bfloat16; anything else raises); the outputs
-    leave it in float32."""
+    leave it in float32.
+
+    With `packed` the step returns one (B, C) float32 tensor instead,
+    [spans 2K | scores K | saliency Lv | losses L (the same in every row)]
+    (no spans and scores with `saliency_only`), so that a batch needs one
+    fetch; `step.unpack(arr, lv)` takes the fetched array back apart into
+    (spans, scores, saliency, {loss key: float}), the losses in the
+    criterion's order (`step.loss_keys`, known after the first call)."""
     check_precision(precision)
     device = next(model.parameters()).device
 
@@ -92,7 +123,35 @@ def make_eval_step(model, top_k: int, precision: str = "float32",
         spans, scores = model.decode(out, point_valid, top_k)
         return spans, scores, out["saliency_scores"], losses
 
-    return step
+    if not packed:
+        return step
+    loss_keys: List[str] = []
+
+    @torch.no_grad()
+    def packed_step(batch, point_valid):
+        spans, scores, sal, losses = step(batch, point_valid)
+        b = sal.shape[0]
+        parts = [] if saliency_only else [spans.reshape(b, -1), scores]
+        parts.append(sal)
+        if losses:
+            loss_keys[:] = list(losses)
+            vec = torch.stack([losses[k] for k in loss_keys]).float()
+            parts.append(vec[None].expand(b, -1))
+        return torch.cat([p.float() for p in parts], dim=1)
+
+    def unpack(arr: np.ndarray, lv: int):
+        off, spans, scores = 0, None, None
+        if not saliency_only:
+            k = (arr.shape[1] - lv - len(loss_keys)) // 3
+            spans = arr[:, : 2 * k].reshape(arr.shape[0], k, 2)
+            scores = arr[:, 2 * k : 3 * k]
+            off = 3 * k
+        losses = dict(zip(loss_keys, arr[0, off + lv :].tolist()))
+        return spans, scores, arr[:, off : off + lv], losses
+
+    packed_step.loss_keys = loss_keys
+    packed_step.unpack = unpack
+    return packed_step
 
 
 def _tail_bucket(n: int, bsz: int) -> int:
@@ -147,20 +206,85 @@ def _has_labels(dataset: VTGDataset) -> bool:
     return "saliency_all_labels" in sample
 
 
-def _run_step(step, batch, strides, device, keys=MODEL_KEYS):
-    """One collated batch's `keys` through `step` on `device`, with its
-    strict point masks (None where no row is padded): ((spans, scores,
-    saliency) on the host, None kept; the losses as floats; each row's
-    point count)."""
-    lv = batch["src_vid"].shape[1]
+def _maybe_device_feed(cfg, dataset: VTGDataset, fixed_v_len, device):
+    """The eval split's device feed (float32, cached on the dataset under
+    (fixed_v_len, max_q_l, device)), or None: device_feed off, a bucketed
+    video length, per-access txt_drop (streamed and resident text would
+    differ), or, under "auto", more bytes than are left of
+    device_feed_budget_gb beside the feeds already resident (the JAX
+    package's gate)."""
+    if cfg.device_feed == "off" or fixed_v_len is None or dataset.cfg.txt_drop_ratio > 0:
+        return None
+    key = (fixed_v_len, cfg.max_q_l, str(torch.device(device)))
+    cached = getattr(dataset, "_device_feed_cache", None)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    if cfg.device_feed != "on":
+        est = estimate_feed_bytes(len(dataset), fixed_v_len, cfg.total_v_feat_dim,
+                                  cfg.max_q_l, cfg.t_feat_dim, 4)
+        if est > cfg.device_feed_budget_gb * 2**30 - resident_feed_bytes():
+            return None
+    collator = Collator(max_q_l=cfg.max_q_l, v_buckets=cfg.v_buckets,
+                        fixed_v_len=fixed_v_len, dset_name=cfg.dset_name)
+    feed = build_device_feed(dataset, collator, device)
+    dataset._device_feed_cache = (key, feed)
+    return feed
+
+
+def _fetch(t: torch.Tensor):
+    """(host tensor, CUDA event or None): `t` copied to pinned host memory
+    without blocking, the event recorded after the copy; a CPU tensor as it
+    is. Counted in FETCHES."""
+    FETCHES["d2h"] += 1
+    if t.device.type != "cuda":
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
+
+
+def _dispatch(step, batch, idx, feed, lv, strides, device, keys):
+    """Launch one collated batch through the packed `step` on `device`
+    without waiting for it: its `keys` present in the batch (the labels
+    alone in feed mode, plus the row indices), and its strict point masks
+    (None where no row is padded), in one upload; in feed mode the
+    features gathered from `feed`. Returns (each row's point count, the
+    pending fetch of the packed result)."""
     strict, counts = pyramid_masks_strict(batch["valid_v_lens"], lv, strides)
     strict = _strict_or_none(strict, batch["valid_v_lens"], lv)
-    dev = {k: torch.from_numpy(batch[k]).to(device) for k in keys}
-    point_valid = None if strict is None else torch.from_numpy(strict).to(device)
-    *outs, losses = step(dev, point_valid)
-    host = [None if t is None else t.cpu().numpy() for t in outs]
-    values = torch.stack(list(losses.values())).tolist() if losses else []
-    return host, dict(zip(losses, values)), counts
+    arrays = {k: batch[k] for k in keys if k in batch}
+    if feed is not None:
+        arrays["idx"] = np.asarray(idx, np.int64)
+    if strict is not None:
+        arrays["point_valid"] = strict
+    dev = upload(arrays, device)
+    if feed is not None:
+        dev.update(gather_rows(feed, dev.pop("idx")))
+    point_valid = dev.pop("point_valid", None)
+    return counts, _fetch(step(dev, point_valid))
+
+
+def _ready(fetched) -> np.ndarray:
+    """The fetched array, once its copy has ended."""
+    host, done = fetched
+    if done is not None:
+        done.synchronize()
+    return host.numpy()
+
+
+def _pipelined(fn, items, depth: int = PIPELINE_DEPTH):
+    """(item, fn(item)) in order, with up to `depth` calls made before the
+    oldest is yielded: fn must only launch device work, and the consumer's
+    wait on the result is the fence."""
+    q: deque = deque()
+    for item in items:
+        q.append((item, fn(item)))
+        if len(q) >= depth:
+            yield q.popleft()
+    while q:
+        yield q.popleft()
 
 
 def run_mr_inference(
@@ -175,21 +299,27 @@ def run_mr_inference(
     device = next(model.parameters()).device
     fixed_v_len, order = _eval_plan(cfg, dataset)
     with_losses = loss_cfg is not None and _has_labels(dataset)
+    feed = _maybe_device_feed(cfg, dataset, fixed_v_len, device)
     collator = Collator(
         max_q_l=cfg.max_q_l, v_buckets=cfg.v_buckets, fixed_v_len=fixed_v_len,
-        max_windows=cfg.max_windows, dset_name=cfg.dset_name,
+        max_windows=cfg.max_windows, dset_name=cfg.dset_name, pad_features=feed is None,
     )
     step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision,
-                          loss_cfg=loss_cfg if with_losses else None)
+                          loss_cfg=loss_cfg if with_losses else None, packed=True)
     keys = TRAIN_KEYS if with_losses else MODEL_KEYS
     nms = nms_thd if nms_thd is not None else cfg.nms_thd
+
+    def dispatch(item):
+        _, idx, batch = item
+        lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
+        return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, keys)
 
     submission: List[dict] = []
     loss_sums: Dict[str, float] = {}
     n_rows = 0
-    for real, idx, batch in _batched(dataset, collator, cfg.eval_bsz, order):
-        (spans, scores, saliency), losses, counts = _run_step(
-            step, batch, cfg.strides, device, keys)
+    for (real, idx, batch), (lv, (counts, fetched)) in _pipelined(
+            dispatch, _batched(dataset, collator, cfg.eval_bsz, order)):
+        spans, scores, saliency, losses = step.unpack(_ready(fetched), lv)
         for k, v in losses.items():
             loss_sums[k] = loss_sums.get(k, 0.0) + v * real
         n_rows += real
@@ -236,14 +366,23 @@ def run_hl_inference(cfg, model, dataset: VTGDataset) -> dict:
     rounded to 5 places}, "saliency": {qid: (valid clips,) float32}}."""
     device = next(model.parameters()).device
     fixed_v_len, order = _eval_plan(cfg, dataset)
+    feed = _maybe_device_feed(cfg, dataset, fixed_v_len, device)
     collator = Collator(
         max_q_l=cfg.max_q_l, v_buckets=cfg.v_buckets, fixed_v_len=fixed_v_len,
-        dset_name=cfg.dset_name,
+        dset_name=cfg.dset_name, pad_features=feed is None,
     )
-    step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision, saliency_only=True)
+    step = make_eval_step(model, cfg.max_num_moment, cfg.eval_precision, saliency_only=True,
+                          packed=True)
+
+    def dispatch(item):
+        _, idx, batch = item
+        lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
+        return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, MODEL_KEYS)
+
     preds, labels, saliency = [], [], {}
-    for real, idx, batch in _batched(dataset, collator, cfg.eval_bsz, order):
-        (_, _, sal), _, _ = _run_step(step, batch, cfg.strides, device)
+    for (real, idx, batch), (lv, (_, fetched)) in _pipelined(
+            dispatch, _batched(dataset, collator, cfg.eval_bsz, order)):
+        _, _, sal, _ = step.unpack(_ready(fetched), lv)
         for j in range(real):
             meta = batch["meta"][j]
             # the metric ranks the row up to the label length, as the JAX

@@ -32,9 +32,24 @@ JAX package's): the forward and the backward inside the dial
 (utils/runtime.py:matmul_precision), the criterion, the clip and AdamW in
 float32 on float32 weights (no GradScaler: bf16 keeps f32's range).
 transfer_dtype bfloat16 narrows the features to bf16 on the host before the
-copy to the card and widens them there (`place_batch`). Not ported yet
-(ROADMAP Queue A 6-7): the scan epoch, the device-resident feed, the
-data-parallel mesh and multi-host rows.
+copy to the card and widens them there (`place_batch`).
+
+The device-resident feed (data/feed.py; device_feed "auto" within
+device_feed_budget_gb, or "on", with a fixed max_v_l and no txt_drop, the
+JAX loop's gate): the train split's features go on the device once, in
+transfer_dtype, and a step uploads its labels and row indices alone and
+gathers its features there (`make_train_step`'s `feed_vector`). With the
+feed the epoch runs in chunks of scan_steps steps (of one step at
+scan_steps <= 1 and under debug): a chunk's stacked labels and indices are
+collated on a worker thread (`_prefetched`) and uploaded in one pinned
+copy. With scan_steps > 1 and not debug, each step on the card is a replay
+of one captured CUDA graph of the whole step (train/graph.py), the
+counterpart of the JAX loop's lax.scan epoch; on the CPU the same chunks
+run eagerly. Every epoch writes its loss vectors into one device tensor,
+fetched once at its end. AdamW is capturable (and fused) on the card and
+its learning rate a device tensor that `StepLR` sets from a device step
+count, so a replay takes the schedule's step. Not ported yet (ROADMAP
+Queue A 7): the data-parallel mesh and multi-host rows.
 """
 
 from __future__ import annotations
@@ -52,6 +67,15 @@ import torch
 
 from flashvtg_tpu_torch.data.collate import TRAIN_KEYS, Collator
 from flashvtg_tpu_torch.data.dataset import HD_SETS, DataConfig, VTGDataset
+from flashvtg_tpu_torch.data.feed import (
+    FEED_KEYS,
+    NARROWED_KEYS,
+    build_device_feed,
+    estimate_feed_bytes,
+    gather_rows,
+    resident_feed_bytes,
+    upload,
+)
 from flashvtg_tpu_torch.losses import criterion, declared_loss_keys
 from flashvtg_tpu_torch.train.infer import (
     eval_data_config,
@@ -102,9 +126,6 @@ def train_data_config(cfg, path: str) -> DataConfig:
     )
 
 
-NARROWED_KEYS = ("src_vid", "src_txt")  # the features: most of a batch's bytes
-
-
 def place_batch(batch: Dict, device, dtype=torch.float32,
                 transfer_dtype: str = "float32") -> Dict[str, torch.Tensor]:
     """The train step's tensors of a collated batch on `device`: floating
@@ -131,15 +152,86 @@ def place_batch(batch: Dict, device, dtype=torch.float32,
 def make_optimizer(cfg, params: Iterable[torch.nn.Parameter], steps_per_epoch: int):
     """(AdamW, StepLR): lr * gamma^floor(step / (lr_drop * steps_per_epoch)),
     at most 49 drops as the JAX schedule's boundaries. AdamW's betas and eps
-    are optax's defaults, and its decay is decoupled as optax.adamw's."""
-    optimizer = torch.optim.AdamW(params, lr=cfg.lr, betas=(0.9, 0.999), eps=1e-8,
-                                  weight_decay=cfg.wd)
-    drop = cfg.lr_drop * steps_per_epoch
+    are optax's defaults, and its decay is decoupled as optax.adamw's. The
+    learning rate is a 0-d tensor on the parameters' device (float32 on the
+    card, where AdamW is capturable and fused; float64 on the CPU, which
+    gives the float's arithmetic), set by the StepLR. Fused: one kernel
+    updates every parameter, where the capturable foreach form with a
+    tensor rate takes hundreds of per-parameter kernels a step, which an
+    eager step pays in host time."""
+    params = list(params)
+    device = params[0].device
+    cuda = device.type == "cuda"
+    lr = torch.tensor(cfg.lr, dtype=torch.float32 if cuda else torch.float64).to(device)
+    optimizer = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+                                  weight_decay=cfg.wd, capturable=cuda, fused=cuda or None)
+    return optimizer, StepLR(optimizer, cfg.lr, cfg.lr_gamma, cfg.lr_drop * steps_per_epoch)
 
-    def factor(step: int) -> float:
-        return cfg.lr_gamma ** min(step // drop, 49) if drop > 0 else 1.0
 
-    return optimizer, torch.optim.lr_scheduler.LambdaLR(optimizer, factor)
+class StepLR:
+    """The step schedule on the optimizer's tensor learning rate: after n
+    steps lr = base_lr * factor(n), factor(n) = gamma^min(n // drop, 49)
+    (1 with drop 0). The step count is a device tensor and `step()` is
+    device work alone (the count + 1, the rate looked up in a table of the
+    50 values), so a captured CUDA graph that holds it advances the
+    schedule at every replay, in or out of the graph alike. state_dict /
+    load_state_dict speak LambdaLR's format (last_epoch = n), the
+    reference-format checkpoints' `lr_scheduler`; load_state_dict also puts
+    the tensor rate back in the optimizer's groups, which the optimizer's
+    own load_state_dict replaced."""
+
+    def __init__(self, optimizer, base_lr: float, gamma: float, drop: int):
+        self.optimizer = optimizer
+        self.lr = optimizer.param_groups[0]["lr"]
+        self.gamma, self.drop = gamma, drop
+        self.count = torch.zeros((), dtype=torch.int64, device=self.lr.device)
+        self._set_base(base_lr)
+        self.bind()
+
+    def _set_base(self, base_lr: float) -> None:
+        self.base_lr = base_lr
+        table = torch.tensor([base_lr * self.gamma ** e for e in range(50)], dtype=self.lr.dtype)
+        self._table = table.to(self.lr.device)
+
+    def factor(self, step: int) -> float:
+        return self.gamma ** min(step // self.drop, 49) if self.drop > 0 else 1.0
+
+    def step(self) -> None:
+        self.count.add_(1)
+        if self.drop > 0:
+            e = torch.div(self.count, self.drop, rounding_mode="floor").clamp_max(49)
+            self.lr.copy_(self._table.index_select(0, e.view(1)).view(()))
+
+    def bind(self) -> None:
+        """The groups' rate is this tensor, AdamW capturable and fused on the
+        card, and its step counts on the parameters' device there (as a
+        checkpoint made on the other device left them)."""
+        cuda = self.lr.device.type == "cuda"
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr
+            group["capturable"] = cuda
+            group["fused"] = cuda or None
+        for p, state in self.optimizer.state.items():
+            if "step" in state:
+                step = state["step"]
+                state["step"] = (step.to(p.device, torch.float32) if cuda
+                                 else step.to("cpu", torch.float32))
+
+    def get_last_lr(self):
+        return [self.base_lr * self.factor(int(self.count))]
+
+    def state_dict(self) -> dict:
+        n = int(self.count)
+        return {"base_lrs": [self.base_lr], "last_epoch": n, "_step_count": n + 1,
+                "_get_lr_called_within_step": False,
+                "_last_lr": [self.base_lr * self.factor(n)], "lr_lambdas": [None]}
+
+    def load_state_dict(self, state: dict) -> None:
+        n = int(state["last_epoch"])
+        self._set_base(float(state.get("base_lrs", [self.base_lr])[0]))
+        self.count.fill_(n)
+        self.lr.fill_(self.base_lr * self.factor(n))
+        self.bind()
 
 
 def clip_by_global_norm_(params, max_norm: float) -> None:
@@ -158,18 +250,31 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
     """step(batch) -> {loss key: 0-d tensor}: one update of `model` on a
     placed batch (`place_batch`), losses detached, in `step.loss_keys`
     order; `loss_cfg` is a LossConfig or, for the _ms model, an
-    MSLossConfig. Attention-dropout seeds come from `generator`.
-    `precision` is the dial of the forward and the backward (the JAX
-    function's default, bfloat16; float32 for parity); the model's outputs
-    leave the dial in float32, and the criterion runs outside it, in f32."""
+    MSLossConfig. Attention-dropout seeds come from `generator` (drawn on
+    its device). `precision` is the dial of the forward and the backward
+    (the JAX function's default, bfloat16; float32 for parity); the model's
+    outputs leave the dial in float32, and the criterion runs outside it,
+    in f32.
+
+    `step.vector(batch)` is the same update returning the losses as one
+    float32 vector, and `step.feed_vector(labels, idx, feed)` the
+    feed-mode update: the features are rows `idx` (int64) of the
+    device-resident `feed` (data/feed.py), widened to float32 where the feed
+    is bf16 (the streamed bf16 wire's rounding), the labels a placed batch
+    without features. Each is device work alone, with no host sync, so a
+    CUDA graph can capture it (train/graph.py)."""
     check_precision(precision)
     keys = declared_loss_keys(loss_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
 
-    def step(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    def update(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
-        with matmul_precision(precision, device):
+        # no autocast cast cache: a graph capture of the step refuses it,
+        # and an eager step must keep the graph's arithmetic (with the cache
+        # on for the eager steps alone, eager and graph losses part at
+        # bfloat16)
+        with matmul_precision(precision, device, autocast_cache=False):
             out = model(
                 batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
                 batch["src_vid_mask"], real_neg_mask=batch.get("real_neg_mask"),
@@ -180,7 +285,8 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
         # the backward under the dial's TF32 flags (the attention Functions
         # keep their forward's form), autocast off as torch advises: each
         # op's backward takes the dtypes its forward saved
-        with matmul_precision(precision, device), torch.autocast(device.type, enabled=False):
+        with matmul_precision(precision, device, autocast_cache=False), \
+                torch.autocast(device.type, enabled=False):
             losses["weighted_loss_overall"].backward()
         # optax updates every leaf: a parameter the losses do not reach (the
         # HD sets' coord head and coef, with no loss_reg) still decays
@@ -193,8 +299,75 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
         scheduler.step()
         return {k: losses[k].detach() for k in keys}
 
-    step.loss_keys = keys
-    return step
+    def vector(batch: Dict[str, torch.Tensor]) -> torch.Tensor:
+        losses = update(batch)
+        return torch.stack([losses[k] for k in keys]).float()
+
+    def feed_vector(labels: Dict[str, torch.Tensor], idx: torch.Tensor,
+                    feed: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return vector({**labels, **gather_rows(feed, idx)})
+
+    update.loss_keys = keys
+    update.vector = vector
+    update.feed_vector = feed_vector
+    update.optimizer = optimizer
+    update.generator = generator
+    return update
+
+
+def label_arrays(batch: Dict) -> Dict[str, np.ndarray]:
+    """The train step's tensors of a collated batch other than the
+    features, as host arrays in their placed dtypes (float32, int64)."""
+    out = {}
+    for key in TRAIN_KEYS:
+        if key in batch and key not in FEED_KEYS:
+            v = np.asarray(batch[key])
+            out[key] = v.astype(np.float32 if v.dtype.kind == "f" else np.int64, copy=False)
+    return out
+
+
+def _prefetched(fn, n: int, depth: int = 2):
+    """(i, fn(i)) for i in range(n), fn run by one worker thread up to
+    `depth` items ahead of the consumer: one worker in order keeps any RNG
+    stream inside fn (the dataset's label draws) the inline loop's; an
+    exception in fn re-raises at the consumer. Stopping early stops the
+    worker after the item it is making."""
+    import queue
+    import threading
+
+    q: "queue.Queue" = queue.Queue(maxsize=depth)
+    stop = threading.Event()
+
+    def worker():
+        for i in range(n):
+            if stop.is_set():
+                return
+            try:
+                item = (i, fn(i), None)
+            except BaseException as e:  # raised again in the consumer
+                q.put((i, None, e))
+                return
+            q.put(item)
+        q.put((None, None, None))
+
+    thread = threading.Thread(target=worker, daemon=True, name="batch-prefetch")
+    thread.start()
+    try:
+        while True:
+            i, item, err = q.get()
+            if err is not None:
+                raise err
+            if i is None:
+                return
+            yield i, item
+    finally:
+        stop.set()
+        while thread.is_alive():  # unblock a worker parked on a full queue
+            try:
+                q.get(timeout=0.05)
+            except queue.Empty:
+                pass
+        thread.join()
 
 
 def stop_metric(cfg, brief: Dict[str, float]) -> float:
@@ -262,8 +435,11 @@ def save_checkpoint(path: str, model, optimizer, scheduler, epoch: int, cfg,
     reference trainer's train.py:200-233), opt.json beside it and, with
     `best_score`, the `<name>.state.json` sidecar that `--resume auto` reads
     to restore the best-so-far bar."""
+    opt_state = optimizer.state_dict()
+    # the rate as a float, as a float-rate optimizer writes it
+    opt_state["param_groups"] = [{**g, "lr": float(g["lr"])} for g in opt_state["param_groups"]]
     save_torch_checkpoint(
-        path, model.state_dict(), epoch=epoch, optimizer=optimizer.state_dict(),
+        path, model.state_dict(), epoch=epoch, optimizer=opt_state,
         lr_scheduler=scheduler.state_dict(), opt=dataclasses.asdict(cfg),
     )
     cfg.save(os.path.join(os.path.dirname(os.path.abspath(path)), "opt.json"))
@@ -388,6 +564,65 @@ def find_auto_resume(cfg) -> Optional[str]:
     return candidates[-1] if candidates else None
 
 
+def train_feed(cfg, dataset: VTGDataset, collator: Collator, device):
+    """The train split's device feed, or None (the JAX loop's gate):
+    device_feed off, no fixed max_v_l, txt_drop on (the text then changes at
+    every access), or, under "auto", more bytes (in transfer_dtype) than
+    are left of device_feed_budget_gb beside the feeds already resident."""
+    if cfg.device_feed == "off" or cfg.max_v_l <= 0 or cfg.txt_drop_ratio > 0:
+        return None
+    narrow = torch.bfloat16 if cfg.transfer_dtype == "bfloat16" else None
+    est = estimate_feed_bytes(len(dataset), cfg.max_v_l, cfg.total_v_feat_dim, cfg.max_q_l,
+                              cfg.t_feat_dim, 2 if narrow is not None else 4)
+    remaining = cfg.device_feed_budget_gb * 2**30 - resident_feed_bytes()
+    if cfg.device_feed != "on" and est > remaining:
+        logger.info("device feed off: %.2f GB exceeds the %.2f GB left of the budget",
+                    est / 2**30, remaining / 2**30)
+        return None
+    return build_device_feed(dataset, collator, device, narrow)
+
+
+def run_chunked_epoch(feed_steps, host_batch, n_steps: int, k: int, loss_buf,
+                      device) -> int:
+    """n_steps feed-mode steps in chunks of k: each chunk's labels and row
+    indices are collated and stacked, (k, B, ...) and (k, B), on the
+    prefetch thread (`stack_chunk`), then run by `run_chunk`. Returns the
+    steps run."""
+
+    def chunk(ci):
+        made = [host_batch(i) for i in range(ci * k, min((ci + 1) * k, n_steps))]
+        made = [m for m in made if m is not None]
+        return stack_chunk(made) if made else None
+
+    done = 0
+    for _, arrays in _prefetched(chunk, -(-max(n_steps, 0) // k)):
+        if arrays is not None:
+            done = run_chunk(feed_steps, arrays, loss_buf, done, device)
+    return done
+
+
+def stack_chunk(made) -> Dict[str, np.ndarray]:
+    """The label arrays of a chunk's (row indices, collated batch) pairs,
+    stacked to (k, B, ...), and the indices as "idx" (k, B) int64."""
+    labels = [label_arrays(batch) for _, batch in made]
+    arrays = {key: np.stack([lab[key] for lab in labels]) for key in labels[0]}
+    arrays["idx"] = np.stack([np.asarray(idx, np.int64) for idx, _ in made])
+    return arrays
+
+
+def run_chunk(feed_steps, arrays: Dict[str, np.ndarray], loss_buf, row: int,
+              device) -> int:
+    """One chunk: the stacked arrays uploaded in one pinned copy, then each
+    step through `feed_steps` (a graph replay on the card), its loss vector
+    written to `loss_buf` from row `row` on. Returns the next free row."""
+    dev = upload(arrays, device)
+    idx = dev.pop("idx")
+    for j in range(len(idx)):
+        loss_buf[row].copy_(feed_steps({key: v[j] for key, v in dev.items()}, idx[j]))
+        row += 1
+    return row
+
+
 def train(cfg, results_dir: Optional[str] = None, device=None,
           max_steps: Optional[int] = None):
     """Full training run; returns (model, best_score, results_dir): the model
@@ -399,7 +634,12 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
     start, steps_per_epoch = max(1, rows // bsz) with a short batch skipped;
     the video length is pinned to max_v_l. `max_steps` caps the steps of
     this run: the epoch that reaches it ends there and is the last, its eval
-    and checkpoint made as for any epoch."""
+    and checkpoint made as for any epoch. The device feed (`train_feed`)
+    and the chunked epoch follow device_feed / scan_steps / debug (the
+    module's doc); a run captures its step's CUDA graph once, after every
+    load (--resume, --resume_adapter, the optimizer's state), and the
+    in-training evals and checkpoint saves read the graph's parameter and
+    optimizer tensors in place; a capture that fails raises."""
     from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.utils.observability import ScalarWriter
     from flashvtg_tpu_torch.utils.runtime import resolve_device
@@ -458,6 +698,7 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
                     optimizer.load_state_dict(ckpt["optimizer"])
                 if "lr_scheduler" in ckpt:
                     scheduler.load_state_dict(ckpt["lr_scheduler"])
+                scheduler.bind()
         except Exception:
             # an auto-found checkpoint that does not restore starts the run
             # afresh; an explicit --resume stays an error
@@ -478,8 +719,22 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
             if os.path.isfile(cand):
                 prior_best_ckpt = cand
     step = make_train_step(model, loss_cfg, optimizer, scheduler, cfg.grad_clip,
-                           torch.Generator().manual_seed(cfg.seed), cfg.train_precision)
+                           torch.Generator(device=device).manual_seed(cfg.seed),
+                           cfg.train_precision)
     keys = step.loss_keys
+    feed = train_feed(cfg, train_dataset, collator, device)
+    # feed-mode batches carry labels alone, run in chunks of scan_steps
+    # (one step a chunk at scan_steps <= 1 and under debug); with
+    # scan_steps > 1 each step on the card is a replay of one captured graph
+    # (eager on the CPU)
+    step_collator = (dataclasses.replace(collator, pad_features=False) if feed is not None
+                     else collator)
+    scan_k = cfg.scan_steps if feed is not None and not cfg.debug else 0
+    feed_steps = None
+    if feed is not None:
+        from flashvtg_tpu_torch.train.graph import FeedSteps
+
+        feed_steps = FeedSteps(step, feed, graph=scan_k > 1 and device.type == "cuda")
 
     writer = ScalarWriter(
         os.path.join(results_dir, "tensorboard_log"), use_tensorboard=cfg.use_tensorboard,
@@ -543,19 +798,34 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
     for epoch in range(start_epoch, n_epoch):
         shuffler.shuffle(all_rows)
         epoch_t0 = time.time()
-        vecs = []  # per-step loss vectors, on the device until the epoch ends
-        for i in range(steps_per_epoch):
-            if max_steps is not None and steps_run >= max_steps:
-                break
+        n_steps = steps_per_epoch if max_steps is None else min(steps_per_epoch,
+                                                                 max_steps - steps_run)
+        # the epoch's loss vectors, one row a step, fetched once at its end
+        loss_buf = torch.zeros((max(n_steps, 0), len(keys)), dtype=torch.float32,
+                               device=device)
+
+        def host_batch(i):
+            """Step i's row indices and collated batch (None for a short
+            batch): host work, made on the prefetch thread."""
             idx = all_rows[i * cfg.bsz : (i + 1) * cfg.bsz]
             if len(idx) < cfg.bsz:
-                continue
-            batch = collator([train_dataset[j] for j in idx])
-            losses = step(place_batch(batch, device, transfer_dtype=cfg.transfer_dtype))
-            vecs.append(torch.stack([losses[k] for k in keys]))
-            steps_run += 1
+                return None
+            return idx, step_collator([train_dataset[j] for j in idx])
+
+        if feed_steps is not None:
+            done = run_chunked_epoch(feed_steps, host_batch, n_steps, max(scan_k, 1), loss_buf,
+                                     device)
+        else:
+            done = 0
+            for _, made in _prefetched(host_batch, max(n_steps, 0)):
+                if made is None:
+                    continue
+                vec = step.vector(place_batch(made[1], device, transfer_dtype=cfg.transfer_dtype))
+                loss_buf[done].copy_(vec)
+                done += 1
+        steps_run += done
+        host = loss_buf[:done].cpu().tolist()
         meters: Dict[str, AverageMeter] = {}
-        host = torch.stack(vecs).cpu().tolist() if vecs else []
         for s, vec in enumerate(host):
             values = dict(zip(keys, vec))
             for k, v in values.items():

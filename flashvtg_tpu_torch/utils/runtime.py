@@ -56,10 +56,13 @@ def kernel_form() -> str:
 
 
 @contextlib.contextmanager
-def matmul_precision(mode: str, device: DeviceLike):
+def matmul_precision(mode: str, device: DeviceLike, autocast_cache: bool = True):
     """Run the enclosed code at `mode` on `device` (see the module's table),
     then restore the TF32 flags, the kernel form and autocast as they were,
-    also after an exception. Raises ValueError for an unknown mode."""
+    also after an exception. Raises ValueError for an unknown mode.
+    `autocast_cache=False` turns off autocast's cache of bf16 weight casts,
+    as a CUDA-graph capture of the enclosed code needs (the casts are the
+    same; only their reuse within the scope goes)."""
     check_precision(mode)
     device_type = torch.device(device if device is not None else "cuda").type
     saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
@@ -70,7 +73,8 @@ def matmul_precision(mode: str, device: DeviceLike):
     _dial["form"] = KERNEL_FORMS[mode]
     try:
         if mode == "bfloat16":
-            with torch.autocast(device_type, dtype=torch.bfloat16):
+            with torch.autocast(device_type, dtype=torch.bfloat16,
+                                cache_enabled=autocast_cache):
                 yield
         else:
             yield

@@ -80,7 +80,7 @@ CHECK_CASES = {
     "unknown_eval_precision": (dict(eval_precision="float16"), "unknown eval_precision"),
     "unknown_train_precision": (dict(train_precision="highest"), "unknown train_precision"),
     "unknown_transfer_dtype": (dict(transfer_dtype="float16"), "unknown transfer_dtype"),
-    "device_feed_on": (dict(device_feed="on"), "Queue A 6"),
+    "device_feed_on": (dict(device_feed="on"), None),
     "profile_dir": (dict(profile_dir="prof"), "Queue A 8"),
     "unknown_variant": (dict(variant="xl"), "unknown variant"),
 }

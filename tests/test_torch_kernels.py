@@ -648,3 +648,132 @@ def test_dot_3xtf32_as_accurate_as_an_fma_loop(cuda, tmp_path):
                               rms_err=errs[name][1], mean_err=err.mean().item())))
     assert errs["dot_3xtf32"][0] <= errs["f32_fma"][0]
     assert errs["dot_3xtf32"][1] <= errs["f32_fma"][1]
+
+
+# The dropout seed in device memory (ops/attn_dropout.py): the kernels read a
+# 0-d int32 tensor drawn on the card, so a CUDA graph that captures a call
+# draws a new seed, and a new mask, at every replay.
+SEED_CASES = {
+    # kind: (B, Lq, Lk, heads, nd)
+    "aca": (3, 40, 32, 2, 0),
+    "aca_dummies": (2, 75, 42, 8, 10),
+    "flash": (2, 32, 32, 2, 0),
+    "flash_long": (1, 300, 300, 2, 0),
+}
+
+
+def _seed_forward(kind, q, k, v, valid, heads, nd, p, seed):
+    """(kernel out, plain out, kernel lse, plain lse) of the training form."""
+    if kind.startswith("aca"):
+        out, _, lse = aca._launch(q, k, v, valid, heads, nd, False, p, seed, want_lse=True)
+        ref, _, ref_lse = aca.aca_attention_plain(q, k, v, valid, heads, nd, False, p, seed,
+                                                  want_lse=True)
+    else:
+        out, lse = chunked_attn._launch(q, k, v, valid, heads, p, seed, want_lse=True)
+        ref, ref_lse = chunked_attn.flash_attention_plain(q, k, v, valid, heads, p, seed,
+                                                          want_lse=True)
+    return out, ref, lse, ref_lse
+
+
+@pytest.mark.parametrize("kind", list(SEED_CASES))
+def test_kernels_read_the_seed_tensor(cuda, kind):
+    """Forward and backward kernels with a 0-d seed tensor on the card
+    against their plain versions with the same tensor; and the forward's
+    mask itself (q = 0: every valid key has p = 1 / Lk; v one-hot per key)
+    equal to keep_scale's with that tensor."""
+    from flashvtg_tpu_torch.ops.attn_dropout import keep_scale
+
+    b, lq, lk, heads, nd = SEED_CASES[kind]
+    p = 0.3
+    seed = torch.tensor(987654321, dtype=torch.int32, device=cuda)
+    q, k, v, valid = (t.to(cuda) for t in _inputs(b, lq, lk, heads, 41))
+    out, ref, lse, ref_lse = _seed_forward(kind, q, k, v, valid, heads, nd, p, seed)
+    torch.testing.assert_close(out, ref, atol=ATOL, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=ATOL, rtol=0)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(3)).to(cuda)
+    if kind.startswith("aca"):
+        got = aca._launch_bwd(q, k, v, valid, lse, d_out, None, heads, nd, p, seed)
+        want = aca.aca_attention_bwd_plain(q, k, v, valid, ref_lse, d_out, None, heads, nd, p,
+                                           seed)
+    else:
+        got = chunked_attn._launch_bwd(q, k, v, valid, out, lse, d_out, heads, p, seed)
+        want = chunked_attn.flash_attention_bwd_plain(q, k, v, valid, ref, ref_lse, d_out,
+                                                      heads, p, seed)
+    for g_, w in zip(got, want):
+        scale = max(w.abs().max().item(), 1.0)
+        assert (g_ - w).abs().max().item() <= 1e-4 * scale
+
+    if lk <= 32 and nd == 0:  # the mask, read off the output
+        zq = torch.zeros((b, lq, heads * 32), device=cuda)
+        zk = torch.zeros((b, lk, heads * 32), device=cuda)
+        onehot = torch.zeros((b, lk, heads * 32), device=cuda)
+        keys = torch.arange(lk, device=cuda)
+        for h in range(heads):
+            onehot[:, keys, h * 32 + keys] = float(lk)
+        ones = torch.ones((b, lk), device=cuda)
+        out, _, _, _ = _seed_forward(kind, zq, zk, onehot, ones, heads, 0, p, seed)
+        got_mask = out.view(b, lq, heads, 32)[..., :lk].permute(0, 2, 1, 3) > 0
+        want_mask = keep_scale(seed, p, b, heads, torch.arange(lq, device=cuda), lk) > 0
+        assert torch.equal(got_mask, want_mask)
+        assert 0.5 < want_mask.float().mean().item() < 0.9
+
+
+def _graph_fn(kind, heads, nd, p, g):
+    if kind.startswith("aca"):
+        return lambda q, k, v, valid: aca.aca_attention(q, k, v, valid, heads, nd, False,
+                                                        dropout=p, generator=g)[0]
+    return lambda q, k, v, valid: chunked_attn.flash_attention(q, k, v, valid, heads,
+                                                               dropout=p, generator=g)
+
+
+@pytest.mark.parametrize("kind", list(SEED_CASES))
+def test_graph_replays_draw_new_masks(cuda, kind):
+    """The forward and backward of a dropout call captured in a CUDA graph
+    with its generator registered: each replay draws a new seed (outputs
+    and gradients differ between replays), and the replays give exactly
+    the eager calls' sequence from the same generator state; neither the
+    capture nor a replay adds to the launch counts."""
+    b, lq, lk, heads, nd = SEED_CASES[kind]
+    q0, k0, v0, valid = (t.to(cuda) for t in _inputs(b, lq, lk, heads, 43))
+    d_out = torch.randn(q0.shape, generator=torch.Generator().manual_seed(4)).to(cuda)
+    g = torch.Generator(device=cuda)
+    fn = _graph_fn(kind, heads, nd, 0.3, g)
+    q, k, v = (t.clone().requires_grad_() for t in (q0, k0, v0))
+
+    def step():
+        for t in (q, k, v):
+            t.grad = None
+        out = fn(q, k, v, valid)
+        out.backward(d_out)
+        return out.detach(), q.grad, v.grad
+
+    g.manual_seed(11)
+    eager = [tuple(t.clone() for t in step()) for _ in range(4)]
+    g.manual_seed(11)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        warm = tuple(t.clone() for t in step())
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(g)
+    aca.reset_launch_counts()
+    chunked_attn.reset_launch_counts()
+    with torch.cuda.graph(graph):
+        static = step()
+    replays = []
+    for _ in range(3):
+        graph.replay()
+        replays.append(tuple(t.clone() for t in static))
+    torch.cuda.synchronize()
+    # the capture launches nothing and the replays make no Python call: the
+    # wrappers count neither
+    assert not any({**aca.launch_counts(), **chunked_attn.launch_counts()}.values())
+    for a, b_ in zip(warm, eager[0]):
+        assert torch.equal(a, b_)
+    for i, rep in enumerate(replays):
+        for a, b_ in zip(rep, eager[i + 1]):
+            assert torch.equal(a, b_), i
+    for i in range(2):
+        assert not torch.equal(replays[i][0], replays[i + 1][0])
+        assert not torch.equal(replays[i][2], replays[i + 1][2])

@@ -266,8 +266,12 @@ def test_other_train_precision_raises(tmp_path, split):
     _, _, run = _port_run(tmp_path, split, "bf16", n_epoch=1, train_precision="bfloat16",
                           transfer_dtype="bfloat16")
     assert _train_epochs(run) == [1]
-    with pytest.raises(NotImplementedError, match="Queue A 6"):
-        _port_run(tmp_path, split, "run", n_epoch=1, device_feed="on")
+    # the device feed is ported: "on" trains, and its losses are the
+    # streamed run's
+    _, _, fed = _port_run(tmp_path, split, "fed", n_epoch=1, device_feed="on")
+    _, _, streamed = _port_run(tmp_path, split, "streamed", n_epoch=1, device_feed="off")
+    assert _train_epochs(fed) == [1]
+    assert _losses(fed) == _losses(streamed)
     with pytest.raises(NotImplementedError, match="Queue A 8"):
         _port_run(tmp_path, split, "run", n_epoch=1, profile_dir=str(tmp_path / "prof"))
 
