@@ -155,8 +155,8 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      flags, checked at the end.
  15. feed: the device-resident feed and the scan epoch (CUDA-graph replays):
      (a) the flagship train step (B 64, full width, the default bfloat16
-     dial, preset dropout) through utils/scanbench.py on a 2048-row feed
-     (1.74 GiB f32, 32 steps an epoch) in three modes, streamed per step,
+     dial, preset dropout) through utils/scanbench.py on a 1024-row feed
+     (0.87 GiB f32, 16 steps an epoch) in three modes, streamed per step,
      feed per step, feed + scan (chunks of SCAN_K = 8 replays), each on a
      fresh model from --seed: steps/s, wall and device-busy ms a step, the
      idle share, peak memory, the feed's copy seconds and bytes; the graph
@@ -176,6 +176,36 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      dials) in a fresh process, and `infer` on its model_best.ckpt, the
      brief metrics identical; and a TACoS split of 9,790 rows under the default
      budget: its estimate, streamed by "auto", nothing built.
+ 16. streamed: the streamed train step as the JAX loop runs it (each batch
+     staged in pinned memory on the prefetch thread and copied ahead on a
+     copy stream, one CUDA-graph replay a step at a fixed max_v_l):
+     (a) the TACoS train step (B 32, Lv 2048, full width, preset dropout)
+     on phase 8's synthetic TACoS split (96 rows, collated as train()
+     collates them) through utils/scanbench.py's three streamed modes
+     (streamed: the blocking per-step copy; streamed_ahead: the copy ahead,
+     eager steps; streamed_graph: the copy ahead, graph replays) at
+     bfloat16 and float32: steps/s, wall and device-busy ms a step, the
+     idle share, peak memory, the capture's seconds, the step's mfu; each
+     mode's launches as the card ran them (16 ACA, 3 short and 6 flash
+     forward launches a step and as many backward, times the steps), the
+     wrappers' counts 0 in the replays; under deterministic_cudnn the loss
+     vectors graph against copy-ahead eager against blocking within
+     GRAPH_LOSS_RTOL and, at float32 and dropout 0, the parameters after 8
+     steps within GRAPH_PARAM_RTOL (bit-equality reported); (b) the
+     flagship streamed step (B 64, synthetic features) at bfloat16 in the
+     same three modes; (c) train() on the TACoS split with device_feed off,
+     2 epochs of 3 steps: the wrappers count the two eager warm-up steps
+     and the eval alone (every other step a replay); `cli train
+     --device_feed off` in a fresh process (the flagship, 2 epochs of 4
+     steps), then `infer` on its model_best.ckpt, the brief metrics
+     identical; (d) the same TACoS train() with profile_dir: a trace of the
+     first epoch that names the port's kernels and holds each kernel's
+     launches of its 3 steps; train() with debug_nans on a flagship split
+     with one NaN feature clip raises, and on the clean split gives the
+     loss vectors of the run without it; (e) tools/matmul_ceiling.py's
+     ceilings on this card, and the mfu of the flagship eval (phase 4, and
+     with the feed) and of the flagship and TACoS train steps (blocking
+     and graph, each dial of (a) and (b)).
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]}, a row per kernel and form, and, last,
 {"ok": true, "device": {...}}.
@@ -1947,9 +1977,9 @@ def run_precision_cli(dev, seed, n_train=32, n_val=64, bsz=32):
 
 # phase 15: the device-resident feed, the scan epoch, the pipelined eval
 FEED_TRAIN = {  # preset: (Lv, Lq, text dim, feed rows, timed steps)
-    # 2048 rows of the flagship (1.74 GiB of f32 features, 32 steps of B 64)
-    "qvhighlights_slowclip": (75, 32, 512, 2048, 32),
-    "tvsum_ms": (1000, 32, 512, 32, 16),  # B 4, Lv 1000
+    # 1024 rows of the flagship (0.87 GiB of f32 features, 16 steps of B 64)
+    "qvhighlights_slowclip": (75, 32, 512, 1024, 16),
+    "tvsum_ms": (1000, 32, 512, 32, 8),  # B 4, Lv 1000
 }
 SCAN_K = 8  # steps a chunk of the scan epoch
 GRAPH_PARAM_RTOL = 1e-6  # modes' parameters after 8 f32 steps at dropout 0, of each leaf's max
@@ -1963,6 +1993,34 @@ def busy_ms(run):
 
     wall, per_name = profiled(run)
     return wall, sum(us for us, _ in per_name.values()), device_launch_table(per_name)
+
+
+PROFILED_WINDOWS = 3  # profiled windows a mode may take to show its launches whole
+
+
+def profiled_steps(run, want):
+    """(wall seconds, device-busy microseconds, device_launch_table, the
+    windows taken, the wrappers' counts {form: {kernel: n}} in the window
+    kept) of run(), train steps under torch.profiler, whose kernel records
+    must hold `want` ({form: {kernel: launches}}). The profiler can lose
+    kernel records: on the card one window of 8 TACoS steps read 142 and
+    another 144 of the 152 backward ACA launches that every other window,
+    the wrappers' counts and the graph's own replays held. A window
+    whose records differ from `want` is logged and the steps are profiled
+    again, up to PROFILED_WINDOWS windows; a mode none of whose windows
+    holds its launches fails."""
+    tables = []
+    for window in range(1, PROFILED_WINDOWS + 1):
+        before = form_launch_counts()
+        wall, busy_us, table = busy_ms(run)
+        counted_in = {f: {k: n - before[f][k] for k, n in c.items()}
+                      for f, c in form_launch_counts().items()}
+        if all(table[f] == grouped(w) for f, w in want.items()):
+            return wall, busy_us, table, window, counted_in
+        tables.append(table)
+        log(f"[profiler] window {window}: the kernel records differ from a step's launches "
+            f"times the steps: {json.dumps(table)}")
+    raise AssertionError(("no profiled window holds the launches", want, tables))
 
 
 def params_of(model):
@@ -2034,15 +2092,11 @@ def feed_train_modes(dev, preset, seed, **overrides):
         sps, warm_s, losses = h.time_scan(SCAN_K, steps, mode)
         assert torch.isfinite(losses).all(), mode
         peak = torch.cuda.max_memory_allocated()
-        counted_before = form_launch_counts()
-        prof_wall, busy_us, table = busy_ms(
-            lambda: h.run(mode, steps, SCAN_K, i0=SCAN_K + steps).cpu())
-        counted_in = {f: {k: n - counted_before[f][k] for k, n in c.items()}
-                      for f, c in form_launch_counts().items()}
         # the profiled steps as the card ran them: every kernel of a step,
         # eager or replayed; the wrappers count the eager launches alone
         want = at_form(form, {k: n * steps for k, n in per_step.items()})
-        assert all(table[f] == grouped(want[f]) for f in want), (preset, mode, table)
+        prof_wall, busy_us, table, windows, counted_in = profiled_steps(
+            lambda: h.run(mode, steps, SCAN_K, i0=SCAN_K + steps).cpu(), want)
         if mode == "scan":
             assert not any(n for c in counted_in.values() for n in c.values()), counted_in
         else:
@@ -2052,7 +2106,7 @@ def feed_train_modes(dev, preset, seed, **overrides):
             warmup_chunk_s=warm_s, steps_per_s=sps, wall_ms_per_step=wall * 1e3 / steps,
             device_busy_ms_per_step=busy_us / 1e3 / steps,
             idle_share=1 - busy_us / 1e6 / wall, profiled_wall_ms_per_step=prof_wall * 1e3 / steps,
-            peak_mem_bytes=peak)
+            peak_mem_bytes=peak, profiled_windows=windows)
         if mode == "scan":
             fs = h.feed_steps(graph=True)
             reading.update(capture_s=fs.capture_s, replays=fs.replays)
@@ -2169,14 +2223,18 @@ def tacos_feed_gate(dev):
                 auto_streams=True)
 
 
-def run_cli_feed(dev, seed, n_train=128, n_val=64, epochs=2, bsz=32, scan=4):
+def run_cli_feed(dev, seed, n_train=128, n_val=64, epochs=2, bsz=32, scan=4,
+                 device_feed="on"):
     """Phase 15 (d): the CLI's `train` with --device_feed on --scan_steps 4
     at the flagship's full width and its default dials (4 steps an epoch:
     two eager warm-up steps and the capture in the first chunk, replays
     after), in a fresh process as a user starts it (nothing of this one
     warmed: the forward's device constants, the kernels' libraries, cuBLAS),
     then `infer` on its model_best.ckpt in this one: the best epoch's brief
-    metrics equal infer's; the infer's launches, one eval's."""
+    metrics equal infer's; the infer's launches, one eval's. Phase 16 (c):
+    the same with --device_feed off and the default scan_steps (`scan`
+    None): the streamed epoch, each step after two eager warm-up steps a
+    replay, each batch copied ahead from pinned memory."""
     import glob
 
     import torch
@@ -2198,7 +2256,8 @@ def run_cli_feed(dev, seed, n_train=128, n_val=64, epochs=2, bsz=32, scan=4):
         t0 = time.perf_counter()
         done = subprocess.run(
             [sys.executable, "-m", "flashvtg_tpu_torch.cli", "train", preset, *flags,
-             "--n_epoch", str(epochs), "--device_feed", "on", "--scan_steps", str(scan)],
+             "--n_epoch", str(epochs), "--device_feed", device_feed,
+             *(["--scan_steps", str(scan)] if scan else [])],
             cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True, text=True,
             timeout=600,
         )
@@ -2208,7 +2267,7 @@ def run_cli_feed(dev, seed, n_train=128, n_val=64, epochs=2, bsz=32, scan=4):
         with open(os.path.join(run_dir, "opt.json")) as f:
             opt = json.load(f)
         assert (opt["train_precision"], opt["device_feed"], opt["scan_steps"]) == (
-            cfg.train_precision, "on", scan), opt
+            cfg.train_precision, device_feed, scan or cfg.scan_steps), opt
         losses, evals = read_train_run(run_dir)
         assert len(losses) == epochs * (n_train // bsz)
         assert all(np.isfinite(v) for h in losses for v in h.values())
@@ -2225,10 +2284,380 @@ def run_cli_feed(dev, seed, n_train=128, n_val=64, epochs=2, bsz=32, scan=4):
         assert infer_brief == best_brief, (infer_brief, best_brief)
         want = eval_launches(cfg)
         assert all(launches[k] == want.get(k, 0) for k in launches), (launches, want)
-    return dict(preset=preset, bsz=bsz, train_rows=n_train, epochs=epochs, scan_steps=scan,
+    return dict(preset=preset, bsz=bsz, train_rows=n_train, epochs=epochs,
+                scan_steps=scan or cfg.scan_steps, device_feed=device_feed,
                 train_precision=cfg.train_precision, train_subprocess_s=train_s,
                 infer_s=infer_s, best_epoch=best_epoch, best_brief=best_brief,
                 launches=launches, form_launches=by_form, losses_last=losses[-1])
+
+
+# phase 16: the streamed train step as the JAX loop runs it
+STREAMED_TRAIN = {  # preset: {dial: timed steps}
+    "tacos": {"bfloat16": 8, "float32": 4},  # B 32, Lv 2048: the headline streamed split
+    "qvhighlights_slowclip": {"bfloat16": 8},  # B 64: the host-bound case
+}
+STREAMED_K = 4  # the warm-up chunk: two eager warm-up steps, the capture, one replay
+STREAMED_SYNTHETIC_BATCHES = 4  # host batches of the flagship's synthetic features
+
+
+def streamed_gap(a, b):
+    """The largest |a - b| of two loss buffers over |b| (floored at 1e-6)."""
+    return ((a - b).abs() / b.abs().clamp_min(1e-6)).max().item()
+
+
+def streamed_train_modes(dev, preset, seed, source=None):
+    """Phase 16 (a) and (b): the streamed train step at the preset's full
+    width through utils/scanbench.py in its three streamed modes (the
+    blocking per-step copy; the copy ahead on a copy stream, eager steps;
+    the copy ahead with each step a graph replay), at each of the preset's
+    STREAMED_TRAIN dials, each on a fresh model from `seed`, its batches
+    from `source` (a SplitSource: phase 8's TACoS split) or the harness's
+    synthetic features: as phase 15 times its modes (time_scan after a
+    warm-up chunk of STREAMED_K steps, then as many steps again under
+    torch.profiler), steps/s, wall and device-busy ms a step, the idle
+    share, peak memory, the capture's seconds and the step's utilisation
+    at its wall time; each mode's launches as the card ran them, a step's
+    times the steps, the wrappers' counts equal to them in the eager modes
+    and 0 in the replays. Then, under deterministic_cudnn, at each dial the
+    loss vectors of 2 chunks at the preset's dropout: the graph's against
+    the copy-ahead eager mode's, and those against the blocking mode's,
+    within GRAPH_LOSS_RTOL; at float32 these 8 steps run with every dropout
+    at 0, and the parameters after them lie within GRAPH_PARAM_RTOL across
+    the three modes. Bit-equality is reported beside each."""
+    import dataclasses
+
+    import torch
+
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.graph import WARMUP_STEPS
+    from flashvtg_tpu_torch.utils.flops import step_mfu
+    from flashvtg_tpu_torch.utils.runtime import KERNEL_FORMS
+    from flashvtg_tpu_torch.utils.scanbench import STREAMED_MODES, ScanHarness
+
+    dials = STREAMED_TRAIN[preset]
+    base = from_preset(preset, use_tensorboard=False)
+    lv, lq, t_dim = base.max_v_l, base.max_q_l, base.t_feat_dim
+    per_step = train_launches_per_step(base)
+    out = {"preset": preset, "bsz": base.bsz, "max_v_l": lv, "dropout": base.dropout,
+           "batches": "split" if source is not None else "synthetic", "timed_steps": dials,
+           "warmup_chunk": STREAMED_K, "dials": {}}
+
+    def harness(cfg, **kw):
+        return ScanHarness(cfg, lv, lq, t_dim, device=dev, seed=seed, source=source,
+                           n_feed_batches=STREAMED_SYNTHETIC_BATCHES, **kw)
+
+    for dial, steps in dials.items():
+        cfg = base.replace(train_precision=dial)
+        form = KERNEL_FORMS[dial]
+        res = {"train_precision": dial, "transfer_dtype": cfg.transfer_dtype}
+        for mode in STREAMED_MODES:
+            reset_launch_counts()
+            h = harness(cfg)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            sps, warm_s, losses = h.time_scan(STREAMED_K, steps, mode)
+            assert torch.isfinite(losses).all(), (preset, dial, mode)
+            peak = torch.cuda.max_memory_allocated()
+            want = at_form(form, {k: n * steps for k, n in per_step.items()})
+            prof_wall, busy_us, table, windows, counted_in = profiled_steps(
+                lambda: h.run(mode, steps, STREAMED_K, i0=STREAMED_K + steps).cpu(), want)
+            graph = mode == "streamed_graph"
+            if graph:
+                assert not any(n for c in counted_in.values() for n in c.values()), counted_in
+            else:
+                assert all(table[f] == grouped(counted_in[f]) for f in table), (mode, counted_in)
+            wall = steps / sps
+            reading = dict(
+                warmup_chunk_s=warm_s, steps_per_s=sps, wall_ms_per_step=wall * 1e3 / steps,
+                device_busy_ms_per_step=busy_us / 1e3 / steps,
+                idle_share=1 - busy_us / 1e6 / wall,
+                profiled_wall_ms_per_step=prof_wall * 1e3 / steps, peak_mem_bytes=peak,
+                profiled_windows=windows, **step_mfu(cfg, cfg.bsz, wall / steps, dial, train=True))
+            if graph:
+                ss = h.streamed_steps(graph=True)
+                reading.update(capture_s=ss.capture_s, replays=ss.replays)
+                # counted at the wrappers: the eager warm-up steps alone
+                launches, by_form = counted(dial)
+                assert ss.warm == WARMUP_STEPS and launches == {
+                    k: n * WARMUP_STEPS for k, n in per_step.items()}, (launches, ss.warm)
+                res.update(launches=launches, form_launches=by_form, device_launches=table,
+                           profiled_replays=steps)
+            res[mode] = reading
+            log(f"[streamed train {preset} {dial} {mode}] {json.dumps(reading)}")
+            del h
+            torch.cuda.empty_cache()
+
+        # the equalities: at float32 with every dropout at 0, whose 8 steps
+        # also give the parameters; else at the preset's dropout
+        f32 = dial == "float32"
+        cfg_eq, mcfg = cfg, None
+        if f32:
+            cfg_eq = cfg.replace(dropout=0.0, input_dropout=0.0)
+            mcfg = dataclasses.replace(cfg_eq.model_config(), dummy_dropout=0.0)
+        losses, params = {}, {}
+        with deterministic_cudnn():
+            for mode in STREAMED_MODES:
+                h = harness(cfg_eq, model_config=mcfg)
+                losses[mode] = h.run(mode, 2 * STREAMED_K, STREAMED_K).cpu()
+                params[mode] = params_of(h.model) if f32 else None
+                del h
+                torch.cuda.empty_cache()
+        pairs = (("streamed_graph", "streamed_ahead"), ("streamed_ahead", "streamed"))
+        res["loss_dropout"] = cfg_eq.dropout
+        res["loss_rel_gap"] = {f"{a}_vs_{b}": streamed_gap(losses[a], losses[b])
+                               for a, b in pairs}
+        res["loss_bit_equal"] = {f"{a}_vs_{b}": torch.equal(losses[a], losses[b])
+                                 for a, b in pairs}
+        assert max(res["loss_rel_gap"].values()) <= GRAPH_LOSS_RTOL, res["loss_rel_gap"]
+        if f32:
+            pairs += (("streamed_graph", "streamed"),)
+            out["f32_param_gap"] = {f"{a}_vs_{b}": leaf_gap(params[a], params[b])
+                                    for a, b in pairs}
+            out["f32_bit_equal"] = {f"{a}_vs_{b}": all(
+                torch.equal(params[a][n], params[b][n]) for n in params[b]) for a, b in pairs}
+            assert max(out["f32_param_gap"].values()) <= GRAPH_PARAM_RTOL, out["f32_param_gap"]
+        out["dials"][dial] = res
+    summary = {k: v for k, v in out.items() if k != "dials"}
+    summary.update({d: {k: v for k, v in r.items() if k.startswith("loss_")}
+                    for d, r in out["dials"].items()})
+    log(f"[streamed train {preset}] {json.dumps(summary)}")
+    return out
+
+
+def poison_first_row(cfg):
+    """One clip of the features of cfg.train_path's first row set to NaN."""
+    with open(cfg.train_path) as f:
+        vid = json.loads(f.readline())["vid"]
+    path = os.path.join(cfg.v_feat_dirs[0], f"{vid}.npz")
+    with np.load(path) as z:
+        arrays = dict(z)
+    key = "features" if "features" in arrays else next(iter(arrays))
+    arrays[key][min(3, len(arrays[key]) - 1)] = np.nan
+    np.savez(path, **arrays)
+
+
+def trace_launch_table(log_dir):
+    """device_launch_table of the kernel records in the one torch.profiler
+    trace under log_dir, and the kernels' names."""
+    import glob
+
+    (trace,) = glob.glob(os.path.join(log_dir, "*.pt.trace.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    per_name = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            per_name.setdefault(e["name"], [0.0, 0])[1] += 1
+    return device_launch_table(per_name), sorted(per_name), os.path.getsize(trace)
+
+
+def streamed_train_runs(dev, seed, tacos_split):
+    """Phase 16 (c) and (d) through train(): (c) on the TACoS split with
+    device_feed off, 2 epochs of 3 steps at the default bfloat16 dial and
+    profile_dir set: the wrappers count the two eager warm-up steps and the
+    eval alone, so every other step was a replay; the trace of the first
+    epoch names the port's kernels and holds each kernel's launches of its
+    3 steps (two eager, one replay); (d) on a flagship split of 128 rows
+    (4 steps of 32): train() with debug_nans gives the loss vectors of the
+    run without it (a graph run, under deterministic_cudnn), and on the
+    same split with one NaN feature clip raises FloatingPointError (or
+    anomaly mode's RuntimeError)."""
+    import torch
+
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.train.graph import WARMUP_STEPS
+    from flashvtg_tpu_torch.train.loop import epoch_mode, train
+    from flashvtg_tpu_torch.utils.runtime import KERNEL_FORMS
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = tacos_split.replace(device_feed="off", n_epoch=2, eval_epoch=2,
+                                  use_tensorboard=False, profile_dir=os.path.join(tmp, "prof"))
+        n_rows = jsonl_rows(cfg.train_path)
+        per_epoch = n_rows // cfg.bsz
+        assert epoch_mode(cfg, dev, n_rows).graph and per_epoch > WARMUP_STEPS
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        with deterministic_cudnn():
+            _, _, run_dir = train(cfg, os.path.join(tmp, "run"), dev)
+        train_s = time.perf_counter() - t0
+        by_form = form_launch_counts()
+        losses, evals = read_train_run(run_dir)
+        assert len(losses) == 2 * per_epoch and len(evals) == 1, (len(losses), len(evals))
+        assert all(np.isfinite(v) for h in losses for v in h.values())
+        per_step, per_eval = train_launches_per_step(cfg), eval_launches(cfg)
+        eval_batches = -(-jsonl_rows(cfg.eval_path) // cfg.eval_bsz)
+        # the steps at the train dial's form, the eval at the eval dial's
+        want = add_tables(
+            at_form(KERNEL_FORMS[cfg.train_precision],
+                    {k: n * WARMUP_STEPS for k, n in per_step.items()}),
+            at_form(KERNEL_FORMS[cfg.eval_precision],
+                    {k: per_eval.get(k, 0) * eval_batches for k in per_step}))
+        assert by_form == want, (by_form, want)
+        table, names, trace_bytes = trace_launch_table(cfg.profile_dir)
+        first_epoch = at_form(KERNEL_FORMS[cfg.train_precision],
+                              {k: n * per_epoch for k, n in per_step.items()})
+        assert all(table[f] == grouped(w) for f, w in first_epoch.items()), table
+        for kernel in ("aca_attention_kernel", "aca_attention_bwd_kernel",
+                       "flash_attention_kernel", "flash_bwd_dq_kernel"):
+            assert any(kernel in n for n in names), kernel
+        out["tacos_train"] = dict(
+            rows=n_rows, steps=len(losses), replays=len(losses) - WARMUP_STEPS,
+            train_s=train_s, form_launches=by_form,
+            trace_bytes=trace_bytes, trace_device_launches=table,
+            trace_kernels=[n for n in names if "attention" in n or "flash" in n][:8],
+            losses_last=losses[-1], brief=evals[0][1]["brief"])
+        log(f"[streamed train() tacos] {json.dumps(out['tacos_train'])}")
+
+        preset = "qvhighlights_slowclip"
+        flag = make_train_split(os.path.join(tmp, "flag"),
+                                from_preset(preset, bsz=32, use_tensorboard=False,
+                                            device_feed="off", n_epoch=1),
+                                128, 32, seed)
+        runs = {}
+        with deterministic_cudnn():
+            for name, debug_nans in (("plain", False), ("debug_nans", True)):
+                _, _, run_dir = train(flag.replace(debug_nans=debug_nans),
+                                      os.path.join(tmp, name), dev)
+                runs[name] = read_train_run(run_dir)[0]
+        assert len(runs["plain"]) == 4
+        gap = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-6)
+                  for a, b in zip(runs["debug_nans"], runs["plain"]) for k in b)
+        assert gap <= GRAPH_LOSS_RTOL, gap
+        assert not torch.is_anomaly_enabled()
+        poison_first_row(flag)
+        t0 = time.perf_counter()
+        try:
+            train(flag.replace(debug_nans=True), os.path.join(tmp, "nan"), dev)
+            raised = None
+        except (FloatingPointError, RuntimeError) as e:
+            raised = f"{type(e).__name__}: {str(e)[:200]}"
+        assert raised is not None, "debug_nans did not raise on a NaN feature row"
+        assert not torch.is_anomaly_enabled()
+        out["debug_nans"] = dict(
+            preset=preset, rows=128, steps=len(runs["plain"]), clean_loss_rel_gap=gap,
+            clean_bit_equal=runs["debug_nans"] == runs["plain"], raised=raised,
+            raise_s=time.perf_counter() - t0)
+        log(f"[debug_nans] {json.dumps(out['debug_nans'])}")
+    return out
+
+
+def jsonl_rows(path):
+    """The rows of an annotation file (a jsonl)."""
+    with open(path) as f:
+        return sum(1 for line in f if line.strip())
+
+
+def utilisation(dev, paths, streamed):
+    """Phase 16 (e): tools/matmul_ceiling.py's readings on this card, and
+    the utilisation (utils/flops.py) of the flagship eval (phase 4's
+    queries a second end to end, its device step's, and phase 15's with the
+    feed) and of the flagship and TACoS train steps (phase 16's three modes
+    at each dial, and phase 15's flagship modes), each against the bf16
+    peak (`mfu`) and its
+    dial's measured ceiling (`mfu_effective`, also against the ceilings of
+    this run)."""
+    from flashvtg_tpu_torch.tools.matmul_ceiling import measure
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.utils.scanbench import STREAMED_MODES
+    from flashvtg_tpu_torch.utils.flops import (
+        H100_PEAK_TFLOPS,
+        MEASURED_SKELETON_TFLOPS,
+        MEASURED_TRAIN_SKELETON_TFLOPS,
+        mfu,
+        model_flops,
+    )
+
+    t0 = time.perf_counter()
+    ceilings = measure(dev)
+    ceilings["seconds"] = time.perf_counter() - t0
+    log(f"[matmul ceiling] {json.dumps(ceilings)}")
+    measured = {
+        "eval": {d: ceilings["skeleton"][d]["tflops"] for d in PRECISION_MODES},
+        "train": {d: ceilings["skeleton_train"][d]["tflops"] for d in PRECISION_MODES},
+    }
+    for kind, table in measured.items():
+        for dial, tflops in table.items():
+            assert 0 < tflops <= H100_PEAK_TFLOPS[dial], (kind, dial, tflops)
+
+    def util(flops, seconds, dial, train):
+        got = mfu(flops, seconds, dial, ceilings=MEASURED_TRAIN_SKELETON_TFLOPS if train
+                  else None)
+        got["mfu_effective_this_run"] = got["achieved_tflops"] / measured[
+            "train" if train else "eval"][dial]
+        return got
+
+    flag = from_preset("qvhighlights_slowclip")
+    per_query = model_flops(flag.model_config(), 1, flag.max_q_l, flag.max_v_l)["fwd"]
+    rows = {}
+    p4 = paths["flagship"]  # phase 4
+    feed = p4["feed_vs_streamed"]["feed"]["queries_per_s"]
+    for name, qps in (("infer", p4["infer_qps"]), ("step", p4["step_qps"]), ("feed", feed)):
+        rows[f"flagship_eval_{name}"] = dict(
+            precision=p4["eval_precision"], qps=qps,
+            **util(per_query * qps, 1.0, p4["eval_precision"], False))
+    def train_rows(preset, tag, dial, readings):
+        cfg = from_preset(preset)
+        step = model_flops(cfg.model_config(), cfg.bsz, cfg.max_q_l, cfg.max_v_l,
+                           train=True)["fwd_bwd"]
+        for mode, r in readings.items():
+            ms = r["wall_ms_per_step"]
+            rows[f"{preset}_{tag}_{mode}_{dial}"] = dict(
+                precision=dial, bsz=cfg.bsz, step_ms=ms, **util(step, ms / 1e3, dial, True))
+
+    for preset, res in streamed.items():
+        for dial, r in res["dials"].items():
+            train_rows(preset, "train", dial, {m: r[m] for m in STREAMED_MODES})
+    p15 = paths["feed_train_flagship"]  # phase 15 (a)
+    train_rows("qvhighlights_slowclip", "feed_train", p15["train_precision"],
+               {m: p15[m] for m in ("streamed", "feed", "scan")})
+    out = {"ceilings": ceilings, "measured_tflops": measured,
+           "committed_tflops": {"eval": MEASURED_SKELETON_TFLOPS,
+                                "train": MEASURED_TRAIN_SKELETON_TFLOPS},
+           "rows": rows}
+    log(f"[utilisation] {json.dumps(rows)}")
+    return out
+
+
+def run_phase16(dev, seed, paths):
+    """Phase 16 in order, its paths added to `paths` (their launches go into
+    the kernels line); returns (the streamed modes' readings by preset,
+    streamed_train_runs's, utilisation's)."""
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.utils.scanbench import SplitSource
+
+    streamed = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        # phase 8's TACoS split: 3 steps of B 32 and one eval batch
+        tacos = make_train_split(tmp, from_preset("tacos", use_tensorboard=False), 96, 8,
+                                 seed)
+        source = SplitSource(tacos)
+        log(f"[streamed data] {time.perf_counter() - t0:.2f} s")
+        streamed_phases = {
+            "tacos": lambda: streamed_train_modes(dev, "tacos", seed, source),
+            "qvhighlights_slowclip": lambda: streamed_train_modes(
+                dev, "qvhighlights_slowclip", seed),
+        }
+        for preset, run in streamed_phases.items():
+            t0 = time.perf_counter()
+            streamed[preset] = run()
+            log(f"[streamed_train_{preset}] {time.perf_counter() - t0:.2f} s")
+            for dial, res in streamed[preset]["dials"].items():
+                paths[f"streamed_train_{preset}/{dial}"] = res
+        del source
+        t0 = time.perf_counter()
+        runs = streamed_train_runs(dev, seed, tacos)
+        log(f"[streamed_train_runs] {time.perf_counter() - t0:.2f} s")
+    paths["streamed_train_run_tacos"] = runs["tacos_train"]
+    t0 = time.perf_counter()
+    paths["streamed_cli"] = run_cli_feed(dev, seed, device_feed="off", scan=None)
+    paths["streamed_cli"]["wall_s"] = time.perf_counter() - t0
+    log(f"[streamed_cli] {paths['streamed_cli']['wall_s']:.2f} s")
+    t0 = time.perf_counter()
+    util = utilisation(dev, paths, streamed)
+    log(f"[utilisation] {time.perf_counter() - t0:.2f} s")
+    return streamed, runs, util
 
 
 def main():
@@ -2387,6 +2816,8 @@ def main():
         paths[name]["wall_s"] = time.perf_counter() - t0
         log(f"[{name}] {paths[name]['wall_s']:.2f} s")
 
+    streamed, runs, util = run_phase16(dev, args.seed, paths)
+
     for row in rows:  # the largest errors over every shape of the kernel and form
         for key in ("max_abs_err", "max_rel_err"):
             row[key] = max([row[key]] + [
@@ -2406,7 +2837,10 @@ def main():
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "device_function", "device_launches")
     print(json.dumps({"paths": paths, "kernel_shapes": shapes, "sass_hmma": hmma,
-                      "sass_hmma_by_form": hmma_forms, "form_identity": form_identity}))
+                      "sass_hmma_by_form": hmma_forms, "form_identity": form_identity,
+                      "streamed_train": {p: {k: v for k, v in r.items() if k != "dials"}
+                                         for p, r in streamed.items()},
+                      "debug_nans": runs["debug_nans"], "utilisation": util}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

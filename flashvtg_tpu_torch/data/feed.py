@@ -23,6 +23,23 @@ its share.
 arrays are packed into one pinned staging buffer (16-byte aligned) and
 copied without blocking the host; the device tensors are views of the one
 copy. On the CPU the arrays are wrapped as they are.
+
+A streamed train batch (no feed: the split is over the budget, or its
+lengths or text change per step) crosses the same way, split in two so the
+copy runs ahead of the step that reads it (train/loop.py:
+run_streamed_epoch): `stage_batch`, on the prefetch thread, puts the
+collated arrays in their wire dtypes (`wire_dtypes`: the features in bf16
+under the bf16 wire, rounded on the host as `place_batch` rounds them;
+other floats float32, integer labels int64) into one pinned buffer, each
+converted in its one copy there; on the
+main thread `copy_ahead` allocates the device buffer on a dedicated copy
+stream, issues the non-blocking copy there and records an event, which the
+compute stream waits on before the step (`PlacedBatch.wait`). The device
+buffer is marked as used by the compute stream (`record_stream`), so the
+caching allocator hands it out again only after the step that reads it;
+the pinned buffer is handed out again only after its copy (the caching
+host allocator records the copy's stream). The step widens the bf16
+features on the card.
 """
 
 from __future__ import annotations
@@ -30,7 +47,7 @@ from __future__ import annotations
 import logging
 import time
 import weakref
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -61,10 +78,6 @@ def estimate_feed_bytes(n: int, max_v_l: int, v_dim: int, max_q_l: int,
     per_row = max_v_l * v_dim + max_q_l * t_dim  # features
     per_row += max_v_l + max_q_l  # masks
     return n * per_row * dtype_bytes
-
-
-def _torch_dtype(np_dtype) -> torch.dtype:
-    return torch.from_numpy(np.empty(0, np_dtype)).dtype
 
 
 def build_device_feed(dataset, collator, device, dtype: Optional[torch.dtype] = None,
@@ -125,28 +138,122 @@ def _copy_rows(dst: torch.Tensor, start: int, rows: torch.Tensor) -> None:
         # after the copy (the caching host allocator records its use)
 
 
+def _pack(tensors: Dict[str, torch.Tensor], dtypes: Optional[Dict[str, torch.dtype]] = None,
+          pin: bool = True):
+    """(one uint8 host buffer, pinned with `pin`, holding every tensor's
+    values in its dtype in `dtypes` (default its own; a conversion is made
+    in the one copy into the buffer), each at a 16-byte aligned offset; the
+    layout [(key, dtype, shape, offset)])."""
+    layout, off = [], 0
+    for k, t in tensors.items():
+        dtype = t.dtype if dtypes is None else dtypes[k]
+        off = -(-off // 16) * 16
+        layout.append((k, dtype, tuple(t.shape), off))
+        off += t.numel() * dtype.itemsize
+    host = torch.empty(max(off, 16), dtype=torch.uint8, pin_memory=pin)
+    for view, (k, *_) in zip(_unpack(host, layout).values(), layout):
+        view.copy_(tensors[k])
+    return host, layout
+
+
+def _unpack(dev: torch.Tensor, layout) -> Dict[str, torch.Tensor]:
+    """The tensors of `layout` as views of the device copy `dev`."""
+    out = {}
+    for k, dtype, shape, o in layout:
+        n = int(np.prod(shape, dtype=np.int64)) * dtype.itemsize
+        out[k] = dev[o : o + n].view(dtype).view(shape)
+    return out
+
+
 def upload(arrays: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
     """{key: tensor on `device`} of host arrays, dtypes kept, with one
     non-blocking host-to-device copy from one pinned buffer (see the
     module's doc). On the CPU, the arrays wrapped without a copy."""
     device = torch.device(device)
+    tensors = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
     if device.type != "cuda":
-        return {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in arrays.items()}
-    layout, off = [], 0
-    for k, v in arrays.items():
-        v = np.ascontiguousarray(v)
-        off = -(-off // 16) * 16
-        layout.append((k, v, off))
-        off += v.nbytes
-    host = torch.empty(max(off, 16), dtype=torch.uint8, pin_memory=True)
-    view = host.numpy()
-    for _, v, o in layout:
-        view[o : o + v.nbytes] = v.reshape(-1).view(np.uint8)
-    dev = host.to(device, non_blocking=True)
-    return {
-        k: dev[o : o + v.nbytes].view(_torch_dtype(v.dtype)).view(v.shape)
-        for k, v, o in layout
-    }
+        return tensors
+    host, layout = _pack(tensors)
+    return _unpack(host.to(device, non_blocking=True), layout)
+
+
+def wire_dtypes(batch: Dict, keys: Sequence[str], transfer_dtype: str = "float32"):
+    """({key: host tensor} of `keys` (those in `batch`), {key: the dtype it
+    crosses to the device in}): integer arrays int64; with transfer_dtype
+    "bfloat16" the features (NARROWED_KEYS) bf16, rounded to nearest even
+    (the JAX loop's astype(bfloat16)); other floating arrays float32, the
+    step's dtype."""
+    tensors, dtypes = {}, {}
+    for key in keys:
+        if key in batch:
+            t = tensors[key] = torch.from_numpy(np.asarray(batch[key]))
+            if not t.is_floating_point():
+                dtypes[key] = torch.int64
+            elif transfer_dtype == "bfloat16" and key in NARROWED_KEYS:
+                dtypes[key] = torch.bfloat16
+            else:
+                dtypes[key] = torch.float32
+    return tensors, dtypes
+
+
+class StagedBatch:
+    """A batch's host tensors in their wire dtypes (`wire_dtypes`): on the
+    card's side packed into one pinned buffer (`pin`), each converted in
+    its one copy into it; else converted and kept as they are."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], dtypes: Dict[str, torch.dtype],
+                 pin: bool):
+        self.host = self.layout = self.tensors = None
+        if pin:
+            self.host, self.layout = _pack(tensors, dtypes=dtypes)
+        else:
+            self.tensors = {k: t.to(dtypes[k]) for k, t in tensors.items()}
+
+
+def stage_batch(batch: Dict, keys: Sequence[str], device,
+                transfer_dtype: str = "float32") -> StagedBatch:
+    """`batch`'s `keys` staged for `device`: pinned and packed for the card
+    (host work, made on the prefetch thread), wrapped for the CPU."""
+    return StagedBatch(*wire_dtypes(batch, keys, transfer_dtype),
+                       pin=torch.device(device).type == "cuda")
+
+
+class PlacedBatch:
+    """A batch on the device and the event its copy records (None: the
+    tensors are ready, as on the CPU). `wait()` makes the current stream
+    wait for the copy and returns the tensors."""
+
+    def __init__(self, tensors: Dict[str, torch.Tensor], ready=None):
+        self.tensors, self.ready = tensors, ready
+
+    def wait(self) -> Dict[str, torch.Tensor]:
+        if self.ready is not None:
+            torch.cuda.current_stream().wait_event(self.ready)
+        return self.tensors
+
+
+def copy_ahead(staged: StagedBatch, device, stream=None) -> PlacedBatch:
+    """Issue the staged batch's copy to `device` on the copy stream
+    `stream`, without blocking the host: the device buffer is allocated on
+    that stream and marked as used by the current (compute) stream, which
+    reads it after `PlacedBatch.wait`. On the CPU, the staged tensors."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return PlacedBatch(staged.tensors)
+    compute = torch.cuda.current_stream(device)
+    with torch.cuda.stream(stream):
+        dev = torch.empty(staged.host.numel(), dtype=torch.uint8, device=device)
+        dev.copy_(staged.host, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record(stream)
+    dev.record_stream(compute)
+    return PlacedBatch(_unpack(dev, staged.layout), ready)
+
+
+def widen_features(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """`batch` with its bf16 tensors (the features of the bf16 wire) widened
+    to float32, on their device; other tensors as they are."""
+    return {k: v.float() if v.dtype == torch.bfloat16 else v for k, v in batch.items()}
 
 
 def gather_rows(feed: Dict[str, torch.Tensor], idx: torch.Tensor,

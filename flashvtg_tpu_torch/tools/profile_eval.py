@@ -21,7 +21,10 @@ the HD sets, TVSum-like clip scores. Each --precision mode (the
 eval or train step's dial, utils/runtime.py:matmul_precision) is profiled
 in turn on the same model and batch. Prints the card's name and power
 limit, then one JSON line a mode: host wall time and device-busy time per
-step, the idle share, device time by kernel class (each of the port's
+step, the idle share, the achieved TFLOP/s, `mfu` and `mfu_effective` at
+the wall time (utils/flops.py: the core model's analytic FLOPs at the
+padded shapes, against the bf16 peak and the dial's measured eval or
+train ceiling; none for FlashVTG_ms), device time by kernel class (each of the port's
 attention kernels by name, forward and backward, GEMMs, convolutions,
 casts: the kernels of every dtype conversion, autocast's included, found
 by their `aten::_to_copy` op; the rest) and the top kernels by device
@@ -34,9 +37,11 @@ these kernels are also in the classes above.
 
 --feed and --scan K profile the feeding modes instead, each on its own
 line, at the first --precision: with --train, the streamed step (the batch
-placed per step), the feed step (labels and row indices uploaded per step,
-the features gathered from a device-resident feed) and, with --scan K, the
-scan epoch (K steps a chunk, each a CUDA-graph replay), all through
+placed per step, blocking), the streamed epoch with the copy ahead, the
+feed step (labels and row indices uploaded per step, the features gathered
+from a device-resident feed) and, with --scan K, the streamed epoch's
+graph replays and the scan epoch (K steps a chunk, each a CUDA-graph
+replay), all through
 utils/scanbench.py's harness (the production step at the preset's shapes,
 synthetic features); for eval (--scan does not apply), the streamed and the
 feed path of train/infer.py (one upload, the packed step, one non-blocking
@@ -65,6 +70,7 @@ from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.train.config import from_preset
 from flashvtg_tpu_torch.train.infer import make_eval_step
 from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step
+from flashvtg_tpu_torch.utils.flops import step_mfu
 from flashvtg_tpu_torch.utils.runtime import PRECISIONS, resolve_device
 
 
@@ -300,6 +306,12 @@ def profile(step, steps, n_marked):
     }
 
 
+def with_mfu(line: dict, cfg, bsz: int, precision: str, train: bool) -> dict:
+    """`line` with the step's utilisation at its wall time per step."""
+    util = step_mfu(cfg, bsz, line["wall_ms_per_step"] / 1e3, precision, train)
+    return {**line, **(util or {})}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -364,7 +376,7 @@ def main():
             "precision": mode, "bsz": b, "steps": args.steps,
             # the self-attention's valid keys: the flash kernel skips the rest
             "valid_clips": int(v_lens.sum()), "padded_clips": b * lv,
-            **profile(step, args.steps, n_marked),
+            **with_mfu(profile(step, args.steps, n_marked), cfg, b, mode, args.train),
         }), flush=True)
 
 
@@ -379,14 +391,17 @@ def feed_modes(cfg, args, dev):
     b = args.bsz or cfg.bsz
     k = args.scan or args.steps
     steps = max(k, args.steps - args.steps % k)
-    for mode in ["streamed", "feed"] + (["scan"] if args.scan else []):
+    for mode in ["streamed", "streamed_ahead", "feed"] + (
+            ["streamed_graph", "scan"] if args.scan else []):
         h = ScanHarness(cfg.replace(bsz=b), cfg.max_v_l, cfg.max_q_l, cfg.t_feat_dim,
                         device=dev, n_feed_batches=4, seed=args.seed)
         h.run(mode, k, k).cpu()  # warm-up (and the capture)
         wall, per_name = profiled(lambda: h.run(mode, steps, k, i0=k).cpu())
         yield {"preset": args.preset, "mode": "train", "feed_mode": mode,
                "scan_steps": k if mode == "scan" else 0, "precision": cfg.train_precision,
-               "bsz": b, "steps": steps, **busy_summary(wall, per_name, steps)}
+               "bsz": b, "steps": steps,
+               **with_mfu(busy_summary(wall, per_name, steps), cfg, b, cfg.train_precision,
+                          True)}
         del h
         torch.cuda.empty_cache()
 
@@ -433,7 +448,9 @@ def eval_feed_modes(cfg, args, dev):
                    "feed_mode": "feed" if mode == "on" else "streamed",
                    "precision": c.eval_precision, "bsz": b, "steps": batches,
                    "fetches_per_batch": (FETCHES["d2h"] - fetches) / batches,
-                   "queries_per_s": len(ds) / wall, **busy_summary(wall, per_name, batches)}
+                   "queries_per_s": len(ds) / wall,
+                   **with_mfu(busy_summary(wall, per_name, batches), c, b, c.eval_precision,
+                              False)}
 
 
 if __name__ == "__main__":

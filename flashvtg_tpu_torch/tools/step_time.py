@@ -17,7 +17,10 @@ graph can capture (train/loop.py:StepLR), it also times the step with
 fused, and a constant LambdaLR, on a model of its own from the same seed
 and the same batch, the two steps' blocks in turns. Prints the card's
 name and power limit, then one JSON line a (precision, variant): each
-block's ms a step, their mean and spread. With --census N the line also
+block's ms a step, their mean and spread, and at the mean the achieved
+TFLOP/s, `mfu` (against the bf16 peak) and `mfu_effective` (against the
+dial's measured train-skeleton ceiling) of utils/flops.py, where the tree
+has it. With --census N the line also
 has what one step asks of the host and the card, counted
 over N more steps under torch.profiler: each CPU op's and each device
 kernel's (or copy's) calls a step, by name.
@@ -118,6 +121,16 @@ def make_step(cfg, model, precision: str, variant: str, seed: int):
                                 step_generator(device).manual_seed(seed), precision)
 
 
+def utilization(cfg, precision: str, ms: float) -> dict:
+    """achieved_tflops, mfu and mfu_effective of a train step of `ms`
+    (utils/flops.py:step_mfu); none in a tree without utils/flops.py."""
+    try:
+        from flashvtg_tpu_torch.utils.flops import step_mfu
+    except ImportError:
+        return {}
+    return step_mfu(cfg, cfg.bsz, ms / 1e3, precision, train=True) or {}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--preset", default="qvhighlights_slowclip")
@@ -171,6 +184,7 @@ def main(argv=None) -> int:
                 "variant": variant, "block_ms": ms[variant],
                 "mean_ms": float(np.mean(ms[variant])),
                 "spread_ms": float(np.max(ms[variant]) - np.min(ms[variant]))}
+            line.update(utilization(cfg, precision, line["mean_ms"]))
             if args.census:
                 line["cpu_ops_per_step"], line["kernels_per_step"] = census(steps[variant],
                                                                              args.census)

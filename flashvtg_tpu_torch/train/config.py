@@ -4,10 +4,9 @@ Counterpart of flashvtg_tpu/train/config.py. `ExperimentConfig` has every
 field of the JAX package's, under the same name, in the same order and with
 the same default. So an opt.json written by either package loads in the
 other, field for field (`save` / `load`, with the reference sidecar keys and the
-`model_cfg.py` beside it). A field whose feature is not ported raises
-NotImplementedError where it is read, naming its ROADMAP item
-(`check_ported`); the reference's dead flags are accepted and warned about
-(`warn_inert_flags`), as the JAX package does.
+`model_cfg.py` beside it). `check_ported` refuses unknown values of the
+fields with a fixed set; the reference's dead flags are accepted and warned
+about (`warn_inert_flags`), as the JAX package does.
 """
 
 from __future__ import annotations
@@ -181,16 +180,17 @@ class ExperimentConfig:
     # the device-resident feed (data/feed.py): "auto" puts a split's
     # features on the device when they fit what is left of the budget
     # (fixed max_v_l, no txt_drop), "on" whatever their size; with it the
-    # train epoch runs scan_steps steps a chunk, each a CUDA-graph replay
-    # on the card (train/graph.py), unless scan_steps <= 1 or debug
+    # train epoch runs scan_steps steps a chunk; on the card each step, fed
+    # or streamed at a fixed max_v_l, is a CUDA-graph replay
+    # (train/graph.py) unless scan_steps <= 1, debug or debug_nans
     device_feed: str = "auto"  # auto | on | off
     device_feed_budget_gb: float = 8.0
-    scan_steps: int = 128  # read with the device feed only
+    scan_steps: int = 128
     # mirrored from the JAX config; the port's self-attention goes to the
     # memory-linear flash kernel past 128 keys whatever it says
     attn_chunk: int = 512
-    debug_nans: bool = False  # finite checks: Queue A 8
-    profile_dir: Optional[str] = None  # profile trace: Queue A 8
+    debug_nans: bool = False  # the NaN tripwire (utils/observability.py)
+    profile_dir: Optional[str] = None  # a torch.profiler trace of the first epoch
     use_tensorboard: bool = True
     use_wandb: bool = False
     wandb_project: str = "FlashVTG"
@@ -281,11 +281,9 @@ class ExperimentConfig:
         )
 
     def check_ported(self, train: bool) -> None:
-        """Raise NotImplementedError, naming its ROADMAP item, for a field
-        set to a feature the port does not have, and ValueError for an
-        unknown value of a field with a fixed set (the precision dials
-        among them); `train` adds the fields the train loop reads. The
-        reference's dead flags only warn."""
+        """Raise ValueError for an unknown value of a field with a fixed
+        set (the precision dials among them); `train` adds the fields the
+        train loop reads. The reference's dead flags only warn."""
         self.warn_inert_flags()
         if self.span_loss_type != "l1":
             raise ValueError(
@@ -302,15 +300,6 @@ class ExperimentConfig:
             if getattr(self, name) not in allowed:
                 raise ValueError(f"unknown {name} {getattr(self, name)!r}; expected one of "
                                  f"{allowed}")
-        unported = [
-            (self.debug_nans, "debug_nans", 8),
-            (bool(self.profile_dir), "profile_dir", 8),
-        ] if train else []
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP Queue A {item})"
-                )
         if self.device_feed not in ("auto", "on", "off"):
             raise ValueError(f"unknown device_feed {self.device_feed!r}")
         if self.dropout_rng_impl not in ("auto", "rbg", "threefry"):

@@ -32,7 +32,8 @@ JAX package's): the forward and the backward inside the dial
 (utils/runtime.py:matmul_precision), the criterion, the clip and AdamW in
 float32 on float32 weights (no GradScaler: bf16 keeps f32's range).
 transfer_dtype bfloat16 narrows the features to bf16 on the host before the
-copy to the card and widens them there (`place_batch`).
+copy to the card and widens them there (`place_batch`; in the streamed
+epoch on the card, inside the step).
 
 The device-resident feed (data/feed.py; device_feed "auto" within
 device_feed_budget_gb, or "on", with a fixed max_v_l and no txt_drop, the
@@ -48,12 +49,31 @@ counterpart of the JAX loop's lax.scan epoch; on the CPU the same chunks
 run eagerly. Every epoch writes its loss vectors into one device tensor,
 fetched once at its end. AdamW is capturable (and fused) on the card and
 its learning rate a device tensor that `StepLR` sets from a device step
-count, so a replay takes the schedule's step. Not ported yet (ROADMAP
-Queue A 7): the data-parallel mesh and multi-host rows.
+count, so a replay takes the schedule's step.
+
+Without the feed (a split over the budget, such as a TACoS-size one,
+bucketed lengths, txt_drop, device_feed off) the epoch streams
+(`run_streamed_epoch`), as the JAX loop's `epoch_step` does: the prefetch
+thread collates step i + 1's batch and stages it in one pinned buffer, and
+its copy to the card is issued on a copy stream while step i runs
+(data/feed.py:copy_ahead); at a fixed max_v_l with scan_steps > 1 each
+step on the card is one replay of the captured step (train/graph.py:
+StreamedSteps), the counterpart of JAX's one jitted dispatch a step; on
+the CPU the batch is placed by `place_batch`. `epoch_mode` picks the
+epoch's mode: feed or streamed, graph or eager (eager under debug and
+debug_nans, as the JAX loop runs no scan there).
+
+debug_nans (utils/observability.py:nan_tripwire) checks every module's
+forward output and runs autograd's anomaly mode, for this call of train()
+alone; after an epoch whose mean losses are not all finite it names the
+non-finite parameters. profile_dir traces the run's first epoch
+(utils/observability.py:profile_trace). Not ported yet (ROADMAP Queue A
+7): the data-parallel mesh and multi-host rows.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -70,11 +90,15 @@ from flashvtg_tpu_torch.data.dataset import HD_SETS, DataConfig, VTGDataset
 from flashvtg_tpu_torch.data.feed import (
     FEED_KEYS,
     NARROWED_KEYS,
+    PlacedBatch,
     build_device_feed,
+    copy_ahead,
     estimate_feed_bytes,
     gather_rows,
     resident_feed_bytes,
+    stage_batch,
     upload,
+    widen_features,
 )
 from flashvtg_tpu_torch.losses import criterion, declared_loss_keys
 from flashvtg_tpu_torch.train.infer import (
@@ -256,6 +280,10 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
     outputs leave the dial in float32, and the criterion runs outside it,
     in f32.
 
+    The batch's bf16 tensors (the features of the bf16 wire, placed
+    unwidened by the streamed epoch on the card) are widened to float32
+    first, inside the step.
+
     `step.vector(batch)` is the same update returning the losses as one
     float32 vector, and `step.feed_vector(labels, idx, feed)` the
     feed-mode update: the features are rows `idx` (int64) of the
@@ -270,6 +298,7 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
 
     def update(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
+        batch = widen_features(batch)
         # no autocast cast cache: a graph capture of the step refuses it,
         # and an eager step must keep the graph's arithmetic (with the cache
         # on for the eager steps alone, eager and graph losses part at
@@ -564,21 +593,58 @@ def find_auto_resume(cfg) -> Optional[str]:
     return candidates[-1] if candidates else None
 
 
-def train_feed(cfg, dataset: VTGDataset, collator: Collator, device):
-    """The train split's device feed, or None (the JAX loop's gate):
-    device_feed off, no fixed max_v_l, txt_drop on (the text then changes at
-    every access), or, under "auto", more bytes (in transfer_dtype) than
-    are left of device_feed_budget_gb beside the feeds already resident."""
+@dataclasses.dataclass(frozen=True)
+class EpochMode:
+    """How train() runs its epochs: `feed` (the split's features resident
+    on the device, labels and row indices per step) or streamed; `graph`
+    (each step on the card a replay of one captured CUDA graph) or eager;
+    `chunk`, the feed's steps a chunk (1 when streamed)."""
+
+    feed: bool
+    graph: bool
+    chunk: int
+
+
+def feed_fits(cfg, n_rows: int) -> bool:
+    """The JAX loop's feed gate: not with device_feed off, no fixed
+    max_v_l, or txt_drop on (the text then changes at every access); under
+    "auto" not past what is left of device_feed_budget_gb beside the feeds
+    already resident (n_rows rows in transfer_dtype)."""
     if cfg.device_feed == "off" or cfg.max_v_l <= 0 or cfg.txt_drop_ratio > 0:
-        return None
-    narrow = torch.bfloat16 if cfg.transfer_dtype == "bfloat16" else None
-    est = estimate_feed_bytes(len(dataset), cfg.max_v_l, cfg.total_v_feat_dim, cfg.max_q_l,
-                              cfg.t_feat_dim, 2 if narrow is not None else 4)
+        return False
+    est = estimate_feed_bytes(n_rows, cfg.max_v_l, cfg.total_v_feat_dim, cfg.max_q_l,
+                              cfg.t_feat_dim, 2 if cfg.transfer_dtype == "bfloat16" else 4)
     remaining = cfg.device_feed_budget_gb * 2**30 - resident_feed_bytes()
     if cfg.device_feed != "on" and est > remaining:
         logger.info("device feed off: %.2f GB exceeds the %.2f GB left of the budget",
                     est / 2**30, remaining / 2**30)
+        return False
+    return True
+
+
+def epoch_mode(cfg, device, n_rows: int) -> EpochMode:
+    """The epoch's mode for a train split of n_rows rows on `device` (a
+    device object or name; nothing is launched): the feed where it fits
+    (`feed_fits`); a graph on CUDA at a fixed max_v_l (every batch of one
+    shape) with scan_steps > 1, not under debug or debug_nans (per-step
+    eager steps for inspection, as the JAX loop runs no scan there); the
+    feed's chunks of scan_steps steps, of one under debug and debug_nans."""
+    feed = feed_fits(cfg, n_rows)
+    per_step = cfg.debug or cfg.debug_nans
+    graph = (torch.device(device).type == "cuda" and not per_step and cfg.scan_steps > 1
+             and cfg.max_v_l > 0)
+    chunk = max(cfg.scan_steps, 1) if feed and not per_step else 1
+    return EpochMode(feed=feed, graph=graph, chunk=chunk)
+
+
+def train_feed(cfg, dataset: VTGDataset, collator: Collator, device,
+               mode: Optional[EpochMode] = None):
+    """The train split's device feed, or None where `mode` (default:
+    epoch_mode's) streams."""
+    mode = mode or epoch_mode(cfg, device, len(dataset))
+    if not mode.feed:
         return None
+    narrow = torch.bfloat16 if cfg.transfer_dtype == "bfloat16" else None
     return build_device_feed(dataset, collator, device, narrow)
 
 
@@ -623,6 +689,55 @@ def run_chunk(feed_steps, arrays: Dict[str, np.ndarray], loss_buf, row: int,
     return row
 
 
+def run_streamed_epoch(streamed_steps, host_batch, n_steps: int, loss_buf, device,
+                       transfer_dtype: str = "float32") -> int:
+    """n_steps streamed steps through `streamed_steps` (train/graph.py:
+    StreamedSteps), their loss vectors into `loss_buf`; returns the steps
+    run. Step i's row indices and collated batch come from host_batch(i)
+    (None for a short batch) on the prefetch thread, which on the card also
+    stages the batch in one pinned buffer (data/feed.py:stage_batch). On
+    the card the main thread issues step i, then step i + 1's copy on the
+    copy stream (`copy_ahead`), so the copy overlaps step i, and the step
+    waits for its copy's event alone; before it allocates that copy's
+    device buffer it waits for step i - 1 to end, so at most one batch is
+    in flight beside the one being computed. On the CPU each batch is
+    placed by `place_batch`."""
+    device = torch.device(device)
+    cuda = device.type == "cuda"
+    copy_stream = torch.cuda.Stream(device) if cuda else None
+
+    def made(i):
+        m = host_batch(i)
+        if m is None or not cuda:
+            return m and m[1]
+        return stage_batch(m[1], TRAIN_KEYS, device, transfer_dtype=transfer_dtype)
+
+    def place(item) -> PlacedBatch:
+        if cuda:
+            return copy_ahead(item, device, copy_stream)
+        return PlacedBatch(place_batch(item, device, transfer_dtype=transfer_dtype))
+
+    done = 0
+    with contextlib.closing(_prefetched(made, max(n_steps, 0))) as items:
+        items = (item for _, item in items if item is not None)
+        first = next(items, None)
+        pending = None if first is None else place(first)
+        before = None  # the end of the previous step, on the compute stream
+        while pending is not None:
+            loss_buf[done].copy_(streamed_steps(pending.wait()))
+            done += 1
+            ended = None
+            if cuda:
+                ended = torch.cuda.Event()
+                ended.record()
+            nxt = next(items, None)
+            if before is not None:
+                before.synchronize()
+            pending = None if nxt is None else place(nxt)
+            before = ended
+    return done
+
+
 def train(cfg, results_dir: Optional[str] = None, device=None,
           max_steps: Optional[int] = None):
     """Full training run; returns (model, best_score, results_dir): the model
@@ -634,14 +749,27 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
     start, steps_per_epoch = max(1, rows // bsz) with a short batch skipped;
     the video length is pinned to max_v_l. `max_steps` caps the steps of
     this run: the epoch that reaches it ends there and is the last, its eval
-    and checkpoint made as for any epoch. The device feed (`train_feed`)
-    and the chunked epoch follow device_feed / scan_steps / debug (the
+    and checkpoint made as for any epoch. The epoch's mode
+    (`epoch_mode`: the device feed or streamed, graph or eager) follows
+    device_feed / scan_steps / debug / debug_nans and the split's size (the
     module's doc); a run captures its step's CUDA graph once, after every
     load (--resume, --resume_adapter, the optimizer's state), and the
     in-training evals and checkpoint saves read the graph's parameter and
-    optimizer tensors in place; a capture that fails raises."""
+    optimizer tensors in place; a capture that fails raises. debug_nans
+    and profile_dir as the module's doc says; both end with this call."""
+    with contextlib.ExitStack() as scope:
+        return _train(cfg, results_dir, device, max_steps, scope)
+
+
+def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
     from flashvtg_tpu_torch.models import build_model
-    from flashvtg_tpu_torch.utils.observability import ScalarWriter
+    from flashvtg_tpu_torch.train.graph import FeedSteps, StreamedSteps
+    from flashvtg_tpu_torch.utils.observability import (
+        ScalarWriter,
+        check_finite_tree,
+        nan_tripwire,
+        profile_trace,
+    )
     from flashvtg_tpu_torch.utils.runtime import resolve_device
     from flashvtg_tpu_torch.utils.snapshot import snapshot_code
 
@@ -669,6 +797,8 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
     for i in range(min(2, len(train_dataset))):
         train_dataset[i]
     model = build_model(cfg.model_config(), device, cfg.seed).train()
+    if cfg.debug_nans:
+        scope.enter_context(nan_tripwire(model))
     loss_cfg = cfg.loss_config()
     collator = Collator(
         cfg.max_q_l, cfg.v_buckets, cfg.max_v_l if cfg.max_v_l > 0 else None,
@@ -722,19 +852,17 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
                            torch.Generator(device=device).manual_seed(cfg.seed),
                            cfg.train_precision)
     keys = step.loss_keys
-    feed = train_feed(cfg, train_dataset, collator, device)
-    # feed-mode batches carry labels alone, run in chunks of scan_steps
-    # (one step a chunk at scan_steps <= 1 and under debug); with
-    # scan_steps > 1 each step on the card is a replay of one captured graph
-    # (eager on the CPU)
+    mode = epoch_mode(cfg, device, len(train_dataset))
+    feed = train_feed(cfg, train_dataset, collator, device, mode)
+    # feed-mode batches carry labels alone, run in chunks of mode.chunk;
+    # streamed batches carry their features; in a graph mode each step on
+    # the card is a replay of one captured graph
     step_collator = (dataclasses.replace(collator, pad_features=False) if feed is not None
                      else collator)
-    scan_k = cfg.scan_steps if feed is not None and not cfg.debug else 0
-    feed_steps = None
     if feed is not None:
-        from flashvtg_tpu_torch.train.graph import FeedSteps
-
-        feed_steps = FeedSteps(step, feed, graph=scan_k > 1 and device.type == "cuda")
+        train_steps = FeedSteps(step, feed, graph=mode.graph)
+    else:
+        train_steps = StreamedSteps(step, graph=mode.graph)
 
     writer = ScalarWriter(
         os.path.join(results_dir, "tensorboard_log"), use_tensorboard=cfg.use_tensorboard,
@@ -812,17 +940,15 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
                 return None
             return idx, step_collator([train_dataset[j] for j in idx])
 
-        if feed_steps is not None:
-            done = run_chunked_epoch(feed_steps, host_batch, n_steps, max(scan_k, 1), loss_buf,
-                                     device)
-        else:
-            done = 0
-            for _, made in _prefetched(host_batch, max(n_steps, 0)):
-                if made is None:
-                    continue
-                vec = step.vector(place_batch(made[1], device, transfer_dtype=cfg.transfer_dtype))
-                loss_buf[done].copy_(vec)
-                done += 1
+        # the run's first epoch traced into profile_dir (the JAX loop's)
+        with (profile_trace(cfg.profile_dir) if epoch == start_epoch
+              else contextlib.nullcontext()):
+            if feed is not None:
+                done = run_chunked_epoch(train_steps, host_batch, n_steps, mode.chunk,
+                                         loss_buf, device)
+            else:
+                done = run_streamed_epoch(train_steps, host_batch, n_steps, loss_buf, device,
+                                          cfg.transfer_dtype)
         steps_run += done
         host = loss_buf[:done].cpu().tolist()
         meters: Dict[str, AverageMeter] = {}
@@ -832,6 +958,8 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
                 meters.setdefault(k, AverageMeter()).update(v)
             writer.write(global_step + s, values, prefix="train/")
         global_step += len(host)
+        if cfg.debug_nans and meters and not all(np.isfinite(m.avg) for m in meters.values()):
+            check_finite_tree(model.named_parameters(), "params")
         dt = time.time() - epoch_t0
         writer.write(global_step, {"epoch_seconds": dt,
                                    "steps_per_sec": max(len(host), 1) / max(dt, 1e-9)},

@@ -2,8 +2,9 @@
 defaults the port states in PORT_DEFAULTS (none since the precision dials
 were ported: train_precision defaults to bfloat16 on both sides); the
 FlashVTG_ms presets' model and loss configs equal the JAX ones; and
-check_ported raises for exactly the fields whose feature is not ported, and
-for an unknown precision."""
+check_ported raises for an unknown value of a field with a fixed set (a
+precision, the variant) and for no ported feature (debug_nans and
+profile_dir among them)."""
 
 import dataclasses
 
@@ -81,7 +82,8 @@ CHECK_CASES = {
     "unknown_train_precision": (dict(train_precision="highest"), "unknown train_precision"),
     "unknown_transfer_dtype": (dict(transfer_dtype="float16"), "unknown transfer_dtype"),
     "device_feed_on": (dict(device_feed="on"), None),
-    "profile_dir": (dict(profile_dir="prof"), "Queue A 8"),
+    "profile_dir": (dict(profile_dir="prof"), None),
+    "debug_nans": (dict(debug_nans=True), None),
     "unknown_variant": (dict(variant="xl"), "unknown variant"),
 }
 

@@ -13,12 +13,13 @@
   * the port's own cases: --resume_all continues at epoch + 1 with AdamW and
     StepLR restored (the first resumed step's learning rate is the
     uninterrupted run's); max_es_cnt stops; eval_untrained writes epoch -1;
-    the --test_path finals; a field whose feature is not ported raises;
+    the --test_path finals; an unknown dial raises, profile_dir traces;
     --debug runs one epoch of 2 steps; the scalar writer without its
     optional sinks.
 """
 
 import dataclasses
+import glob
 import json
 import os
 
@@ -258,7 +259,7 @@ def test_test_path_finals(tmp_path, split):
 def test_other_train_precision_raises(tmp_path, split):
     """Every dial is ported: an unknown train_precision or transfer_dtype
     raises, bfloat16 (the JAX default) trains, with the bf16 wire too; the
-    features still to port raise, naming their ROADMAP item."""
+    device feed trains as streamed does; profile_dir writes its trace."""
     with pytest.raises(ValueError, match="unknown train_precision"):
         _port_run(tmp_path, split, "run", n_epoch=1, train_precision="float16")
     with pytest.raises(ValueError, match="unknown transfer_dtype"):
@@ -272,8 +273,9 @@ def test_other_train_precision_raises(tmp_path, split):
     _, _, streamed = _port_run(tmp_path, split, "streamed", n_epoch=1, device_feed="off")
     assert _train_epochs(fed) == [1]
     assert _losses(fed) == _losses(streamed)
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        _port_run(tmp_path, split, "run", n_epoch=1, profile_dir=str(tmp_path / "prof"))
+    # profile_dir is ported: the run writes its first epoch's trace there
+    _port_run(tmp_path, split, "prof", n_epoch=1, profile_dir=str(tmp_path / "prof_trace"))
+    assert glob.glob(str(tmp_path / "prof_trace" / "*.pt.trace.json"))
 
 
 def test_debug_runs_one_short_epoch(tmp_path, split):
