@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (flashvtg_tpu_torch) on one NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--queries 512] [--tacos-queries 64]
-                          [--train-steps 3] [--hd-queries 64]
+                          [--train-steps 3] [--hd-queries 64] [--only dp]
 
 Phases, each failing loudly; phases 3-13 run at float32 by name (the
 attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
@@ -206,6 +206,40 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      ceilings on this card, and the mfu of the flagship eval (phase 4, and
      with the feed) and of the flagship and TACoS train steps (blocking
      and graph, each dial of (a) and (b)).
+ 17. data parallel (flashvtg_tpu_torch/parallel/): (a) two ranks on this
+     one card, processes spawned by torch.multiprocessing, a gloo group
+     over CUDA tensors (NCCL refuses two ranks on one device): the
+     flagship train step at full width, B 64 global (32 a rank), and the
+     TACoS step at Lv 2048, B 32 global (16 a rank: the flash kernels on the
+     path), DP_STEPS steps each at float32, dropout 0, under
+     deterministic_cudnn, against one process fed the same global batches:
+     the first step's losses within DP_LOSS_RTOL and the later steps'
+     within DP_LATER_LOSS_RTOL; the first step's summed gradient, read
+     before the clip, within DP_GRAD_RTOL of each leaf's largest or
+     DP_NOISE_FACTOR times the gap one ulp of every feature and weight
+     makes, and each planted fault (DP_FAULTS: a roll that returns no
+     gradient to the next rank, an all-reduce without the 1 / world)
+     beyond that limit; the parameters after the steps within
+     DP_PARAM_LR_BOUND learning rates of one process's (AdamW turns
+     rounding of a gradient that is zero up to rounding into a move of up
+     to lr), the two ranks' parameters equal; each rank's kernel launches
+     over the steps and its step wall ms; one more step with every
+     collective fenced and timed (their calls, bytes and share of the
+     step); one step at the preset dropout, whose attention seeds and
+     feature-dropout masks differ between the ranks; phase 7 holds the ACA
+     kernels with donor tables of G > B rows at these shapes; (b) in this
+     process a NCCL group of world 1 and the flagship step as CUDA-graph
+     replays: the NCCL device functions of one replay (whether the
+     all-reduce launches in the graph); `torchrun --standalone
+     --nproc_per_node 1 -m flashvtg_tpu_torch.cli train` (NCCL, the feed
+     and scan_steps 4: graph replays, as its log says) on a flagship
+     synthetic split, `infer` on its model_best.ckpt under torchrun and as
+     the plain CLI, the brief metrics identical to the best epoch's; (c)
+     tools/visualize.py on that checkpoint on the card: the ACA kernel
+     launched, the maps within VIS_ATOL of the CPU export, and the CLI's
+     PNGs written where matplotlib is installed (the chip machine has none:
+     there the CLI is not run, and the result says so).
+`--only dp` runs phases 1, 2, 7 and 17 alone and prints no result line.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]}, a row per kernel and form, and, last,
 {"ok": true, "device": {...}}.
@@ -215,6 +249,7 @@ Exits non-zero, printing no result, without CUDA or without the package.
 import argparse
 import contextlib
 import functools
+import importlib.util
 import json
 import os
 import re
@@ -701,11 +736,13 @@ def sdpa_train_forward_ms(q, k, v, valid, heads, p, form="3xtf32"):
         qh, kh, vh, attn_mask=mask, dropout_p=p), iters=10, warmup=2)
 
 
-def aca_pairs(key_valid, query_valid, donor_rows, nd):
+def aca_pairs(key_valid, query_table, donor_rows, nd, key_table=None):
     """(valid (b, h, i, j) pairs, those past the nd dummies) of an ACA call
-    with donor rows: the mask the kernel applies, counted on the card."""
-    qpad = (query_valid <= 0)[donor_rows.long()]  # (B, H, Lv)
-    kpad = (key_valid <= 0)[donor_rows.long()]  # (B, H, Lk)
+    with donor rows into the donor tables (key_table None: key_valid): the
+    mask the kernel applies, counted on the card."""
+    key_table = key_valid if key_table is None else key_table
+    qpad = (query_table <= 0)[donor_rows.long()]  # (B, H, Lv)
+    kpad = (key_table <= 0)[donor_rows.long()]  # (B, H, Lk)
     ok = (key_valid > 0)[:, None, None, :] & ~(qpad[..., :, None] & kpad[..., None, :])
     return float(ok.sum().item()), float(ok[..., nd:].sum().item())
 
@@ -764,12 +801,17 @@ def forward_reading(shape, got, ref, fwd, fwd_plain, bound, library_ms=None, for
                 bound_by=bound[1], library_ms=library_ms)
 
 
-def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask, form="3xtf32"):
+def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask, form="3xtf32",
+                   tables=None):
     """The ACA core in training form at `form`: lv video queries over nd
     dummies and the text keys of `valid`, a head-mean gradient; with
     `vmask` (the videos' clips) the donor-row mask of the core model's train
-    path, without it none (the FlashVTG_ms trunk). Returns (kernel name,
-    forward reading, backward reading)."""
+    path, without it none (the FlashVTG_ms trunk). With `tables` (G, rank)
+    the data-parallel form: the batch is rank `rank`'s rows of a global
+    batch of G rows, the donor rows those of the global batch, and the donor
+    tables the global batch's masks (this batch's at its rows, random
+    others'), so donors lie on other ranks. Returns (kernel name, forward
+    reading, backward reading)."""
     import torch
 
     from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
@@ -781,31 +823,45 @@ def aca_train_case(dev, g, b, lv, nd, heads, p, seed, valid, vmask, form="3xtf32
     d_out = torch.randn((b, lv, heads * 32), generator=g).to(dev)
     d_hm = torch.randn((b, lv, lk), generator=g).to(dev)
     donors = None if vmask is None else tiled_attn_donors(b, heads, dev)
+    query_table, key_table = vmask, None
+    if tables is not None:
+        n_rows, r = tables
+        own = slice(r * b, (r + 1) * b)
+        rng = np.random.default_rng(seed + r)
+        query_table = ragged_mask(rng, n_rows, lv, 1, lv + 1).to(dev)
+        key_table = ragged_mask(rng, n_rows, lk, 5, lk - nd + 1, always=nd).to(dev)
+        query_table[own], key_table[own] = vmask, valid
+        donors = tiled_attn_donors(n_rows, heads, dev)[own]
     drop_seed = draw_seed(torch.Generator().manual_seed(seed))
-    args = (q, k, v, valid, heads, nd, True, p, drop_seed, vmask, donors)
-    pairs = None if vmask is None else aca_pairs(valid, vmask, donors, nd)
+    args = (q, k, v, valid, heads, nd, True, p, drop_seed, query_table, donors)
+    pairs = None if vmask is None else aca_pairs(valid, query_table, donors, nd, key_table)
     shape = f"B={b} H={heads} Lv={lv} Lk={lk} Dh=32 nd={nd} p={p}" + (
-        "" if vmask is None else ", donor rows")
-    fwd = functools.partial(aca._launch, *args, want_lse=True, form=form)
-    fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True, form=form)
+        "" if vmask is None else ", donor rows") + (
+        "" if tables is None else f" of donor tables of G={tables[0]} rows (rank {tables[1]})")
+    fwd = functools.partial(aca._launch, *args, want_lse=True, form=form,
+                            donor_key_valid=key_table)
+    fwd_plain = functools.partial(aca.aca_attention_plain, *args, want_lse=True, form=form,
+                                  donor_key_valid=key_table)
     got, ref = fwd(), fwd_plain()
     fwd_reading = forward_reading(
         shape, got, ref, fwd, fwd_plain,
         attention_bound(b, lv, lk, heads, nd, valid, True, pairs=pairs, form=form), form=form,
     )
-    rest = (d_out, d_hm, heads, nd, p, drop_seed, vmask, donors)
+    rest = (d_out, d_hm, heads, nd, p, drop_seed, query_table, donors)
     fn = function_grads(
         functools.partial(in_dial, form, aca.aca_attention, key_valid=valid, num_heads=heads,
                           num_dummies=nd, dropout=p,
                           generator=torch.Generator().manual_seed(seed),
-                          query_valid=vmask, donor_rows=donors),
+                          donor_query_valid=query_table, donor_rows=donors,
+                          donor_key_valid=key_table),
         (q, k, v), (d_out, d_hm),
     )
     return "aca_attention", fwd_reading, backward_reading(
         shape,
-        functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest, form=form),
+        functools.partial(aca._launch_bwd, q, k, v, valid, got[2], *rest, form=form,
+                          donor_key_valid=key_table),
         functools.partial(aca.aca_attention_bwd_plain, q, k, v, valid, ref[2], *rest,
-                          form=form),
+                          form=form, donor_key_valid=key_table),
         fn, attention_bound(b, lv, lk, heads, nd, valid, True, backward=True, pairs=pairs,
                             form=form),
         None, form,
@@ -871,6 +927,12 @@ TRAIN_KERNEL_SHAPES = {
     "flagship_train": (64, 75, 10, 32, 20, 75),
     "tvsum_train": (4, 1000, 3, 32, 60, 330),
 }
+# the data-parallel train steps of phase 17 (a): a rank's rows (B) of the
+# global batch (G rows, the ACA's donor tables), then as above; rank 1's
+DP_KERNEL_SHAPES = {
+    "tacos_train_dp": (16, 32, 2048, 35, 40, 64, 2048),
+    "flagship_train_dp": (32, 64, 75, 10, 32, 20, 75),
+}
 
 
 def phase_train_kernels(dev, seed, form="3xtf32"):
@@ -907,6 +969,14 @@ def phase_train_kernels(dev, seed, form="3xtf32"):
                     f"flash fwd + bwd peak +{peak} B >= one (B, H, L, L) f32 {bhll} B")
             shapes[form_name(f"{path} flash_fwd_bwd_memory", form)] = dict(
                 peak_above_inputs_bytes=peak, bhll_f32_bytes=bhll)
+    for path, (b, n_rows, lv, nd, lq, min_clips, max_clips) in DP_KERNEL_SHAPES.items():
+        text = ragged_mask(rng, b, nd + lq, 5, lq + 1, always=nd).to(dev)
+        video = ragged_mask(rng, b, lv, min_clips, max_clips + 1).to(dev)
+        name, fwd, bwd = aca_train_case(dev, g, b, lv, nd, heads, p, seed, text, video, form,
+                                        tables=(n_rows, 1))
+        shapes[form_name(f"{path} {name} L={lv} G={n_rows}", form)] = fwd
+        shapes[form_name(f"{path} {name}_bwd L={lv} G={n_rows}", form)] = bwd
+        readings[name + "_bwd"].append(bwd)
     for path, (b, lv, nd) in MS_KERNEL_SHAPES.items():
         keys = torch.ones((b, nd + 1), device=dev)  # dummies + the sentence token
         cases = (aca_train_case(dev, g, b, lv, nd, heads, p, seed, keys, None, form),
@@ -2659,6 +2729,529 @@ def run_phase16(dev, seed, paths):
     log(f"[utilisation] {time.perf_counter() - t0:.2f} s")
     return streamed, runs, util
 
+# phase 17: data parallel. Two ranks share the one card through gloo (NCCL
+# refuses two ranks on one device); gloo takes all_gather, all_reduce and
+# broadcast on CUDA tensors, which is all parallel/mesh.py uses
+DP_WORLD = 2
+DP_TRAIN = {"qvhighlights_slowclip": 64, "tacos": 32}  # preset: global batch
+DP_STEPS = 3
+# the ranks' losses against one process's (the same weights, float32 on the
+# card, sums in other orders): the first step's, and the later steps', which
+# carry the first update's differences (below)
+DP_LOSS_RTOL = 1e-5
+DP_LATER_LOSS_RTOL = 1e-4
+# the first step's summed gradient before the clip against one process's,
+# each leaf's gap over its largest |gradient| floored at STEP_GRAD_FLOOR of
+# the largest over all leaves: within DP_GRAD_RTOL, or within
+# DP_NOISE_FACTOR times the f32 noise of that step: the same gap between
+# one process's step and itself with every feature and weight moved by one
+# ulp up or down at random. Two ranks run each GEMM on half the rows, so
+# cuBLAS's f32 sums take another order, and the model amplifies such
+# rounding (the TACoS text projection's first layer). Two faults planted in
+# the ranks must land above that limit: "roll", the negative pass's roll
+# returning no gradient for the rows it takes from the next rank, and
+# "scale", the gradient all-reduce without the step's 1 / world
+DP_GRAD_RTOL = 1e-4
+DP_NOISE_FACTOR = 10
+DP_FAULTS = ("roll", "scale")
+# the parameters after the steps, in units of the learning rate: AdamW moves
+# a weight by about lr g / (|g| + eps) a step, so f32 rounding of a gradient
+# that is zero up to rounding becomes a move of up to lr either way
+DP_PARAM_LR_BOUND = 2 * DP_STEPS
+VIS_ATOL = 3e-4  # the exported maps, card against CPU (the eval tolerance)
+
+
+def dp_config(preset, seed, root, n_rows, dropout):
+    """The preset at full width on a synthetic train split of n_rows rows
+    under `root`, float32; every dropout at 0 unless `dropout`."""
+    import dataclasses
+
+    from flashvtg_tpu_torch.train.config import from_preset
+
+    extra = {} if dropout else dict(dropout=0.0, input_dropout=0.0)
+    cfg = make_train_split(root, from_preset(preset, bsz=DP_TRAIN[preset],
+                                             train_precision="float32", **extra),
+                           n_rows, 2, seed)
+    mcfg = cfg.model_config()
+    return cfg, mcfg if dropout else dataclasses.replace(mcfg, dummy_dropout=0.0)
+
+
+@contextlib.contextmanager
+def planted_fault(fault):
+    """A fault of the data-parallel step for the block (DP_FAULTS), or none."""
+    import torch
+
+    from flashvtg_tpu_torch.models import flashvtg, flashvtg_ms
+    from flashvtg_tpu_torch.parallel import mesh
+
+    def roll_detached(x, shift=-1):  # the other ranks' rows carry no gradient
+        own = mesh.batch_slice(x.shape[0])
+        rows = mesh.gather_rows(x.detach())
+        return torch.roll(torch.cat([rows[:own.start], x, rows[own.stop:]]), shift, 0)[own]
+
+    real_reduce = mesh.all_reduce_grads_
+
+    def reduce_times_world(params):  # the SUM of the whole loss's gradients
+        params = list(params)
+        real_reduce(params)
+        for p in params:
+            p.grad.mul_(mesh.world())
+
+    if fault is None:
+        yield
+        return
+    mods, name, bad = {"roll": ((flashvtg, flashvtg_ms), "roll_rows", roll_detached),
+                       "scale": ((mesh,), "all_reduce_grads_", reduce_times_world)}[fault]
+    real = [getattr(m, name) for m in mods]
+    for m in mods:
+        setattr(m, name, bad)
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, real):
+            setattr(m, name, fn)
+
+
+def dp_steps(cfg, mcfg, seed, probe=False, steps=DP_STEPS, nudge=False, fault=None,
+             comm=False):
+    """`steps` float32 train steps of `cfg` (a dp_config) on the global
+    batches of rows [i B, (i + 1) B) of its synthetic split, this process
+    holding its rows of each (all of them without a process group): weights
+    of `mcfg` from `seed` (broadcast from rank 0), dropout seeded per rank
+    as train() seeds it, deterministic cuDNN. Returns the loss vectors, the
+    parameters after, the kernel launches of the steps (the counts set to 0
+    before the first step and read after the last), each step's wall ms,
+    the first step's summed gradient before the clip and, with `probe`, the
+    attention-dropout seeds and the kept counts of the feature-dropout masks
+    of the first step; with `nudge` every feature and weight is moved by
+    one ulp up or down at random (the f32 noise reference); `fault` plants
+    one of DP_FAULTS; with `comm`, one more step (after everything above is
+    read) with every collective fenced and timed: the collectives' count,
+    bytes and ms against that step's. Run by every rank of phase 17 (a)
+    and by the one-process reference."""
+    import torch
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from flashvtg_tpu_torch.models import build_model
+    from flashvtg_tpu_torch.ops import aca
+    from flashvtg_tpu_torch.parallel import mesh
+    from flashvtg_tpu_torch.train import loop
+    from flashvtg_tpu_torch.utils.runtime import resolve_device
+
+    dev = resolve_device("cuda")
+    rank, world = mesh.rank(), mesh.world()
+    b = cfg.bsz
+    model = build_model(mcfg, dev, seed)
+    mesh.replicate_params(model)
+    signs = torch.Generator(device=dev).manual_seed(seed + 7)
+
+    def ulp(t):
+        up = torch.rand(t.shape, generator=signs, device=dev) < 0.5
+        return torch.where(up, torch.nextafter(t, torch.full_like(t, float("inf"))),
+                           torch.nextafter(t, torch.full_like(t, float("-inf"))))
+
+    if nudge:
+        with torch.no_grad():
+            for p in model.parameters():
+                p.copy_(ulp(p))
+    torch.manual_seed(seed + rank)
+    optimizer, scheduler = loop.make_optimizer(cfg, model.parameters(), 1)
+    step = loop.make_train_step(model, cfg.loss_config(), optimizer, scheduler, cfg.grad_clip,
+                                torch.Generator(device=dev).manual_seed(seed + rank),
+                                "float32")
+    own = slice(rank * b // world, (rank + 1) * b // world)
+    seeds, masks, grads, calls = [], [], {}, []
+    real_draw, real_dropout, real_clip = aca.draw_seed, F.dropout, loop.clip_by_global_norm_
+
+    def draw(generator, device):
+        s = real_draw(generator, device)
+        seeds.append(int(s))
+        return s
+
+    def drop(x, p=0.5, training=True, inplace=False):
+        y = real_dropout(x, p, training, inplace)
+        if training and p > 0:
+            masks.append(int((y != 0).sum().item()))
+        return y
+
+    def clip(params, max_norm):  # the summed gradient, read before the clip
+        grads.update({n: p.grad.detach().cpu().numpy().copy()
+                      for n, p in model.named_parameters()})
+        real_clip(params, max_norm)
+
+    def fenced(kind, fn):
+        def call(tensor, *args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(tensor, *args, **kwargs)
+            torch.cuda.synchronize()
+            parts = tensor if isinstance(tensor, list) else [tensor]
+            calls.append((kind, sum(t.numel() * t.element_size() for t in parts),
+                          (time.perf_counter() - t0) * 1e3))
+            return out
+        return call
+
+    def batch(i):
+        placed = place_batch_rows(cfg, i, own, dev)
+        if nudge:
+            for key in ("src_vid", "src_txt"):
+                placed[key] = ulp(placed[key])
+        return placed
+
+    def timed_step(placed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vec = step.vector(placed)
+        torch.cuda.synchronize()
+        return vec, (time.perf_counter() - t0) * 1e3
+
+    losses, wall_ms = [], []
+    with deterministic_cudnn(), planted_fault(fault):
+        reset_launch_counts()
+        for i in range(steps):
+            placed = batch(i)
+            if i == 0:
+                loop.clip_by_global_norm_ = clip
+                if probe:
+                    aca.draw_seed, F.dropout = draw, drop
+            try:
+                vec, ms = timed_step(placed)
+            finally:
+                aca.draw_seed, F.dropout = real_draw, real_dropout
+                loop.clip_by_global_norm_ = real_clip
+            wall_ms.append(ms)
+            losses.append(vec.cpu().tolist())
+        launches = launch_counts()
+        params = {n: p.detach().cpu().numpy().copy() for n, p in model.named_parameters()}
+        comm_out = None
+        if comm and world > 1:
+            placed = batch(0)
+            real_gather, real_reduce = dist.all_gather, dist.all_reduce
+            dist.all_gather = fenced("all_gather", real_gather)
+            dist.all_reduce = fenced("all_reduce", real_reduce)
+            try:
+                _, ms = timed_step(placed)
+            finally:
+                dist.all_gather, dist.all_reduce = real_gather, real_reduce
+            comm_out = {"step_ms": ms, "collectives_ms": sum(c[2] for c in calls),
+                        "share": sum(c[2] for c in calls) / ms}
+            for kind in ("all_gather", "all_reduce"):
+                mine = [c for c in calls if c[0] == kind]
+                comm_out[kind] = {"calls": len(mine), "bytes": sum(c[1] for c in mine),
+                                  "ms": sum(c[2] for c in mine)}
+    return dict(rank=rank, world=world, rows=b // world, losses=losses, wall_ms=wall_ms,
+                launches=launches, seeds=seeds, dropout_kept=masks, grads_first=grads,
+                params=params, lr=cfg.lr, comm=comm_out)
+
+
+def place_batch_rows(cfg, i, own, dev):
+    """Rows `own` of global batch i (rows [i B, (i + 1) B) of cfg's
+    split), placed on `dev`."""
+    from flashvtg_tpu_torch.train.loop import place_batch
+
+    batch = train_batch(cfg, range(i * cfg.bsz, (i + 1) * cfg.bsz))
+    return place_batch({k: v[own] for k, v in batch.items() if isinstance(v, np.ndarray)}, dev)
+
+
+def dp_rank_jobs(jobs, seed):
+    """What each rank of phase 17 (a) runs: dp_steps(cfg, mcfg, seed,
+    **kwargs) of each job {name: (cfg, mcfg, kwargs)} in order."""
+    return {name: dp_steps(cfg, mcfg, seed, **kwargs) for name, (cfg, mcfg, kwargs) in jobs.items()}
+
+
+def _dp_rank(r, port, jobs, seed, out_dir):
+    import pickle
+
+    import torch.distributed as dist
+
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", rank=r,
+                            world_size=DP_WORLD)
+    try:
+        result = dp_rank_jobs(jobs, seed)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(out_dir, f"rank{r}.pkl"), "wb") as f:
+        pickle.dump(result, f)
+
+
+def spawn_dp_ranks(jobs, seed, timeout=900):
+    """dp_rank_jobs(jobs, seed) on DP_WORLD gloo ranks spawned by
+    torch.multiprocessing on this card; their results in rank order. A rank
+    that raises raises here (the others are terminated); ranks that outlive
+    `timeout` seconds are killed."""
+    import pickle
+
+    import torch
+
+    port = free_port()
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = torch.multiprocessing.spawn(_dp_rank, args=(port, jobs, seed, tmp),
+                                          nprocs=DP_WORLD, join=False)
+        deadline = time.monotonic() + timeout
+        while not ctx.join(timeout=1):
+            if time.monotonic() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                raise TimeoutError(f"the ranks outlived {timeout} s")
+        results = []
+        for r in range(DP_WORLD):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
+                results.append(pickle.load(f))
+        return results
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_leaf_gap(got, want, floor=1e-30):
+    """(the largest |got - want| of a leaf over max(the leaf's largest
+    |want|, floor), that leaf's name)."""
+    return max((float(np.abs(got[n] - w).max()) / max(float(np.abs(w).max()), floor), n)
+               for n, w in want.items())
+
+
+def run_dp_steps(dev, seed):
+    """Phase 17 (a): the flagship (B 64 global, 32 a rank) and TACoS (B 32
+    global, 16 a rank, Lv 2048: the flash kernels on the path) train steps
+    on 2 gloo ranks on the one card against one process fed the same
+    global batches, and the planted faults' gradients."""
+    import torch
+
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        cfgs = {preset: dp_config(preset, seed, os.path.join(tmp, preset),
+                                  DP_TRAIN[preset] * DP_STEPS, False) for preset in DP_TRAIN}
+        jobs = {preset: (*cfgs[preset], dict(comm=True)) for preset in DP_TRAIN}
+        jobs.update({f"{preset}:{fault}": (*cfgs[preset], dict(steps=1, fault=fault))
+                     for preset in DP_TRAIN for fault in DP_FAULTS})
+        jobs["dropout_probe"] = (*dp_config("qvhighlights_slowclip", seed,
+                                            os.path.join(tmp, "probe"), 64, True),
+                                 dict(probe=True, steps=1))
+        t0 = time.perf_counter()
+        ranks = spawn_dp_ranks(jobs, seed)
+        ranks_s = time.perf_counter() - t0
+        ref = {preset: dp_steps(*cfgs[preset], seed) for preset in DP_TRAIN}
+        nudged = {preset: dp_steps(*cfgs[preset], seed, steps=1, nudge=True)
+                  for preset in DP_TRAIN}
+    out = {"ranks_wall_s": ranks_s}
+    for preset, one in ref.items():
+        rows = [r[preset] for r in ranks]
+        loss_errs = [max(abs(a - w) / max(abs(w), 1e-6)
+                         for r in rows for a, w in zip(r["losses"][i], want))
+                     for i, want in enumerate(one["losses"])]
+        assert np.isfinite(one["losses"]).all(), one["losses"]
+        floor = STEP_GRAD_FLOOR * max(float(np.abs(g).max())
+                                      for g in one["grads_first"].values())
+        leaf_gaps = sorted(
+            ((max(float(np.abs(r["grads_first"][n] - g).max()) for r in rows)
+              / max(float(np.abs(g).max()), floor), n, float(np.abs(g).max()))
+             for n, g in one["grads_first"].items()), reverse=True)
+        noise_gap = dp_leaf_gap(nudged[preset]["grads_first"], one["grads_first"], floor)
+        fault_gaps = {fault: max(dp_leaf_gap(r[f"{preset}:{fault}"]["grads_first"],
+                                             one["grads_first"], floor) for r in ranks)
+                      for fault in DP_FAULTS}
+        log(f"[dp] {preset} gradient gaps before the clip, worst leaves (gap, leaf, leaf "
+            f"max; floor {floor:.3e}): {leaf_gaps[:6]}; one ulp's: {noise_gap}; the planted "
+            f"faults': {fault_gaps}")
+        param_gap = max(dp_leaf_gap(r["params"], one["params"]) for r in rows)
+        param_gap_lr = max(float(np.abs(r["params"][n] - w).max())
+                           for r in rows for n, w in one["params"].items()) / one["lr"]
+        between = dp_leaf_gap(rows[1]["params"], rows[0]["params"])
+        for r in rows:
+            assert all(n > 0 for k, n in r["launches"].items()
+                       if not k.startswith("flash") or preset == "tacos"), r["launches"]
+        out[preset] = dict(
+            global_batch=DP_TRAIN[preset], rows_per_rank=rows[0]["rows"], steps=DP_STEPS,
+            loss_rel_err_by_step=loss_errs, grad_gap=leaf_gaps[0][0],
+            grad_gap_leaf=leaf_gaps[0][1], grad_gaps_worst=leaf_gaps[:6],
+            grad_gap_floor=floor, noise_gap=noise_gap[0], noise_gap_leaf=noise_gap[1],
+            fault_gaps={k: v[0] for k, v in fault_gaps.items()},
+            fault_gap_leaves={k: v[1] for k, v in fault_gaps.items()},
+            param_gap=param_gap[0], param_gap_leaf=param_gap[1], param_gap_lr=param_gap_lr,
+            ranks_param_gap=between[0], rank_launches=[r["launches"] for r in rows],
+            one_process_launches=one["launches"],
+            rank_step_wall_ms=[r["wall_ms"] for r in rows], one_process_step_wall_ms=one["wall_ms"],
+            rank_collectives=[r["comm"] for r in rows], losses_first=one["losses"][0],
+        )
+        log(f"[dp] {preset}: {json.dumps(out[preset])}")
+    a, b = (r["dropout_probe"] for r in ranks)
+    out["dropout_probe"] = dict(seeds=[a["seeds"][:4], b["seeds"][:4]],
+                                kept=[a["dropout_kept"][:4], b["dropout_kept"][:4]])
+    log(f"[dp] dropout: {json.dumps(out['dropout_probe'])}")
+    assert a["seeds"] and len(a["seeds"]) == len(b["seeds"]) and a["seeds"] != b["seeds"]
+    assert a["dropout_kept"] and a["dropout_kept"] != b["dropout_kept"]
+    return out
+
+
+def nccl_capture_probe(dev, seed):
+    """Phase 17 (b), in this process: a NCCL process group of world 1, the
+    flagship train step (B 8) as CUDA-graph replays (StreamedSteps), and
+    the device functions of one replay (torch.profiler): whether the
+    gradient all-reduce's NCCL kernel is in the graph."""
+    import torch
+    import torch.distributed as dist
+
+    from flashvtg_tpu_torch.models import build_model
+    from flashvtg_tpu_torch.train.graph import StreamedSteps
+    from flashvtg_tpu_torch.train.loop import make_optimizer, make_train_step, place_batch
+
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cfg, mcfg = dp_config("qvhighlights_slowclip", seed, tmp, 8, True)
+            cfg = cfg.replace(bsz=8)
+            model = build_model(mcfg, dev, seed)
+            optimizer, scheduler = make_optimizer(cfg, model.parameters(), 1)
+            step = make_train_step(model, cfg.loss_config(), optimizer, scheduler,
+                                   cfg.grad_clip, torch.Generator(device=dev).manual_seed(seed),
+                                   "float32")
+            steps = StreamedSteps(step, graph=True)
+            placed = place_batch(train_batch(cfg, range(8)), dev)
+            for _ in range(4):  # two warm-up steps, the capture, a replay
+                steps(placed)
+            torch.cuda.synchronize()
+            assert steps.replays == 2 and steps.graph is not None
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                steps(placed)
+                torch.cuda.synchronize()
+            names = [e.key for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            nccl = sorted(n for n in names if "nccl" in n.lower())
+    finally:
+        dist.destroy_process_group()
+    return dict(replays=steps.replays, capture_s=steps.capture_s,
+                nccl_functions_in_replay=nccl, device_functions_in_replay=len(names))
+
+
+def run_dp_cli(dev, seed, n_train=64, n_val=32, epochs=2, bsz=32):
+    """Phase 17 (b) and (c): `torchrun --nproc_per_node 1 -m
+    flashvtg_tpu_torch.cli train` (NCCL, world 1, the feed and scan_steps
+    4: graph replays of steps that call the all-reduce) on a flagship synthetic
+    split, `infer` on its model_best.ckpt under torchrun and as the plain
+    one-process CLI: the three brief metrics equal (the best epoch's and
+    the two infers'); then tools.visualize on that checkpoint on the card
+    (the ACA kernel launched, the PNGs written), its maps against the CPU
+    export within VIS_ATOL."""
+    import glob
+
+    import torch
+
+    from flashvtg_tpu_torch.tools import visualize
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.utils.io import load_jsonl
+
+    preset = "qvhighlights_slowclip"
+    probe = nccl_capture_probe(dev, seed)
+    log(f"[dp cli] NCCL world-1 capture: {json.dumps(probe)}")
+    out = {"nccl_capture": probe}
+    here = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        cfg = make_train_split(tmp, from_preset(preset, bsz=bsz), n_train, n_val, seed)
+        flags = [
+            "--seed", str(seed), "--bsz", str(bsz), "--eval_epoch", "1",
+            "--train_path", cfg.train_path, "--eval_path", cfg.eval_path,
+            "--v_feat_dirs", *cfg.v_feat_dirs, "--t_feat_dir", cfg.t_feat_dir,
+            "--results_root", os.path.join(tmp, "results"), "--exp_id", "dp",
+            "--use_tensorboard", "false",
+        ]
+        torchrun = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                    "--nproc_per_node", "1", "-m", "flashvtg_tpu_torch.cli"]
+
+        def call(name, argv):
+            t0 = time.perf_counter()
+            done = subprocess.run(argv, cwd=here, capture_output=True, text=True, timeout=900)
+            out[f"{name}_s"] = time.perf_counter() - t0
+            log(f"[dp cli] {name}: {out[f'{name}_s']:.2f} s")
+            assert done.returncode == 0, (name, done.stderr[-4000:])
+            return done.stdout + done.stderr
+
+        text = call("torchrun_train", [*torchrun, "train", preset, *flags, "--n_epoch",
+                                       str(epochs), "--device_feed", "on", "--scan_steps", "4"])
+        replay_lines = [line for line in text.splitlines() if "CUDA-graph replays" in line]
+        assert replay_lines and "under a nccl group of world 1" in replay_lines[0], text[-3000:]
+        out["train_log"] = replay_lines[0].split(" - ", 1)[-1]
+        (run_dir,) = glob.glob(os.path.join(tmp, "results", "*"))
+        losses, evals = read_train_run(run_dir)
+        assert len(losses) == epochs * (n_train // bsz)
+        best = os.path.join(run_dir, "model_best.ckpt")
+        best_epoch = torch.load(best, map_location="cpu", weights_only=False)["epoch"]
+        best_brief = dict(evals)[best_epoch]["brief"]
+        call("torchrun_infer", [*torchrun, "infer", preset, *flags, "--resume", best])
+        sub_dir = os.path.join(tmp, "plain")
+        call("plain_infer", [sys.executable, "-m", "flashvtg_tpu_torch.cli", "infer", preset,
+                             *flags, "--resume", best, "--eval_results_dir", sub_dir])
+
+        def brief_of(d):
+            with open(os.path.join(d, f"infer_{cfg.dset_name}_val_preds_metrics.json")) as f:
+                return json.load(f)["brief"]
+
+        briefs = {"torchrun_infer": brief_of(run_dir), "plain_infer": brief_of(sub_dir)}
+        for name, brief in briefs.items():
+            assert brief == best_brief, (name, brief, best_brief)
+        out.update(best_epoch=best_epoch, best_brief=best_brief, losses_last=losses[-1])
+
+        # (c) tools.visualize on the checkpoint, on the card
+        qid = str(load_jsonl(cfg.eval_path)[0]["qid"])
+        reset_launch_counts()
+        maps, _, lv = visualize.export_attention_maps(best, cfg.eval_path, qid, dev)
+        launches = launch_counts()
+        assert launches["aca_attention"] > 0, launches
+        cpu_maps, _, _ = visualize.export_attention_maps(best, cfg.eval_path, qid, "cpu")
+        errs = {k: float(np.abs(maps[k] - cpu_maps[k]).max()) for k in cpu_maps}
+        assert max(errs.values()) <= VIS_ATOL, errs
+        fig = os.path.join(tmp, "vis", "fig.png")
+        os.makedirs(os.path.dirname(fig))
+        preds = os.path.join(run_dir, f"infer_{cfg.dset_name}_val_preds.jsonl")
+        cli_launches = pngs = "not run: matplotlib is not installed on this machine"
+        if importlib.util.find_spec("matplotlib") is not None:
+            reset_launch_counts()
+            visualize.main(["--preds", preds, "--gt", cfg.eval_path, "--qid", qid, "--out",
+                            fig, "--attention", "--ckpt", best])
+            cli_launches = launch_counts()
+            pngs = {os.path.basename(f): os.path.getsize(f)
+                    for f in glob.glob(os.path.join(tmp, "vis", "*.png"))}
+            assert sorted(pngs) == ["fig.png", "fig_attn.png"] and min(pngs.values()) > 1000, \
+                pngs
+            assert cli_launches["aca_attention"] > 0, cli_launches
+        out["visualize"] = dict(qid=qid, valid_clips=lv, launches=launches,
+                                cli_launches=cli_launches, max_abs_err_vs_cpu=errs,
+                                pngs=pngs)
+        log(f"[dp cli] visualize: {json.dumps(out['visualize'])}")
+    return out
+
+
+def run_phase17(dev, seed):
+    """Phase 17: data parallel, (a) the two-rank train steps, (b) the CLI
+    under torchrun over NCCL at world 1, (c) tools.visualize."""
+    t0 = time.perf_counter()
+    steps = run_dp_steps(dev, seed)
+    log(f"[dp steps] {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    cli = run_dp_cli(dev, seed)
+    log(f"[dp cli] {time.perf_counter() - t0:.2f} s")
+    for preset in DP_TRAIN:
+        r = steps[preset]
+        errs = r["loss_rel_err_by_step"]
+        assert errs[0] <= DP_LOSS_RTOL and max(errs[1:]) <= DP_LATER_LOSS_RTOL, \
+            (preset, "losses", errs)
+        limit = max(DP_GRAD_RTOL, DP_NOISE_FACTOR * r["noise_gap"])
+        assert r["grad_gap"] <= limit, (preset, "gradients", r["grad_gap"], r["grad_gap_leaf"],
+                                        "noise", r["noise_gap"], r["noise_gap_leaf"])
+        assert min(r["fault_gaps"].values()) > limit, (preset, "a planted fault passed",
+                                                       r["fault_gaps"], limit)
+        assert r["param_gap_lr"] <= DP_PARAM_LR_BOUND, (preset, "parameters",
+                                                        r["param_gap_lr"], r["param_gap_leaf"])
+        assert r["ranks_param_gap"] == 0.0, (preset, "the ranks' parameters differ")
+    return {"steps": steps, "cli": cli}
+
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -2667,6 +3260,9 @@ def main():
     ap.add_argument("--tacos-queries", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--hd-queries", type=int, default=64)
+    ap.add_argument("--only", choices=("dp",),
+                    help="run the device and build phases and this phase alone (dp: 7 and "
+                         "17), printing no result line")
     args = ap.parse_args()
 
     import torch
@@ -2711,6 +3307,12 @@ def main():
     assert len(hmma_forms) == 5, hmma_forms
     for fn, per in hmma_forms.items():
         assert 0 < per["1xtf32"] < per["3xtf32"] and 0 < per["bf16"] < per["3xtf32"], (fn, per)
+
+    if args.only == "dp":
+        log(f"[train kernels] {json.dumps(phase_train_kernels(dev, args.seed))}")
+        log(f"[dp] {json.dumps(run_phase17(dev, args.seed))}")
+        log("chip_smoke: --only dp ran phases 1, 2, 7 and 17; no result line")
+        return 0
 
     rows, shapes = phase_kernels(dev, args.seed)
     log(f"[kernels] {json.dumps(rows)}")
@@ -2817,6 +3419,21 @@ def main():
         log(f"[{name}] {paths[name]['wall_s']:.2f} s")
 
     streamed, runs, util = run_phase16(dev, args.seed, paths)
+
+    # phase 17: data parallel; its ranks' launches (eager steps at float32)
+    # join the kernels' counts
+    from flashvtg_tpu_torch.ops.forms import FORMS
+
+    t0 = time.perf_counter()
+    dp = run_phase17(dev, args.seed)
+    for preset in DP_TRAIN:
+        r = dp["steps"][preset]
+        paths[f"dp_{preset}"] = dict(r, form_launches={
+            form: {k: (sum(per[k] for per in r["rank_launches"]) if form == "3xtf32" else 0)
+                   for k in r["rank_launches"][0]}
+            for form in FORMS})
+    paths["dp_cli"] = dp["cli"]
+    log(f"[dp] {time.perf_counter() - t0:.2f} s")
 
     for row in rows:  # the largest errors over every shape of the kernel and form
         for key in ("max_abs_err", "max_rel_err"):

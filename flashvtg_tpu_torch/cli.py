@@ -16,6 +16,18 @@ model_latest, a JAX `cli export`, or a reference trainer's. infer and export
 restore the training-time flags from the opt.json beside --resume, as the
 reference's TestOptions does, but for its keep-list and this invocation's
 flags.
+
+Data parallel: `train` and `infer` run under torchrun as they are, one
+process per card (the JAX CLI likewise finds its processes from the
+environment and has no flag for them):
+
+    torchrun --nproc_per_node 8 -m flashvtg_tpu_torch.cli train <config> ...
+    torchrun --nproc_per_node 2 -m flashvtg_tpu_torch.cli train <config> ... --device cpu
+
+The process group comes from torchrun's environment (parallel/mesh.py:
+init_group): NCCL on the cards, each process on the card LOCAL_RANK names;
+gloo with --device cpu. train/loop.py and train/infer.py say what each rank
+does; rank 0 alone writes files and prints.
 """
 
 from __future__ import annotations
@@ -27,6 +39,7 @@ import logging
 import os
 import sys
 
+from flashvtg_tpu_torch.parallel import mesh
 from flashvtg_tpu_torch.train.config import (
     PRESETS,
     ExperimentConfig,
@@ -133,7 +146,8 @@ def run_train(cfg, device) -> int:
     from flashvtg_tpu_torch.train.loop import train
 
     _, best_score, results_dir = train(cfg, device=device)
-    print(f"best score {best_score:.4f}; results in {results_dir}")
+    if mesh.rank() == 0:
+        print(f"best score {best_score:.4f}; results in {results_dir}")
     return 0
 
 
@@ -165,6 +179,8 @@ def run_infer(cfg, device) -> int:
     metrics, metrics_nms, eval_losses = evaluate(
         cfg, model, dataset, results_dir, tag="infer", loss_cfg=cfg.loss_config()
     )
+    if mesh.rank() != 0:
+        return 0
     if eval_losses:
         print("eval losses:", {k: round(v, 4) for k, v in eval_losses.items()})
     if metrics is not None:
@@ -241,14 +257,17 @@ def main(argv=None) -> int:
         if os.path.exists(opt_json):
             keep = {k: getattr(cfg, k) for k in KEEP_ON_RELOAD if hasattr(cfg, k)}
             cfg = ExperimentConfig.load(opt_json).replace(**{**keep, **overrides})
-    if mode == "train":
-        return run_train(cfg, device)
-    if mode == "infer":
-        if cfg.serving and "eval_precision" not in overrides:
-            # the serving profile; an explicit --eval_precision wins
-            cfg = cfg.replace(eval_precision="tensorfloat32")
-        return run_infer(cfg, device)
-    return run_export(cfg, export_path)
+    if mode == "export":
+        return run_export(cfg, export_path)
+    if mode == "infer" and cfg.serving and "eval_precision" not in overrides:
+        # the serving profile; an explicit --eval_precision wins
+        cfg = cfg.replace(eval_precision="tensorfloat32")
+    # under torchrun: the process group from its environment
+    mesh.init_group(device=device)
+    try:
+        return run_train(cfg, device) if mode == "train" else run_infer(cfg, device)
+    finally:
+        mesh.close_group()
 
 
 if __name__ == "__main__":

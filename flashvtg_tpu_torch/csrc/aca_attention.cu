@@ -75,7 +75,9 @@
 // while the head mean keeps them undropped, as transformer.py:117-127; and it
 // takes the reference's misaligned train mask (transformer.py:34-48,
 // 107-116): with donor rows, (i, j) of (b, h) is also masked where
-// !query_valid[d, i] && !key_valid[d, j], d = donor_rows[b, h].
+// !query_valid[d, i] && !donor_key_valid[d, j], d = donor_rows[b, h], a row
+// of the donor tables (G rows: the batch in one process, the global batch
+// under data parallelism, where d may be another rank's row).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -126,8 +128,9 @@ __device__ __forceinline__ void load_head(float* stage, const float* qb, const f
 // What the training form takes beside the eval operands: null pointers and
 // threshold 0 switch each part off.
 struct TrainArgs {
-  const float* query_valid;  // (B, Lv), with donor_rows
-  const int* donor_rows;     // (B, H)
+  const float* query_valid;      // donor table (G, Lv), with donor_rows
+  const float* donor_key_valid;  // donor table (G, Lk), with donor_rows
+  const int* donor_rows;         // (B, H), rows of the donor tables
   float* lse;                // (B, H, Lv)
   const uint32_t* seed;      // device memory, attn_dropout.cuh; null without dropout
   uint32_t threshold;  // attn_dropout.cuh; 0 = no dropout
@@ -224,7 +227,7 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int j = 8 * n + 2 * t + c;
-            if (j < lk && key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+            if (j < lk && tr.donor_key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
           }
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
@@ -460,7 +463,7 @@ int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
                                int form, void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const TrainArgs none = {nullptr, nullptr, nullptr, nullptr, 0u, 1.f};
+  const TrainArgs none = {nullptr, nullptr, nullptr, nullptr, nullptr, 0u, 1.f};
   if (head_mean != nullptr) {
     return (int)launch_form<true, false>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, none, s);
   }
@@ -471,22 +474,27 @@ int flashvtg_aca_attention_f32(const float* q, const float* k, const float* v,
 // (seed a uint32 in device memory, read by the kernel; threshold =
 // floor(p * 2^24), keep_scale = 1 / (1 - p); threshold 0 = none, and then
 // seed may be null)
-// and the donor-row mask (query_valid (B, Lv) f32 and donor_rows (B, H)
-// int32, or both null), and the form as above.
+// and the donor-row mask (the donor tables query_valid (G, Lv) and
+// donor_key_valid (G, Lk) f32 and donor_rows (B, H) int32 in [0, G), or all
+// three null; G = B in one process, the global batch under data
+// parallelism), and the form as above.
 int flashvtg_aca_attention_train_f32(const float* q, const float* k, const float* v,
                                      const float* key_valid, const float* query_valid,
-                                     const int* donor_rows, float* out, float* head_mean,
+                                     const float* donor_key_valid, const int* donor_rows,
+                                     float* out, float* head_mean,
                                      float* lse, int batch, int lv, int lk, int heads,
                                      int head_dim, int nd, float scale, const unsigned* seed,
                                      unsigned threshold, float keep_scale, int form,
                                      void* stream) {
   if (bad_shape(batch, lv, lk, heads, head_dim, nd) || lse == nullptr ||
       (donor_rows == nullptr) != (query_valid == nullptr) ||
+      (donor_rows == nullptr) != (donor_key_valid == nullptr) ||
       (threshold != 0u && seed == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t s = (cudaStream_t)stream;
-  const TrainArgs tr = {query_valid, donor_rows, lse, seed, threshold, keep_scale};
+  const TrainArgs tr = {query_valid, donor_key_valid, donor_rows, lse,
+                        seed,        threshold,       keep_scale};
   if (head_mean != nullptr) {
     return (int)launch_form<true, true>(form, q, k, v, key_valid, out, head_mean, batch, lv, lk, heads, nd, scale, tr, s);
   }

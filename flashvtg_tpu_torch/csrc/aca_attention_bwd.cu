@@ -20,7 +20,8 @@
 //   dk_j  = sum_i dS_ij (scale q_i)
 //   dv_j  = sum_i P_ij z_ij dO_i  for j >= nd, 0 for the dummies
 // The masks are the forward's: invalid keys, and the donor-row mask
-// (!query_valid[d, i] && !key_valid[d, j], d = donor_rows[b, h]).
+// (!query_valid[d, i] && !donor_key_valid[d, j], d = donor_rows[b, h], rows
+// of the donor tables).
 //
 // What bounds it: bytes, at every shape the model gives it
 // (chip_smoke.py:attention_bound, dot products at 3xTF32's 165 TFLOP/s): at
@@ -91,8 +92,9 @@ struct Operands {
   const float* k;
   const float* v;
   const float* key_valid;
-  const float* query_valid;  // with donor_rows, else null
-  const int* donor_rows;
+  const float* query_valid;      // donor table (G, Lv) with donor_rows, else null
+  const float* donor_key_valid;  // donor table (G, Lk) with donor_rows, else null
+  const int* donor_rows;         // (B, H), rows of the donor tables
   const float* lse;
   const float* d_out;
   const float* d_head_mean;  // null: the head mean gets no gradient
@@ -181,7 +183,7 @@ aca_attention_bwd_kernel(const Operands a) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int j = 8 * n + 2 * t + c;
-        if (j < lk && a.key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+        if (j < lk && a.donor_key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
       }
   }
 #pragma unroll
@@ -503,7 +505,8 @@ extern "C" {
 
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
 // q, d_out, dq (B, Lv, H*Dh); k, v, dk, dv (B, Lk, H*Dh); key_valid (B, Lk);
-// query_valid (B, Lv) f32 and donor_rows (B, H) int32, or both null; lse
+// the donor tables query_valid (G, Lv) and donor_key_valid (G, Lk) f32 and
+// donor_rows (B, H) int32 in [0, G), or all three null; lse
 // (B, H, Lv) from the training forward; d_head_mean (B, Lv, Lk) or null;
 // workspace (2, B, H, chunks, Lk, Dh) f32 scratch when chunks > 1, else
 // null, with chunks from ops/aca.py:bwd_tiling; threshold = floor(p * 2^24)
@@ -513,7 +516,8 @@ extern "C" {
 // other value refused. f32, contiguous and 16-byte aligned.
 int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* v,
                                    const float* key_valid, const float* query_valid,
-                                   const int* donor_rows, const float* lse,
+                                   const float* donor_key_valid, const int* donor_rows,
+                                   const float* lse,
                                    const float* d_out, const float* d_head_mean, float* dq,
                                    float* dk, float* dv, float* workspace, int batch, int lv,
                                    int lk, int heads, int head_dim, int nd, int chunks,
@@ -522,12 +526,15 @@ int flashvtg_aca_attention_bwd_f32(const float* q, const float* k, const float* 
   if (head_dim != kDh || lk < 1 || lk > kMaxKeys || nd < 0 || nd > lk || batch < 1 ||
       batch > 65535 || lv < 1 || heads < 1 || heads > 65535 ||
       (donor_rows == nullptr) != (query_valid == nullptr) ||
+      (donor_rows == nullptr) != (donor_key_valid == nullptr) ||
       (threshold != 0u && seed == nullptr)) {
     return (int)cudaErrorInvalidValue;
   }
-  const Operands a = {q,  k,  v,  key_valid, query_valid, donor_rows, lse, d_out, d_head_mean,
-                      dq, dk, dv, workspace, batch, lv, lk, heads, nd, chunks, 0, scale, seed,
-                      threshold, keep_scale};
+  const Operands a = {q,     k,           v,     key_valid,  query_valid, donor_key_valid,
+                      donor_rows, lse,   d_out, d_head_mean, dq,          dk,
+                      dv,    workspace,   batch, lv,         lk,          heads,
+                      nd,    chunks,      0,     scale,      seed,        threshold,
+                      keep_scale};
   cudaStream_t s = (cudaStream_t)stream;
   switch (form) {
     case kForm3xTF32: return (int)launch_nt<kForm3xTF32>(a, s);

@@ -41,6 +41,24 @@ def rolled_neg_mask(base: Sequence[str]) -> np.ndarray:
     return np.asarray([a != b for a, b in zip(base, rolled)], np.float32)
 
 
+def global_real_neg_mask(global_vids, shuffled_rows, step: int, local_bsz: int, pc: int,
+                         me: int) -> np.ndarray:
+    """This process's slice of the negative-pair indicator of one GLOBAL
+    batch (a copy of the JAX loop's): the model's negative pass rolls the
+    assembled global batch, host-contiguous blocks of each process's strided
+    shard (parallel/mesh.py), so the mask is computed over the global row
+    order, which every process rebuilds from the shared shuffle, and cut to
+    process `me`'s rows."""
+    from flashvtg_tpu_torch.parallel.mesh import shard_rows_for_host
+
+    g_rows = np.concatenate([
+        shard_rows_for_host(shuffled_rows, p, pc)[step * local_bsz : (step + 1) * local_bsz]
+        for p in range(pc)
+    ])
+    gmask = rolled_neg_mask([global_vids[j] for j in g_rows])
+    return gmask[me * local_bsz : (me + 1) * local_bsz]
+
+
 @dataclasses.dataclass
 class Collator:
     max_q_l: int

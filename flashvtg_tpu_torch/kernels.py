@@ -152,10 +152,10 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
     signatures = {
         "aca_attention": {
             "flashvtg_aca_attention_f32": [p] * 6 + [i] * 6 + [f, i, p],
-            "flashvtg_aca_attention_train_f32": [p] * 9 + [i] * 6 + train,
+            "flashvtg_aca_attention_train_f32": [p] * 10 + [i] * 6 + train,
         },
         "aca_attention_bwd": {
-            "flashvtg_aca_attention_bwd_f32": [p] * 13 + [i] * 7 + train,
+            "flashvtg_aca_attention_bwd_f32": [p] * 14 + [i] * 7 + train,
         },
         "flash_attention": {
             "flashvtg_flash_attention_f32": [p] * 5 + [i] * 4 + [f, i, p],

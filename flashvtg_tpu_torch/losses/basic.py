@@ -80,20 +80,27 @@ def distribution_focal_loss(pred, label, weight=None, avg_factor=None):
     return weight_reduce(ce_l * wl + ce_r * wr, weight, avg_factor)
 
 
-def sampled_nce_loss(video_emb, query_emb, video_msk, saliency, pos_clip,
-                     direction=("row", "col"), temperature=0.07, max_scale=100.0):
-    """Sampled InfoNCE between clip embeddings and the pooled query
-    (reference blocks/loss.py:141-191): only clips whose saliency does not
-    exceed the positive clip's take part. Masked clips get -1e30, not -inf,
-    as the JAX package (a column masked in every row stays finite)."""
-    b = video_emb.shape[0]
-    rows = torch.arange(b, device=video_emb.device)
-    pos_scores = saliency[rows, pos_clip][:, None]
-    loss_msk = (saliency <= pos_scores).to(video_msk.dtype) * video_msk
+def nce_similarity(video_emb, query_emb, temperature=0.07, max_scale=100.0):
+    """The sampled InfoNCE's logits before the mask, (B, Lv): each clip
+    embedding's cosine with its row's pooled query, scaled (reference
+    blocks/loss.py:141-191). It reads one row at a time, so a split batch
+    computes it on its own rows before the batch is gathered."""
     scale = min(math.exp(math.log(1.0 / temperature)), max_scale)
     vn = video_emb / torch.linalg.vector_norm(video_emb, dim=-1, keepdim=True).clamp_min(1e-8)
     qn = query_emb / torch.linalg.vector_norm(query_emb, dim=-1, keepdim=True).clamp_min(1e-8)
-    i_sim = (vn * qn).sum(-1) * scale
+    return (vn * qn).sum(-1) * scale
+
+
+def sampled_nce_loss(i_sim, video_msk, saliency, pos_clip, direction=("row", "col")):
+    """Sampled InfoNCE between clip embeddings and the pooled query over
+    their `nce_similarity` logits (reference blocks/loss.py:141-191): only
+    clips whose saliency does not exceed the positive clip's take part.
+    Masked clips get -1e30, not -inf, as the JAX package (a column masked
+    in every row stays finite)."""
+    b = i_sim.shape[0]
+    rows = torch.arange(b, device=i_sim.device)
+    pos_scores = saliency[rows, pos_clip][:, None]
+    loss_msk = (saliency <= pos_scores).to(video_msk.dtype) * video_msk
     i_sim = i_sim + torch.where(loss_msk > 0, 0.0, -1e30).to(i_sim.dtype)
     loss = 0.0
     if "row" in direction:

@@ -23,6 +23,7 @@ import torch
 from flashvtg_tpu_torch.losses.basic import (
     dynamic_bce_loss,
     l1_loss,
+    nce_similarity,
     quality_focal_loss,
     sampled_nce_loss,
     sigmoid_focal_loss,
@@ -234,7 +235,7 @@ def bundle_losses(outputs, targets, cfg: LossConfig) -> Dict[str, torch.Tensor]:
         )
     if cfg.loss_sal == "nce":
         out["loss_sal"] = sampled_nce_loss(
-            outputs["video_emb"], outputs["query_emb"], outputs["video_msk"].to(src.dtype),
+            outputs["nce_sim"], outputs["video_msk"].to(src.dtype),
             targets["saliency_all_labels"], targets["saliency_pos_labels"][:, 0],
             direction=cfg.nce_direction,
         )
@@ -245,7 +246,23 @@ def bundle_losses(outputs, targets, cfg: LossConfig) -> Dict[str, torch.Tensor]:
     return out
 
 
+def row_reductions(outputs, targets, cfg: LossConfig) -> Dict[str, torch.Tensor]:
+    """What the criterion reads of one row at a time, reduced on that row:
+    "nce_sim", the sampled NCE's logits (B, Lv), in place of video_emb (B,
+    Lv, D) and query_emb. A split batch reduces its own rows before the
+    batch is gathered (losses/__init__.py)."""
+    if cfg.loss_sal != "nce":
+        return {}
+    return {"nce_sim": nce_similarity(outputs["video_emb"], outputs["query_emb"])}
+
+
 def compute_losses(outputs, targets, cfg: LossConfig) -> Dict[str, torch.Tensor]:
+    """The loss dict of a forward's outputs."""
+    return batch_losses({**outputs, **row_reductions(outputs, targets, cfg)}, targets, cfg)
+
+
+def batch_losses(outputs, targets, cfg: LossConfig) -> Dict[str, torch.Tensor]:
+    """The loss dict of outputs that hold `row_reductions`' keys."""
     losses = bundle_losses(outputs, targets, cfg)
     losses["loss_label"] = loss_label(outputs, targets)
     losses["loss_saliency"] = loss_saliency(outputs, targets, cfg)

@@ -137,11 +137,19 @@ def loss_qfl_ms(outputs, cls_tgt, reg_tgt, cfg: MSLossConfig):
                               weight=msk, avg_factor=msk.sum())
 
 
-def loss_eos_ms(eos_slot, eos_emb, context_agg, pos_clip, temperature=0.1):
+def eos_positive(context_agg, pos_clip):
+    """Each row's first positive clip of context_agg, (B, C), which the EOS
+    InfoNCE retrieves: it reads one row at a time. context_agg (B, T, C);
+    pos_clip (B,)."""
+    rows = torch.arange(context_agg.shape[0], device=context_agg.device)
+    return context_agg[rows, pos_clip]
+
+
+def loss_eos_ms(eos_slot, eos_emb, eos_pos, temperature=0.1):
     """EOS InfoNCE (reference FlashVTG_ms/loss.py:431-460): over l2-normalised
     vectors at temperature 0.1, eos_slot[i] must retrieve eos_emb[i] among
-    the batch, and its own video's first positive clip of context_agg.
-    eos_slot, eos_emb (B, 1, C); context_agg (B, T, C); pos_clip (B,)."""
+    the batch, and its own video's first positive clip of the context
+    aggregate (`eos_positive`). eos_slot, eos_emb (B, 1, C); eos_pos (B, C)."""
 
     def l2n(x):
         return x / torch.linalg.vector_norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
@@ -149,7 +157,7 @@ def loss_eos_ms(eos_slot, eos_emb, context_agg, pos_clip, temperature=0.1):
     slot, emb = l2n(eos_slot[:, 0]), l2n(eos_emb[:, 0])
     rows = torch.arange(slot.shape[0], device=slot.device)
     loss_eos = -F.log_softmax(slot @ emb.T / temperature, dim=1)[rows, rows].mean()
-    pos_feat = l2n(context_agg[rows, pos_clip])
+    pos_feat = l2n(eos_pos)
     loss_pos = -F.log_softmax(slot @ pos_feat.T / temperature, dim=1)[rows, rows].mean()
     return loss_eos + loss_pos
 
@@ -195,7 +203,23 @@ def loss_label_ms(outputs, targets):
     return ((norm(sal) - norm(conf)) ** 2).mean()
 
 
+def row_reductions_ms(outputs, targets, cfg: MSLossConfig) -> Dict[str, torch.Tensor]:
+    """What the criterion reads of one row at a time, reduced on that row:
+    under use_eos "eos_pos" (B, C), in place of context_agg (B, T, C). A
+    split batch reduces its own rows before the batch is gathered
+    (losses/__init__.py)."""
+    if not cfg.use_eos:
+        return {}
+    return {"eos_pos": eos_positive(outputs["context_agg"], targets["saliency_pos_labels"][:, 0])}
+
+
 def compute_losses_ms(outputs, targets, cfg: MSLossConfig) -> Dict[str, torch.Tensor]:
+    """The loss dict of a forward's outputs."""
+    return batch_losses_ms({**outputs, **row_reductions_ms(outputs, targets, cfg)}, targets, cfg)
+
+
+def batch_losses_ms(outputs, targets, cfg: MSLossConfig) -> Dict[str, torch.Tensor]:
+    """The loss dict of outputs that hold `row_reductions_ms`' keys."""
     points = outputs["point"].to(outputs["out_class"].dtype)
     cls_tgt, reg_tgt = ms_targets(points, targets["gt_windows"], cfg)
     losses = {
@@ -211,10 +235,8 @@ def compute_losses_ms(outputs, targets, cfg: MSLossConfig) -> Dict[str, torch.Te
         "loss_qfl": loss_qfl_ms(outputs, cls_tgt, reg_tgt, cfg),
     }
     if cfg.use_eos:
-        losses["loss_eos"] = loss_eos_ms(
-            outputs["eos_slot"], outputs["eos_emb"], outputs["context_agg"],
-            targets["saliency_pos_labels"][:, 0],
-        )
+        losses["loss_eos"] = loss_eos_ms(outputs["eos_slot"], outputs["eos_emb"],
+                                         outputs["eos_pos"])
     return losses
 
 

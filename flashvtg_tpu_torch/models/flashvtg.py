@@ -15,6 +15,14 @@ zeroing of padded clips before the pyramid, the reference's misaligned ACA
 mask through donor rows when `compat_attn_tile`, and the negative-pair pass
 (text rolled by one row) with `real_neg_mask`, which adds
 saliency_scores_neg, t2vattnvalues_neg and real_neg_mask to the outputs.
+
+Under data parallelism, inside the train step's `split_batch()`
+(parallel/mesh.py), the batch is this rank's rows of the global batch, and
+the two couplings of its rows read the global batch, as the JAX model does
+on its sharded global batch: the negative pass rolls the global batch
+(`roll_rows`: a rank's last row takes the next rank's first text), and the
+donor rows are computed over the global batch (its B, its real_neg_mask)
+with the global batch's masks as the ACA layers' donor tables.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from flashvtg_tpu_torch.models.transformer import (
     neg_pass_donors,
     tiled_attn_donors,
 )
+from flashvtg_tpu_torch.parallel.mesh import batch_slice, batch_world, gather_rows, roll_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,10 +191,10 @@ class FlashVTGModel(nn.Module):
         dummy_refreshed = refreshed[:, :nd]
         txt_d = torch.cat([dummy_refreshed, txt], dim=1)
 
-        def trunk(txt_tokens, txt_valid, donor_rows):
+        def trunk(txt_tokens, txt_valid, donor_rows=None, txt_valid_table=None):
             fused, attn = self.transformer.t2v_encoder(
                 vid, txt_tokens, pos_vid, pos_txt_d, txt_valid,
-                src_vid_mask if donor_rows is not None else None, donor_rows, generator,
+                vid_valid_table, donor_rows, generator, txt_valid_table,
             )
             emb = self.transformer.encoder(fused, pos_vid, src_vid_mask, generator)
             if train:
@@ -200,9 +209,16 @@ class FlashVTGModel(nn.Module):
             ).sum(-1) / math.sqrt(float(d))
             return emb, attn, sal
 
+        # the donor rows over the global batch (this rank's rows of them),
+        # the donor tables its masks; in one process the batch's own
         compat_tile = train and cfg.compat_attn_tile
-        donors = tiled_attn_donors(b, cfg.nheads, src_vid.device) if compat_tile else None
-        video_emb, attn_weights, saliency = trunk(txt_d, txt_d_valid, donors)
+        own = batch_slice(b)
+        donors = vid_valid_table = txt_valid_table = None
+        if compat_tile:
+            donors = tiled_attn_donors(b * batch_world(), cfg.nheads, src_vid.device)[own]
+            vid_valid_table = gather_rows(src_vid_mask)
+            txt_valid_table = gather_rows(txt_d_valid)
+        video_emb, attn_weights, saliency = trunk(txt_d, txt_d_valid, donors, txt_valid_table)
 
         if not train:
             # eval zeroes padded clips: the reference runs bsz=1 unpadded, so
@@ -280,11 +296,14 @@ class FlashVTGModel(nn.Module):
             # negative-pair pass: each video against the next row's text (at
             # eval too with force_neg, for the eval losses: the reference's
             # use_neg branch is not train-gated)
-            txt_d_neg = torch.roll(txt_d, -1, dims=0)
-            txt_d_valid_neg = torch.roll(txt_d_valid, -1, dims=0)
+            txt_d_neg = roll_rows(txt_d, -1)
+            txt_d_valid_neg = roll_rows(txt_d_valid, -1)
             rnm = real_neg_mask if real_neg_mask is not None else src_vid.new_ones((b,))
-            donors_neg = neg_pass_donors(rnm, cfg.nheads) if compat_tile else None
-            _, attn_neg, sal_neg = trunk(txt_d_neg, txt_d_valid_neg, donors_neg)
+            donors_neg = table_neg = None
+            if compat_tile:
+                donors_neg = neg_pass_donors(gather_rows(rnm), cfg.nheads)[own]
+                table_neg = torch.roll(txt_valid_table, -1, dims=0)
+            _, attn_neg, sal_neg = trunk(txt_d_neg, txt_d_valid_neg, donors_neg, table_neg)
             t2vattn_neg = (attn_neg[:, :, nd:] * txt_d_valid_neg[:, None, nd:]).sum(2)
             out["saliency_scores_neg"] = sal_neg
             out["t2vattnvalues_neg"] = t2vattn_neg.clamp(0.0, 1.0)

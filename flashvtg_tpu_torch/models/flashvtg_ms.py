@@ -26,6 +26,9 @@ the encoder and TSA again, not the dummy encoder, and its SaliencyProj
 takes the unmasked mean in eval too. Under use_eos a learned query
 attention-pools the context aggregate into `eos_slot`, beside `eos_emb`,
 the sentence token (the producer of the EOS loss, JAX MSModelConfig).
+Under data parallelism, inside the train step's `split_batch()`
+(parallel/mesh.py), both rolls of the negative pass roll the global batch
+(`roll_rows`), as the JAX model's jnp.roll does on its sharded batch.
 
 Parameter names are the reference FlashVTG_ms's; its parameters that no
 forward reads are held so that a reference `.ckpt` loads with strict=True:
@@ -57,6 +60,7 @@ from flashvtg_tpu_torch.models.flashvtg import ModelConfig, decode_boundaries
 from flashvtg_tpu_torch.models.lgi import TSA, PhraseContext, PhraseGenerate, SaliencyProj
 from flashvtg_tpu_torch.models.points import generate_points, pyramid_masks_pool
 from flashvtg_tpu_torch.models.transformer import Encoder, T2VEncoder
+from flashvtg_tpu_torch.parallel.mesh import roll_rows
 
 
 @dataclasses.dataclass(frozen=True)
@@ -253,9 +257,9 @@ class FlashVTGMSModel(nn.Module):
             # rolled phrase slots drive a negative context, the rolled dummy
             # + sentence tokens a negative trunk pass
             context_agg_neg, _, _ = self.phrase_context(
-                torch.roll(phrase_emb, -1, dims=0), vid, src_vid_mask
+                roll_rows(phrase_emb, -1), vid, src_vid_mask
             )
-            memory_neg, attn_neg = trunk(torch.roll(txt_d, -1, dims=0))
+            memory_neg, attn_neg = trunk(roll_rows(txt_d, -1))
             fused_neg = self.t_sa(context_agg_neg + memory_neg + pos_vid, src_vid_mask)
             out["saliency_scores_neg"] = self.saliency_proj(fused_neg, None)
             out["t2vattnvalues_neg"] = attn_neg[:, :, nd].clamp(0.0, 1.0)

@@ -15,7 +15,10 @@ so reference checkpoints load as they are.
 Train mode (module.train()) adds what the JAX layers do with
 deterministic=False: attention dropout, FFN dropout, DropPath on both
 residual branches, and, when the caller passes donor rows, the reference's
-misaligned ACA train mask (`tiled_attn_donors`, `neg_pass_donors`).
+misaligned ACA train mask (`tiled_attn_donors`, `neg_pass_donors`). Donor
+rows index the whole batch: under data parallelism (parallel/mesh.py) the
+caller computes them over the global batch, keeps its own rows, and hands
+the ACA layers the global batch's masks as the donor tables.
 Attention-dropout seeds are drawn from the `generator` a forward is given
 (torch's default CPU generator when None), one per attention call; FFN
 dropout and DropPath draw from torch's generator of the tensor's device.
@@ -73,12 +76,13 @@ class AdaptiveCrossAttention(nn.Module):
         self.dropout = dropout
         self.out_proj = nn.Linear(d, d)
 
-    def forward(self, q, k, v, key_valid, query_valid=None, donor_rows=None,
-                generator: Optional[torch.Generator] = None):
+    def forward(self, q, k, v, key_valid, donor_query_valid=None, donor_rows=None,
+                generator: Optional[torch.Generator] = None, donor_key_valid=None):
         out, head_mean = aca_attention(
             q, k, v, key_valid, self.num_heads, self.num_dummies, want_head_mean=True,
             dropout=self.dropout if self.training else 0.0, generator=generator,
-            query_valid=query_valid, donor_rows=donor_rows,
+            donor_query_valid=donor_query_valid, donor_rows=donor_rows,
+            donor_key_valid=donor_key_valid,
         )
         return self.out_proj(out), head_mean
 
@@ -101,9 +105,10 @@ class T2VEncoderLayer(nn.Module):
         self.dropout2 = DropPath(dropout)
 
     def forward(self, vid, txt, pos_vid, pos_txt, txt_valid, vid_valid=None,
-                donor_rows=None, generator=None):
+                donor_rows=None, generator=None, txt_valid_table=None):
         attn_out, attn_weights = self.self_attn(
-            vid + pos_vid, txt + pos_txt, txt, txt_valid, vid_valid, donor_rows, generator
+            vid + pos_vid, txt + pos_txt, txt, txt_valid, vid_valid, donor_rows, generator,
+            txt_valid_table,
         )
         x = vid + self.dropout1(attn_out)
         ffn = self.linear2(self.dropout(self.activation(self.linear1(self.norm1(x)))))
@@ -113,7 +118,8 @@ class T2VEncoderLayer(nn.Module):
 
 class T2VEncoder(nn.Module):
     """Stack of ACA layers; returns the fused video and the layer-averaged
-    head-mean map (reference transformer.py:179-214)."""
+    head-mean map (reference transformer.py:179-214). With donor_rows,
+    vid_valid and txt_valid_table (None: txt_valid) are the donor tables."""
 
     def __init__(self, num_layers: int, d: int, num_heads: int, num_dummies: int,
                  dim_feedforward: int, dropout: float = 0.1):
@@ -124,11 +130,11 @@ class T2VEncoder(nn.Module):
         )
 
     def forward(self, vid, txt, pos_vid, pos_txt, txt_valid, vid_valid=None,
-                donor_rows=None, generator=None):
+                donor_rows=None, generator=None, txt_valid_table=None):
         attn_sum = None
         for layer in self.layers:
             vid, w = layer(vid, txt, pos_vid, pos_txt, txt_valid, vid_valid, donor_rows,
-                           generator)
+                           generator, txt_valid_table)
             attn_sum = w if attn_sum is None else attn_sum + w
         return vid, attn_sum / len(self.layers)
 

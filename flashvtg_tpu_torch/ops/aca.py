@@ -18,7 +18,7 @@ source.
 
 Two entry points share the kernels:
   * aca_attention(q, k, v, key_valid, num_heads, num_dummies, want_head_mean,
-    dropout, generator, query_valid, donor_rows)
+    dropout, generator, donor_query_valid, donor_rows, donor_key_valid)
   * masked_attention(q, k, v, key_valid, num_heads, dropout, generator)
     (nd = 0, no head mean)
 
@@ -30,7 +30,12 @@ row log-sum-exp, applies attention dropout (ops/attn_dropout.py, seeded per
 call from `generator`) to the probabilities of p.v only (the head mean keeps
 them undropped, as transformer.py:117-127), and takes the donor-row mask of
 transformer.py:34-48, 107-116; the backward kernel recomputes the
-probabilities from q, k and the log-sum-exp.
+probabilities from q, k and the log-sum-exp. The donor-row mask reads two
+donor tables, donor_query_valid (G, Lv) and donor_key_valid (G, Lk), at the
+rows donor_rows (B, H) names: in one process G = B and the tables are the
+batch's own masks (donor_key_valid defaults to key_valid); under data
+parallelism (parallel/mesh.py) they are the global batch's masks, gathered
+once a step, so that a donor may be another rank's row.
 
 A CPU tensor goes to the plain PyTorch versions (`*_plain`, and
 `aca_attention_bwd_plain` for the backward, inside the same Function); a
@@ -126,11 +131,13 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(b, l, h * hd)
 
 
-def _masked_logits(q, k, key_valid, num_heads, query_valid=None, donor_rows=None,
-                   form="3xtf32"):
+def _masked_logits(q, k, key_valid, num_heads, donor_query_valid=None, donor_rows=None,
+                   form="3xtf32", donor_key_valid=None):
     """Scaled logits (B, H, Lq, Lk), -inf where masked: invalid keys, and
-    with donor rows also where !query_valid[d, i] && !key_valid[d, j],
-    d = donor_rows[b, h]. The products in `form` (ops/forms.py)."""
+    with donor rows also where !donor_query_valid[d, i] &&
+    !donor_key_valid[d, j], d = donor_rows[b, h] a row of the (G, Lv) and
+    (G, Lk) donor tables (donor_key_valid None: key_valid, G = B). The
+    products in `form` (ops/forms.py)."""
     head_dim = q.shape[-1] // num_heads
     logits = product(
         "bhqd,bhkd->bhqk",
@@ -139,8 +146,9 @@ def _masked_logits(q, k, key_valid, num_heads, query_valid=None, donor_rows=None
     masked = (key_valid <= 0)[:, None, None, :]
     if donor_rows is not None:
         donor = donor_rows.long()
-        qpad = (query_valid <= 0)[donor]  # (B, H, Lq)
-        kpad = (key_valid <= 0)[donor]  # (B, H, Lk)
+        key_table = key_valid if donor_key_valid is None else donor_key_valid
+        qpad = (donor_query_valid <= 0)[donor]  # (B, H, Lq)
+        kpad = (key_table <= 0)[donor]  # (B, H, Lk)
         masked = masked | (qpad[..., :, None] & kpad[..., None, :])
     return logits.masked_fill(masked, float("-inf"))
 
@@ -167,15 +175,16 @@ def _softmax(logits, form, want_lse):
 
 def aca_attention_plain(q, k, v, key_valid, num_heads: int, num_dummies: int,
                         want_head_mean: bool = True, dropout: float = 0.0,
-                        seed: int = 0, query_valid=None, donor_rows=None,
-                        want_lse: bool = False, form: str = "3xtf32"):
+                        seed: int = 0, donor_query_valid=None, donor_rows=None,
+                        want_lse: bool = False, form: str = "3xtf32", donor_key_valid=None):
     """The plain version: einsum, masked_fill, softmax, dropout, slice,
     einsum, the two products' operands rounded as the kernel's `form`
     rounds them (tests/test_torch_tf32x3.py holds it to that arithmetic).
     Returns (out, head_mean or None), and the row log-sum-exp (B, H, Lq)
     third when `want_lse`."""
     nd = num_dummies
-    logits = _masked_logits(q, k, key_valid, num_heads, query_valid, donor_rows, form)
+    logits = _masked_logits(q, k, key_valid, num_heads, donor_query_valid, donor_rows, form,
+                            donor_key_valid)
     weights, lse = _softmax(logits, form, want_lse)  # dummies included
     head_mean = weights.sum(dim=1) / num_heads if want_head_mean else None
     if dropout > 0:
@@ -194,8 +203,8 @@ def masked_attention_plain(q, k, v, key_valid, num_heads: int, form: str = "3xtf
 
 def aca_attention_bwd_plain(q, k, v, key_valid, lse, d_out, d_head_mean,
                             num_heads: int, num_dummies: int, dropout: float = 0.0,
-                            seed: int = 0, query_valid=None, donor_rows=None,
-                            form: str = "3xtf32"):
+                            seed: int = 0, donor_query_valid=None, donor_rows=None,
+                            form: str = "3xtf32", donor_key_valid=None):
     """(dq, dk, dv) of aca_attention_plain, by the formulas the backward
     kernel uses: P = exp(logits - lse),
     dP_ij = [j >= nd] z_ij (dO_i . v_j) + dHeadMean_ij / H,
@@ -205,7 +214,8 @@ def aca_attention_bwd_plain(q, k, v, key_valid, lse, d_out, d_head_mean,
     nd = num_dummies
     head_dim = q.shape[-1] // num_heads
     scale = head_dim ** -0.5
-    logits = _masked_logits(q, k, key_valid, num_heads, query_valid, donor_rows, form)
+    logits = _masked_logits(q, k, key_valid, num_heads, donor_query_valid, donor_rows, form,
+                            donor_key_valid)
     p = torch.exp(logits - lse[..., None])
     z = _dropout_scale(seed, dropout, logits) if dropout > 0 else torch.ones_like(p)
     z[..., :nd] = 0  # the dummies' probabilities never reach p.v
@@ -291,24 +301,35 @@ def _check_rc(tag, rc):
         raise RuntimeError(f"{tag} launch failed: CUDA error {rc}")
 
 
-def _donor_operands(tag, query_valid, donor_rows, b, lv, num_heads, q):
+def _donor_operands(tag, donor_query_valid, donor_key_valid, donor_rows, b, lv, lk,
+                    num_heads, key_valid, q):
+    """(donor_query_valid (G, Lv) f32, donor_key_valid (G, Lk) f32, donor_rows
+    (B, H) int32) as the kernels take them, donor_key_valid key_valid where
+    None; three Nones without donor rows. The rows are the caller's to keep
+    in [0, G) (reading them here would sync the card)."""
     if donor_rows is None:
-        return None, None
-    query_valid = query_valid.to(torch.float32).contiguous()
+        return None, None, None
+    if donor_key_valid is None:
+        donor_key_valid = key_valid
+    donor_query_valid = donor_query_valid.to(torch.float32).contiguous()
+    donor_key_valid = donor_key_valid.to(torch.float32).contiguous()
     donor_rows = donor_rows.to(torch.int32).contiguous()
-    if query_valid.shape != (b, lv) or donor_rows.shape != (b, num_heads):
+    g = donor_query_valid.shape[0]
+    if (donor_query_valid.shape != (g, lv) or donor_key_valid.shape != (g, lk)
+            or donor_rows.shape != (b, num_heads)):
         raise ValueError(
-            f"{tag}: query_valid {tuple(query_valid.shape)} / donor_rows "
-            f"{tuple(donor_rows.shape)}, expected ({b}, {lv}) / ({b}, {num_heads})"
+            f"{tag}: donor_query_valid {tuple(donor_query_valid.shape)} / donor_key_valid "
+            f"{tuple(donor_key_valid.shape)} / donor_rows {tuple(donor_rows.shape)}, "
+            f"expected (G, {lv}) / (G, {lk}) / ({b}, {num_heads})"
         )
-    if query_valid.device != q.device or donor_rows.device != q.device:
+    if any(t.device != q.device for t in (donor_query_valid, donor_key_valid, donor_rows)):
         raise ValueError(f"{tag}: donor operands not on {q.device}")
-    return query_valid, donor_rows
+    return donor_query_valid, donor_key_valid, donor_rows
 
 
 def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
-            dropout=0.0, seed=0, query_valid=None, donor_rows=None, want_lse=False,
-            form="3xtf32"):
+            dropout=0.0, seed=0, donor_query_valid=None, donor_rows=None, want_lse=False,
+            form="3xtf32", donor_key_valid=None):
     """The forward kernel, with aca_attention_plain's arguments and results.
     Without LSE, dropout or donor rows it launches the eval entry; otherwise
     the training entry, which also writes the row log-sum-exp."""
@@ -328,13 +349,13 @@ def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
         )
         _check_rc(tag, rc)
         return out, head_mean
-    query_valid, donor_rows = _donor_operands(tag, query_valid, donor_rows, b, lv,
-                                              num_heads, q)
+    tables = _donor_operands(tag, donor_query_valid, donor_key_valid, donor_rows, b, lv, lk,
+                             num_heads, key_valid, q)
     lse = q.new_empty((b, num_heads, lv))
     seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = lib.flashvtg_aca_attention_train_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-        _ptr(query_valid), _ptr(donor_rows), out.data_ptr(), _ptr(head_mean),
+        *(_ptr(t) for t in tables), out.data_ptr(), _ptr(head_mean),
         lse.data_ptr(), b, lv, lk, num_heads, HEAD_DIM, num_dummies, HEAD_DIM ** -0.5,
         seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
@@ -343,14 +364,15 @@ def _launch(q, k, v, key_valid, num_heads, num_dummies, want_head_mean=True,
 
 
 def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dummies,
-                dropout=0.0, seed=0, query_valid=None, donor_rows=None, form="3xtf32"):
+                dropout=0.0, seed=0, donor_query_valid=None, donor_rows=None, form="3xtf32",
+                donor_key_valid=None):
     """The backward kernel, with aca_attention_bwd_plain's arguments."""
     from flashvtg_tpu_torch import kernels
 
     tag = "aca backward kernel"
     b, lv, lk = _check_shape(tag, q, k, v, key_valid, num_heads, num_dummies)
-    query_valid, donor_rows = _donor_operands(tag, query_valid, donor_rows, b, lv,
-                                              num_heads, q)
+    tables = _donor_operands(tag, donor_query_valid, donor_key_valid, donor_rows, b, lv, lk,
+                             num_heads, key_valid, q)
     d_out = _aligned(d_out)
     if d_out.shape != q.shape or d_out.dtype != torch.float32:
         raise ValueError(f"{tag}: d_out {tuple(d_out.shape)} {d_out.dtype}")
@@ -364,7 +386,7 @@ def _launch_bwd(q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dumm
     seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = kernels.load("aca_attention_bwd").flashvtg_aca_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-        _ptr(query_valid), _ptr(donor_rows), lse.data_ptr(), d_out.data_ptr(),
+        *(_ptr(t) for t in tables), lse.data_ptr(), d_out.data_ptr(),
         _ptr(d_head_mean), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), _ptr(workspace),
         b, lv, lk, num_heads, HEAD_DIM, num_dummies, bwd_tiling(lv, lk)[1], HEAD_DIM ** -0.5,
         seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
@@ -382,24 +404,27 @@ class _AttentionFn(torch.autograd.Function):
     Returns out, and head_mean when asked."""
 
     @staticmethod
-    def forward(ctx, q, k, v, key_valid, query_valid, donor_rows, num_heads,
-                num_dummies, want_head_mean, dropout, seed, name, form):
+    def forward(ctx, q, k, v, key_valid, donor_query_valid, donor_rows, num_heads,
+                num_dummies, want_head_mean, dropout, seed, name, form, donor_key_valid=None):
         on_cpu = q.device.type == "cpu"
         if dropout > 0 and not isinstance(seed, torch.Tensor):
             seed = seed_tensor(seed, q.device)
         out, head_mean, lse = (aca_attention_plain if on_cpu else _launch)(
             q, k, v, key_valid, num_heads, num_dummies, want_head_mean, dropout, seed,
-            query_valid, donor_rows, want_lse=True, form=form,
+            donor_query_valid, donor_rows, want_lse=True, form=form,
+            donor_key_valid=donor_key_valid,
         )
         if not on_cpu:
             _count(name, form)
-        ctx.save_for_backward(q, k, v, key_valid, query_valid, donor_rows, lse, seed)
+        ctx.save_for_backward(q, k, v, key_valid, donor_query_valid, donor_key_valid,
+                              donor_rows, lse, seed)
         ctx.args = (num_heads, num_dummies, dropout, name, form)
         return (out, head_mean) if want_head_mean else out
 
     @staticmethod
     def backward(ctx, d_out, d_head_mean=None):
-        q, k, v, key_valid, query_valid, donor_rows, lse, seed = ctx.saved_tensors
+        (q, k, v, key_valid, donor_query_valid, donor_key_valid, donor_rows, lse,
+         seed) = ctx.saved_tensors
         num_heads, num_dummies, dropout, name, form = ctx.args
         if d_out is None:
             d_out = torch.zeros_like(q)
@@ -407,11 +432,12 @@ class _AttentionFn(torch.autograd.Function):
         with autocast_off(q):
             dq, dk, dv = (aca_attention_bwd_plain if on_cpu else _launch_bwd)(
                 q, k, v, key_valid, lse, d_out, d_head_mean, num_heads, num_dummies,
-                dropout, seed, query_valid, donor_rows, form=form,
+                dropout, seed, donor_query_valid, donor_rows, form=form,
+                donor_key_valid=donor_key_valid,
             )
         if not on_cpu:
             _count(name + "_bwd", form)
-        return (dq, dk, dv) + (None,) * 10
+        return (dq, dk, dv) + (None,) * 11
 
 
 def _train_form(q, k, v, dropout, donor_rows):
@@ -424,10 +450,13 @@ def _train_form(q, k, v, dropout, donor_rows):
 
 def aca_attention(q, k, v, key_valid, num_heads: int, num_dummies: int,
                   want_head_mean: bool = True, dropout: float = 0.0,
-                  generator: Optional[torch.Generator] = None, query_valid=None,
-                  donor_rows=None) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+                  generator: Optional[torch.Generator] = None, donor_query_valid=None,
+                  donor_rows=None, donor_key_valid=None
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """ACA core: (out (B, Lv, H*Dh), head_mean (B, Lv, Lk) or None), in the
-    current dial's product form; bf16 operands are taken in float32."""
+    current dial's product form; bf16 operands are taken in float32. With
+    donor_rows (B, H), the donor-row mask from the donor tables
+    donor_query_valid (G, Lv) and donor_key_valid (G, Lk; None: key_valid)."""
     form = kernel_form()
     q, k, v = widened(q, k, v)
     with autocast_off(q):
@@ -440,9 +469,9 @@ def aca_attention(q, k, v, key_valid, num_heads: int, num_dummies: int,
             _count("aca_attention", form)
             return result
         seed = draw_seed(generator, q.device) if dropout > 0 else None
-        res = _AttentionFn.apply(q, k, v, key_valid, query_valid, donor_rows, num_heads,
+        res = _AttentionFn.apply(q, k, v, key_valid, donor_query_valid, donor_rows, num_heads,
                                  num_dummies, want_head_mean, dropout, seed, "aca_attention",
-                                 form)
+                                 form, donor_key_valid)
     return res if want_head_mean else (res, None)
 
 

@@ -25,6 +25,12 @@ the default CUDA generator, which every graph tracks; AdamW is capturable
 a device step count; autocast runs without its cast cache; the forward's
 host-made constants are copied to the card once, from pinned memory
 without a sync (models/components.py:device_constant).
+Under a NCCL process group (data parallel, parallel/mesh.py) the step holds
+the gradient all-reduce, which NCCL supports under stream capture (its
+communicator is made in the warm-up steps); that a replay sums the ranks'
+gradients across cards is unverified (at world 1 NCCL launches no kernel
+for it). gloo's collectives are host work and cannot be captured, and
+train/loop.py:epoch_mode runs eager steps under gloo.
 Warm-up steps (WARMUP_STEPS, real steps of the epoch) run eagerly on a
 side stream, as torch's whole-network capture recipe asks, under
 `torch.cuda.set_sync_debug_mode("error")`, so a step that would sync or

@@ -27,8 +27,18 @@ The packed step returns one (B, C) float32 tensor per batch (spans,
 scores, saliency, the loss vector), copied without blocking into pinned
 memory with a CUDA event; `_pipelined` keeps PIPELINE_DEPTH batches in
 flight and waits on the oldest one's event only. The rows, rounding, NMS
-and eval losses are those of one fetch per output. Not ported yet: mesh
-sharding (ROADMAP Queue A 7).
+and eval losses are those of one fetch per output.
+
+Under a process group (parallel/mesh.py; the counterpart of the JAX
+package's `_eval_shardings` / `_batch_putter`) the two inference loops deal
+the split's batches to the ranks, batch i to rank i % world, each batch
+whole on its rank (so a batch's arithmetic, its negative pass and its
+eval losses are one process's); every rank reads every row in the
+one-process order, so the per-access label draws are one process's. The
+rows, saliencies and losses of the batches are then gathered to every
+rank and put back in batch order: the submission and the loss sums are
+byte for byte one process's, and every rank computes the same metrics
+(train/loop.py:evaluate writes them on rank 0 alone).
 """
 
 from __future__ import annotations
@@ -53,6 +63,7 @@ from flashvtg_tpu_torch.eval.postprocess import build_post_processor
 from flashvtg_tpu_torch.losses import criterion
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.ops.nms import suppress_overlaps
+from flashvtg_tpu_torch.parallel import mesh
 from flashvtg_tpu_torch.utils.runtime import check_precision, float32_outputs, matmul_precision
 
 # batches in flight before the host waits on the oldest one's fetch
@@ -164,15 +175,40 @@ def _tail_bucket(n: int, bsz: int) -> int:
     return b
 
 
-def _batched(dataset: VTGDataset, collator: Collator, bsz: int, order=None):
-    n = len(dataset)
+def _batch_rows(n: int, bsz: int, order=None):
+    """The row indices of each batch of a split of n rows, in `order`."""
     order = list(range(n)) if order is None else list(order)
     i = 0
     while i < n:
         take = bsz if n - i >= bsz else _tail_bucket(n - i, bsz)
-        idx = order[i : i + take]
-        yield len(idx), idx, collator([dataset[j] for j in idx])
+        yield order[i : i + take]
         i += take
+
+
+def _batched(dataset: VTGDataset, collator: Collator, bsz: int, order=None):
+    for idx in _batch_rows(len(dataset), bsz, order):
+        yield len(idx), idx, collator([dataset[j] for j in idx])
+
+
+def _dealt_batches(dataset: VTGDataset, collator: Collator, bsz: int, order=None):
+    """(batch number, rows, row indices, collated batch) of the batches
+    dealt to this rank (batch i to rank i % world; every batch in one
+    process); the other ranks' rows are read (their label draws) and not
+    collated."""
+    w, r = mesh.world(), mesh.rank()
+    for bi, idx in enumerate(_batch_rows(len(dataset), bsz, order)):
+        samples = [dataset[j] for j in idx]
+        if bi % w == r:
+            yield bi, len(idx), idx, collator(samples)
+
+
+def _dealt(per_batch: List[tuple]) -> List[tuple]:
+    """Every rank's (batch number, ...) results, gathered and in batch
+    order: one process's sequence under a process group."""
+    if mesh.world() == 1:
+        return per_batch
+    return sorted((item for part in mesh.all_gather_objects(per_batch) for item in part),
+                  key=lambda item: item[0])
 
 
 def _eval_plan(cfg, dataset: VTGDataset):
@@ -310,19 +346,15 @@ def run_mr_inference(
     nms = nms_thd if nms_thd is not None else cfg.nms_thd
 
     def dispatch(item):
-        _, idx, batch = item
+        _, _, idx, batch = item
         lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
         return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, keys)
 
-    submission: List[dict] = []
-    loss_sums: Dict[str, float] = {}
-    n_rows = 0
-    for (real, idx, batch), (lv, (counts, fetched)) in _pipelined(
-            dispatch, _batched(dataset, collator, cfg.eval_bsz, order)):
+    per_batch = []  # (batch number, rows, losses, entries) of this rank's batches
+    for (bi, real, idx, batch), (lv, (counts, fetched)) in _pipelined(
+            dispatch, _dealt_batches(dataset, collator, cfg.eval_bsz, order)):
         spans, scores, saliency, losses = step.unpack(_ready(fetched), lv)
-        for k, v in losses.items():
-            loss_sums[k] = loss_sums.get(k, 0.0) + v * real
-        n_rows += real
+        entries = []
         # 4-decimal rounding in float64: reproduces float(f"{x:.4f}") for
         # float32-origin values
         sal_r = np.round(saliency.astype(np.float64), 4)
@@ -343,7 +375,17 @@ def run_mr_inference(
             )
             lvalid = int(batch["valid_v_lens"][j])
             entry["pred_saliency_scores"] = sal_r[j, :lvalid].tolist()
-            submission.append(entry)
+            entries.append(entry)
+        per_batch.append((bi, real, losses, entries))
+
+    submission: List[dict] = []
+    loss_sums: Dict[str, float] = {}
+    n_rows = 0
+    for _, real, losses, entries in _dealt(per_batch):
+        for k, v in losses.items():
+            loss_sums[k] = loss_sums.get(k, 0.0) + v * real
+        n_rows += real
+        submission.extend(entries)
 
     post = build_post_processor(cfg.dset_name, cfg.clip_length, cfg.v_feat_dim)
     submission = post(submission)
@@ -375,21 +417,24 @@ def run_hl_inference(cfg, model, dataset: VTGDataset) -> dict:
                           packed=True)
 
     def dispatch(item):
-        _, idx, batch = item
+        _, _, idx, batch = item
         lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
         return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, MODEL_KEYS)
 
-    preds, labels, saliency = [], [], {}
-    for (real, idx, batch), (lv, (_, fetched)) in _pipelined(
-            dispatch, _batched(dataset, collator, cfg.eval_bsz, order)):
+    per_batch = []  # (batch number, [(qid, saliency row, label, valid clips)])
+    for (bi, real, idx, batch), (lv, (_, fetched)) in _pipelined(
+            dispatch, _dealt_batches(dataset, collator, cfg.eval_bsz, order)):
         _, _, sal, _ = step.unpack(_ready(fetched), lv)
-        for j in range(real):
-            meta = batch["meta"][j]
+        per_batch.append((bi, [(batch["meta"][j]["qid"], sal[j].copy(), batch["meta"][j]["label"],
+                                int(batch["valid_v_lens"][j])) for j in range(real)]))
+    preds, labels, saliency = [], [], {}
+    for _, rows in _dealt(per_batch):
+        for qid, row, label, lvalid in rows:
             # the metric ranks the row up to the label length, as the JAX
             # package's does
-            preds.append(sal[j])
-            labels.append(meta["label"])
-            saliency[meta["qid"]] = sal[j, : int(batch["valid_v_lens"][j])]
+            preds.append(row)
+            labels.append(label)
+            saliency[qid] = row[:lvalid]
     mean_ap = compute_hl_map(cfg.dset_name, preds, labels)
     return {"brief": {"mAP": round(mean_ap, 5)}, "saliency": saliency}
 

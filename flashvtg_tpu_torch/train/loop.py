@@ -67,8 +67,34 @@ debug_nans (utils/observability.py:nan_tripwire) checks every module's
 forward output and runs autograd's anomaly mode, for this call of train()
 alone; after an epoch whose mean losses are not all finite it names the
 non-finite parameters. profile_dir traces the run's first epoch
-(utils/observability.py:profile_trace). Not ported yet (ROADMAP Queue A
-7): the data-parallel mesh and multi-host rows.
+(utils/observability.py:profile_trace).
+
+Data parallel (parallel/mesh.py; the JAX loop's mesh and multi-host
+rows): under a torch.distributed process group (`cli train` under
+torchrun) each rank takes bsz / world rows of every GLOBAL batch (a world
+that does not divide bsz raises). The epoch's one shuffle comes from
+cfg.seed on every rank; global batch i is the host-contiguous
+concatenation of the ranks' strided shards (mesh.assembled_order), whose
+rows every rank reads in that order (the per-access label draws are one
+process's), keeping its own; real_neg_mask is the global batch's
+(data/collate.py:global_real_neg_mask); steps_per_epoch and the learning
+rate schedule count global batches. Weights come from cfg.seed and are
+broadcast from rank 0; dropout (feature dropout, DropPath, the attention
+dropout's generator) draws from cfg.seed + rank, so the ranks draw
+different masks. The step runs the forward and the criterion inside
+mesh.split_batch() (the global batch's negative roll, donor rows and
+losses), backpropagates its share of the global loss and sums the
+gradients over the ranks before the clip, so every rank holds the global
+loss's gradient and takes the same update. Under NCCL the graph modes
+capture the step with that all-reduce in it (NCCL supports stream
+capture; a replay's sum across cards is unverified: at world 1 NCCL
+launches no kernel for it, and no run on several cards has been made);
+under gloo, whose collectives cannot be captured, every epoch runs eager
+steps (`epoch_mode`). Each rank
+holds the whole split's feed. Files, checkpoints and logs are rank 0's,
+with a barrier after each save; the evals deal whole batches to the ranks
+and gather the rows back (train/infer.py), so every rank reaches the same
+metrics and the same best-model and early-stop decisions.
 """
 
 from __future__ import annotations
@@ -85,7 +111,12 @@ from typing import Dict, Iterable, Optional
 import numpy as np
 import torch
 
-from flashvtg_tpu_torch.data.collate import TRAIN_KEYS, Collator
+from flashvtg_tpu_torch.data.collate import (
+    TRAIN_KEYS,
+    Collator,
+    global_real_neg_mask,
+    neg_pair_base,
+)
 from flashvtg_tpu_torch.data.dataset import HD_SETS, DataConfig, VTGDataset
 from flashvtg_tpu_torch.data.feed import (
     FEED_KEYS,
@@ -101,6 +132,7 @@ from flashvtg_tpu_torch.data.feed import (
     widen_features,
 )
 from flashvtg_tpu_torch.losses import criterion, declared_loss_keys
+from flashvtg_tpu_torch.parallel import mesh
 from flashvtg_tpu_torch.train.infer import (
     eval_data_config,
     run_hl_inference,
@@ -290,11 +322,22 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
     device-resident `feed` (data/feed.py), widened to float32 where the feed
     is bf16 (the streamed bf16 wire's rounding), the labels a placed batch
     without features. Each is device work alone, with no host sync, so a
-    CUDA graph can capture it (train/graph.py)."""
+    CUDA graph can capture it (train/graph.py).
+
+    Under a process group (parallel/mesh.py) the batch is this rank's rows
+    of the global batch: the forward and the criterion run inside
+    mesh.split_batch() (the global batch's couplings and losses), the
+    backward takes this rank's share of the global total (total / world),
+    and the gradients are summed over the ranks (one flat all-reduce) after
+    the zero-fill and before the clip, optax's order on the global
+    gradient; the losses returned are the global batch's, the same on
+    every rank."""
     check_precision(precision)
     keys = declared_loss_keys(loss_cfg)
     params = [p for p in model.parameters() if p.requires_grad]
     device = params[0].device
+    world = mesh.world()
+    split = mesh.split_batch if world > 1 else contextlib.nullcontext
 
     def update(batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         model.train()
@@ -303,25 +346,28 @@ def make_train_step(model, loss_cfg, optimizer, scheduler, grad_clip: float,
         # and an eager step must keep the graph's arithmetic (with the cache
         # on for the eager steps alone, eager and graph losses part at
         # bfloat16)
-        with matmul_precision(precision, device, autocast_cache=False):
-            out = model(
-                batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
-                batch["src_vid_mask"], real_neg_mask=batch.get("real_neg_mask"),
-                generator=generator,
-            )
-        losses = criterion(loss_cfg, float32_outputs(out), batch)
+        with split():
+            with matmul_precision(precision, device, autocast_cache=False):
+                out = model(
+                    batch["src_txt"], batch["src_txt_mask"], batch["src_vid"],
+                    batch["src_vid_mask"], real_neg_mask=batch.get("real_neg_mask"),
+                    generator=generator,
+                )
+            losses = criterion(loss_cfg, float32_outputs(out), batch)
+        total = losses["weighted_loss_overall"]
         optimizer.zero_grad(set_to_none=True)
         # the backward under the dial's TF32 flags (the attention Functions
         # keep their forward's form), autocast off as torch advises: each
         # op's backward takes the dtypes its forward saved
         with matmul_precision(precision, device, autocast_cache=False), \
                 torch.autocast(device.type, enabled=False):
-            losses["weighted_loss_overall"].backward()
+            (total / world if world > 1 else total).backward()
         # optax updates every leaf: a parameter the losses do not reach (the
         # HD sets' coord head and coef, with no loss_reg) still decays
         for p in params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        mesh.all_reduce_grads_(params)
         if grad_clip > 0:
             clip_by_global_norm_(params, grad_clip)
         optimizer.step()
@@ -418,16 +464,20 @@ def evaluate(cfg, model, eval_dataset, results_dir, tag="latest", loss_cfg=None,
     metrics_nms, eval_losses). MR sets write `{tag}_{dset}_{split}_preds.jsonl`,
     its `_nms_thd_{t}` pair when NMS ran, and, with compute_metrics (default:
     the split is "val"), the `_metrics.json` of each; HD sets score mAP and
-    write `{tag}_metric.jsonl`. `loss_cfg` adds the eval losses."""
+    write `{tag}_metric.jsonl`. `loss_cfg` adds the eval losses. Under a
+    process group the inference is sharded (train/infer.py), every rank
+    returns the same results, and rank 0 alone writes the files."""
     from flashvtg_tpu_torch.eval.metrics import eval_submission
 
     split_name = split_name or cfg.eval_split_name
     if compute_metrics is None:
         compute_metrics = cfg.eval_split_name == "val"
+    writes = mesh.rank() == 0
     model.eval()
     if cfg.dset_name in HD_SETS:
         metrics = {"brief": run_hl_inference(cfg, model, eval_dataset)["brief"]}
-        save_jsonl([metrics], os.path.join(results_dir, f"{tag}_metric.jsonl"))
+        if writes:
+            save_jsonl([metrics], os.path.join(results_dir, f"{tag}_metric.jsonl"))
         return metrics, None, {}
     t0 = time.time()
     submission, submission_nms, eval_losses = run_mr_inference(
@@ -435,20 +485,24 @@ def evaluate(cfg, model, eval_dataset, results_dir, tag="latest", loss_cfg=None,
     )
     infer_s = time.time() - t0
     sub_path = os.path.join(results_dir, f"{tag}_{cfg.dset_name}_{split_name}_preds.jsonl")
-    save_jsonl(submission, sub_path)
     nms_path = sub_path.replace(".jsonl", f"_nms_thd_{cfg.nms_thd}.jsonl")
-    if submission_nms is not None:
-        save_jsonl(submission_nms, nms_path)
+    if writes:
+        save_jsonl(submission, sub_path)
+        if submission_nms is not None:
+            save_jsonl(submission_nms, nms_path)
     metrics = metrics_nms = None
     if compute_metrics:
         t0 = time.time()
         metrics = eval_submission(submission, eval_dataset.data)
         logger.info("eval timing: infer %.2fs, metrics %.2fs (%d queries)",
                     infer_s, time.time() - t0, len(submission))
-        save_json(metrics, sub_path.replace(".jsonl", "_metrics.json"), pretty=True)
         if submission_nms is not None:
             metrics_nms = eval_submission(submission_nms, eval_dataset.data)
-            save_json(metrics_nms, nms_path.replace(".jsonl", "_metrics.json"), pretty=True)
+        if writes:
+            save_json(metrics, sub_path.replace(".jsonl", "_metrics.json"), pretty=True)
+            if metrics_nms is not None:
+                save_json(metrics_nms, nms_path.replace(".jsonl", "_metrics.json"),
+                          pretty=True)
     return metrics, metrics_nms, eval_losses
 
 
@@ -628,11 +682,18 @@ def epoch_mode(cfg, device, n_rows: int) -> EpochMode:
     (`feed_fits`); a graph on CUDA at a fixed max_v_l (every batch of one
     shape) with scan_steps > 1, not under debug or debug_nans (per-step
     eager steps for inspection, as the JAX loop runs no scan there); the
-    feed's chunks of scan_steps steps, of one under debug and debug_nans."""
+    feed's chunks of scan_steps steps, of one under debug and debug_nans.
+    Under a gloo process group every step is eager: gloo's collectives (the
+    step's gradient all-reduce) cannot be captured in a CUDA graph; NCCL
+    supports stream capture."""
     feed = feed_fits(cfg, n_rows)
     per_step = cfg.debug or cfg.debug_nans
     graph = (torch.device(device).type == "cuda" and not per_step and cfg.scan_steps > 1
              and cfg.max_v_l > 0)
+    if graph and mesh.backend() == "gloo":
+        logger.info("data parallel over gloo: eager steps (gloo collectives cannot be "
+                    "captured in a CUDA graph)")
+        graph = False
     chunk = max(cfg.scan_steps, 1) if feed and not per_step else 1
     return EpochMode(feed=feed, graph=graph, chunk=chunk)
 
@@ -756,7 +817,9 @@ def train(cfg, results_dir: Optional[str] = None, device=None,
     load (--resume, --resume_adapter, the optimizer's state), and the
     in-training evals and checkpoint saves read the graph's parameter and
     optimizer tensors in place; a capture that fails raises. debug_nans
-    and profile_dir as the module's doc says; both end with this call."""
+    and profile_dir as the module's doc says; both end with this call.
+    Under a process group every rank calls train() alike (the module's
+    doc: data parallel); `results_dir` is rank 0's."""
     with contextlib.ExitStack() as scope:
         return _train(cfg, results_dir, device, max_steps, scope)
 
@@ -765,6 +828,7 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
     from flashvtg_tpu_torch.models import build_model
     from flashvtg_tpu_torch.train.graph import FeedSteps, StreamedSteps
     from flashvtg_tpu_torch.utils.observability import (
+        NullWriter,
         ScalarWriter,
         check_finite_tree,
         nan_tripwire,
@@ -775,18 +839,26 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
 
     cfg.check_ported(train=True)
     device = resolve_device(device)
-    results_dir = results_dir or os.path.join(
+    world, rank = mesh.world(), mesh.rank()
+    local_bsz = mesh.build_group_for(cfg.bsz)
+    writes = rank == 0  # files, checkpoints and logs are rank 0's
+    results_dir = mesh.broadcast_object(results_dir or os.path.join(
         cfg.results_root,
         f"{cfg.dset_name}-{cfg.ctx_mode}-{cfg.exp_id}-{time.strftime('%Y-%m-%d-%H-%M-%S')}",
-    )
-    os.makedirs(results_dir, exist_ok=True)
-    cfg.save(os.path.join(results_dir, "opt.json"))
-    try:
-        snapshot_code(results_dir)
-    except Exception as e:  # a snapshot failure must never stop training
-        logger.warning("code snapshot failed: %s", e)
+    ))
+    if writes:
+        os.makedirs(results_dir, exist_ok=True)
+        cfg.save(os.path.join(results_dir, "opt.json"))
+        try:
+            snapshot_code(results_dir)
+        except Exception as e:  # a snapshot failure must never stop training
+            logger.warning("code snapshot failed: %s", e)
+    if world > 1:
+        logger.info("data parallel: rank %d of %d (%s), %d rows of each global batch of %d",
+                    rank, world, mesh.backend(), local_bsz, cfg.bsz)
 
-    torch.manual_seed(cfg.seed)  # feature dropout and DropPath draw from it
+    # feature dropout and DropPath draw from it: each rank its own stream
+    torch.manual_seed(cfg.seed + rank)
     train_dataset = VTGDataset(train_data_config(cfg, cfg.train_path))
     eval_dataset = VTGDataset(eval_data_config(
         cfg, cfg.eval_path, load_labels=cfg.eval_split_name == "val"
@@ -848,8 +920,9 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
                                 "model_best.ckpt")
             if os.path.isfile(cand):
                 prior_best_ckpt = cand
+    mesh.replicate_params(model)  # every rank starts from rank 0's weights
     step = make_train_step(model, loss_cfg, optimizer, scheduler, cfg.grad_clip,
-                           torch.Generator(device=device).manual_seed(cfg.seed),
+                           torch.Generator(device=device).manual_seed(cfg.seed + rank),
                            cfg.train_precision)
     keys = step.loss_keys
     mode = epoch_mode(cfg, device, len(train_dataset))
@@ -868,7 +941,7 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
         os.path.join(results_dir, "tensorboard_log"), use_tensorboard=cfg.use_tensorboard,
         wandb_run=dict(project=cfg.wandb_project, name=os.path.basename(results_dir),
                        config=dataclasses.asdict(cfg)) if cfg.use_wandb else None,
-    )
+    ) if writes else NullWriter()
     writer.write_text("hyperparameters",
                       json.dumps(dataclasses.asdict(cfg), indent=2, default=list))
     n_params = sum(p.numel() for p in model.parameters())
@@ -904,27 +977,36 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
             return None
         score = stop_metric(cfg, metrics["brief"])
         logger.info("[%s] eval %s", label, dict(metrics["brief"]))
-        with open(os.path.join(results_dir, "eval.log.txt"), "a") as f:
-            f.write("{} [Epoch] {:03d} [Loss] {} [Metrics] {}\n".format(
-                time.strftime("%Y_%m_%d_%H_%M_%S"), epoch,
-                " ".join(f"{k} {v:.4f}" for k, v in eval_losses.items()),
-                json.dumps(metrics),
-            ))
+        if writes:
+            with open(os.path.join(results_dir, "eval.log.txt"), "a") as f:
+                f.write("{} [Epoch] {:03d} [Loss] {} [Metrics] {}\n".format(
+                    time.strftime("%Y_%m_%d_%H_%M_%S"), epoch,
+                    " ".join(f"{k} {v:.4f}" for k, v in eval_losses.items()),
+                    json.dumps(metrics),
+                ))
+        # every rank holds the same metrics, so every rank takes this branch
         improved = score > best_score
         if improved:
             best_score, have_best = score, True
-            save_checkpoint(best_path, model, optimizer, scheduler, epoch, cfg,
-                            best_score=score)
+            save(best_path, epoch, score)
         return improved
+
+    def save(path, epoch, score):
+        if writes:
+            save_checkpoint(path, model, optimizer, scheduler, epoch, cfg, best_score=score)
+        mesh.barrier()
 
     if cfg.eval_untrained and eval_dataset is not None and start_epoch == 0:
         run_eval_and_select(-1, 0)
 
     shuffler = np.random.default_rng(cfg.seed)
     all_rows = np.arange(len(train_dataset))
+    global_vids = neg_pair_base([r["vid"] for r in train_dataset.data], cfg.dset_name)
+    own = slice(rank * local_bsz, (rank + 1) * local_bsz)
     global_step = steps_run = 0
     for epoch in range(start_epoch, n_epoch):
         shuffler.shuffle(all_rows)
+        order = mesh.assembled_order(all_rows, world, local_bsz)
         epoch_t0 = time.time()
         n_steps = steps_per_epoch if max_steps is None else min(steps_per_epoch,
                                                                  max_steps - steps_run)
@@ -933,12 +1015,19 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
                                device=device)
 
         def host_batch(i):
-            """Step i's row indices and collated batch (None for a short
-            batch): host work, made on the prefetch thread."""
-            idx = all_rows[i * cfg.bsz : (i + 1) * cfg.bsz]
-            if len(idx) < cfg.bsz:
+            """Step i's row indices and collated batch, this rank's rows of
+            global batch i (None for a short batch): host work, made on the
+            prefetch thread. Every row of the global batch is read in its
+            order, so the label draws are one process's."""
+            rows = order[i * cfg.bsz : (i + 1) * cfg.bsz]
+            if len(rows) < cfg.bsz:
                 return None
-            return idx, step_collator([train_dataset[j] for j in idx])
+            samples = [train_dataset[j] for j in rows]
+            batch = step_collator(samples[own])
+            if world > 1:
+                batch["real_neg_mask"] = global_real_neg_mask(global_vids, all_rows, i,
+                                                              local_bsz, world, rank)
+            return rows[own], batch
 
         # the run's first epoch traced into profile_dir (the JAX loop's)
         with (profile_trace(cfg.profile_dir) if epoch == start_epoch
@@ -966,10 +1055,10 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
                      prefix="perf/")
         loss_str = " ".join(f"{k} {m.avg:.4f}" for k, m in meters.items())
         logger.info("[epoch %d] (%.1fs) %s", epoch + 1, dt, loss_str)
-        # the reference's epoch line (train.py:93-103)
-        with open(os.path.join(results_dir, "train.log.txt"), "a") as f:
-            f.write("{} [Epoch] {:03d} [Loss] {}\n".format(
-                time.strftime("%Y_%m_%d_%H_%M_%S"), epoch + 1, loss_str))
+        if writes:  # the reference's epoch line (train.py:93-103)
+            with open(os.path.join(results_dir, "train.log.txt"), "a") as f:
+                f.write("{} [Epoch] {:03d} [Loss] {}\n".format(
+                    time.strftime("%Y_%m_%d_%H_%M_%S"), epoch + 1, loss_str))
 
         if eval_dataset is not None and (epoch + 1) % cfg.eval_epoch == 0:
             improved = run_eval_and_select(epoch, global_step)
@@ -980,11 +1069,14 @@ def _train(cfg, results_dir, device, max_steps, scope: contextlib.ExitStack):
                 if cfg.max_es_cnt != -1 and es_cnt > cfg.max_es_cnt:
                     logger.info("early stop at epoch %d", epoch)
                     break
-        save_checkpoint(os.path.join(results_dir, "model_latest.ckpt"), model, optimizer,
-                        scheduler, epoch, cfg, best_score=best_score)
+        save(os.path.join(results_dir, "model_latest.ckpt"), epoch, best_score)
         if max_steps is not None and steps_run >= max_steps:
             break
     writer.close()
+    if train_steps.graph is not None:
+        logger.info("train steps: %d CUDA-graph replays of one capture (%.2f s)%s",
+                    train_steps.replays, train_steps.capture_s,
+                    f", under a {mesh.backend()} group of world {world}" if mesh.active() else "")
 
     finals = bool(cfg.test_path) and eval_dataset is not None
     if finals:  # the latest model first, as the JAX loop evaluates them

@@ -4,6 +4,7 @@ Counterpart of flashvtg_tpu/utils/observability.py:
   * `ScalarWriter`: scalars.jsonl always; TensorBoard events through
     torch.utils.tensorboard when it imports; a wandb run when asked for and
     wandb imports. A sink that is missing costs one warning, never the run.
+    `NullWriter` writes nothing (the data-parallel ranks other than 0).
   * `profile_trace(log_dir)`: a torch.profiler trace (host ops, and the
     card's kernels and copies where CUDA is present) around a block,
     written into log_dir as `<worker>.<time>.pt.trace.json`, which
@@ -94,6 +95,20 @@ class ScalarWriter:
             self._tb.close()
         if self._wb is not None:
             self._wb.finish()
+
+
+class NullWriter:
+    """A ScalarWriter that writes nothing: the data-parallel ranks other than
+    rank 0, whose scalars rank 0 writes."""
+
+    def write(self, step: int, scalars: Dict[str, float], prefix: str = "") -> None:
+        pass
+
+    def write_text(self, tag: str, text: str) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 @contextlib.contextmanager

@@ -449,6 +449,47 @@ def test_flash_backward_row_without_valid_key_is_zero(cuda):
         assert torch.isfinite(g).all()
 
 
+@pytest.mark.parametrize("rank", [0, 1])
+def test_aca_train_kernels_donor_tables_match_plain(cuda, rank):
+    """The training forward and the backward with donor tables of G = 8 >
+    B = 4 rows (a rank's rows of a data-parallel global batch, its donors
+    on the other rank too) against the plain versions on the same tables;
+    and at G = B with the batch's own masks, the same results as without
+    donor_key_valid (today's arithmetic, bit for bit)."""
+    from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
+
+    b, g_rows, lv, lk, heads, nd, p, seed = 4, 8, 75, 42, 8, 10, 0.1, 99
+    q, k, v, valid = _inputs(b, lv, lk, heads, 41, pad_from=20)
+    gen = torch.Generator().manual_seed(42)
+    key_table = _holes(g_rows, lk, 12, always=nd)
+    query_table = (torch.arange(lv)[None]
+                   < torch.randint(1, lv + 1, (g_rows, 1), generator=gen)).float()
+    own = slice(rank * b, (rank + 1) * b)
+    key_table[own] = valid
+    donors = tiled_attn_donors(g_rows, heads)[own]
+    d_out, d_hm = torch.randn(q.shape, generator=gen), torch.randn((b, lv, lk), generator=gen)
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    tables = dict(donor_key_valid=key_table.to(cuda))
+    dn = (query_table.to(cuda), donors.to(cuda))
+    out, hm, lse = aca._launch(*t, heads, nd, True, p, seed, *dn, want_lse=True, **tables)
+    ref = aca.aca_attention_plain(*t, heads, nd, True, p, seed, *dn, want_lse=True, **tables)
+    torch.cuda.synchronize()
+    for got, want in zip((out, hm, lse), ref):
+        assert (got - want).abs().max().item() <= ATOL
+    grads = aca._launch_bwd(*t, lse, d_out.to(cuda), d_hm.to(cuda), heads, nd, p, seed, *dn,
+                            **tables)
+    ref_grads = aca.aca_attention_bwd_plain(*t, ref[2], d_out.to(cuda), d_hm.to(cuda), heads,
+                                            nd, p, seed, *dn, **tables)
+    for got, want in zip(grads, ref_grads):
+        assert _rel_err(got, want) <= GRAD_RTOL
+    # G = B: the batch's own tables, bit for bit the call without them
+    own_dn = (query_table[own].to(cuda), tiled_attn_donors(b, heads).to(cuda))
+    with_tables = aca._launch(*t, heads, nd, True, p, seed, *own_dn, want_lse=True,
+                              donor_key_valid=t[3])
+    without = aca._launch(*t, heads, nd, True, p, seed, *own_dn, want_lse=True)
+    assert all(torch.equal(x, y) for x, y in zip(with_tables, without))
+
+
 def test_attention_functions_count_and_match_cpu(cuda):
     """The autograd Functions through the wrappers: each forward and
     backward launch is counted; with dropout off, card gradients match the
@@ -464,7 +505,7 @@ def test_attention_functions_count_and_match_cpu(cuda):
     for dev in ("cpu", cuda):
         leaves = [x.detach().to(dev).requires_grad_() for x in (q, k, v, qs, ks, vs)]
         out, hm = aca.aca_attention(*leaves[:3], valid.to(dev), heads, nd,
-                                    query_valid=vmask.to(dev), donor_rows=donors.to(dev))
+                                    donor_query_valid=vmask.to(dev), donor_rows=donors.to(dev))
         sa = chunked_attn.flash_attention(*leaves[3:], vmask.to(dev), heads)
         sm = aca.masked_attention(leaves[3][:, :lk].contiguous(), leaves[4][:, :lk].contiguous(),
                                   leaves[5][:, :lk].contiguous(), valid.to(dev), heads)
