@@ -14,7 +14,9 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      product (on mma.sync) must have some, all but the flash backward's D
      pre-pass and the ACA backward's chunk-sum pass; and per product form
      (each kernel is a template on it): the 1xTF32 and the bf16 instances
-     must hold fewer than the 3xTF32 ones;
+     must hold fewer than the 3xTF32 ones; and by instruction: the flash
+     backward's bf16 instances (dq, dk/dv) the bf16 mma.sync.m16n8k16 alone,
+     every other instance the TF32 m16n8k8 alone;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
      two eval paths give them (atol 1e-5: both are f32-accurate, the
      kernels' products in 3xTF32, and differ in the order of their sums),
@@ -268,11 +270,16 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # sheet's dense rates: f32-accurate products (3xTF32) at the TF32 rate,
 # 495 TFLOP/s, over its three TF32 products; TF32 products at 495; bf16
 # operands with f32 sums at the bf16 rate, 989, whatever instruction a
-# kernel takes them on (the port's take them on the TF32 one, so they can
-# reach half this bound at best)
+# kernel takes them on (the flash backward's bf16 instances take them on
+# the bf16 one; the other kernels' on the TF32 one, so they can reach half
+# this bound at best)
 DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
+# the SASS of mma.sync.m16n8k8 on tf32 and of m16n8k16 on bf16, and the
+# kernels whose bf16 instances take the latter (kernels.sass_mma_kinds)
+TF32_MMA, BF16_MMA = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
+BF16_MMA_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # phase 14: a kernel against its plain version at the same form (which
 # rounds the same operands), relative to max(max |plain|, 0.1): about 2-3
 # times the largest gap the card has shown over the shapes of phases 3 and 7
@@ -940,8 +947,8 @@ def phase_train_kernels(dev, seed, form="3xtf32"):
     the backward kernels at each train path's shapes and `form`, dropout on,
     through their launchers (timed) and through the autograd Functions that
     the model calls. Returns the backward kernels' rows (at the TACoS train
-    shapes, errors the largest over every shape) and every shape's
-    readings, which are logged."""
+    shapes, the flash backward also at TVSum's; errors the largest over
+    every shape) and every shape's readings, which are logged."""
     import torch
 
     rng = np.random.default_rng(seed + 1)
@@ -990,12 +997,17 @@ def phase_train_kernels(dev, seed, form="3xtf32"):
               "flash_attention_bwd": "flash_attention_bwd.cu"}
     rows = []
     for name, found in readings.items():
-        rows.append(dict(
-            found[0], name=form_name(name, form), kernel=name, route="cuda",
-            source="flashvtg_tpu_torch/csrc/" + source[name], replaces="scripts/bench_flash.py:67",
-            **{key: max(r[key] for r in found)
-               for key in ("max_abs_err", "max_rel_err", "function_rel_err")},
-        ))
+        # at the TACoS train shape; the flash backward also at TVSum's
+        at = {"": found[0], " tvsum_train": found[1]} if name == "flash_attention_bwd" else {
+            "": found[0]}
+        for suffix, reading in at.items():
+            rows.append(dict(
+                reading, name=form_name(name, form) + suffix, kernel=name, route="cuda",
+                source="flashvtg_tpu_torch/csrc/" + source[name],
+                replaces="scripts/bench_flash.py:67",
+                **{key: max(r[key] for r in found)
+                   for key in ("max_abs_err", "max_rel_err", "function_rel_err")},
+            ))
     return rows, shapes
 
 
@@ -3291,7 +3303,9 @@ def main():
         kernels.load(name)
         log(f"[build] {name}:\n{reports[name]}")
     log(f"[build] {time.perf_counter() - t0:.2f} s")
-    hmma = {name: kernels.sass_mma_counts(name) for name in kernels.SOURCES}
+    kinds = {name: kernels.sass_mma_kinds(name) for name in kernels.SOURCES}
+    hmma = {name: {fn: sum(per.values()) for fn, per in kinds[name].items()}
+            for name in kernels.SOURCES}
     log(f"[build] tensor-core instructions (SASS HMMA lines) per kernel: {json.dumps(hmma)}")
     for name in kernels.SOURCES:  # every product on mma.sync
         for fn, n in hmma[name].items():
@@ -3307,6 +3321,16 @@ def main():
     assert len(hmma_forms) == 5, hmma_forms
     for fn, per in hmma_forms.items():
         assert 0 < per["1xtf32"] < per["3xtf32"] and 0 < per["bf16"] < per["3xtf32"], (fn, per)
+    # which instruction: the flash backward's bf16 instances on the bf16 one
+    # (mma.sync.m16n8k16, HMMA.16816.F32.BF16) alone, every other instance
+    # on the TF32 one (m16n8k8, HMMA.1688.F32.TF32) alone
+    hmma_kinds = {k: v for name in kernels.SOURCES
+                  for k, v in kernels.mma_kinds_by_form(kinds[name]).items()}
+    log(f"[build] SASS HMMA instructions per kernel and form: {json.dumps(hmma_kinds)}")
+    for fn, per in hmma_kinds.items():
+        for form, found in per.items():
+            want = BF16_MMA if form == "bf16" and fn in BF16_MMA_KERNELS else TF32_MMA
+            assert list(found) == [want], (fn, form, found)
 
     if args.only == "dp":
         log(f"[train kernels] {json.dumps(phase_train_kernels(dev, args.seed))}")
@@ -3454,7 +3478,8 @@ def main():
             "max_rel_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "shape",
             "launches_by_path", "device_function", "device_launches")
     print(json.dumps({"paths": paths, "kernel_shapes": shapes, "sass_hmma": hmma,
-                      "sass_hmma_by_form": hmma_forms, "form_identity": form_identity,
+                      "sass_hmma_by_form": hmma_forms, "sass_hmma_kinds": hmma_kinds,
+                      "form_identity": form_identity,
                       "streamed_train": {p: {k: v for k, v in r.items() if k != "dials"}
                                          for p, r in streamed.items()},
                       "debug_nans": runs["debug_nans"], "utilisation": util}))

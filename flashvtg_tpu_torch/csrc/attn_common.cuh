@@ -67,7 +67,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //     (__floats2bfloat162_rn's rounding), and taken on the same TF32
 //     instruction: a bf16 value is exact in TF32 and the product of two is
 //     exact in f32, so this is bit for bit the arithmetic of bf16 operands
-//     with f32 sums (a real m16n8k16 bf16 instruction is later work).
+//     with f32 sums. The flash backward's bf16 instances take the same
+//     operands on the bf16 instruction itself, mma.sync.m16n8k16, from bf16
+//     tiles in shared memory (the section after dot_form below); the other
+//     kernels' bf16 instances are still on the TF32 one.
 // The 1xTF32 and bf16 forms keep the 3xTF32 form's accumulation order: each
 // k-step's product in a fresh accumulator (dot_form below), each chunk of
 // keys in fresh accumulators added on the CUDA cores.
@@ -274,3 +277,152 @@ __device__ __forceinline__ void load_kv_tile(float* k_s, float* v_s, const float
     }
   }
 }
+
+// ---- bf16 operands on the bf16 instruction (mma.sync.m16n8k16) ---------------
+//
+// The flash backward's bf16 form (flash_attention_bwd.cu) takes its products
+// on mma.sync.m16n8k16 (bf16 in, f32 out): twice the k of the TF32
+// instruction, at twice its rate. Its operands are rounded to bf16 once,
+// where they are staged, by split_pair's conversion (cvt.rn.bf16x2.f32, to
+// nearest even), so they are the bits the m16n8k8 bf16 form takes.
+// Fragments, g = lane / 4, t = lane % 4; a register holds two bf16 values,
+// the lower column (or k row) in its low half:
+//   A (16 x 16, row major): a0 (g, 2t..2t+1), a1 (g + 8, 2t..2t+1),
+//                           a2 (g, 2t+8..2t+9), a3 (g + 8, 2t+8..2t+9)
+//   B (16 x 8, k x n):      b0 (2t..2t+1, g), b1 (2t+8..2t+9, g)
+//   C (16 x 8):             c0 (g, 2t), c1 (g, 2t + 1), c2 (g + 8, 2t), c3 (g + 8, 2t + 1)
+// The C tiles of two adjacent 8-column n-tiles feed the next product as one
+// A operand, in natural column order: a0 = (c0, c1) and a1 = (c2, c3) of the
+// first tile, a2 = (c0, c1) and a3 = (c2, c3) of the second; the B operand
+// of that product reads its k rows in their natural order too.
+// A tile in shared memory is bf16 rows of kBStride elements (80 bytes, so
+// the eight 16-byte rows of an 8 x 8 matrix that ldmatrix reads fall in
+// distinct banks). ldmatrix.x4 reads four 8 x 8 matrices, lanes 8m .. 8m + 7
+// giving the row addresses of matrix m, and leaves matrix m in register m:
+// as stored, lane (g, t) holds row g, columns 2t and 2t + 1, the B operand
+// of a product whose k index runs along the rows (K for S = Q K^T); with
+// .trans, rows 2t and 2t + 1 of column g, the B operand of one whose k index
+// runs down the rows (K for dq = dS K).
+
+constexpr int kBStride = kDh + 8;  // bf16 elements a row of a bf16 tile
+
+// {x (low half), y (high half)}, each rounded to bf16, to nearest even
+__device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
+  uint32_t u;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(u) : "f"(y), "f"(x));
+  return u;
+}
+
+// four floats as bf16 into a tile in shared memory (p 8-byte aligned)
+__device__ __forceinline__ void st_bf16x4(uint16_t* p, float4 x) {
+  *reinterpret_cast<uint2*>(p) = make_uint2(pack_bf16(x.x, x.y), pack_bf16(x.z, x.w));
+}
+
+// c += a b, bf16 in, f32 out
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const uint16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const uint16_t* p) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// The A operand of a 16-row set over the head dim, two k16 steps, from
+// device memory at `p` (row g's element 2t of the set's first row, `row8`
+// floats on to row g + 8), each value times `mult` before the rounding
+__device__ __forceinline__ void frag_a16_rows(uint32_t (&a)[kDh / 16][4], const float* p,
+                                              size_t row8, float mult) {
+#pragma unroll
+  for (int ks = 0; ks < kDh / 16; ++ks) {
+    const float* r = p + 16 * ks;
+    const float2 x0 = *reinterpret_cast<const float2*>(r);
+    const float2 x1 = *reinterpret_cast<const float2*>(r + row8);
+    const float2 x2 = *reinterpret_cast<const float2*>(r + 8);
+    const float2 x3 = *reinterpret_cast<const float2*>(r + row8 + 8);
+    a[ks][0] = pack_bf16(x0.x * mult, x0.y * mult);
+    a[ks][1] = pack_bf16(x1.x * mult, x1.y * mult);
+    a[ks][2] = pack_bf16(x2.x * mult, x2.y * mult);
+    a[ks][3] = pack_bf16(x3.x * mult, x3.y * mult);
+  }
+}
+
+// the A operand of a product from the C tiles lo (columns 0-7) and hi
+// (columns 8-15) of the previous one
+__device__ __forceinline__ void frag_a16_from_c(uint32_t (&a)[4], const float (&lo)[4],
+                                                const float (&hi)[4]) {
+  a[0] = pack_bf16(lo[0], lo[1]);
+  a[1] = pack_bf16(lo[2], lo[3]);
+  a[2] = pack_bf16(hi[0], hi[1]);
+  a[3] = pack_bf16(hi[2], hi[3]);
+}
+
+// The 16 x 8 tile c = a b^T over the head dim: a's two k16 steps in
+// registers, b the ldmatrix.x4 of its 8 rows as stored (register 2 ks and
+// 2 ks + 1 step ks's B operand). Each step's product goes to a fresh
+// accumulator and the two are added on the CUDA cores, as dot_form adds its
+// k-steps. The flash backward takes S and dP (dq kernel) and S^T and dP^T
+// (dk/dv kernel) here alike: the same products in the same order, one
+// bf16 product a term, so S^T is S transposed bit for bit.
+__device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh / 16][4],
+                                         const uint32_t (&b)[4]) {
+  float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_bf16(s0, a[0], b[0], b[1]);
+  mma_bf16(s1, a[1], b[2], b[3]);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) c[e] = s0[e] + s1[e];
+}
+
+// The flash backward's staged rows in bf16, beside load_kv_tile: kRows rows
+// of 32 floats of one head, from device memory into registers (16-byte
+// loads, kRows * 8 / kThreads of each tensor a thread), then rounded to bf16
+// into tiles of kBStride rows. The two halves are apart so that a block can
+// compute while the loads are in flight. load_rows reads row j of `base`
+// (`stride` floats a row) as row min(j, last) where `last` >= 0, and as
+// zeros past `len` where `last` < 0 (the key tile's rows past len, whose
+// probabilities are exactly 0: 0 times stale shared memory could be NaN).
+template <int kRows, int kThreads>
+struct RowsBF16 {
+  static constexpr int kVecs = kRows * (kDh / 4) / kThreads;
+  static_assert(kVecs * kThreads == kRows * (kDh / 4), "whole rows a block");
+  float4 x[kVecs];
+
+  __device__ __forceinline__ void load(const float* base, size_t stride, int j0, int len,
+                                       int last) {
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int i = threadIdx.x + kThreads * u;
+      const int j = j0 + (i >> 3);
+      if (last >= 0) {
+        x[u] = ld4(base + (size_t)min(j, last) * stride + (i & 7) * 4);
+      } else {
+        x[u] = j < len ? ld4(base + (size_t)j * stride + (i & 7) * 4)
+                       : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+    }
+  }
+
+  // rows r0 .. r0 + kRows - 1 of the tile at `tile`, each value times mult
+  __device__ __forceinline__ void store(uint16_t* tile, int r0, float mult = 1.f) const {
+#pragma unroll
+    for (int u = 0; u < kVecs; ++u) {
+      const int i = threadIdx.x + kThreads * u;
+      const float4 v = x[u];
+      st_bf16x4(tile + (r0 + (i >> 3)) * kBStride + (i & 7) * 4,
+                make_float4(v.x * mult, v.y * mult, v.z * mult, v.w * mult));
+    }
+  }
+};

@@ -75,6 +75,17 @@
 // tensorfloat32 form; bf16 operands with f32 sums are the bfloat16 form
 // (attn_common.cuh; the dq and dk/dv kernels are templates on it, the D
 // pre-pass has no product).
+// The bf16 form has bodies of its own (dkdv_bf16, dq_bf16), on the bf16
+// instruction mma.sync.m16n8k16 from bf16 tiles in shared memory: half the
+// tensor-core instructions of the m16n8k8 form and no conversion inside
+// the product loops. Its S and dP (dq kernel) and S^T and dP^T (dk/dv
+// kernel) come from one helper, attn_common.cuh dot_bf16, so the two
+// kernels' P and dP agree bit for bit and D' sums the very terms the dk/dv
+// kernel forms. But the forward's bf16 S runs on m16n8k8, so
+// at a row's only key P = exp2((s - lse) log2 e) is 1 only to about an ulp
+// of s: dS there is about 1e-6 |dP|, far inside the bf16 form's tolerance
+// (6e-3 of the largest gradient), where the f32 forms give exactly 0. A
+// batch row with no valid key still gets zeros everywhere (P = 0).
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -176,11 +187,382 @@ __device__ __forceinline__ void load_query_stage(const Operands& a, float* stage
   }
 }
 
+// ---- the bf16 form on mma.sync.m16n8k16 (attn_common.cuh) -------------------
+//
+// The same two kernels, their operands rounded to bf16 once, where they are
+// staged: the dk/dv kernel's query stage as three bf16 tiles (scale q for
+// S^T, q for dk, dO), the dq kernel's key stage as two (K, V), each loaded
+// from device memory through registers and stored rounded, the next stage's
+// rows in flight while the block computes the current one (a part of the
+// stage a 16-row set or 32-key chunk); the lse, D' and row hashes by
+// cp.async as in the f32 stage. Every product is one m16n8k16 step or two:
+// S^T / dP^T (S / dP) two over the head dim (dot_bf16, the same helper in
+// both kernels), dv += (P z)^T dO and dk += dS^T Q one over a set's 16 query
+// rows, dq += dS K two over a chunk's 32 keys; B operands by ldmatrix, the
+// transposed ones by ldmatrix.trans; P z and dS feed the next product from
+// registers (frag_a16_from_c). The element-wise work, the masks, the
+// dropout, the fresh accumulators added on the CUDA cores and the order of
+// every sum are the f32 forms'.
+
+constexpr int kQTileBF16 = kQTile * kBStride;                   // bf16 elements
+constexpr int kQStageBytesBF16 = 3 * kQTileBF16 * 2 + 3 * kQTile * 4;
+constexpr int kKvTileBF16 = kDqKeys * kBStride;
+static_assert(kQStageBytesBF16 % 16 == 0, "16-byte aligned stages");
+using QRowsBF16 = RowsBF16<kQSub, kWarps * 32>;
+using KvRowsBF16 = RowsBF16<kDqChunk, kWarps * 32>;
+
+// the lse, D' and dropout row hashes of query rows row0 .. row0 + kQTile - 1
+// (rows past len read row len - 1), as load_query_stage's
+__device__ __forceinline__ void load_query_scalars(const Operands& a, unsigned char* stage,
+                                                   int b, int h, int row0, uint32_t drop_h) {
+  float* lse_s = reinterpret_cast<float*>(stage + 3 * kQTileBF16 * 2);
+  float* d_s = lse_s + kQTile;
+  uint32_t* rh_s = reinterpret_cast<uint32_t*>(d_s + kQTile);
+  for (int r = threadIdx.x; r < kQTile; r += blockDim.x) {
+    const size_t g = ((size_t)b * a.heads + h) * a.len + min(row0 + r, a.len - 1);
+    cp_async4(lse_s + r, a.lse + g);
+    cp_async4(d_s + r, a.delta + g);
+    rh_s[r] = a.threshold != 0u ? drop_row(drop_h, row0 + r) : 0u;
+  }
+}
+
+__device__ __forceinline__ void dkdv_bf16(const Operands& a, unsigned char* stages) {
+  static_assert(kQSub == 16, "one k16 step of dk and dv a set");
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int d_model = a.heads * kDh;
+  const float* mb = a.key_valid + (size_t)b * a.len;
+  const int key0 = (int)blockIdx.x * kKvKeys + warp * 16 + g;
+  const int key[2] = {key0, key0 + 8};
+  const bool key_ok[2] = {key[0] < a.len && mb[key[0]] > 0.f,
+                          key[1] < a.len && mb[key[1]] > 0.f};
+  const size_t head0 = (size_t)b * a.len * d_model + h * kDh;  // row 0 of this head
+  // ldmatrix rows: as stored (S^T, dP^T), and transposed, 8-row halves
+  // (dv, dk)
+  const int ld_row = lane & 7, ld_col = 8 * (lane >> 3);
+  const int tr_row = 8 * ((lane >> 3) & 1) + (lane & 7), tr_col = 8 * (lane >> 4);
+
+  float dk[kDh / 8][4], dv[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dk[n][e] = 0.f;
+      dv[n][e] = 0.f;
+    }
+
+  if (__syncthreads_or(key_ok[0] || key_ok[1])) {
+    const uint32_t drop_h = drop_head(drop_seed(a.seed), b * a.heads + h);
+    load_query_scalars(a, stages, b, h, 0, drop_h);
+    cp_async_commit();
+    {
+      uint16_t* qs_s = reinterpret_cast<uint16_t*>(stages);
+#pragma unroll 1
+      for (int r0 = 0; r0 < kQTile; r0 += kQSub) {
+        QRowsBF16 q, d_o;
+        q.load(a.q + head0, d_model, r0, a.len, a.len - 1);
+        d_o.load(a.d_out + head0, d_model, r0, a.len, a.len - 1);
+        q.store(qs_s, r0, a.scale);
+        q.store(qs_s + kQTileBF16, r0);
+        d_o.store(qs_s + 2 * kQTileBF16, r0);
+      }
+    }
+
+    // the warp's 16 keys of K and V in bf16, the A operand of S^T and dP^T
+    uint32_t kf[kDh / 16][4], vf[kDh / 16][4];
+    {
+      const size_t g0 = head0 + (size_t)min(key[0], a.len - 1) * d_model + 2 * t;
+      const size_t row8 = (size_t)(min(key[1], a.len - 1) - min(key[0], a.len - 1)) * d_model;
+      frag_a16_rows(kf, a.k + g0, row8, 1.f);
+      frag_a16_rows(vf, a.v + g0, row8, 1.f);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    const int n_q = (a.len + kQTile - 1) / kQTile;
+    for (int qt = 0; qt < n_q; ++qt) {
+      const bool more = qt + 1 < n_q;
+      unsigned char* cur = stages + (qt & 1) * kQStageBytesBF16;
+      unsigned char* nxt = stages + ((qt + 1) & 1) * kQStageBytesBF16;
+      if (more) load_query_scalars(a, nxt, b, h, (qt + 1) * kQTile, drop_h);
+      cp_async_commit();
+      const uint16_t* qs_s = reinterpret_cast<const uint16_t*>(cur);
+      const uint16_t* q_s = qs_s + kQTileBF16;
+      const uint16_t* do_s = q_s + kQTileBF16;
+      const float* lse_s = reinterpret_cast<const float*>(do_s + kQTileBF16);
+      const float* d_s = lse_s + kQTile;
+      const uint32_t* rh_s = reinterpret_cast<const uint32_t*>(d_s + kQTile);
+
+#pragma unroll 1
+      for (int sub = 0; sub < kQTile; sub += kQSub) {
+        // the next stage's rows of this set, in flight while it computes
+        QRowsBF16 q_next, do_next;
+        if (more) {
+          q_next.load(a.q + head0, d_model, (qt + 1) * kQTile + sub, a.len, a.len - 1);
+          do_next.load(a.d_out + head0, d_model, (qt + 1) * kQTile + sub, a.len, a.len - 1);
+        }
+
+        // S^T = K (scale Q)^T and dP^T = V dO^T: keys x kQSub query rows
+        float st[kQSub / 8][4], dpt[kQSub / 8][4];
+#pragma unroll
+        for (int n = 0; n < kQSub / 8; ++n) {
+          const int off = (sub + 8 * n + ld_row) * kBStride + ld_col;
+          uint32_t qr[4], dr[4];
+          ldsm_x4(qr, qs_s + off);
+          ldsm_x4(dr, do_s + off);
+          dot_bf16(st[n], kf, qr);
+          dot_bf16(dpt[n], vf, dr);
+        }
+
+        // P^T z and dS^T in place; this lane's query rows are 2t, 2t + 1
+        // of each 8
+#pragma unroll
+        for (int n = 0; n < kQSub / 8; ++n) {
+          const int li = sub + 8 * n + 2 * t;  // the first of the two rows, in the stage
+          const int row = qt * kQTile + li;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int c = e & 1;  // which of the two rows
+            const int r = e >> 1;  // which of the two keys
+            const bool live = key_ok[r] && row + c < a.len;
+            const float p = live ? exp2_fast((st[n][e] - lse_s[li + c]) * kLog2e) : 0.f;
+            const float z = a.threshold != 0u
+                                ? drop_scale(rh_s[li + c], key[r], a.threshold, a.keep_scale)
+                                : 1.f;
+            st[n][e] = p * z;
+            dpt[n][e] = p * (z * dpt[n][e] - d_s[li + c]);
+          }
+        }
+
+        // dv += (P z)^T dO and dk += dS^T Q over the set's 16 rows: one k16
+        // step per 8 head columns, each in a fresh accumulator added to dk
+        // and dv on the CUDA cores
+        uint32_t pa[4], da[4];
+        frag_a16_from_c(pa, st[0], st[1]);
+        frag_a16_from_c(da, dpt[0], dpt[1]);
+#pragma unroll
+        for (int np = 0; np < kDh / 16; ++np) {
+          const int off = (sub + tr_row) * kBStride + 16 * np + tr_col;
+          uint32_t ot[4], qt4[4];
+          ldsm_x4_trans(ot, do_s + off);
+          ldsm_x4_trans(qt4, q_s + off);
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const int n = 2 * np + half;
+            float pdv[4] = {0.f, 0.f, 0.f, 0.f}, pdk[4] = {0.f, 0.f, 0.f, 0.f};
+            mma_bf16(pdv, pa, ot[2 * half], ot[2 * half + 1]);
+            mma_bf16(pdk, da, qt4[2 * half], qt4[2 * half + 1]);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dv[n][e] += pdv[e];
+              dk[n][e] += pdk[e];
+            }
+          }
+        }
+
+        if (more) {
+          uint16_t* nq_s = reinterpret_cast<uint16_t*>(nxt);
+          q_next.store(nq_s, sub, a.scale);
+          q_next.store(nq_s + kQTileBF16, sub);
+          do_next.store(nq_s + 2 * kQTileBF16, sub);
+        }
+      }
+      cp_async_wait_all();
+      __syncthreads();  // the next stage is in place; this one is free for the stage after
+    }
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= a.len) continue;
+    const size_t g0 = ((size_t)b * a.len + key[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      *reinterpret_cast<float2*>(a.dk + g0 + 8 * n) =
+          make_float2(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+      *reinterpret_cast<float2*>(a.dv + g0 + 8 * n) = make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+    }
+  }
+}
+
+__device__ __forceinline__ void dq_bf16(const Operands& a, unsigned char* stages,
+                                        uint32_t* key_bits, unsigned* tile_mask) {
+  static_assert(kDqChunk % 16 == 0, "whole k16 steps of dq a chunk");
+  constexpr int kStageElems = 2 * kKvTileBF16;
+  uint16_t* tiles = reinterpret_cast<uint16_t*>(stages);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int d_model = a.heads * kDh;
+  const size_t head0 = (size_t)b * a.len * d_model + h * kDh;
+  const float* kb = a.k + head0;
+  const float* vb = a.v + head0;
+  const int row0 = (int)blockIdx.x * kDqRows + warp * 16 + g;
+  const int row[2] = {row0, row0 + 8};
+  const int ld_row = lane & 7, ld_col = 8 * (lane >> 3);
+  const int tr_row = 8 * ((lane >> 3) & 1) + (lane & 7), tr_col = 8 * (lane >> 4);
+
+  build_key_mask(key_bits, tile_mask, a.key_valid + (size_t)b * a.len, a.len);
+  const unsigned mask = *tile_mask;
+  int tile = next_tile(mask, 0);
+  if (tile >= 0) {
+#pragma unroll 1
+    for (int c0 = 0; c0 < kDqKeys; c0 += kDqChunk) {
+      KvRowsBF16 k, v;
+      k.load(kb, d_model, tile * kDqKeys + c0, a.len, -1);
+      v.load(vb, d_model, tile * kDqKeys + c0, a.len, -1);
+      k.store(tiles, c0);
+      v.store(tiles + kKvTileBF16, c0);
+    }
+  }
+
+  // the warp's 16 rows of scale * q and of dO in bf16, as A operands; the
+  // rows' lse, D and dropout hashes
+  uint32_t qf[kDh / 16][4], of[kDh / 16][4];
+  float lse_r[2], dd[2];
+  uint32_t drop_r[2] = {0u, 0u};
+  {
+    const int rc[2] = {min(row[0], a.len - 1), min(row[1], a.len - 1)};
+    const size_t g0 = head0 + (size_t)rc[0] * d_model + 2 * t;
+    const size_t row8 = (size_t)(rc[1] - rc[0]) * d_model;
+    frag_a16_rows(qf, a.q + g0, row8, a.scale);
+    frag_a16_rows(of, a.d_out + g0, row8, 1.f);
+    const uint32_t drop_h = drop_head(drop_seed(a.seed), b * a.heads + h);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const size_t gi = ((size_t)b * a.heads + h) * a.len + rc[r];
+      lse_r[r] = a.lse[gi];
+      dd[r] = a.delta[gi];
+      if (a.threshold != 0u) drop_r[r] = drop_row(drop_h, row[r]);
+    }
+  }
+  const bool live[2] = {row[0] < a.len, row[1] < a.len};
+
+  float dq[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+  float d_sum[2] = {0.f, 0.f};  // this lane's share of D' = rowsum(P z dP)
+  __syncthreads();  // the first tile is in place
+
+  for (int it = 0; tile >= 0; ++it) {
+    const int next = next_tile(mask, tile + 1);
+    const uint16_t* k_s = tiles + (it & 1) * kStageElems;
+    const uint16_t* v_s = k_s + kKvTileBF16;
+    uint16_t* nk_s = tiles + ((it + 1) & 1) * kStageElems;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kDqKeys; c0 += kDqChunk) {
+      // the next tile's keys of this chunk, in flight while it computes
+      KvRowsBF16 k_next, v_next;
+      if (next >= 0) {
+        k_next.load(kb, d_model, next * kDqKeys + c0, a.len, -1);
+        v_next.load(vb, d_model, next * kDqKeys + c0, a.len, -1);
+      }
+      const int j0 = tile * kDqKeys + c0;
+      uint32_t words[kDqChunk / 32], any = 0u;
+#pragma unroll
+      for (int w = 0; w < kDqChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
+      if (any != 0u) {  // the same in every warp
+        // S = (scale Q) K^T and dP = dO V^T for the chunk's keys
+        float s[kDqChunk / 8][4], dp[kDqChunk / 8][4];
+#pragma unroll
+        for (int n = 0; n < kDqChunk / 8; ++n) {
+          const int off = (c0 + 8 * n + ld_row) * kBStride + ld_col;
+          uint32_t kr[4], vr[4];
+          ldsm_x4(kr, k_s + off);
+          ldsm_x4(vr, v_s + off);
+          dot_bf16(s[n], qf, kr);
+          dot_bf16(dp[n], of, vr);
+        }
+
+        // dS in place of S
+#pragma unroll
+        for (int n = 0; n < kDqChunk / 8; ++n) {
+          const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const bool ok = live[r] && ((bits >> (e & 1)) & 1u);
+            const float p = ok ? exp2_fast((s[n][e] - lse_r[r]) * kLog2e) : 0.f;
+            const float z =
+                a.threshold != 0u
+                    ? drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), a.threshold, a.keep_scale)
+                    : 1.f;
+            d_sum[r] += p * (z * dp[n][e]);
+            s[n][e] = p * (z * dp[n][e] - dd[r]);
+          }
+        }
+
+        // dq += dS K: dS from registers, a k16 step per 16 keys, K read
+        // transposed; the chunk's sum in fresh accumulators, added to dq
+        // on the CUDA cores
+        float pdq[kDh / 8][4];
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pdq[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kDqChunk / 16; ++kk) {
+          uint32_t da[4];
+          frag_a16_from_c(da, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+          for (int np = 0; np < kDh / 16; ++np) {
+            uint32_t kt[4];
+            ldsm_x4_trans(kt, k_s + (c0 + 16 * kk + tr_row) * kBStride + 16 * np + tr_col);
+            mma_bf16(pdq[2 * np], da, kt[0], kt[1]);
+            mma_bf16(pdq[2 * np + 1], da, kt[2], kt[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dq[n][e] += pdq[n][e];
+      }
+      if (next >= 0) {
+        k_next.store(nk_s, c0);
+        v_next.store(nk_s + kKvTileBF16, c0);
+      }
+    }
+    __syncthreads();  // the next tile is in place; this one is free for the tile after
+    tile = next;
+  }
+
+  // D' over the quad, in a fixed order, for the dk/dv kernel: every lane of
+  // the quad read its rows' D above, before this write
+  __syncwarp();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 1);
+    d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 2);
+    if (!live[r]) continue;
+    if (t == 0) a.delta[((size_t)b * a.heads + h) * a.len + row[r]] = d_sum[r];
+    float* o = a.dq + ((size_t)b * a.len + row[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      *reinterpret_cast<float2*>(o + 8 * n) =
+          make_float2(dq[n][2 * r] * a.scale, dq[n][2 * r + 1] * a.scale);
+    }
+  }
+}
+
 // F = the product form (attn_common.cuh), as in the dq kernel
 template <int F>
 __global__ void __launch_bounds__(kWarps * 32, 3)
 flash_bwd_dkdv_kernel(const Operands a) {
   extern __shared__ float4 smem4[];
+  if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
+    dkdv_bf16(a, reinterpret_cast<unsigned char*>(smem4));
+    return;
+  }
   float* stages = reinterpret_cast<float*>(smem4);
 
   const int h = blockIdx.y;
@@ -325,6 +707,10 @@ flash_bwd_dq_kernel(const Operands a) {
   constexpr int kStageFloats = 2 * kDqKeys * kKStride;
   __shared__ uint32_t key_bits[kMaskWords];
   __shared__ unsigned tile_mask;
+  if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
+    dq_bf16(a, reinterpret_cast<unsigned char*>(smem4), key_bits, &tile_mask);
+    return;
+  }
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -474,30 +860,34 @@ flash_bwd_dq_kernel(const Operands a) {
   }
 }
 
-constexpr int kDkdvSmem = sizeof(float) * 2 * kQStageFloats;
-constexpr int kDqSmem = sizeof(float) * 2 * 2 * kDqKeys * kKStride;
+template <int F>
+constexpr int kDkdvSmem = F == kFormBF16 ? 2 * kQStageBytesBF16
+                                         : (int)sizeof(float) * 2 * kQStageFloats;
+template <int F>
+constexpr int kDqSmem = F == kFormBF16 ? 2 * 2 * kKvTileBF16 * 2
+                                       : (int)sizeof(float) * 2 * 2 * kDqKeys * kKStride;
 
 // the dq kernel, then the dk/dv kernel, which reads the D' the dq kernel
 // leaves in a.delta
 template <int F>
 cudaError_t launch_products(const Operands& a, int batch, cudaStream_t s) {
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_dq_kernel<F>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kDqSmem<F>);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_bwd_dq_kernel<F>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   flash_bwd_dq_kernel<F><<<dim3((a.len + kDqRows - 1) / kDqRows, a.heads, batch), kWarps * 32,
-                           kDqSmem, s>>>(a);
+                           kDqSmem<F>, s>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
   err = cudaFuncSetAttribute(flash_bwd_dkdv_kernel<F>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, kDkdvSmem<F>);
   if (err != cudaSuccess) return err;
   flash_bwd_dkdv_kernel<F><<<dim3((a.len + kKvKeys - 1) / kKvKeys, a.heads, batch),
-                             kWarps * 32, kDkdvSmem, s>>>(a);
+                             kWarps * 32, kDkdvSmem<F>, s>>>(a);
   return cudaGetLastError();
 }
 

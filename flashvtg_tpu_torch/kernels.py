@@ -92,41 +92,68 @@ def build_all() -> Dict[str, str]:
     return reports
 
 
-def sass_mma_counts(name: str) -> Dict[str, int]:
-    """{kernel function: its tensor-core instructions (SASS lines naming
-    HMMA)} in the built library of `name`, from cuobjdump --dump-sass."""
+_HMMA_KIND = re.compile(r"\bHMMA(?:\.\w+)*")
+
+
+def sass_mma_kinds(name: str) -> Dict[str, Dict[str, int]]:
+    """{kernel function: {tensor-core instruction: SASS lines}} in the built
+    library of `name`, from cuobjdump --dump-sass; an instruction is its
+    opcode with its modifiers, which name the shape and the operand type:
+    HMMA.1688.F32.TF32 is mma.sync.m16n8k8 on tf32, HMMA.16816.F32.BF16
+    m16n8k16 on bf16."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", library_path(name)], capture_output=True,
                           text=True, check=True).stdout
-    counts: Dict[str, int] = {}
+    kinds: Dict[str, Dict[str, int]] = {}
     fn = None
     for line in sass.splitlines():
         if "Function :" in line:
             fn = line.split("Function :", 1)[1].strip()
-            counts[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            counts[fn] += 1
-    return counts
+            kinds[fn] = {}
+        elif fn is not None:
+            m = _HMMA_KIND.search(line)
+            if m:
+                kinds[fn][m.group(0)] = kinds[fn].get(m.group(0), 0) + 1
+    return kinds
+
+
+def sass_mma_counts(name: str) -> Dict[str, int]:
+    """{kernel function: its tensor-core instructions (SASS lines naming
+    HMMA)} in the built library of `name`."""
+    return {fn: sum(per.values()) for fn, per in sass_mma_kinds(name).items()}
 
 
 _FORM_OF = re.compile(r"\d+([a-z_]+_kernel)ILi(\d)E")
 
 
-def hmma_by_form(counts: Dict[str, int]) -> Dict[str, Dict[str, int]]:
-    """{kernel: {form: tensor-core instructions over its instances}} of
-    sass_mma_counts' result: the form is the first template argument of
-    every kernel with a product (its mangled name's `ILi<form>E`); kernels
-    without one (no product) are left out."""
+def _by_form(per_function: Dict, empty, add) -> Dict[str, Dict]:
+    """{kernel: {form: add(...) of its instances' values}}: the form is the
+    first template argument of every kernel with a product (its mangled
+    name's `ILi<form>E`); kernels without one (no product) are left out."""
     from flashvtg_tpu_torch.ops.forms import FORMS
 
-    out: Dict[str, Dict[str, int]] = {}
-    for fn, n in counts.items():
+    out: Dict[str, Dict] = {}
+    for fn, value in per_function.items():
         m = _FORM_OF.search(fn)
         if m:
-            per = out.setdefault(m.group(1), dict.fromkeys(FORMS, 0))
-            per[FORMS[int(m.group(2))]] += n
+            per = out.setdefault(m.group(1), {f: empty() for f in FORMS})
+            form = FORMS[int(m.group(2))]
+            per[form] = add(per[form], value)
     return out
+
+
+def mma_kinds_by_form(kinds: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, Dict[str, int]]]:
+    """{kernel: {form: {instruction: SASS lines over its instances}}} of
+    sass_mma_kinds' result."""
+    return _by_form(kinds, dict, lambda acc, per: {
+        k: acc.get(k, 0) + per.get(k, 0) for k in {**acc, **per}})
+
+
+def hmma_by_form(counts: Dict[str, int]) -> Dict[str, Dict[str, int]]:
+    """{kernel: {form: tensor-core instructions over its instances}} of
+    sass_mma_counts' result."""
+    return _by_form(counts, int, lambda acc, n: acc + n)
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -2,7 +2,8 @@
 nvcc nor a card is needed): a library's name follows its source, every
 header of csrc/ and the nvcc flags, so an edit is rebuilt and a stale
 library never loads; the tensor-core count is taken per kernel function
-from cuobjdump's SASS, and summed per product form; a missing nvcc is
+from cuobjdump's SASS, by instruction (bf16 m16n8k16 apart from tf32
+m16n8k8), and summed per product form; a missing nvcc is
 reported by name; the ACA
 backward's row chunks and workspace (ops/aca.py:bwd_tiling, the formula
 csrc/aca_attention_bwd.cu repeats) cover every query row once."""
@@ -11,6 +12,7 @@ import shutil
 import subprocess
 
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 from flashvtg_tpu_torch import kernels
 from flashvtg_tpu_torch.ops import aca
@@ -54,6 +56,66 @@ def test_sass_mma_counts_per_kernel_function(monkeypatch):
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
     assert kernels.sass_mma_counts("flash_attention") == {
         "_Z6kernelILb1EEvPf": 2, "_Z7prepassPf": 0}
+
+
+FAKE_SASS_KINDS = "\n".join([
+    "\tcode for sm_90a",
+    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsE",
+    "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
+    "        /*0110*/                   LDSM.16.MT88.4 R12, [R2] ;",
+    "        /*0120*/               @P0 HMMA.16816.F32.BF16 R16, R8, R14, R16 ;",
+    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi0EEEvNS_8OperandsE",
+    "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+    "        /*0110*/                   HMMA.1688.F32.TF32 R4, R8, R14, R4 ;",
+    "        /*0120*/                   HMMA.1688.F32.TF32 R4, R8, R16, R4 ;",
+    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi1EEEvNS_8OperandsE",
+    "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+    "\t\tFunction : _ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii",
+    "        /*0100*/                   FFMA R1, R2, R3, R1 ;",
+])
+
+
+def _fake_cuobjdump(monkeypatch, sass):
+    def fake_run(cmd, **kwargs):
+        assert "--dump-sass" in cmd
+        return subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr="")
+
+    monkeypatch.setattr(kernels.subprocess, "run", fake_run)
+
+
+def test_sass_mma_kinds_tell_the_bf16_instruction_from_the_tf32_one(monkeypatch):
+    """Each kernel function's tensor-core lines by instruction, its opcode
+    with the modifiers that name shape and operand type (a predicate is no
+    part of it): the bf16 m16n8k16 apart from the tf32 m16n8k8; the total
+    is sass_mma_counts'."""
+    _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
+    kinds = kernels.sass_mma_kinds("flash_attention_bwd")
+    assert kinds == {
+        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsE": {"HMMA.16816.F32.BF16": 2},
+        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi0EEEvNS_8OperandsE": {"HMMA.1688.F32.TF32": 3},
+        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi1EEEvNS_8OperandsE": {"HMMA.1688.F32.TF32": 1},
+        "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii": {},
+    }
+    assert kernels.sass_mma_counts("flash_attention_bwd") == {
+        fn: sum(per.values()) for fn, per in kinds.items()}
+
+
+def test_mma_kinds_by_form_reads_each_instances_instruction(monkeypatch):
+    """Per kernel and form, the instructions of its instances: what
+    chip_smoke.py's build phase holds (the flash backward's bf16 instances
+    on HMMA.16816.F32.BF16 alone, every other on HMMA.1688.F32.TF32
+    alone); a kernel without a form is left out."""
+    _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
+    by_form = kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention_bwd"))
+    assert by_form == {"flash_bwd_dq_kernel": {
+        "3xtf32": {"HMMA.1688.F32.TF32": 3},
+        "1xtf32": {"HMMA.1688.F32.TF32": 1},
+        "bf16": {"HMMA.16816.F32.BF16": 2},
+    }}
+    mixed = {"_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelILi2EEEvNS_8OperandsE":
+             {"HMMA.16816.F32.BF16": 4, "HMMA.1688.F32.TF32": 1}}
+    assert kernels.mma_kinds_by_form(mixed)["flash_bwd_dkdv_kernel"]["bf16"] == {
+        "HMMA.16816.F32.BF16": 4, "HMMA.1688.F32.TF32": 1}
 
 
 def test_hmma_by_form_sums_each_kernels_instances_per_form():

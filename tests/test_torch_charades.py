@@ -14,6 +14,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 from flashvtg_tpu.data.dataset import VTGDataset as JaxDataset
 from flashvtg_tpu.eval.metrics import eval_submission as jax_eval

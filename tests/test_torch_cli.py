@@ -32,6 +32,7 @@ import pathlib
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from conftest import REFERENCE_ROOT as REF

@@ -9,6 +9,7 @@ profile_dir among them)."""
 import dataclasses
 
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 from flashvtg_tpu.train.config import PRESETS as JAX_PRESETS
 from flashvtg_tpu.train.config import from_preset as jax_preset

@@ -20,6 +20,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 

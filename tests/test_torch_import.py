@@ -7,6 +7,7 @@ import subprocess
 import sys
 
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "flax", "optax", "triton", "flashvtg_tpu")

@@ -16,6 +16,7 @@ Gradients: see GRAD_RTOL below.
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from flashvtg_tpu_torch.ops import aca, chunked_attn
@@ -388,7 +389,14 @@ def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, dono
         (3, 300, "empty_row", 0.1),
     ],
 )
-def test_flash_train_kernels_match_plain(cuda, b, length, case, p):
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_flash_train_kernels_match_plain(cuda, form, b, length, case, p):
+    """The training forward and the backward against their plain versions:
+    at 3xTF32 against float64 (GRAD_RTOL); at bf16, whose backward has its
+    own bodies on mma.sync.m16n8k16, against the plain versions at the bf16
+    form on the kernel forward's out and log-sum-exp (FORM_RTOL). At both,
+    exact zeros at a batch row with no valid key, and two launches of the
+    backward bit-equal."""
     q, k, v, _ = _inputs(b, length, length, 8, 21)
     rng = np.random.default_rng(22)
     if case in ("ragged", "empty_row"):
@@ -413,27 +421,39 @@ def test_flash_train_kernels_match_plain(cuda, b, length, case, p):
     d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(25))
     t = [x.to(cuda) for x in (q, k, v, valid)]
     seed = 4321
-    out, lse = chunked_attn._launch(*t, 8, p, seed, want_lse=True)
-    ref_out, ref_lse = chunked_attn.flash_attention_plain(*t, 8, p, seed, want_lse=True)
+    out, lse = chunked_attn._launch(*t, 8, p, seed, want_lse=True, form=form)
+    ref_out, ref_lse = chunked_attn.flash_attention_plain(*t, 8, p, seed, want_lse=True,
+                                                          form=form)
     torch.cuda.synchronize()
-    assert (out - ref_out)[live].abs().max().item() <= ATOL
-    assert (lse - ref_lse)[live].abs().max().item() <= ATOL
+    if form == "3xtf32":
+        assert (out - ref_out)[live].abs().max().item() <= ATOL
+        assert (lse - ref_lse)[live].abs().max().item() <= ATOL
+    else:
+        assert _rel_err(out[live], ref_out[live]) <= FORM_RTOL[form]
+        assert _rel_err(lse[live], ref_lse[live]) <= FORM_RTOL[form]
     assert torch.equal(out[~live], torch.zeros_like(out[~live]))
-    grads = chunked_attn._launch_bwd(*t, out, lse, d_out.to(cuda), 8, p, seed)
-    # the plain backward in float64 on the same inputs: where one key is
-    # valid, dS = P (z dP - D) is 0 up to rounding and dk sums that rounding
-    # over every query row, so the f32 plain's own dk lies near the 1e-5
-    # floor there, and the kernel's f32 sums round in another order (3xTF32
-    # on the tensor cores)
-    t64 = [x.double() for x in t[:3]] + [t[3]]
-    out64, lse64 = chunked_attn.flash_attention_plain(*t64, 8, p, seed, want_lse=True)
-    ref = chunked_attn.flash_attention_bwd_plain(*t64, out64, lse64, d_out.to(cuda).double(), 8,
-                                                 p, seed)
+    d_out = d_out.to(cuda)
+    grads = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, p, seed, form=form)
+    if form == "3xtf32":
+        # the plain backward in float64 on the same inputs: where one key is
+        # valid, dS = P (z dP - D) is 0 up to rounding and dk sums that
+        # rounding over every query row, so the f32 plain's own dk lies near
+        # the 1e-5 floor there, and the kernel's f32 sums round in another
+        # order (3xTF32 on the tensor cores)
+        t64 = [x.double() for x in t[:3]] + [t[3]]
+        out64, lse64 = chunked_attn.flash_attention_plain(*t64, 8, p, seed, want_lse=True)
+        ref = chunked_attn.flash_attention_bwd_plain(*t64, out64, lse64, d_out.double(), 8, p,
+                                                     seed)
+        limit = GRAD_RTOL
+    else:
+        ref = chunked_attn.flash_attention_bwd_plain(*t, out, lse, d_out, 8, p, seed, form=form)
+        limit = FORM_RTOL[form]
     torch.cuda.synchronize()
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
-        assert _rel_err(got.double(), want) <= GRAD_RTOL, name
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got.double(), want.double()) <= limit, name
         assert torch.equal(got[~live], torch.zeros_like(got[~live])), name
-    again = chunked_attn._launch_bwd(*t, out, lse, d_out.to(cuda), 8, p, seed)
+    again = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, p, seed, form=form)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
 
 

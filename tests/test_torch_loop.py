@@ -27,6 +27,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 from flashvtg_tpu.models.flashvtg import FlashVTGModel as JaxModel
 from flashvtg_tpu.parallel.mesh import make_mesh

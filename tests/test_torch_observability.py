@@ -22,6 +22,7 @@ import os
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from flashvtg_tpu_torch.train.config import from_preset

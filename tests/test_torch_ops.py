@@ -8,6 +8,7 @@ import os
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from flashvtg_tpu.models import points as jpoints

@@ -18,6 +18,7 @@ import sys
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 from flashvtg_tpu.data import glove as jax_glove
 from flashvtg_tpu.data import prep as jax_prep

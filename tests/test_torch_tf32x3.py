@@ -43,6 +43,7 @@ import json
 
 import numpy as np
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from flashvtg_tpu_torch.models.transformer import tiled_attn_donors

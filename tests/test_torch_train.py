@@ -29,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import optax
 import pytest
+import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from flashvtg_tpu.data import labels as jax_labels
