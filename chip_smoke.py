@@ -14,9 +14,11 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      product (on mma.sync) must have some, all but the flash backward's D
      pre-pass and the ACA backward's chunk-sum pass; and per product form
      (each kernel is a template on it): the 1xTF32 and the bf16 instances
-     must hold fewer than the 3xTF32 ones; and by instruction: the flash
-     backward's bf16 instances (dq, dk/dv) the bf16 mma.sync.m16n8k16 alone,
-     every other instance the TF32 m16n8k8 alone;
+     must hold fewer than the 3xTF32 ones; and by instruction
+     (kernels.mma_kind_faults): the flash kernels' bf16 instances (the
+     forward's eval and training instances, the backward's dq and dk/dv)
+     the bf16 mma.sync.m16n8k16 alone, every other instance the TF32
+     m16n8k8 alone;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
      two eval paths give them (atol 1e-5: both are f32-accurate, the
      kernels' products in 3xTF32, and differ in the order of their sums),
@@ -149,7 +151,8 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      the TACoS train step at B 32 (bfloat16 also with transfer_dtype
      bfloat16) and the tvsum_ms train step through make_train_step, time,
      peak memory and, at dropout 0, the total loss and the gradients
-     against the float32 step's (PRECISION_GRAD_BAND);
+     against the float32 step's (PRECISION_GRAD_BAND; bfloat16's also at
+     least PRECISION_GRAD_ORDER times tensorfloat32's);
      train() of tvsum at tensorfloat32 and at bfloat16 (with the bf16
      wire); the CLI: `train` at its default bfloat16, `infer --serving`
      (1xTF32) and `infer --serving --eval_precision bfloat16`. Every launch
@@ -270,16 +273,16 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # sheet's dense rates: f32-accurate products (3xTF32) at the TF32 rate,
 # 495 TFLOP/s, over its three TF32 products; TF32 products at 495; bf16
 # operands with f32 sums at the bf16 rate, 989, whatever instruction a
-# kernel takes them on (the flash backward's bf16 instances take them on
-# the bf16 one; the other kernels' on the TF32 one, so they can reach half
+# kernel takes them on (the flash kernels' bf16 instances take them on
+# the bf16 one; the ACA kernels' on the TF32 one, so they can reach half
 # this bound at best)
 DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
-# the SASS of mma.sync.m16n8k8 on tf32 and of m16n8k16 on bf16, and the
-# kernels whose bf16 instances take the latter (kernels.sass_mma_kinds)
-TF32_MMA, BF16_MMA = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
-BF16_MMA_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+# the kernels whose bf16 instances take mma.sync.m16n8k16 (SASS
+# HMMA.16816.F32.BF16); every other instance takes m16n8k8 on tf32
+# (kernels.mma_kind_faults)
+BF16_MMA_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # phase 14: a kernel against its plain version at the same form (which
 # rounds the same operands), relative to max(max |plain|, 0.1): about 2-3
 # times the largest gap the card has shown over the shapes of phases 3 and 7
@@ -298,13 +301,22 @@ FORM_F32_BAND = {"3xtf32": (0.0, 1e-5), "1xtf32": (1e-4, 1.2e-3), "bf16": (1.5e-
 # phase 14: a mode's eval forward against the card's own float32 forward
 # (the worst output, each relative to max(max |float32|, 0.1)), and a train
 # step's gradients at dropout 0 (|g - g32| / |g32| over every parameter),
-# each within a band (floor, limit); the bands of the two modes do not meet,
-# so each dial is told from the other and from float32. The card read
-# 8.6e-4 - 1.2e-3 / 9.4e-3 - 1.25e-2 (forwards, tensorfloat32 / bfloat16)
-# and 1.7e-3 - 6.4e-3 / 1.2e-2 - 2.2e-2 (gradients)
+# each within a band (floor, limit). The forward bands of the two modes do
+# not meet, so each dial is told from the other and from float32. The card
+# read 8.6e-4 - 1.2e-3 / 9.4e-3 - 1.25e-2 (forwards, tensorfloat32 /
+# bfloat16) and 1.7e-3 - 6.4e-3 / 5.4e-3 - 2.2e-2 (gradients). A bf16 step's
+# gradient distance is not a property of its arithmetic alone: the loss's
+# discrete choices can flip on rounding, and the TACoS step read 1.24e-2 and
+# 5.4e-3 with two flash forwards whose form distances agree to 7 digits
+# (PERF.md; tools/grad_spread.py compares two trees' steps). So the bfloat16
+# gradient band starts below the tensorfloat32 one's limit, and a bfloat16
+# step is told from the tensorfloat32 step of the same preset by
+# PRECISION_GRAD_ORDER: its distance at least that many times theirs (3.3
+# and 3.0 on the card)
 PRECISION_FWD_BAND = {"tensorfloat32": (1e-4, 4e-3), "bfloat16": (4e-3, 3e-2)}
 PRECISION_LOSS_RTOL = 1e-2  # the total loss at dropout 0, against float32's
-PRECISION_GRAD_BAND = {"tensorfloat32": (1e-4, 9e-3), "bfloat16": (9e-3, 5e-2)}
+PRECISION_GRAD_BAND = {"tensorfloat32": (1e-4, 9e-3), "bfloat16": (1e-3, 5e-2)}
+PRECISION_GRAD_ORDER = 2.0
 FORWARD_ATOL = 3e-4
 SPAN_ATOL = 2e-3  # decoded windows, seconds (tests/test_torch_model.py)
 GRAD_RTOL = 1e-4  # kernel vs plain gradients, relative to the largest |plain|
@@ -1951,8 +1963,10 @@ def run_precision_train(dev, preset, seed, configs, n_rows=None, **overrides):
     in it, the step's peak memory, launches by form (every one at the dial's
     form); and one step with every dropout at 0 from the same weights against
     the float32 step's: total loss within PRECISION_LOSS_RTOL, gradients
-    (|g - g32| / |g32| over every parameter) within PRECISION_GRAD_BAND.
-    Returns {"mode/transfer_dtype": reading}."""
+    (|g - g32| / |g32| over every parameter) within PRECISION_GRAD_BAND, and
+    a bfloat16 step's at least PRECISION_GRAD_ORDER times the tensorfloat32
+    step's where `configs` holds one. Returns {"mode/transfer_dtype":
+    reading}."""
     import torch
 
     from flashvtg_tpu_torch.models import build_model
@@ -1986,6 +2000,10 @@ def run_precision_train(dev, preset, seed, configs, n_rows=None, **overrides):
                 assert reading["loss_rel_err"] <= PRECISION_LOSS_RTOL, reading
                 in_band(f"{preset} train step", mode, reading["grad_rel_err"],
                         PRECISION_GRAD_BAND)
+                tf32 = out.get("tensorfloat32/float32")
+                if mode == "bfloat16" and tf32 is not None:
+                    assert reading["grad_rel_err"] >= (
+                        PRECISION_GRAD_ORDER * tf32["grad_rel_err"]), (preset, reading, tf32)
             del grads
             torch.cuda.empty_cache()
             log(f"[{preset} train step {mode}/{wire}] {json.dumps(reading)}")
@@ -3314,23 +3332,22 @@ def main():
             if "delta" not in fn and "reduce" not in fn:
                 assert n > 0, f"{fn}: no tensor-core instruction"
     # every kernel with a product in each form, summed over its instances:
-    # one TF32 product a dot in the 1xTF32 and bf16 forms, three in 3xTF32
+    # one product a dot in the 1xTF32 and bf16 forms (the flash kernels' bf16
+    # instances on m16n8k16, twice the k a product), three in 3xTF32
     hmma_forms = {k: v for name in kernels.SOURCES
                   for k, v in kernels.hmma_by_form(hmma[name]).items()}
     log(f"[build] SASS HMMA lines per kernel and form: {json.dumps(hmma_forms)}")
     assert len(hmma_forms) == 5, hmma_forms
     for fn, per in hmma_forms.items():
         assert 0 < per["1xtf32"] < per["3xtf32"] and 0 < per["bf16"] < per["3xtf32"], (fn, per)
-    # which instruction: the flash backward's bf16 instances on the bf16 one
-    # (mma.sync.m16n8k16, HMMA.16816.F32.BF16) alone, every other instance
-    # on the TF32 one (m16n8k8, HMMA.1688.F32.TF32) alone
+    # which instruction: the flash kernels' bf16 instances on the bf16 one
+    # (mma.sync.m16n8k16) alone, every other instance on the TF32 one
+    # (m16n8k8) alone
     hmma_kinds = {k: v for name in kernels.SOURCES
                   for k, v in kernels.mma_kinds_by_form(kinds[name]).items()}
     log(f"[build] SASS HMMA instructions per kernel and form: {json.dumps(hmma_kinds)}")
-    for fn, per in hmma_kinds.items():
-        for form, found in per.items():
-            want = BF16_MMA if form == "bf16" and fn in BF16_MMA_KERNELS else TF32_MMA
-            assert list(found) == [want], (fn, form, found)
+    faults = kernels.mma_kind_faults(hmma_kinds, BF16_MMA_KERNELS)
+    assert not faults, faults
 
     if args.only == "dp":
         log(f"[train kernels] {json.dumps(phase_train_kernels(dev, args.seed))}")

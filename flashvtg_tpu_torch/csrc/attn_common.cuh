@@ -67,10 +67,11 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //     (__floats2bfloat162_rn's rounding), and taken on the same TF32
 //     instruction: a bf16 value is exact in TF32 and the product of two is
 //     exact in f32, so this is bit for bit the arithmetic of bf16 operands
-//     with f32 sums. The flash backward's bf16 instances take the same
-//     operands on the bf16 instruction itself, mma.sync.m16n8k16, from bf16
-//     tiles in shared memory (the section after dot_form below); the other
-//     kernels' bf16 instances are still on the TF32 one.
+//     with f32 sums. The flash kernels' bf16 instances (forward and
+//     backward) take the same operands on the bf16 instruction itself,
+//     mma.sync.m16n8k16, from bf16 tiles in shared memory (the section
+//     after dot_form below); the ACA kernels' bf16 instances are still on
+//     the TF32 one.
 // The 1xTF32 and bf16 forms keep the 3xTF32 form's accumulation order: each
 // k-step's product in a fresh accumulator (dot_form below), each chunk of
 // keys in fresh accumulators added on the CUDA cores.
@@ -280,11 +281,12 @@ __device__ __forceinline__ void load_kv_tile(float* k_s, float* v_s, const float
 
 // ---- bf16 operands on the bf16 instruction (mma.sync.m16n8k16) ---------------
 //
-// The flash backward's bf16 form (flash_attention_bwd.cu) takes its products
-// on mma.sync.m16n8k16 (bf16 in, f32 out): twice the k of the TF32
-// instruction, at twice its rate. Its operands are rounded to bf16 once,
-// where they are staged, by split_pair's conversion (cvt.rn.bf16x2.f32, to
-// nearest even), so they are the bits the m16n8k8 bf16 form takes.
+// The flash kernels' bf16 form (flash_attention.cu, flash_attention_bwd.cu)
+// takes its products on mma.sync.m16n8k16 (bf16 in, f32 out): twice the k
+// of the TF32 instruction, at twice its rate. Its operands are rounded to
+// bf16 once, where they are staged, by split_pair's conversion
+// (cvt.rn.bf16x2.f32, to nearest even), so they are the bits the m16n8k8
+// bf16 form takes.
 // Fragments, g = lane / 4, t = lane % 4; a register holds two bf16 values,
 // the lower column (or k row) in its low half:
 //   A (16 x 16, row major): a0 (g, 2t..2t+1), a1 (g + 8, 2t..2t+1),
@@ -374,9 +376,10 @@ __device__ __forceinline__ void frag_a16_from_c(uint32_t (&a)[4], const float (&
 // registers, b the ldmatrix.x4 of its 8 rows as stored (register 2 ks and
 // 2 ks + 1 step ks's B operand). Each step's product goes to a fresh
 // accumulator and the two are added on the CUDA cores, as dot_form adds its
-// k-steps. The flash backward takes S and dP (dq kernel) and S^T and dP^T
-// (dk/dv kernel) here alike: the same products in the same order, one
-// bf16 product a term, so S^T is S transposed bit for bit.
+// k-steps. The flash forward takes S here, and the backward S and dP (dq
+// kernel) and S^T and dP^T (dk/dv kernel) alike: the same products in the
+// same order, one bf16 product a term, so the three kernels' S agree and
+// S^T is S transposed, bit for bit.
 __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh / 16][4],
                                          const uint32_t (&b)[4]) {
   float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
@@ -386,7 +389,7 @@ __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh 
   for (int e = 0; e < 4; ++e) c[e] = s0[e] + s1[e];
 }
 
-// The flash backward's staged rows in bf16, beside load_kv_tile: kRows rows
+// The flash kernels' staged rows in bf16, beside load_kv_tile: kRows rows
 // of 32 floats of one head, from device memory into registers (16-byte
 // loads, kRows * 8 / kThreads of each tensor a thread), then rounded to bf16
 // into tiles of kBStride rows. The two halves are apart so that a block can

@@ -1,6 +1,7 @@
 // Memory-linear masked self-attention over any number of keys, for Hopper
 // (sm_90a): the products on the tensor cores in 3xTF32 (f32-accurate),
-// 1xTF32 or bf16, as the precision dial asks.
+// 1xTF32 (both on mma.sync.m16n8k8) or bf16 (on m16n8k16), as the precision
+// dial asks.
 //
 // Replaces: the long, memory-linear form of JAX's library Pallas kernel
 // jax.experimental.pallas.ops.tpu.flash_attention (called at
@@ -25,7 +26,7 @@
 // logits nor a (B, H, L, chunk) slab exists in device memory: a warp's
 // logits and probabilities live in its registers only.
 //
-// What bounds it: per valid (b, h, i, j) pair, 128 FLOP of dot products
+// What bounds it (3xTF32): per valid (b, h, i, j) pair, 128 FLOP of dot products
 // (q.k and p.v, 64 each) and about 5 other operations (the softmax). The
 // card's f32-accurate rate for dot products is 3xTF32's, 495 / 3 = 165
 // TFLOP/s; the rest runs at the 67 TFLOP/s f32 rate. At the TACoS eval shape
@@ -70,6 +71,29 @@
 // form, and bf16 operands with f32 sums the bfloat16 form (attn_common.cuh;
 // the template F, chosen by the C entries' `form`).
 //
+// The bf16 form has a body of its own (flash_bf16 below), on the bf16
+// instruction mma.sync.m16n8k16 from bf16 K and V tiles in shared memory:
+//  * K and V are rounded to bf16 once a block, where they are staged (two
+//    stages of 2 x 128 rows of kBStride bf16, 40 KB, against the f32 forms'
+//    72 KB), loaded through registers a 64-key chunk at a time so that the
+//    next tile's rows are in flight while the chunk computes; the f32 forms
+//    convert every K and V value in each of the four warps, inside the
+//    product loops;
+//  * S = (scale Q) K^T is attn_common.cuh dot_bf16 on bf16(scale q) in
+//    registers and K by ldmatrix: the function the backward's kernels take
+//    S by, bit for bit, so at a row's only key lse = m = s exactly and the
+//    backward's P is exactly 1 there;
+//  * P feeds P V as bf16 A operands in natural key order (the C tiles of two
+//    adjacent n-tiles), V's B operand by ldmatrix.trans;
+//  * a 64-key chunk takes 32 tensor-core instructions a warp (16 for S, 16
+//    for P V) against the m16n8k8 form's 64; the mask, max, exp2, row sums
+//    and dropout hash on the CUDA cores are the other forms'.
+// Its bound: the same pairs' dot products at the bf16 rate, 989 TFLOP/s
+// (0.023 ms at the TACoS eval shape), against the same inputs and outputs;
+// but each valid pair also takes one exp2 on the special-function unit (16
+// a clock an SM: 0.04 ms at that shape) and ~6 other CUDA-core
+// instructions, so the CUDA cores, not the tensor cores, bound it.
+//
 // Training form (flashvtg_flash_attention_train_f32, template TRAIN; the
 // eval entry point compiles without it): it also writes the row log-sum-exp
 // lse[b, h, i] = m + log(l) in natural-log units for the backward
@@ -89,6 +113,8 @@ namespace {
 
 constexpr int kWarps = 4;               // 16 query rows each
 constexpr int kMinBlocks = 3;           // per SM: caps a thread at 65536 / (32 kWarps kMinBlocks) registers
+constexpr int kMinBlocksBF16 = 4;       // the same, for the bf16 form's body (128 registers,
+                                        // no spills; 3 ran 4-9 % slower on the card)
 constexpr int kTileRows = 16 * kWarps;  // query rows per block
 constexpr int kTileKeys = 128;          // keys per staged tile (one bit of the tile mask)
 constexpr int kChunk = 64;              // keys per S fragment set, 32 or 64
@@ -97,11 +123,212 @@ constexpr int kChunkTiles = kChunk / 8;
 constexpr int kMaxLen = kTileKeys * (kMaskWords / 4);
 
 constexpr int kStageFloats = 2 * kTileKeys * kKStride;  // K, V
-constexpr int kSmemBytes = sizeof(float) * 2 * kStageFloats;
+
+// ---- the bf16 form on mma.sync.m16n8k16 (attn_common.cuh) -------------------
+//
+// The same kernel on bf16 K and V tiles (the design: this file's header);
+// the online softmax on the C fragments is the other forms' (m16n8k16's C
+// layout is m16n8k8's), so the mask bits, the dropout index and the lse
+// write keep their indices.
+
+constexpr int kKvTileBF16 = kTileKeys * kBStride;  // bf16 elements
+constexpr int kStageElemsBF16 = 2 * kKvTileBF16;   // K, V
+using KvRowsBF16 = RowsBF16<kChunk, kWarps * 32>;
+
+template <int F>
+constexpr int kSmemBytes = F == kFormBF16 ? (int)sizeof(uint16_t) * 2 * kStageElemsBF16
+                                          : (int)sizeof(float) * 2 * kStageFloats;
+
+template <bool TRAIN>
+__device__ __forceinline__ void flash_bf16(const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v,
+                                           const float* __restrict__ key_valid,
+                                           float* __restrict__ out, int len, int heads,
+                                           float scale, float* __restrict__ lse,
+                                           const uint32_t* __restrict__ seed,
+                                           uint32_t threshold, float keep_scale,
+                                           uint16_t* tiles, uint32_t* key_bits,
+                                           unsigned* tile_mask) {
+  static_assert(kChunk % 16 == 0, "whole k16 steps of P V a chunk");
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int d_model = heads * kDh;
+  const size_t head0 = (size_t)b * len * d_model + h * kDh;
+  const float* kb = k + head0;
+  const float* vb = v + head0;
+  const bool drop = TRAIN && threshold != 0u;
+  const int row0 = (int)blockIdx.x * kTileRows + warp * 16 + g;
+  const int row[2] = {row0, row0 + 8};
+  // ldmatrix rows: as stored (K for S), and transposed, 8-row halves (V)
+  const int ld_row = lane & 7, ld_col = 8 * (lane >> 3);
+  const int tr_row = 8 * ((lane >> 3) & 1) + (lane & 7), tr_col = 8 * (lane >> 4);
+
+  build_key_mask(key_bits, tile_mask, key_valid + (size_t)b * len, len);
+  const unsigned mask = *tile_mask;
+  int tile = next_tile(mask, 0);
+  if (tile >= 0) {
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
+      KvRowsBF16 kr, vr;
+      kr.load(kb, d_model, tile * kTileKeys + c0, len, -1);
+      vr.load(vb, d_model, tile * kTileKeys + c0, len, -1);
+      kr.store(tiles, c0);
+      vr.store(tiles + kKvTileBF16, c0);
+    }
+  }
+
+  // the warp's 16 rows of bf16(scale q), the A operand of S's two k16
+  // steps; rows past len read row len - 1, computed and never written
+  uint32_t qf[kDh / 16][4];
+  {
+    const int rc[2] = {min(row[0], len - 1), min(row[1], len - 1)};
+    frag_a16_rows(qf, q + head0 + (size_t)rc[0] * d_model + 2 * t,
+                  (size_t)(rc[1] - rc[0]) * d_model, scale);
+  }
+  uint32_t drop_r[2] = {0u, 0u};
+  if (drop) {
+    const uint32_t drop_h = drop_head(drop_seed(seed), b * heads + h);
+    drop_r[0] = drop_row(drop_h, row[0]);
+    drop_r[1] = drop_row(drop_h, row[1]);
+  }
+
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  float o[kDh / 8][4];
+#pragma unroll
+  for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  __syncthreads();  // the first tile is in place
+
+  for (int it = 0; tile >= 0; ++it) {
+    const int next = next_tile(mask, tile + 1);
+    const uint16_t* k_s = tiles + (it & 1) * kStageElemsBF16;
+    const uint16_t* v_s = k_s + kKvTileBF16;
+    uint16_t* nk_s = tiles + ((it + 1) & 1) * kStageElemsBF16;
+
+#pragma unroll 1
+    for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
+      // the next tile's keys of this chunk, in flight while it computes
+      KvRowsBF16 k_next, v_next;
+      if (next >= 0) {
+        k_next.load(kb, d_model, next * kTileKeys + c0, len, -1);
+        v_next.load(vb, d_model, next * kTileKeys + c0, len, -1);
+      }
+      const int j0 = tile * kTileKeys + c0;
+      uint32_t words[kChunk / 32], any = 0u;
+#pragma unroll
+      for (int w = 0; w < kChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
+      if (any != 0u) {  // the same in every warp
+        // S = (scale Q) K^T for the chunk's keys
+        float s[kChunkTiles][4];
+#pragma unroll
+        for (int n = 0; n < kChunkTiles; ++n) {
+          uint32_t kf[4];
+          ldsm_x4(kf, k_s + (c0 + 8 * n + ld_row) * kBStride + ld_col);
+          dot_bf16(s[n], qf, kf);
+        }
+
+        // masked keys to -inf, then the chunk's row max across the quad
+        float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+        for (int n = 0; n < kChunkTiles; ++n) {
+          const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (!((bits >> (e & 1)) & 1u)) s[n][e] = -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+          }
+        }
+        float m_use[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = exp2_fast((m[r] - m_use[r]) * kLog2e);
+          m[r] = m_new;
+          l[r] *= alpha;
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n) {
+            o[n][2 * r] *= alpha;
+            o[n][2 * r + 1] *= alpha;
+          }
+        }
+
+        // P (0 at masked keys), the row sums, and the probabilities P V reads
+#pragma unroll
+        for (int n = 0; n < kChunkTiles; ++n) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = exp2_fast((s[n][e] - m_use[r]) * kLog2e);
+            l[r] += p;
+            s[n][e] = drop ? p * drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), threshold,
+                                            keep_scale)
+                           : p;
+          }
+        }
+
+        // O += P V: P from registers, a k16 step per 16 keys, V read
+        // transposed; the chunk's sum in fresh accumulators, added to O on
+        // the CUDA cores
+        float pv[kDh / 8][4];
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          uint32_t pa[4];
+          frag_a16_from_c(pa, s[2 * kk], s[2 * kk + 1]);
+#pragma unroll
+          for (int np = 0; np < kDh / 16; ++np) {
+            uint32_t vt[4];
+            ldsm_x4_trans(vt, v_s + (c0 + 16 * kk + tr_row) * kBStride + 16 * np + tr_col);
+            mma_bf16(pv[2 * np], pa, vt[0], vt[1]);
+            mma_bf16(pv[2 * np + 1], pa, vt[2], vt[3]);
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
+      }
+      if (next >= 0) {
+        k_next.store(nk_s, c0);
+        v_next.store(nk_s + kKvTileBF16, c0);
+      }
+    }
+    __syncthreads();  // the next tile is in place; this one is free for the tile after
+    tile = next;
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (row[r] >= len) continue;
+    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no valid key: zeros
+    float* orow = out + ((size_t)b * len + row[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+    }
+    if (TRAIN && t == 0) lse[((size_t)b * heads + h) * len + row[r]] = m[r] + logf(l[r]);
+  }
+}
 
 // F = the product form (attn_common.cuh); TRAIN = the training form
 template <int F, bool TRAIN>
-__global__ void __launch_bounds__(kWarps * 32, kMinBlocks)
+__global__ void __launch_bounds__(kWarps * 32, F == kFormBF16 ? kMinBlocksBF16 : kMinBlocks)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const float* __restrict__ v,
                        const float* __restrict__ key_valid,
@@ -110,9 +337,14 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        const uint32_t* __restrict__ seed, uint32_t threshold,
                        float keep_scale) {
   extern __shared__ float4 smem4[];
-  float* stages = reinterpret_cast<float*>(smem4);
   __shared__ uint32_t key_bits[kMaskWords];
   __shared__ unsigned tile_mask;
+  if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
+    flash_bf16<TRAIN>(q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold,
+                      keep_scale, reinterpret_cast<uint16_t*>(smem4), key_bits, &tile_mask);
+    return;
+  }
+  float* stages = reinterpret_cast<float*>(smem4);
 
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -295,14 +527,14 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   }
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<F, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      kSmemBytes);
+      kSmemBytes<F>);
   if (err != cudaSuccess) return err;
   err = cudaFuncSetAttribute(flash_attention_kernel<F, TRAIN>,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
   dim3 grid((len + kTileRows - 1) / kTileRows, heads, batch);
-  flash_attention_kernel<F, TRAIN><<<grid, kWarps * 32, kSmemBytes, stream>>>(
+  flash_attention_kernel<F, TRAIN><<<grid, kWarps * 32, kSmemBytes<F>, stream>>>(
       q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold, keep_scale);
   return cudaGetLastError();
 }

@@ -81,11 +81,12 @@
 // the product loops. Its S and dP (dq kernel) and S^T and dP^T (dk/dv
 // kernel) come from one helper, attn_common.cuh dot_bf16, so the two
 // kernels' P and dP agree bit for bit and D' sums the very terms the dk/dv
-// kernel forms. But the forward's bf16 S runs on m16n8k8, so
-// at a row's only key P = exp2((s - lse) log2 e) is 1 only to about an ulp
-// of s: dS there is about 1e-6 |dP|, far inside the bf16 form's tolerance
-// (6e-3 of the largest gradient), where the f32 forms give exactly 0. A
-// batch row with no valid key still gets zeros everywhere (P = 0).
+// kernel forms. The forward's bf16 body takes its S by dot_bf16 too
+// (flash_attention.cu), so its lse is exactly s at a row's only key, P =
+// exp2((s - lse) log2 e) is exactly 1 there, and dS' = P (z dP - D') is
+// exactly 0: dk is exactly 0 over a batch row with one valid key, as at the
+// f32 forms. A batch row with no valid key still gets zeros everywhere (P =
+// 0).
 
 #include <cuda_runtime.h>
 #include <math.h>

@@ -22,7 +22,7 @@ import re
 import shutil
 import subprocess
 import threading
-from typing import Dict
+from typing import Dict, Iterable, List
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
@@ -148,6 +148,29 @@ def mma_kinds_by_form(kinds: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, D
     sass_mma_kinds' result."""
     return _by_form(kinds, dict, lambda acc, per: {
         k: acc.get(k, 0) + per.get(k, 0) for k in {**acc, **per}})
+
+
+# the SASS of mma.sync.m16n8k8 on tf32 and of m16n8k16 on bf16
+TF32_MMA, BF16_MMA = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
+
+
+def mma_kind_faults(by_form: Dict[str, Dict[str, Dict[str, int]]],
+                    bf16_kernels: Iterable[str]) -> List[str]:
+    """The instances of mma_kinds_by_form's result that break the rule of
+    the product forms' instructions: the bf16 instances of `bf16_kernels`
+    on BF16_MMA alone, every other instance on TF32_MMA alone. One line a
+    fault, naming the kernel, the form and what its SASS holds; a kernel
+    of `bf16_kernels` missing from `by_form` is a fault too. Empty when
+    the rule holds."""
+    bf16_kernels = tuple(bf16_kernels)
+    faults = [f"{fn}: no such kernel with a product form" for fn in bf16_kernels
+              if fn not in by_form]
+    for fn, per in by_form.items():
+        for form, found in per.items():
+            want = BF16_MMA if form == "bf16" and fn in bf16_kernels else TF32_MMA
+            if list(found) != [want]:
+                faults.append(f"{fn} {form}: {found}, want {want} alone")
+    return faults
 
 
 def hmma_by_form(counts: Dict[str, int]) -> Dict[str, Dict[str, int]]:

@@ -1,15 +1,18 @@
 """The attention kernels' three product forms, and their arithmetic in torch.
 
 csrc/attn_common.cuh takes every dot product of the four attention kernels
-on mma.sync.m16n8k8 (tf32 in, f32 out) in one of three forms, which the
-precision dials choose (utils/runtime.py:matmul_precision):
+on the tensor cores in one of three forms, which the precision dials choose
+(utils/runtime.py:matmul_precision):
   * "3xtf32" (the float32 dial): each f32 operand x is split into the TF32
     values hi = rna(x) and lo = rna(x - hi), and a.b is taken as
-    lo_a.hi_b + hi_a.lo_b + hi_a.hi_b: the accuracy of f32;
+    lo_a.hi_b + hi_a.lo_b + hi_a.hi_b on mma.sync.m16n8k8: the accuracy of
+    f32;
   * "1xtf32" (tensorfloat32): hi_a.hi_b alone, about three decimal digits;
   * "bf16" (bfloat16): each operand rounded to bf16, to nearest even, with
     f32 products and sums (a bf16 value is exact in TF32 and the product of
-    two is exact in f32, so the kernels take it on the TF32 instruction).
+    two is exact in f32, so the ACA kernels take it on the TF32 instruction;
+    the flash kernels, forward and backward, on the bf16 one,
+    mma.sync.m16n8k16, with the same operands).
 `dot` is each form's products on the CPU (tests/test_torch_tf32x3.py holds
 them against float64). The kernels' plain versions (ops/aca.py,
 ops/chunked_attn.py) take their products through `product`: an f32 einsum

@@ -1,33 +1,37 @@
-"""Times the flash attention backward (csrc/flash_attention_bwd.cu) on the
-card at the train paths' shapes, beside its bound and autograd through
-PyTorch's scaled_dot_product_attention (sdpa).
+"""Times the flash attention kernels (csrc/flash_attention.cu, forward;
+csrc/flash_attention_bwd.cu, backward) on the card at the model's shapes,
+beside their bounds and PyTorch's scaled_dot_product_attention (sdpa).
 
     python -m flashvtg_tpu_torch.tools.flash_bwd_time [--forms bf16 3xtf32 1xtf32]
-        [--shapes tacos_train tvsum_train] [--blocks 3] [--iters 20] [--seed 0]
-        [--dropout 0.1] [--no-library] [--sass-mix]
+        [--shapes tacos_eval tacos_train tvsum_train] [--passes fwd bwd]
+        [--blocks 3] [--iters 20] [--seed 0] [--dropout 0.1] [--no-library]
+        [--sass-mix]
 
-Each shape is a train path's encoder self-attention (B, L, 8 heads of 32,
-a ragged valid prefix of clips a video drawn from --seed, dropout 0.1):
-TACoS (B 32, L 2048, 64-2048 clips) and TVSum (B 4, L 1000, 60-330). For
-each form it runs the training forward once (the kernel, for out and the
-log-sum-exp), then times --blocks blocks of --iters launches of the
-backward with CUDA events, and the same blocks of sdpa's backward on the
-same inputs (fwd + bwd - fwd, autograd.grad, the boolean key mask, no
-dropout; bf16 operands at the bf16 form, the TF32 flag at 1xtf32;
---no-library leaves it out), and reads each of the backward's three
-kernels' device time a launch from torch.profiler's records. The
-bound is chip_smoke.py:attention_bound's for the backward: the bytes each
-input and output needs once at 3.35 TB/s against the valid pairs' dot
-products at the form's tensor-core rate (bf16: 989 TFLOP/s) and six other
-operations a pair at 67. Prints the card's name and power limit, the
-registers and spills ptxas reported for the dq and dk/dv kernels (the
-build log beside the library), with --sass-mix each of their instances'
-SASS opcodes (cuobjdump, counted once where they stand, not as they run),
-then one JSON line a (shape, form).
+Each shape is an encoder self-attention (B, L, 8 heads of 32, a ragged
+valid prefix of clips a video drawn from --seed): TACoS eval (B 8, L 2048,
+64-2048 clips), TACoS train (B 32, L 2048, 64-2048) and TVSum train (B 4,
+L 1000, 60-330). The forward pass (`fwd`) times the kernel's eval instance
+at an eval shape and its training instance (log-sum-exp and dropout
+--dropout) at a train shape; the backward pass (`bwd`, train shapes only)
+runs the training forward once for out and the log-sum-exp, then times the
+backward. Each is timed as --blocks blocks of --iters launches with CUDA
+events, beside the same blocks of sdpa on the same inputs (the boolean key
+mask, no dropout; bf16 operands at the bf16 form, the TF32 flag at 1xtf32;
+the forward under no_grad, the backward as fwd + bwd - fwd through
+autograd.grad; --no-library leaves it out), and each kernel's device time
+a launch is read from torch.profiler's records. The bound is
+chip_smoke.py:attention_bound's: the bytes each input and output needs once
+at 3.35 TB/s against the valid pairs' dot products at the form's
+tensor-core rate (bf16: 989 TFLOP/s) and the other operations a pair (five
+forward, six backward) at 67. Prints the card's name and power limit, the
+registers and spills ptxas reported for the flash kernels (the build logs
+beside the libraries), with --sass-mix each of their instances' SASS
+opcodes (cuobjdump, counted once where they stand, not as they run), then
+one JSON line a (shape, pass, form).
 
 It uses only ops/chunked_attn.py's launchers, so it also times another
 tree of the package: put that tree first on PYTHONPATH and run this file
-by its path.
+by its path; one call can then read parent / change / change / parent.
 """
 
 from __future__ import annotations
@@ -45,9 +49,15 @@ import torch
 HBM_RATE = 3.35e12
 F32_PEAK = 67e12
 DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
-# (B, L, fewest and most valid clips a video)
-SHAPES = {"tacos_train": (32, 2048, 64, 2048), "tvsum_train": (4, 1000, 60, 330)}
+# (B, L, fewest and most valid clips a video, training)
+SHAPES = {"tacos_eval": (8, 2048, 64, 2048, False), "tacos_train": (32, 2048, 64, 2048, True),
+          "tvsum_train": (4, 1000, 60, 330, True)}
 HEADS, DROPOUT = 8, 0.1
+# the flash kernels' device functions, by the names their template
+# instances carry
+KERNEL_NAME = re.compile(r"(flash_attention_kernel|flash_bwd_\w+?_kernel)")
+PRODUCT_KERNEL = re.compile(r"(flash_attention_kernel|flash_bwd_(?:dq|dkdv)_kernel)ILi(\d)E"
+                            r"(?:Lb(\d)E)?")
 
 
 def time_blocks(fn, blocks: int, iters: int):
@@ -70,31 +80,39 @@ def time_blocks(fn, blocks: int, iters: int):
 
 def kernel_ms(fn, iters: int):
     """{device function: ms a call} of `iters` calls of fn, from the
-    profiler's raw device records (the flash backward's kernels, by the
-    name their template instance carries)."""
+    profiler's raw device records (the flash kernels, by the name their
+    template instance carries)."""
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     per = {}
     for e in prof.profiler.kineto_results.events():
-        m = re.search(r"(flash_bwd_\w+?_kernel)", e.name())
+        m = KERNEL_NAME.search(e.name())
         if m and e.device_type() == torch.autograd.DeviceType.CUDA:
             per[m.group(1)] = per.get(m.group(1), 0.0) + e.duration_ns() / 1e6 / iters
     return per
 
 
-def bound_ms(b, length, valid_pairs, form):
+def bound_ms(b, length, valid_pairs, form, backward, train):
+    """chip_smoke.py:attention_bound for the flash kernels (self-attention,
+    every query row against every valid key); the training forward also
+    writes the log-sum-exp."""
     d = HEADS * 32
-    nbytes = 4 * (3 * b * length * d + 4 * b * length * d + b * length + b * HEADS * length
-                  + b * length * d)
-    t_ops = max(320 * valid_pairs / DOT_PEAK[form], 6 * valid_pairs / F32_PEAK)
+    if backward:
+        nbytes = 4 * (3 * b * length * d + 4 * b * length * d + b * length
+                      + b * HEADS * length + b * length * d)
+        dots, other = 320 * valid_pairs, 6 * valid_pairs
+    else:
+        nbytes = 4 * (4 * b * length * d + b * length + (b * HEADS * length if train else 0))
+        dots, other = 128 * valid_pairs, 5 * valid_pairs
+    t_ops = max(dots / DOT_PEAK[form], other / F32_PEAK)
     return max(nbytes / HBM_RATE, t_ops) * 1e3
 
 
 def ptxas_report(log: str):
     """{kernel function: 'N registers, S bytes spill stores, L bytes spill
-    loads'} of the flash backward's dq and dk/dv kernels in a ptxas -v log."""
+    loads'} of the flash kernels with a product in a ptxas -v log."""
     regs, spills, fn, props = {}, {}, None, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
@@ -111,12 +129,13 @@ def ptxas_report(log: str):
             spills[props] = (int(m.group(1)), int(m.group(2)))
     return {fn: f"{n} registers, {spills.get(fn, ('?', '?'))[0]} bytes spill stores, "
                 f"{spills.get(fn, ('?', '?'))[1]} bytes spill loads"
-            for fn, n in regs.items() if "flash_bwd_dq" in fn or "flash_bwd_dkdv" in fn}
+            for fn, n in regs.items() if PRODUCT_KERNEL.search(fn)}
 
 
 def sass_mix(library: str):
-    """{dq / dk/dv kernel instance: {opcode: SASS lines}}, the opcode
-    without its modifiers (HMMA.16816.F32.BF16 counts as HMMA)."""
+    """{flash kernel instance: {opcode: SASS lines}}, the opcode without its
+    modifiers (HMMA.16816.F32.BF16 counts as HMMA); an instance is
+    kernel<form> or, for the forward, kernel<form, training>."""
     out, fn = {}, None
     tool = shutil.which("cuobjdump") or os.path.join(
         os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
@@ -124,9 +143,10 @@ def sass_mix(library: str):
                           check=True).stdout
     for line in sass.splitlines():
         if "Function :" in line:
-            m = re.search(r"(flash_bwd_(?:dq|dkdv)_kernel)ILi(\d)E", line)
-            fn = f"{m.group(1)}<{m.group(2)}>" if m else None
-            if fn:
+            m = PRODUCT_KERNEL.search(line)
+            fn = None
+            if m:
+                fn = f"{m.group(1)}<{m.group(2)}{'' if m.group(3) is None else ', ' + m.group(3)}>"
                 out[fn] = {}
             continue
         m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
@@ -135,7 +155,9 @@ def sass_mix(library: str):
     return {fn: dict(sorted(per.items(), key=lambda kv: -kv[1])) for fn, per in out.items()}
 
 
-def sdpa_backward(q, k, v, valid, form):
+def sdpa_calls(q, k, v, valid, form):
+    """(forward, forward + backward) of sdpa on q, k, v in (B, H, L, Dh),
+    bf16 at the bf16 form, with the boolean key mask."""
     import torch.nn.functional as F
 
     b = q.shape[0]
@@ -148,13 +170,18 @@ def sdpa_backward(q, k, v, valid, form):
     def fwd():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask)
 
-    return fwd, lambda: torch.autograd.grad(fwd(), (qh, kh, vh), d_oh)
+    def fwd_eval():
+        with torch.no_grad():
+            return fwd()
+
+    return fwd_eval, fwd, lambda: torch.autograd.grad(fwd(), (qh, kh, vh), d_oh)
 
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--forms", nargs="+", default=["bf16"], choices=list(DOT_PEAK))
     ap.add_argument("--shapes", nargs="+", default=list(SHAPES), choices=list(SHAPES))
+    ap.add_argument("--passes", nargs="+", default=["fwd", "bwd"], choices=["fwd", "bwd"])
     ap.add_argument("--blocks", type=int, default=3)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
@@ -172,19 +199,23 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
-    kernels.load("flash_attention")
-    kernels.load("flash_attention_bwd")
-    log_path = kernels.library_path("flash_attention_bwd") + ".log"
-    log = open(log_path).read() if os.path.exists(log_path) else ""
+    libs = ("flash_attention", "flash_attention_bwd")
+    ptxas = {}
+    for name in libs:
+        kernels.load(name)
+        log_path = kernels.library_path(name) + ".log"
+        ptxas.update(ptxas_report(open(log_path).read() if os.path.exists(log_path) else ""))
     print(json.dumps({"tree": os.path.dirname(os.path.dirname(kernels.__file__)),
-                      "ptxas": ptxas_report(log)}), flush=True)
+                      "ptxas": ptxas}), flush=True)
     if args.sass_mix:
-        print(json.dumps({"sass_mix": sass_mix(kernels.library_path("flash_attention_bwd"))}),
-              flush=True)
+        mix = {}
+        for name in libs:
+            mix.update(sass_mix(kernels.library_path(name)))
+        print(json.dumps({"sass_mix": mix}), flush=True)
     dev = torch.device("cuda")
     mode = {"3xtf32": "float32", "1xtf32": "tensorfloat32", "bf16": "bfloat16"}
     for shape in args.shapes:
-        b, length, lo, hi = SHAPES[shape]
+        b, length, lo, hi, train = SHAPES[shape]
         rng = np.random.default_rng(args.seed)
         lens = rng.integers(lo, hi + 1, b)
         valid = torch.from_numpy((np.arange(length)[None] < lens[:, None]).astype(np.float32))
@@ -192,31 +223,43 @@ def main():
         q, k, v, d_out = (torch.randn((b, length, HEADS * 32), generator=g) for _ in range(4))
         q, k, v, d_out, valid = (x.to(dev) for x in (q, k, v, d_out, valid))
         valid_pairs = HEADS * length * float(valid.sum().item())
+        p = args.dropout if train else 0.0
         for form in args.forms:
-            out, lse = chunked_attn._launch(q, k, v, valid, HEADS, args.dropout, args.seed,
-                                            want_lse=True, form=form)
-
-            def bwd():
-                return chunked_attn._launch_bwd(q, k, v, valid, out, lse, d_out, HEADS,
-                                                args.dropout, args.seed, form=form)
-
-            ms = time_blocks(bwd, args.blocks, args.iters)
-            sdpa = None
-            if not args.no_library:
-                fwd, both = sdpa_backward(q, k, v, valid, form)
-                # the dial's TF32 flag only: sdpa's operands carry the dtype
-                with matmul_precision("tensorfloat32" if form == "1xtf32" else "float32",
-                                      "cuda"):
-                    sdpa = [x - y for x, y in zip(time_blocks(both, args.blocks, args.iters),
-                                                  time_blocks(fwd, args.blocks, args.iters))]
-            print(json.dumps(dict(
-                shape=shape, form=form, dial=mode[form], B=b, L=length, heads=HEADS,
-                dropout=args.dropout, valid_keys=int(valid.sum().item()),
-                ms=float(np.mean(ms)), ms_blocks=ms, kernel_ms=kernel_ms(bwd, args.iters),
-                bound_ms=bound_ms(b, length, valid_pairs, form),
-                library_ms=None if sdpa is None else float(np.mean(sdpa)),
-                library_ms_blocks=sdpa,
-            )), flush=True)
+            calls = {}
+            if "fwd" in args.passes:
+                if train:
+                    calls["fwd"] = lambda form=form: chunked_attn._launch(
+                        q, k, v, valid, HEADS, p, args.seed, want_lse=True, form=form)
+                else:
+                    calls["fwd"] = lambda form=form: chunked_attn._launch(
+                        q, k, v, valid, HEADS, form=form)
+            if "bwd" in args.passes and train:
+                out, lse = chunked_attn._launch(q, k, v, valid, HEADS, p, args.seed,
+                                                want_lse=True, form=form)
+                calls["bwd"] = lambda form=form, out=out, lse=lse: chunked_attn._launch_bwd(
+                    q, k, v, valid, out, lse, d_out, HEADS, p, args.seed, form=form)
+            for pas, fn in calls.items():
+                ms = time_blocks(fn, args.blocks, args.iters)
+                sdpa = None
+                if not args.no_library:
+                    fwd_eval, fwd, both = sdpa_calls(q, k, v, valid, form)
+                    # the dial's TF32 flag only: sdpa's operands carry the dtype
+                    with matmul_precision("tensorfloat32" if form == "1xtf32" else "float32",
+                                          "cuda"):
+                        if pas == "fwd":
+                            sdpa = time_blocks(fwd_eval, args.blocks, args.iters)
+                        else:
+                            sdpa = [x - y for x, y in zip(
+                                time_blocks(both, args.blocks, args.iters),
+                                time_blocks(fwd, args.blocks, args.iters))]
+                print(json.dumps({"shape": shape, "pass": pas, **dict(
+                    form=form, dial=mode[form], B=b, L=length,
+                    heads=HEADS, dropout=p, valid_keys=int(valid.sum().item()),
+                    ms=float(np.mean(ms)), ms_blocks=ms, kernel_ms=kernel_ms(fn, args.iters),
+                    bound_ms=bound_ms(b, length, valid_pairs, form, pas == "bwd", train),
+                    library_ms=None if sdpa is None else float(np.mean(sdpa)),
+                    library_ms_blocks=sdpa,
+                )}), flush=True)
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ header of csrc/ and the nvcc flags, so an edit is rebuilt and a stale
 library never loads; the tensor-core count is taken per kernel function
 from cuobjdump's SASS, by instruction (bf16 m16n8k16 apart from tf32
 m16n8k8), and summed per product form; a missing nvcc is
-reported by name; the ACA
+reported by name; the rule of each form's instruction
+(kernels.mma_kind_faults) names the instances that break it; the ACA
 backward's row chunks and workspace (ops/aca.py:bwd_tiling, the formula
 csrc/aca_attention_bwd.cu repeats) cover every query row once."""
 
@@ -102,9 +103,9 @@ def test_sass_mma_kinds_tell_the_bf16_instruction_from_the_tf32_one(monkeypatch)
 
 def test_mma_kinds_by_form_reads_each_instances_instruction(monkeypatch):
     """Per kernel and form, the instructions of its instances: what
-    chip_smoke.py's build phase holds (the flash backward's bf16 instances
+    chip_smoke.py's build phase holds (the flash kernels' bf16 instances
     on HMMA.16816.F32.BF16 alone, every other on HMMA.1688.F32.TF32
-    alone); a kernel without a form is left out."""
+    alone, kernels.mma_kind_faults); a kernel without a form is left out."""
     _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
     by_form = kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention_bwd"))
     assert by_form == {"flash_bwd_dq_kernel": {
@@ -116,6 +117,75 @@ def test_mma_kinds_by_form_reads_each_instances_instruction(monkeypatch):
              {"HMMA.16816.F32.BF16": 4, "HMMA.1688.F32.TF32": 1}}
     assert kernels.mma_kinds_by_form(mixed)["flash_bwd_dkdv_kernel"]["bf16"] == {
         "HMMA.16816.F32.BF16": 4, "HMMA.1688.F32.TF32": 1}
+
+
+FAKE_SASS_FLASH = "\n".join([
+    "\tcode for sm_90a",
+    *(f"\t\tFunction : _ZN51_GLOBAL__N__e895d2d6_18_flash_attention_cu_bc10f23522flash_"
+      f"attention_kernelILi{form}ELb{train}EEEvPKfS2_S2_S2_PfiifS3_jjf\n"
+      f"        /*0100*/                   {instr} R4, R8, R12, R4 ;\n"
+      f"        /*0110*/                   {instr} R16, R8, R14, R16 ;"
+      for form, instr in ((0, "HMMA.1688.F32.TF32"), (1, "HMMA.1688.F32.TF32"),
+                          (2, "HMMA.16816.F32.BF16"))
+      for train in (0, 1)),
+])
+
+
+def _flash_kinds(monkeypatch):
+    """mma_kinds_by_form of the forward's six instances (fake SASS) beside
+    the backward's (FAKE_SASS_KINDS)."""
+    _fake_cuobjdump(monkeypatch, FAKE_SASS_FLASH)
+    by_form = kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention"))
+    _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
+    by_form.update(kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention_bwd")))
+    return by_form
+
+
+BF16_FLASH = ("flash_attention_kernel", "flash_bwd_dq_kernel")
+
+
+def test_mma_kind_faults_accept_the_flash_kernels_on_the_bf16_instruction(monkeypatch):
+    """chip_smoke.py's rule holds on the layout of the built libraries: the
+    forward's eval and training instances and the backward's at bf16 on
+    HMMA.16816.F32.BF16 alone, the 3xTF32 and 1xTF32 instances on
+    HMMA.1688.F32.TF32 alone."""
+    by_form = _flash_kinds(monkeypatch)
+    assert by_form["flash_attention_kernel"] == {
+        "3xtf32": {"HMMA.1688.F32.TF32": 4},
+        "1xtf32": {"HMMA.1688.F32.TF32": 4},
+        "bf16": {"HMMA.16816.F32.BF16": 4},
+    }
+    assert kernels.mma_kind_faults(by_form, BF16_FLASH) == []
+    # the ACA kernels stay on the TF32 instruction at every form
+    aca_kinds = {"aca_attention_kernel": {f: {kernels.TF32_MMA: 8} for f in by_form[
+        "flash_attention_kernel"]}}
+    assert kernels.mma_kind_faults({**by_form, **aca_kinds}, BF16_FLASH) == []
+
+
+@pytest.mark.parametrize("bad", ["tf32", "mixed", "other_form", "missing"])
+def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, bad):
+    """A bf16 instance left on the TF32 instruction, one that mixes the two,
+    a 3xTF32 instance on the bf16 one, and a kernel of the list that the
+    SASS lacks: each is one fault naming the kernel and the form."""
+    by_form = _flash_kinds(monkeypatch)
+    fwd = by_form["flash_attention_kernel"]
+    if bad == "tf32":
+        fwd["bf16"] = {kernels.TF32_MMA: 64}
+        want = "flash_attention_kernel bf16"
+    elif bad == "mixed":
+        fwd["bf16"] = {kernels.BF16_MMA: 60, kernels.TF32_MMA: 4}
+        want = "flash_attention_kernel bf16"
+    elif bad == "other_form":
+        fwd["3xtf32"] = {kernels.BF16_MMA: 32}
+        want = "flash_attention_kernel 3xtf32"
+    else:
+        del by_form["flash_attention_kernel"]
+        want = "flash_attention_kernel: no such kernel"
+    faults = kernels.mma_kind_faults(by_form, BF16_FLASH)
+    assert len(faults) == 1 and faults[0].startswith(want), faults
+    # a kernel off the list keeps its bf16 instance on the TF32 instruction
+    if bad == "tf32":
+        assert kernels.mma_kind_faults(by_form, ("flash_bwd_dq_kernel",)) == []
 
 
 def test_hmma_by_form_sums_each_kernels_instances_per_form():

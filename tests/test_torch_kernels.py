@@ -20,6 +20,7 @@ import torch_threads  # noqa: F401  (torch's share of the cores under xdist)
 import torch
 
 from flashvtg_tpu_torch.ops import aca, chunked_attn
+from flashvtg_tpu_torch.utils.runtime import matmul_precision
 
 pytestmark = pytest.mark.cuda
 
@@ -137,6 +138,21 @@ def test_model_forward_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4)
 
 
+# the precision dial of each product form the flash tests run
+DIALS = {"3xtf32": "float32", "bf16": "bfloat16"}
+
+
+def _assert_flash_forward(out, ref, form):
+    """out against the plain version at its form: 3xTF32 within ATOL, the
+    rounded forms within FORM_RTOL of max(max |ref|, 0.1)."""
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    if form == "3xtf32":
+        assert (out - ref).abs().max().item() <= ATOL
+    else:
+        assert _rel_err(out, ref) <= FORM_RTOL[form]
+
+
 def _ragged(b, length, seed):
     """Valid prefixes drawn from [1, length], the first row full."""
     lens = np.random.default_rng(seed).integers(1, length + 1, b)
@@ -159,21 +175,27 @@ def _ragged(b, length, seed):
         (2, 2047),  # one short of the last 128-key tile
     ],
 )
-def test_flash_kernel_matches_plain(cuda, b, length):
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_flash_kernel_matches_plain(cuda, form, b, length):
+    """The eval forward through the wrapper at the dial of `form`, against
+    the plain version at the same form: at 3xTF32 within 1e-5, at bf16
+    (its own body on mma.sync.m16n8k16) within FORM_RTOL; two launches
+    bit-equal."""
     q, k, v, _ = _inputs(b, length, length, 8, 3)
     t = tuple(x.to(cuda) for x in (q, k, v, _ragged(b, length, length)))
-    before = chunked_attn.launch_counts()["flash_attention"]
-    out = chunked_attn.flash_attention(*t, num_heads=8)
-    assert chunked_attn.launch_counts()["flash_attention"] == before + 1
-    ref = chunked_attn.flash_attention_plain(*t, 8)
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= ATOL
-    # fixed summation order: launches agree bit for bit
-    assert torch.equal(chunked_attn.flash_attention(*t, num_heads=8), out)
+    before = chunked_attn.FORM_LAUNCHES[form]["flash_attention"]
+    with matmul_precision(DIALS[form], cuda):
+        out = chunked_attn.flash_attention(*t, num_heads=8)
+        # fixed summation order: launches agree bit for bit
+        again = chunked_attn.flash_attention(*t, num_heads=8)
+    assert chunked_attn.FORM_LAUNCHES[form]["flash_attention"] == before + 2
+    _assert_flash_forward(out, chunked_attn.flash_attention_plain(*t, 8, form=form), form)
+    assert torch.equal(again, out)
 
 
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
 @pytest.mark.parametrize("case", ["one_key", "holes", "last_key", "all_masked_tiles"])
-def test_flash_kernel_any_mask(cuda, case):
+def test_flash_kernel_any_mask(cuda, case, form):
     b, length = 3, 700
     q, k, v, _ = _inputs(b, length, length, 8, 4)
     rng = np.random.default_rng(5)
@@ -188,22 +210,59 @@ def test_flash_kernel_any_mask(cuda, case):
         valid[:, 130:140] = 1.0
         valid[:, 650:] = 1.0
     t = tuple(x.to(cuda) for x in (q, k, v, torch.from_numpy(valid)))
-    out = chunked_attn.flash_attention(*t, num_heads=8)
-    ref = chunked_attn.flash_attention_plain(*t, 8)
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= ATOL
+    out = chunked_attn._launch(*t, 8, form=form)
+    _assert_flash_forward(out, chunked_attn.flash_attention_plain(*t, 8, form=form), form)
+    assert torch.equal(chunked_attn._launch(*t, 8, form=form), out)
 
 
-def test_flash_kernel_row_without_valid_key_is_zero(cuda):
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_flash_kernel_row_without_valid_key_is_zero(cuda, form):
     q, k, v, _ = _inputs(2, 300, 300, 8, 6)
     valid = torch.ones((2, 300))
     valid[1] = 0
     t = tuple(x.to(cuda) for x in (q, k, v, valid))
-    out = chunked_attn.flash_attention(*t, num_heads=8)
-    ref = chunked_attn.flash_attention_plain(*t, 8)
+    out = chunked_attn._launch(*t, 8, form=form)
+    ref = chunked_attn.flash_attention_plain(*t, 8, form=form)
     torch.cuda.synchronize()
     assert torch.equal(out[1], torch.zeros_like(out[1]))
-    assert (out[0] - ref[0]).abs().max().item() <= ATOL
+    _assert_flash_forward(out[0], ref[0], form)
+    assert torch.equal(chunked_attn._launch(*t, 8, form=form), out)
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_flash_one_key_row_is_exact(cuda, form, p):
+    """A batch row with one valid key j: the training forward's lse is
+    exactly its logit, so the backward recomputes P = 1 exactly there. At
+    p = 0, dS' = P (dP - D') then cancels to exactly 0 and dk is exactly 0
+    over the row, at 3xTF32 and, since the forward takes S on the
+    backward's dot_bf16, at bf16; and at bf16 every query row's out is
+    bf16(v_j) bit for bit (P = 1 rounds to 1; the other keys' P are 0).
+    Dropout leaves the forward's softmax statistics alone: lse at p = 0.1 is
+    the p = 0 lse bit for bit. There dS' = P (z dP - D') keeps the rounding
+    of z dP (the backward's fused multiply-add takes z dP unrounded, D' it
+    rounded), at every form: dk is rounding, within 1e-6 of max |dv|."""
+    b, length = 3, 700
+    q, k, v, _ = _inputs(b, length, length, 8, 27)
+    keys = np.random.default_rng(28).integers(0, length, b)
+    keys[1] = length - 1  # the last key of the last, partial tile
+    valid = torch.zeros((b, length))
+    valid[torch.arange(b), torch.from_numpy(keys)] = 1.0
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    out, lse = chunked_attn._launch(*t, 8, p, 99, want_lse=True, form=form)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(29)).to(cuda)
+    dq, dk, dv = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, p, 99, form=form)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in (out, lse, dq, dk, dv))
+    if p == 0.0:
+        assert torch.equal(dk, torch.zeros_like(dk))
+        if form == "bf16":
+            vj = t[2][torch.arange(b, device=cuda), torch.from_numpy(keys).to(cuda)]
+            assert torch.equal(out, vj.to(torch.bfloat16).float()[:, None, :].expand_as(out))
+    else:
+        lse0 = chunked_attn._launch(*t, 8, 0.0, 99, want_lse=True, form=form)[1]
+        assert torch.equal(lse, lse0)
+        assert dk.abs().max().item() <= 1e-6 * dv.abs().max().item()
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -392,9 +451,10 @@ def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, dono
 @pytest.mark.parametrize("form", ["3xtf32", "bf16"])
 def test_flash_train_kernels_match_plain(cuda, form, b, length, case, p):
     """The training forward and the backward against their plain versions:
-    at 3xTF32 against float64 (GRAD_RTOL); at bf16, whose backward has its
-    own bodies on mma.sync.m16n8k16, against the plain versions at the bf16
-    form on the kernel forward's out and log-sum-exp (FORM_RTOL). At both,
+    at 3xTF32 against float64 (GRAD_RTOL); at bf16, whose forward and
+    backward have their own bodies on mma.sync.m16n8k16, against the plain
+    versions at the bf16 form on the kernel forward's out and log-sum-exp
+    (FORM_RTOL). At both,
     exact zeros at a batch row with no valid key, and two launches of the
     backward bit-equal."""
     q, k, v, _ = _inputs(b, length, length, 8, 21)
