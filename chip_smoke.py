@@ -15,10 +15,12 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      pre-pass and the ACA backward's chunk-sum pass; and per product form
      (each kernel is a template on it): the 1xTF32 and the bf16 instances
      must hold fewer than the 3xTF32 ones; and by instruction
-     (kernels.mma_kind_faults): the flash kernels' bf16 instances (the
-     forward's eval and training instances, the backward's dq and dk/dv)
-     the bf16 mma.sync.m16n8k16 alone, every other instance the TF32
-     m16n8k8 alone;
+     (kernels.mma_kind_faults): the bf16 instances of the flash kernels
+     (the forward's eval and training instances, the backward's dq and
+     dk/dv) and of the ACA kernels (the forward's eval and training
+     instances, with and without the head mean, which the short
+     self-attention shares; the backward) the bf16 mma.sync.m16n8k16
+     alone, every other instance the TF32 m16n8k8 alone;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
      two eval paths give them (atol 1e-5: both are f32-accurate, the
      kernels' products in 3xTF32, and differ in the order of their sums),
@@ -272,17 +274,17 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # form computes (flashvtg_tpu_torch/ops/forms.py), from the H100 SXM data
 # sheet's dense rates: f32-accurate products (3xTF32) at the TF32 rate,
 # 495 TFLOP/s, over its three TF32 products; TF32 products at 495; bf16
-# operands with f32 sums at the bf16 rate, 989, whatever instruction a
-# kernel takes them on (the flash kernels' bf16 instances take them on
-# the bf16 one; the ACA kernels' on the TF32 one, so they can reach half
-# this bound at best)
+# operands with f32 sums at the bf16 rate, 989, the rate of the bf16
+# instruction that every kernel's bf16 instances take them on (the flash
+# kernels' and the ACA kernels', mma.sync.m16n8k16)
 DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
 # the kernels whose bf16 instances take mma.sync.m16n8k16 (SASS
-# HMMA.16816.F32.BF16); every other instance takes m16n8k8 on tf32
-# (kernels.mma_kind_faults)
-BF16_MMA_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+# HMMA.16816.F32.BF16): every kernel with a product; every other instance
+# takes m16n8k8 on tf32 (kernels.mma_kind_faults)
+BF16_MMA_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
+                    "aca_attention_kernel", "aca_attention_bwd_kernel")
 # phase 14: a kernel against its plain version at the same form (which
 # rounds the same operands), relative to max(max |plain|, 0.1): about 2-3
 # times the largest gap the card has shown over the shapes of phases 3 and 7
@@ -3332,17 +3334,17 @@ def main():
             if "delta" not in fn and "reduce" not in fn:
                 assert n > 0, f"{fn}: no tensor-core instruction"
     # every kernel with a product in each form, summed over its instances:
-    # one product a dot in the 1xTF32 and bf16 forms (the flash kernels' bf16
-    # instances on m16n8k16, twice the k a product), three in 3xTF32
+    # one product a dot in the 1xTF32 and bf16 forms (the bf16 instances on
+    # m16n8k16, twice the k a product), three in 3xTF32
     hmma_forms = {k: v for name in kernels.SOURCES
                   for k, v in kernels.hmma_by_form(hmma[name]).items()}
     log(f"[build] SASS HMMA lines per kernel and form: {json.dumps(hmma_forms)}")
     assert len(hmma_forms) == 5, hmma_forms
     for fn, per in hmma_forms.items():
         assert 0 < per["1xtf32"] < per["3xtf32"] and 0 < per["bf16"] < per["3xtf32"], (fn, per)
-    # which instruction: the flash kernels' bf16 instances on the bf16 one
-    # (mma.sync.m16n8k16) alone, every other instance on the TF32 one
-    # (m16n8k8) alone
+    # which instruction: the bf16 instances of BF16_MMA_KERNELS (every
+    # kernel with a product) on the bf16 one (mma.sync.m16n8k16) alone,
+    # every other instance on the TF32 one (m16n8k8) alone
     hmma_kinds = {k: v for name in kernels.SOURCES
                   for k, v in kernels.mma_kinds_by_form(kinds[name]).items()}
     log(f"[build] SASS HMMA instructions per kernel and form: {json.dumps(hmma_kinds)}")

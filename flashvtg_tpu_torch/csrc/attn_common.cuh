@@ -64,14 +64,13 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //   kForm1xTF32 (tensorfloat32): hi_a.hi_b alone, one product per dot:
 //     about three decimal digits, what cuBLAS's TF32 GEMMs keep.
 //   kFormBF16 (bfloat16): each operand rounded to bf16, to nearest even
-//     (__floats2bfloat162_rn's rounding), and taken on the same TF32
-//     instruction: a bf16 value is exact in TF32 and the product of two is
-//     exact in f32, so this is bit for bit the arithmetic of bf16 operands
-//     with f32 sums. The flash kernels' bf16 instances (forward and
-//     backward) take the same operands on the bf16 instruction itself,
-//     mma.sync.m16n8k16, from bf16 tiles in shared memory (the section
-//     after dot_form below); the ACA kernels' bf16 instances are still on
-//     the TF32 one.
+//     (__floats2bfloat162_rn's rounding), with f32 sums. Every kernel's bf16
+//     instances (the flash and the ACA kernels, forward and backward) take
+//     these operands on the bf16 instruction itself, mma.sync.m16n8k16,
+//     from bf16 tiles in shared memory (the section after dot_form below),
+//     in bodies of their own; the m16n8k8 helpers' bf16 branch (split_pair)
+//     rounds the same bits for the TF32 instruction, on which a bf16 value
+//     is exact and the product of two exact in f32.
 // The 1xTF32 and bf16 forms keep the 3xTF32 form's accumulation order: each
 // k-step's product in a fresh accumulator (dot_form below), each chunk of
 // keys in fresh accumulators added on the CUDA cores.
@@ -281,12 +280,12 @@ __device__ __forceinline__ void load_kv_tile(float* k_s, float* v_s, const float
 
 // ---- bf16 operands on the bf16 instruction (mma.sync.m16n8k16) ---------------
 //
-// The flash kernels' bf16 form (flash_attention.cu, flash_attention_bwd.cu)
-// takes its products on mma.sync.m16n8k16 (bf16 in, f32 out): twice the k
-// of the TF32 instruction, at twice its rate. Its operands are rounded to
-// bf16 once, where they are staged, by split_pair's conversion
-// (cvt.rn.bf16x2.f32, to nearest even), so they are the bits the m16n8k8
-// bf16 form takes.
+// The bf16 form of every kernel (flash_attention.cu, flash_attention_bwd.cu,
+// aca_attention.cu, aca_attention_bwd.cu) takes its products on
+// mma.sync.m16n8k16 (bf16 in, f32 out): twice the k of the TF32
+// instruction, at twice its rate. Its operands are rounded to bf16 once,
+// where they are staged, by split_pair's conversion (cvt.rn.bf16x2.f32, to
+// nearest even), so they are the bits the m16n8k8 bf16 form took.
 // Fragments, g = lane / 4, t = lane % 4; a register holds two bf16 values,
 // the lower column (or k row) in its low half:
 //   A (16 x 16, row major): a0 (g, 2t..2t+1), a1 (g + 8, 2t..2t+1),
@@ -379,7 +378,8 @@ __device__ __forceinline__ void frag_a16_from_c(uint32_t (&a)[4], const float (&
 // k-steps. The flash forward takes S here, and the backward S and dP (dq
 // kernel) and S^T and dP^T (dk/dv kernel) alike: the same products in the
 // same order, one bf16 product a term, so the three kernels' S agree and
-// S^T is S transposed, bit for bit.
+// S^T is S transposed, bit for bit. The ACA forward and backward take S
+// (and the backward dO V^T) here too, so their S agree bit for bit.
 __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh / 16][4],
                                          const uint32_t (&b)[4]) {
   float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};

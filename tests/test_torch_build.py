@@ -103,8 +103,8 @@ def test_sass_mma_kinds_tell_the_bf16_instruction_from_the_tf32_one(monkeypatch)
 
 def test_mma_kinds_by_form_reads_each_instances_instruction(monkeypatch):
     """Per kernel and form, the instructions of its instances: what
-    chip_smoke.py's build phase holds (the flash kernels' bf16 instances
-    on HMMA.16816.F32.BF16 alone, every other on HMMA.1688.F32.TF32
+    chip_smoke.py's build phase holds (the flash and ACA kernels' bf16
+    instances on HMMA.16816.F32.BF16 alone, every other on HMMA.1688.F32.TF32
     alone, kernels.mma_kind_faults); a kernel without a form is left out."""
     _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
     by_form = kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention_bwd"))
@@ -131,44 +131,98 @@ FAKE_SASS_FLASH = "\n".join([
 ])
 
 
+# the two ACA kernels' instances, forward (form, NT, head mean, training)
+# and backward (form, NT), and the backward's chunk-sum pass (no product)
+FAKE_SASS_ACA = "\n".join([
+    "\tcode for sm_90a",
+    *(f"\t\tFunction : _ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_"
+      f"kernelILi{form}ELi10ELb{hm}ELb{train}EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE\n"
+      f"        /*0100*/                   {instr} R4, R8, R12, R4 ;"
+      for form, instr in ((0, "HMMA.1688.F32.TF32"), (1, "HMMA.1688.F32.TF32"),
+                          (2, "HMMA.16816.F32.BF16"))
+      for hm in (0, 1) for train in (0, 1)),
+    *(f"\t\tFunction : _ZN12_GLOBAL__N_124aca_attention_bwd_kernelILi{form}ELi10EEEvNS_8OperandsE\n"
+      f"        /*0100*/                   {instr} R4, R8, R12, R4 ;\n"
+      f"        /*0110*/                   {instr} R16, R8, R14, R16 ;"
+      for form, instr in ((0, "HMMA.1688.F32.TF32"), (1, "HMMA.1688.F32.TF32"),
+                          (2, "HMMA.16816.F32.BF16"))),
+    "\t\tFunction : _ZN12_GLOBAL__N_131aca_attention_bwd_reduce_kernelENS_8OperandsE",
+    "        /*0100*/                   FADD R1, R2, R3 ;",
+])
+
+
 def _flash_kinds(monkeypatch):
-    """mma_kinds_by_form of the forward's six instances (fake SASS) beside
-    the backward's (FAKE_SASS_KINDS)."""
-    _fake_cuobjdump(monkeypatch, FAKE_SASS_FLASH)
-    by_form = kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention"))
-    _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
-    by_form.update(kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention_bwd")))
+    """mma_kinds_by_form of the flash forward's six instances (fake SASS)
+    beside the flash backward's (FAKE_SASS_KINDS) and the ACA kernels'
+    (FAKE_SASS_ACA)."""
+    by_form = {}
+    for name, sass in (("flash_attention", FAKE_SASS_FLASH),
+                       ("flash_attention_bwd", FAKE_SASS_KINDS),
+                       ("aca_attention", FAKE_SASS_ACA)):
+        _fake_cuobjdump(monkeypatch, sass)
+        by_form.update(kernels.mma_kinds_by_form(kernels.sass_mma_kinds(name)))
     return by_form
 
 
+# the kernels whose bf16 instances take mma.sync.m16n8k16 in the fake SASS
+# (chip_smoke.py:BF16_MMA_KERNELS names the built libraries' five)
 BF16_FLASH = ("flash_attention_kernel", "flash_bwd_dq_kernel")
+BF16_KERNELS = BF16_FLASH + ("aca_attention_kernel", "aca_attention_bwd_kernel")
 
 
 def test_mma_kind_faults_accept_the_flash_kernels_on_the_bf16_instruction(monkeypatch):
     """chip_smoke.py's rule holds on the layout of the built libraries: the
-    forward's eval and training instances and the backward's at bf16 on
-    HMMA.16816.F32.BF16 alone, the 3xTF32 and 1xTF32 instances on
-    HMMA.1688.F32.TF32 alone."""
+    flash forward's eval and training instances, the flash backward's and
+    both ACA kernels' at bf16 on HMMA.16816.F32.BF16 alone, the 3xTF32 and
+    1xTF32 instances on HMMA.1688.F32.TF32 alone."""
     by_form = _flash_kinds(monkeypatch)
     assert by_form["flash_attention_kernel"] == {
         "3xtf32": {"HMMA.1688.F32.TF32": 4},
         "1xtf32": {"HMMA.1688.F32.TF32": 4},
         "bf16": {"HMMA.16816.F32.BF16": 4},
     }
-    assert kernels.mma_kind_faults(by_form, BF16_FLASH) == []
-    # the ACA kernels stay on the TF32 instruction at every form
-    aca_kinds = {"aca_attention_kernel": {f: {kernels.TF32_MMA: 8} for f in by_form[
-        "flash_attention_kernel"]}}
-    assert kernels.mma_kind_faults({**by_form, **aca_kinds}, BF16_FLASH) == []
+    assert set(by_form) == {"flash_attention_kernel", "flash_bwd_dq_kernel",
+                            "aca_attention_kernel", "aca_attention_bwd_kernel"}
+    assert kernels.mma_kind_faults(by_form, BF16_KERNELS) == []
+    # a kernel whose bf16 instances are on m16n8k16 but which the list
+    # leaves out is a fault: the list names every such kernel
+    faults = kernels.mma_kind_faults(by_form, BF16_FLASH)
+    assert sorted(f.split(" ")[0] for f in faults) == ["aca_attention_bwd_kernel",
+                                                       "aca_attention_kernel"]
 
 
-@pytest.mark.parametrize("bad", ["tf32", "mixed", "other_form", "missing"])
+def test_mma_kind_faults_accept_the_aca_kernels_on_the_bf16_instruction(monkeypatch):
+    """The ACA forward's four kinds of instance (eval and training, with and
+    without the head mean) at each form are summed per form: bf16 on
+    HMMA.16816.F32.BF16 alone, 3xTF32 and 1xTF32 on HMMA.1688.F32.TF32
+    alone; the backward likewise, its chunk-sum pass (no product) left
+    out; with both in the bf16 set there is no fault."""
+    by_form = _flash_kinds(monkeypatch)
+    assert by_form["aca_attention_kernel"] == {
+        "3xtf32": {"HMMA.1688.F32.TF32": 4},
+        "1xtf32": {"HMMA.1688.F32.TF32": 4},
+        "bf16": {"HMMA.16816.F32.BF16": 4},
+    }
+    assert by_form["aca_attention_bwd_kernel"] == {
+        "3xtf32": {"HMMA.1688.F32.TF32": 2},
+        "1xtf32": {"HMMA.1688.F32.TF32": 2},
+        "bf16": {"HMMA.16816.F32.BF16": 2},
+    }
+    aca_only = {fn: by_form[fn] for fn in ("aca_attention_kernel", "aca_attention_bwd_kernel")}
+    assert kernels.mma_kind_faults(aca_only, ("aca_attention_kernel",
+                                              "aca_attention_bwd_kernel")) == []
+
+
+@pytest.mark.parametrize("bad", ["tf32", "mixed", "other_form", "missing", "aca_tf32",
+                                 "aca_bwd_tf32", "aca_mixed", "aca_other_form"])
 def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, bad):
     """A bf16 instance left on the TF32 instruction, one that mixes the two,
     a 3xTF32 instance on the bf16 one, and a kernel of the list that the
-    SASS lacks: each is one fault naming the kernel and the form."""
+    SASS lacks: each is one fault naming the kernel and the form; the same
+    for the ACA forward's and backward's instances."""
     by_form = _flash_kinds(monkeypatch)
     fwd = by_form["flash_attention_kernel"]
+    aca_fwd = by_form["aca_attention_kernel"]
     if bad == "tf32":
         fwd["bf16"] = {kernels.TF32_MMA: 64}
         want = "flash_attention_kernel bf16"
@@ -178,33 +232,51 @@ def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, ba
     elif bad == "other_form":
         fwd["3xtf32"] = {kernels.BF16_MMA: 32}
         want = "flash_attention_kernel 3xtf32"
-    else:
+    elif bad == "missing":
         del by_form["flash_attention_kernel"]
         want = "flash_attention_kernel: no such kernel"
-    faults = kernels.mma_kind_faults(by_form, BF16_FLASH)
+    elif bad == "aca_tf32":  # the bf16 instance on the TF32 instruction, as before
+        aca_fwd["bf16"] = {kernels.TF32_MMA: 96}
+        want = "aca_attention_kernel bf16"
+    elif bad == "aca_bwd_tf32":
+        by_form["aca_attention_bwd_kernel"]["bf16"] = {kernels.TF32_MMA: 80}
+        want = "aca_attention_bwd_kernel bf16"
+    elif bad == "aca_mixed":  # one of the four kinds of instance left behind
+        aca_fwd["bf16"] = {kernels.BF16_MMA: 3, kernels.TF32_MMA: 1}
+        want = "aca_attention_kernel bf16"
+    else:
+        aca_fwd["1xtf32"] = {kernels.BF16_MMA: 4}
+        want = "aca_attention_kernel 1xtf32"
+    faults = kernels.mma_kind_faults(by_form, BF16_KERNELS)
     assert len(faults) == 1 and faults[0].startswith(want), faults
     # a kernel off the list keeps its bf16 instance on the TF32 instruction
     if bad == "tf32":
-        assert kernels.mma_kind_faults(by_form, ("flash_bwd_dq_kernel",)) == []
+        assert kernels.mma_kind_faults(by_form, BF16_KERNELS[1:]) == []
 
 
 def test_hmma_by_form_sums_each_kernels_instances_per_form():
     """Every kernel with a product is a template whose first argument is its
     product form (ops/forms.py FORMS): the counts of its instances add up
     per form, and kernels without a form (no product) are left out."""
+    # the ACA forward's bf16 instances on m16n8k16 take 4 NT products (2 NT
+    # for S, 2 NT for p.v) against 3xTF32's 24 NT on m16n8k8
     counts = {
         "_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi2ELi6"
-        "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 96,
+        "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 24,
         "_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi2ELi8"
-        "ELb0ELb1EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 128,
+        "ELb0ELb1EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 32,
         "_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi0ELi6"
-        "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 288,
+        "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE": 144,
+        "_ZN12_GLOBAL__N_124aca_attention_bwd_kernelILi2ELi10EEEvNS_8OperandsE": 60,
+        "_ZN12_GLOBAL__N_124aca_attention_bwd_kernelILi1ELi10EEEvNS_8OperandsE": 120,
+        "_ZN12_GLOBAL__N_131aca_attention_bwd_reduce_kernelENS_8OperandsE": 0,
         "_ZN51_GLOBAL__N__e895d2d6_18_flash_attention_cu_bc10f23522flash_attention_kernelILi1"
         "ELb1EEEvPKfS2_S2_S2_PfiifS3_jjf": 64,
         "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii": 0,
     }
     assert kernels.hmma_by_form(counts) == {
-        "aca_attention_kernel": {"3xtf32": 288, "1xtf32": 0, "bf16": 224},
+        "aca_attention_kernel": {"3xtf32": 144, "1xtf32": 0, "bf16": 56},
+        "aca_attention_bwd_kernel": {"3xtf32": 0, "1xtf32": 120, "bf16": 60},
         "flash_attention_kernel": {"3xtf32": 0, "1xtf32": 64, "bf16": 0},
     }
 
@@ -238,3 +310,107 @@ def test_aca_backward_chunks_cover_every_row(lv, lk):
         assert shape is None
     else:
         assert shape == (2, 3, 8, chunks, lk, aca.HEAD_DIM)
+
+
+# --- tools/flash_bwd_time.py, the attention kernels' timing tool -------------
+
+@pytest.mark.parametrize("mangled,want", [
+    ("_ZN51_GLOBAL__N__e895d2d6_18_flash_attention_cu_bc10f23522flash_attention_kernelILi2"
+     "ELb1EEEvPKfS2_S2_S2_PfiifS3_jjf", "flash_attention_kernel<2, 1>"),
+    ("_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsE", "flash_bwd_dq_kernel<2>"),
+    ("_ZN49_GLOBAL__N__200b3f44_16_aca_attention_cu_b480851a20aca_attention_kernelILi2ELi10"
+     "ELb1ELb0EEEvPKfS2_S2_S2_PfS3_iiiiifNS_9TrainArgsE", "aca_attention_kernel<2, 10, 1, 0>"),
+    ("_ZN12_GLOBAL__N_124aca_attention_bwd_kernelILi0ELi16EEEvNS_8OperandsE",
+     "aca_attention_bwd_kernel<0, 16>"),
+])
+def test_timing_tool_names_each_kernel_instance(mangled, want):
+    """The tool names an instance by its kernel and template arguments (the
+    form first), for the flash and the ACA kernels alike; the profiler's
+    device records map to the kernel, the ACA backward apart from its
+    chunk-sum pass."""
+    from flashvtg_tpu_torch.tools import flash_bwd_time as tool
+
+    assert tool.instance(mangled) == want
+    demangled = f"void (anonymous namespace)::{want.split('<')[0]}<2, 10>(...)"
+    assert tool.KERNEL_NAME.search(demangled).group(1) == want.split("<")[0]
+    reduce = "void (anonymous namespace)::aca_attention_bwd_reduce_kernel((anonymous namespace)::Operands)"
+    assert tool.KERNEL_NAME.search(reduce).group(1) == "aca_attention_bwd_reduce_kernel"
+
+
+def test_timing_tool_reads_registers_and_spills_of_each_instance():
+    """ptxas -v's report, by instance: registers and spill bytes of every
+    attention kernel with a product; a kernel without one (the ACA
+    backward's chunk-sum pass) is left out."""
+    from flashvtg_tpu_torch.tools import flash_bwd_time as tool
+
+    bwd = "_ZN12_GLOBAL__N_124aca_attention_bwd_kernelILi2ELi10EEEvNS_8OperandsE"
+    red = "_ZN12_GLOBAL__N_131aca_attention_bwd_reduce_kernelENS_8OperandsE"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{bwd}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {bwd}",
+        "    0 bytes stack frame, 8 bytes spill stores, 12 bytes spill loads",
+        "ptxas info    : Used 128 registers, used 1 barriers, 464 bytes cmem[0]",
+        f"ptxas info    : Compiling entry function '{red}' for 'sm_90a'",
+        f"ptxas info    : Function properties for {red}",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Used 24 registers, used 0 barriers, 464 bytes cmem[0]",
+    ])
+    assert tool.ptxas_report(log) == {
+        "aca_attention_bwd_kernel<2, 10>": "128 registers, 8 bytes spill stores, "
+                                           "12 bytes spill loads"}
+
+
+@pytest.mark.parametrize("shape", ["flagship_train_aca", "flagship_eval_aca",
+                                   "flagship_train_short42"])
+def test_timing_tool_aca_cases_rehearse_on_the_cpu(monkeypatch, shape):
+    """The tool's ACA and short-form cases, rehearsed on the CPU at their
+    shapes with the plain versions in the launchers' place: the training
+    shapes time the forward and the backward, the eval shapes the forward;
+    each bound is chip_smoke.py:attention_bound's for that pass, on the
+    case's own key mask, with the donor rows' pairs at the ACA train shapes
+    (aca_pairs); sdpa's inputs only for the short form."""
+    import chip_smoke
+    import torch
+
+    from flashvtg_tpu_torch.models import transformer
+    from flashvtg_tpu_torch.ops import attn_dropout
+    from flashvtg_tpu_torch.tools import flash_bwd_time as tool
+
+    monkeypatch.setattr(torch.Tensor, "cuda", lambda self, *a, **k: self)
+    donors = transformer.tiled_attn_donors
+    monkeypatch.setattr(transformer, "tiled_attn_donors", lambda b, h, device=None: donors(b, h))
+    monkeypatch.setattr(attn_dropout, "seed_tensor",
+                        lambda seed, device: torch.tensor(int(seed), dtype=torch.int32))
+    monkeypatch.setattr(aca, "_launch", aca.aca_attention_plain)
+    monkeypatch.setattr(aca, "_launch_bwd", aca.aca_attention_bwd_plain)
+    seen = []
+
+    def bound(b, lv, lk, heads, nd, key_valid, want_head_mean, backward=False, pairs=None,
+              form="3xtf32"):
+        seen.append((b, lv, lk, nd, int(key_valid.sum().item()), want_head_mean, backward,
+                     pairs, form))
+        return (0.5 if backward else 0.25), "bytes"
+
+    monkeypatch.setattr(chip_smoke, "attention_bound", bound)
+    calls, bounds, lib, facts = tool.aca_cases(shape, "bf16", 0, 0.1)
+    train, aca_shape = "train" in shape, shape.endswith("_aca")
+    b, lv, lk, nd = facts["B"], facts["Lv"], facts["Lk"], facts["nd"]
+    assert set(calls) == ({"fwd", "bwd"} if train else {"fwd"})
+    assert bounds == ({"fwd": 0.25, "bwd": 0.5} if train else {"fwd": 0.25})
+    assert (nd > 0) == aca_shape and facts["donor_rows"] == (train and aca_shape)
+    assert facts["dropout"] == (0.1 if train else 0.0)
+    for (sb, slv, slk, snd, keys, hm, backward, pairs, form), pas in zip(seen, bounds):
+        assert (sb, slv, slk, snd, keys, hm, backward, form) == (
+            b, lv, lk, nd, facts["valid_keys"], aca_shape, pas == "bwd", "bf16")
+        if facts["donor_rows"]:  # the donor rows leave fewer pairs than the key mask
+            assert pairs[1] <= pairs[0] < 8 * lv * keys
+        else:
+            assert pairs is None
+    outs = {p: fn() for p, fn in calls.items()}
+    assert outs["fwd"][0].shape == (b, lv, 8 * 32)
+    if train:
+        assert [tuple(x.shape) for x in outs["bwd"]] == [(b, lv, 256), (b, lk, 256), (b, lk, 256)]
+    if aca_shape:
+        assert lib is None
+    else:  # q, k, v and the key mask for sdpa
+        assert [tuple(x.shape) for x in lib] == [(b, lv, 256)] * 3 + [(b, lk)]

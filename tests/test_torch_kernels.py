@@ -25,6 +25,8 @@ from flashvtg_tpu_torch.utils.runtime import matmul_precision
 pytestmark = pytest.mark.cuda
 
 ATOL = 1e-5
+# the precision dial of each product form the tests run
+DIALS = {"3xtf32": "float32", "bf16": "bfloat16"}
 
 
 @pytest.fixture
@@ -65,15 +67,22 @@ def _inputs(b, lv, lk, heads, seed, pad_from=None):
         (6, 1, 42, 8, 10, 30),  # Lv 1
     ],
 )
-def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_aca_kernel_matches_twin(cuda, form, b, lv, lk, heads, nd, pad_from):
+    """The eval forward through the wrapper at the dial of `form` against the
+    plain version at the same form: 3xTF32 within 1e-5, bf16 (its own body
+    on mma.sync.m16n8k16) within FORM_RTOL."""
     t = tuple(x.to(cuda) for x in _inputs(b, lv, lk, heads, 0, pad_from))
-    out, hm = aca.aca_attention(*t, num_heads=heads, num_dummies=nd)
-    ref_out, ref_hm = aca.aca_attention_plain(*t, heads, nd)
-    torch.cuda.synchronize()
-    assert (out - ref_out).abs().max().item() <= ATOL
-    assert (hm - ref_hm).abs().max().item() <= ATOL
+    before = aca.FORM_LAUNCHES[form]["aca_attention"]
+    with matmul_precision(DIALS[form], cuda):
+        out, hm = aca.aca_attention(*t, num_heads=heads, num_dummies=nd)
+        again = aca.aca_attention(*t, num_heads=heads, num_dummies=nd)
+    assert aca.FORM_LAUNCHES[form]["aca_attention"] == before + 2
+    ref_out, ref_hm = aca.aca_attention_plain(*t, heads, nd, form=form)
+    _assert_forward(out, ref_out, form)
+    _assert_forward(hm, ref_hm, form)
     # the head mean is summed in a fixed order: launches agree bit for bit
-    assert torch.equal(aca.aca_attention(*t, num_heads=heads, num_dummies=nd)[1], hm)
+    assert torch.equal(again[0], out) and torch.equal(again[1], hm)
 
 
 @pytest.mark.parametrize(
@@ -82,14 +91,14 @@ def test_aca_kernel_matches_twin(cuda, b, lv, lk, heads, nd, pad_from):
      # the mma tiling's edges
      (3, 1, None), (4, 7, 5), (4, 8, 6), (4, 9, 7), (4, 17, 12), (3, 127, 90)],
 )
-def test_masked_attention_kernel_matches_twin(cuda, b, l, pad_from):
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_masked_attention_kernel_matches_twin(cuda, form, b, l, pad_from):
     t = tuple(x.to(cuda) for x in _inputs(b, l, l, 8, 1, pad_from))
-    before = aca.launch_counts()["masked_attention"]
-    out = aca.masked_attention(*t, num_heads=8)
-    assert aca.launch_counts()["masked_attention"] == before + 1
-    ref = aca.masked_attention_plain(*t, 8)
-    torch.cuda.synchronize()
-    assert (out - ref).abs().max().item() <= ATOL
+    before = aca.FORM_LAUNCHES[form]["masked_attention"]
+    with matmul_precision(DIALS[form], cuda):
+        out = aca.masked_attention(*t, num_heads=8)
+    assert aca.FORM_LAUNCHES[form]["masked_attention"] == before + 1
+    _assert_forward(out, aca.masked_attention_plain(*t, 8, form), form)
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -138,11 +147,8 @@ def test_model_forward_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(out[key].cpu().numpy(), ref[key].numpy(), atol=3e-4)
 
 
-# the precision dial of each product form the flash tests run
-DIALS = {"3xtf32": "float32", "bf16": "bfloat16"}
 
-
-def _assert_flash_forward(out, ref, form):
+def _assert_forward(out, ref, form):
     """out against the plain version at its form: 3xTF32 within ATOL, the
     rounded forms within FORM_RTOL of max(max |ref|, 0.1)."""
     torch.cuda.synchronize()
@@ -189,7 +195,7 @@ def test_flash_kernel_matches_plain(cuda, form, b, length):
         # fixed summation order: launches agree bit for bit
         again = chunked_attn.flash_attention(*t, num_heads=8)
     assert chunked_attn.FORM_LAUNCHES[form]["flash_attention"] == before + 2
-    _assert_flash_forward(out, chunked_attn.flash_attention_plain(*t, 8, form=form), form)
+    _assert_forward(out, chunked_attn.flash_attention_plain(*t, 8, form=form), form)
     assert torch.equal(again, out)
 
 
@@ -211,7 +217,7 @@ def test_flash_kernel_any_mask(cuda, case, form):
         valid[:, 650:] = 1.0
     t = tuple(x.to(cuda) for x in (q, k, v, torch.from_numpy(valid)))
     out = chunked_attn._launch(*t, 8, form=form)
-    _assert_flash_forward(out, chunked_attn.flash_attention_plain(*t, 8, form=form), form)
+    _assert_forward(out, chunked_attn.flash_attention_plain(*t, 8, form=form), form)
     assert torch.equal(chunked_attn._launch(*t, 8, form=form), out)
 
 
@@ -225,7 +231,7 @@ def test_flash_kernel_row_without_valid_key_is_zero(cuda, form):
     ref = chunked_attn.flash_attention_plain(*t, 8, form=form)
     torch.cuda.synchronize()
     assert torch.equal(out[1], torch.zeros_like(out[1]))
-    _assert_flash_forward(out[0], ref[0], form)
+    _assert_forward(out[0], ref[0], form)
     assert torch.equal(chunked_attn._launch(*t, 8, form=form), out)
 
 
@@ -373,7 +379,14 @@ def _holes(b, n, seed, always=0):
         (3, 15, 9, 2, 0, "one_key", 0.1, False, False),
     ],
 )
-def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, donors, dhm):
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_aca_train_kernels_match_plain(cuda, form, b, lv, lk, heads, nd, keys, p, donors, dhm):
+    """The training forward and the backward against their plain versions:
+    at 3xTF32 within 1e-5 (forward) and against float64 (GRAD_RTOL); at
+    bf16, whose forward and backward have their own bodies on
+    mma.sync.m16n8k16, against the plain versions at the bf16 form, the
+    backward's on the kernel forward's log-sum-exp (FORM_RTOL). Two launches
+    of the backward bit-equal."""
     from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
 
     q, k, v, valid = _inputs(b, lv, lk, heads, 11, pad_from=max(nd + 1, lk - 12))
@@ -392,31 +405,81 @@ def test_aca_train_kernels_match_plain(cuda, b, lv, lk, heads, nd, keys, p, dono
     t = [x.to(cuda) for x in (q, k, v, valid)]
     dn = [None if x is None else x.to(cuda) for x in (query_valid, donor_rows)]
     seed = 1234
-    out, hm, lse = aca._launch(*t, heads, nd, nd > 0, p, seed, *dn, want_lse=True)
+    out, hm, lse = aca._launch(*t, heads, nd, nd > 0, p, seed, *dn, want_lse=True, form=form)
     ref_out, ref_hm, ref_lse = aca.aca_attention_plain(*t, heads, nd, nd > 0, p, seed, *dn,
-                                                       want_lse=True)
+                                                       want_lse=True, form=form)
     torch.cuda.synchronize()
-    assert (out - ref_out).abs().max().item() <= ATOL
-    assert (lse - ref_lse).abs().max().item() <= ATOL
-    if nd:
-        assert (hm - ref_hm).abs().max().item() <= ATOL
+    pairs = [(out, ref_out), (lse, ref_lse)] + ([(hm, ref_hm)] if nd else [])
+    for got, want in pairs:
+        assert torch.isfinite(got).all()
+        if form == "3xtf32":
+            assert (got - want).abs().max().item() <= ATOL
+        else:
+            assert _rel_err(got, want) <= FORM_RTOL[form]
     dh = None if d_hm is None else d_hm.to(cuda)
-    grads = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
-    # the plain backward in float64 on the same inputs: at a row with one
-    # valid key dS is 0 up to rounding and dk sums that rounding over every
-    # query row, so the f32 plain's own dk lies near the 1e-5 floor there
-    t64 = [x.double() for x in t[:3]] + [t[3]]
-    lse64 = aca.aca_attention_plain(*t64, heads, nd, nd > 0, p, seed, *dn, want_lse=True)[2]
-    ref = aca.aca_attention_bwd_plain(*t64, lse64, d_out.to(cuda).double(),
-                                      None if dh is None else dh.double(), heads, nd, p, seed,
-                                      *dn)
+    grads = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn, form=form)
+    if form == "3xtf32":
+        # the plain backward in float64 on the same inputs: at a row with one
+        # valid key dS is 0 up to rounding and dk sums that rounding over
+        # every query row, so the f32 plain's own dk lies near the 1e-5 floor
+        # there
+        t64 = [x.double() for x in t[:3]] + [t[3]]
+        lse64 = aca.aca_attention_plain(*t64, heads, nd, nd > 0, p, seed, *dn,
+                                        want_lse=True)[2]
+        ref = aca.aca_attention_bwd_plain(*t64, lse64, d_out.to(cuda).double(),
+                                          None if dh is None else dh.double(), heads, nd, p,
+                                          seed, *dn)
+        limit = GRAD_RTOL
+    else:
+        ref = aca.aca_attention_bwd_plain(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn,
+                                          form=form)
+        limit = FORM_RTOL[form]
     torch.cuda.synchronize()
     for name, got, want in zip(("dq", "dk", "dv"), grads, ref):
-        assert _rel_err(got.double(), want) <= GRAD_RTOL, name
+        assert torch.isfinite(got).all(), name
+        assert _rel_err(got.double(), want.double()) <= limit, name
     # no float atomics, the chunks' partial sums added in a fixed order:
     # launches agree bit for bit
-    again = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn)
+    again = aca._launch_bwd(*t, lse, d_out.to(cuda), dh, heads, nd, p, seed, *dn, form=form)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_aca_one_key_row_is_exact(cuda, form):
+    """At dropout 0, a short-form batch row with one valid key j (the row's
+    S is the backward's, bit for bit, so the forward's lse is exactly s_j
+    and the backward's P exactly 1): dS = P (dP - D) cancels to exactly 0,
+    so dq and dk are exactly 0; at bf16 every query row's out is bf16(v_j)
+    bit for bit (P = 1 rounds to 1, the other keys' P are 0), at 3xTF32
+    within 1e-5 of v_j. And the ACA with every key a dummy (Lk = nd = 1)
+    gives out exactly 0 (no probability reaches p.v) and a head mean of
+    exactly 1."""
+    b, lv, lk, heads = 4, 300, 75, 8
+    q, k, v, _ = _inputs(b, lv, lk, heads, 51)
+    keys = np.random.default_rng(52).integers(0, lk, b)
+    keys[1] = lk - 1  # the last key, in the last, partial n-tile
+    valid = torch.zeros((b, lk))
+    valid[torch.arange(b), torch.from_numpy(keys)] = 1.0
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    out, _, lse = aca._launch(*t, heads, 0, False, 0.0, 0, want_lse=True, form=form)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(53)).to(cuda)
+    dq, dk, dv = aca._launch_bwd(*t, lse, d_out, None, heads, 0, 0.0, 0, form=form)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in (out, lse, dq, dk, dv))
+    assert torch.equal(dk, torch.zeros_like(dk))
+    assert torch.equal(dq, torch.zeros_like(dq))
+    vj = t[2][torch.arange(b, device=cuda), torch.from_numpy(keys).to(cuda)][:, None, :]
+    if form == "bf16":
+        assert torch.equal(out, vj.to(torch.bfloat16).float().expand_as(out))
+    else:
+        assert (out - vj).abs().max().item() <= ATOL
+
+    t = [x.to(cuda) for x in _inputs(3, 40, 1, heads, 54)]
+    for want_lse in (False, True):
+        res = aca._launch(*t, heads, 1, True, 0.0, 0, want_lse=want_lse, form=form)
+        torch.cuda.synchronize()
+        assert torch.equal(res[0], torch.zeros_like(res[0]))
+        assert torch.equal(res[1], torch.ones_like(res[1]))
 
 
 @pytest.mark.parametrize(
@@ -529,13 +592,16 @@ def test_flash_backward_row_without_valid_key_is_zero(cuda):
         assert torch.isfinite(g).all()
 
 
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
 @pytest.mark.parametrize("rank", [0, 1])
-def test_aca_train_kernels_donor_tables_match_plain(cuda, rank):
+def test_aca_train_kernels_donor_tables_match_plain(cuda, rank, form):
     """The training forward and the backward with donor tables of G = 8 >
     B = 4 rows (a rank's rows of a data-parallel global batch, its donors
-    on the other rank too) against the plain versions on the same tables;
-    and at G = B with the batch's own masks, the same results as without
-    donor_key_valid (today's arithmetic, bit for bit)."""
+    on the other rank too) against the plain versions on the same tables
+    (at bf16 at the bf16 form, the backward's on the kernel forward's
+    log-sum-exp, within FORM_RTOL); and at G = B with the batch's own masks,
+    the same results as without donor_key_valid (today's arithmetic, bit for
+    bit)."""
     from flashvtg_tpu_torch.models.transformer import tiled_attn_donors
 
     b, g_rows, lv, lk, heads, nd, p, seed = 4, 8, 75, 42, 8, 10, 0.1, 99
@@ -551,22 +617,28 @@ def test_aca_train_kernels_donor_tables_match_plain(cuda, rank):
     t = [x.to(cuda) for x in (q, k, v, valid)]
     tables = dict(donor_key_valid=key_table.to(cuda))
     dn = (query_table.to(cuda), donors.to(cuda))
-    out, hm, lse = aca._launch(*t, heads, nd, True, p, seed, *dn, want_lse=True, **tables)
-    ref = aca.aca_attention_plain(*t, heads, nd, True, p, seed, *dn, want_lse=True, **tables)
+    out, hm, lse = aca._launch(*t, heads, nd, True, p, seed, *dn, want_lse=True, form=form,
+                               **tables)
+    ref = aca.aca_attention_plain(*t, heads, nd, True, p, seed, *dn, want_lse=True, form=form,
+                                  **tables)
     torch.cuda.synchronize()
     for got, want in zip((out, hm, lse), ref):
-        assert (got - want).abs().max().item() <= ATOL
+        if form == "3xtf32":
+            assert (got - want).abs().max().item() <= ATOL
+        else:
+            assert _rel_err(got, want) <= FORM_RTOL[form]
     grads = aca._launch_bwd(*t, lse, d_out.to(cuda), d_hm.to(cuda), heads, nd, p, seed, *dn,
-                            **tables)
-    ref_grads = aca.aca_attention_bwd_plain(*t, ref[2], d_out.to(cuda), d_hm.to(cuda), heads,
-                                            nd, p, seed, *dn, **tables)
+                            form=form, **tables)
+    ref_grads = aca.aca_attention_bwd_plain(*t, ref[2] if form == "3xtf32" else lse,
+                                            d_out.to(cuda), d_hm.to(cuda), heads, nd, p, seed,
+                                            *dn, form=form, **tables)
     for got, want in zip(grads, ref_grads):
-        assert _rel_err(got, want) <= GRAD_RTOL
+        assert _rel_err(got, want) <= FORM_RTOL[form]
     # G = B: the batch's own tables, bit for bit the call without them
     own_dn = (query_table[own].to(cuda), tiled_attn_donors(b, heads).to(cuda))
     with_tables = aca._launch(*t, heads, nd, True, p, seed, *own_dn, want_lse=True,
-                              donor_key_valid=t[3])
-    without = aca._launch(*t, heads, nd, True, p, seed, *own_dn, want_lse=True)
+                              donor_key_valid=t[3], form=form)
+    without = aca._launch(*t, heads, nd, True, p, seed, *own_dn, want_lse=True, form=form)
     assert all(torch.equal(x, y) for x, y in zip(with_tables, without))
 
 
