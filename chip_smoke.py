@@ -11,14 +11,16 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
   2. build: compiles every CUDA kernel of the port from its sources, one
      nvcc per source, all at once, and counts each kernel's tensor-core
      instructions in its SASS (cuobjdump): every kernel that takes a dot
-     product (on mma.sync) must have some, all but the flash backward's D
-     pre-pass and the ACA backward's chunk-sum pass; and per product form
+     product (on mma.sync or wgmma) must have some, all but the flash
+     backward's pre-passes (D, and at bf16 D with the bf16 copies) and the
+     ACA backward's chunk-sum pass; and per product form
      (each kernel is a template on it): the 1xTF32 and the bf16 instances
      must hold fewer than the 3xTF32 ones; and by instruction
-     (kernels.mma_kind_faults): the bf16 instances of the flash kernels
-     (the forward's eval and training instances, the backward's dq and
-     dk/dv) and of the ACA kernels (the forward's eval and training
-     instances, with and without the head mean, which the short
+     (kernels.mma_kind_faults): the bf16 instances of the flash backward's
+     dq and dk/dv kernels Hopper's warpgroup product on bf16 (wgmma,
+     HGMMA.64xNx16.F32.BF16) alone, those of the flash forward (eval and
+     training instances) and of the ACA kernels (the forward's eval and
+     training instances, with and without the head mean, which the short
      self-attention shares; the backward) the bf16 mma.sync.m16n8k16
      alone, every other instance the TF32 m16n8k8 alone;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
@@ -275,16 +277,18 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # sheet's dense rates: f32-accurate products (3xTF32) at the TF32 rate,
 # 495 TFLOP/s, over its three TF32 products; TF32 products at 495; bf16
 # operands with f32 sums at the bf16 rate, 989, the rate of the bf16
-# instruction that every kernel's bf16 instances take them on (the flash
-# kernels' and the ACA kernels', mma.sync.m16n8k16)
+# instructions that every kernel's bf16 instances take them on (the flash
+# backward's wgmma; the flash forward's and the ACA kernels'
+# mma.sync.m16n8k16)
 DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
 # the kernels whose bf16 instances take mma.sync.m16n8k16 (SASS
-# HMMA.16816.F32.BF16): every kernel with a product; every other instance
-# takes m16n8k8 on tf32 (kernels.mma_kind_faults)
-BF16_MMA_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel",
-                    "aca_attention_kernel", "aca_attention_bwd_kernel")
+# HMMA.16816.F32.BF16), and those whose bf16 instances take wgmma on bf16
+# (HGMMA.64xNx16.F32.BF16): every kernel with a product is in one; every
+# other instance takes m16n8k8 on tf32 (kernels.mma_kind_faults)
+BF16_MMA_KERNELS = ("flash_attention_kernel", "aca_attention_kernel", "aca_attention_bwd_kernel")
+WGMMA_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # phase 14: a kernel against its plain version at the same form (which
 # rounds the same operands), relative to max(max |plain|, 0.1): about 2-3
 # times the largest gap the card has shown over the shapes of phases 3 and 7
@@ -3326,29 +3330,32 @@ def main():
     kinds = {name: kernels.sass_mma_kinds(name) for name in kernels.SOURCES}
     hmma = {name: {fn: sum(per.values()) for fn, per in kinds[name].items()}
             for name in kernels.SOURCES}
-    log(f"[build] tensor-core instructions (SASS HMMA lines) per kernel: {json.dumps(hmma)}")
-    for name in kernels.SOURCES:  # every product on mma.sync
+    log(f"[build] tensor-core instructions (SASS HMMA and HGMMA lines) per kernel: "
+        f"{json.dumps(hmma)}")
+    for name in kernels.SOURCES:  # every product on mma.sync or wgmma
         for fn, n in hmma[name].items():
-            # the flash pre-pass D = rowsum(dO O) and the ACA backward's sum of
-            # its chunks' partial dk and dv have no product
-            if "delta" not in fn and "reduce" not in fn:
+            # the flash pre-passes (D = rowsum(dO O); at bf16 with the bf16
+            # copies) and the ACA backward's sum of its chunks' partial dk
+            # and dv have no product
+            if "delta" not in fn and "stage" not in fn and "reduce" not in fn:
                 assert n > 0, f"{fn}: no tensor-core instruction"
     # every kernel with a product in each form, summed over its instances:
     # one product a dot in the 1xTF32 and bf16 forms (the bf16 instances on
-    # m16n8k16, twice the k a product), three in 3xTF32
+    # m16n8k16, twice the k a product, or on wgmma, 64 rows a product),
+    # three in 3xTF32
     hmma_forms = {k: v for name in kernels.SOURCES
                   for k, v in kernels.hmma_by_form(hmma[name]).items()}
     log(f"[build] SASS HMMA lines per kernel and form: {json.dumps(hmma_forms)}")
     assert len(hmma_forms) == 5, hmma_forms
     for fn, per in hmma_forms.items():
         assert 0 < per["1xtf32"] < per["3xtf32"] and 0 < per["bf16"] < per["3xtf32"], (fn, per)
-    # which instruction: the bf16 instances of BF16_MMA_KERNELS (every
-    # kernel with a product) on the bf16 one (mma.sync.m16n8k16) alone,
+    # which instruction: the bf16 instances of WGMMA_KERNELS on wgmma on
+    # bf16 alone, those of BF16_MMA_KERNELS on mma.sync.m16n8k16 alone,
     # every other instance on the TF32 one (m16n8k8) alone
     hmma_kinds = {k: v for name in kernels.SOURCES
                   for k, v in kernels.mma_kinds_by_form(kinds[name]).items()}
-    log(f"[build] SASS HMMA instructions per kernel and form: {json.dumps(hmma_kinds)}")
-    faults = kernels.mma_kind_faults(hmma_kinds, BF16_MMA_KERNELS)
+    log(f"[build] SASS HMMA / HGMMA instructions per kernel and form: {json.dumps(hmma_kinds)}")
+    faults = kernels.mma_kind_faults(hmma_kinds, BF16_MMA_KERNELS, WGMMA_KERNELS)
     assert not faults, faults
 
     if args.only == "dp":

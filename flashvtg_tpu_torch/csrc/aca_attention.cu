@@ -450,231 +450,231 @@ aca_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
     aca_bf16<NT, HM, TRAIN>(q, k, v, key_valid, out, head_mean, lv, lk, heads, nd, tile_rows,
                             scale, tr, reinterpret_cast<float*>(smem4));
-    return;
-  }
-  float* stages = reinterpret_cast<float*>(smem4);
-  const int stage_size = stage_floats(lk, tile_rows);
-  const int lkp = round8(lk);
-  const int nt = lkp >> 3;
-  const int kk0 = nd >> 3;  // the first key tile that holds a non-dummy key
+  } else {
+    float* stages = reinterpret_cast<float*>(smem4);
+    const int stage_size = stage_floats(lk, tile_rows);
+    const int lkp = round8(lk);
+    const int nt = lkp >> 3;
+    const int kk0 = nd >> 3;  // the first key tile that holds a non-dummy key
 
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int wrow = warp * 16;  // the warp's first row in the tile
-  const int row0 = (int)blockIdx.x * tile_rows + wrow + g;
-  const int row[2] = {row0, row0 + 8};  // this lane's rows (may be >= lv)
-  const int d_model = heads * kDh;
-  const float* qb = q + (size_t)b * lv * d_model;
-  const float* kb = k + (size_t)b * lk * d_model;
-  const float* vb = v + (size_t)b * lk * d_model;
-  const bool drop = TRAIN && tr.threshold != 0u;
+    const int b = blockIdx.y;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wrow = warp * 16;  // the warp's first row in the tile
+    const int row0 = (int)blockIdx.x * tile_rows + wrow + g;
+    const int row[2] = {row0, row0 + 8};  // this lane's rows (may be >= lv)
+    const int d_model = heads * kDh;
+    const float* qb = q + (size_t)b * lv * d_model;
+    const float* kb = k + (size_t)b * lk * d_model;
+    const float* vb = v + (size_t)b * lk * d_model;
+    const bool drop = TRAIN && tr.threshold != 0u;
 
-  // zero K's and V's padding rows once in each stage: P is 0 there, and 0
-  // times stale shared memory could be NaN
-  for (int i = threadIdx.x; i < 2 * 2 * (lkp - lk) * kKStride; i += blockDim.x) {
-    const int per_stage = 2 * (lkp - lk) * kKStride;
-    const int st = i / per_stage;
-    const int e = i - st * per_stage;
-    const int part = e / ((lkp - lk) * kKStride);  // 0: K, 1: V
-    const int off = e - part * (lkp - lk) * kKStride;
-    stages[st * stage_size + part * lkp * kKStride + lk * kKStride + off] = 0.f;
-  }
-
-  // this lane's keys: in range, and valid in batch row b
-  uint32_t in_bits = 0u, ok_bits = 0u;
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = 8 * n + 2 * t + c;
-      if (j < lk) {
-        in_bits |= 1u << (2 * n + c);
-        if (key_valid[(size_t)b * lk + j] > 0.f) ok_bits |= 1u << (2 * n + c);
-      }
+    // zero K's and V's padding rows once in each stage: P is 0 there, and 0
+    // times stale shared memory could be NaN
+    for (int i = threadIdx.x; i < 2 * 2 * (lkp - lk) * kKStride; i += blockDim.x) {
+      const int per_stage = 2 * (lkp - lk) * kKStride;
+      const int st = i / per_stage;
+      const int e = i - st * per_stage;
+      const int part = e / ((lkp - lk) * kKStride);  // 0: K, 1: V
+      const int off = e - part * (lkp - lk) * kKStride;
+      stages[st * stage_size + part * lkp * kKStride + lk * kKStride + off] = 0.f;
     }
 
-  float hm[NT][4];
-  if (HM) {
+    // this lane's keys: in range, and valid in batch row b
+    uint32_t in_bits = 0u, ok_bits = 0u;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) hm[n][e] = 0.f;
-  }
+      for (int c = 0; c < 2; ++c) {
+        const int j = 8 * n + 2 * t + c;
+        if (j < lk) {
+          in_bits |= 1u << (2 * n + c);
+          if (key_valid[(size_t)b * lk + j] > 0.f) ok_bits |= 1u << (2 * n + c);
+        }
+      }
 
-  load_head(stages, qb, kb, vb, 0, (int)blockIdx.x * tile_rows, lv, lk, d_model, tile_rows);
-  cp_async_commit();
-  for (int h = 0; h < heads; ++h) {
-    if (h + 1 < heads) {
-      load_head(stages + ((h + 1) & 1) * stage_size, qb, kb, vb, h + 1,
-                (int)blockIdx.x * tile_rows, lv, lk, d_model, tile_rows);
+    float hm[NT][4];
+    if (HM) {
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) hm[n][e] = 0.f;
     }
-    cp_async_commit();
-    cp_async_wait_all_but_newest();  // this thread's copies of head h landed
-    __syncthreads();                 // and every other thread's
-    const float* k_s = stages + (h & 1) * stage_size;
-    const float* v_s = k_s + lkp * kKStride;
-    const float* q_s = v_s + lkp * kKStride;
 
-    // training form: this head's donor-row mask and dropout hashes
-    uint32_t mask_bits[2] = {ok_bits, ok_bits};
-    uint32_t drop_r[2] = {0u, 0u};
-    if (TRAIN) {
-      if (tr.donor_rows != nullptr) {
-        const int d = tr.donor_rows[b * heads + h];
-        uint32_t pad_bits = 0u;  // keys padded in the donor row
+    load_head(stages, qb, kb, vb, 0, (int)blockIdx.x * tile_rows, lv, lk, d_model, tile_rows);
+    cp_async_commit();
+    for (int h = 0; h < heads; ++h) {
+      if (h + 1 < heads) {
+        load_head(stages + ((h + 1) & 1) * stage_size, qb, kb, vb, h + 1,
+                  (int)blockIdx.x * tile_rows, lv, lk, d_model, tile_rows);
+      }
+      cp_async_commit();
+      cp_async_wait_all_but_newest();  // this thread's copies of head h landed
+      __syncthreads();                 // and every other thread's
+      const float* k_s = stages + (h & 1) * stage_size;
+      const float* v_s = k_s + lkp * kKStride;
+      const float* q_s = v_s + lkp * kKStride;
+
+      // training form: this head's donor-row mask and dropout hashes
+      uint32_t mask_bits[2] = {ok_bits, ok_bits};
+      uint32_t drop_r[2] = {0u, 0u};
+      if (TRAIN) {
+        if (tr.donor_rows != nullptr) {
+          const int d = tr.donor_rows[b * heads + h];
+          uint32_t pad_bits = 0u;  // keys padded in the donor row
+#pragma unroll
+          for (int n = 0; n < NT; ++n)
+#pragma unroll
+            for (int c = 0; c < 2; ++c) {
+              const int j = 8 * n + 2 * t + c;
+              if (j < lk && tr.donor_key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+            }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            if (tr.query_valid[(size_t)d * lv + min(row[r], lv - 1)] <= 0.f) {
+              mask_bits[r] &= ~pad_bits;
+            }
+          }
+        }
+        if (drop) {
+          const uint32_t drop_h = drop_head(drop_seed(tr.seed), b * heads + h);
+          drop_r[0] = drop_row(drop_h, row[0]);
+          drop_r[1] = drop_row(drop_h, row[1]);
+        }
+      }
+
+      // S = (scale Q) K^T over the key tiles
+      float s[NT][4];
+      {
+        FragA qf[kDh / 8];
+        const float* q0 = q_s + (wrow + g) * kKStride + t;
+        const float* q1 = q0 + 8 * kKStride;
+#pragma unroll
+        for (int ks = 0; ks < kDh / 8; ++ks) {
+          qf[ks] = frag_a<F>(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
+                          q1[8 * ks + 4] * scale);
+        }
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (n < nt) dot_form<F>(s[n], qf, k_s + (8 * n + g) * kKStride + t, 1.f);
+        }
+      }
+
+      // masked keys to -1e30; the row max across the quad
+      float mx[2] = {kMasked, kMasked};
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n >= nt) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          if (!((mask_bits[r] >> (2 * n + (e & 1))) & 1u)) s[n][e] = kMasked;
+          mx[r] = fmaxf(mx[r], s[n][e]);
+        }
+      }
+      float inv[2], l[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        l[r] = 0.f;
+      }
+      // e = exp2((s - m) log2 e) at keys in range (exactly 1 at the max), and
+      // the row sums across the quad, in a fixed order
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n >= nt) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const bool in = (in_bits >> (2 * n + (e & 1))) & 1u;
+          s[n][e] = in ? exp2_fast((s[n][e] - mx[r]) * kLog2e) : 0.f;
+          l[r] += s[n][e];
+        }
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+        l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+        inv[r] = 1.f / l[r];
+        if (TRAIN && tr.lse != nullptr && t == 0 && row[r] < lv) {
+          tr.lse[((size_t)b * heads + h) * lv + row[r]] = mx[r] + logf(l[r]);
+        }
+      }
+
+      // P; the head mean takes it undropped, p.v dropped and 0 at the dummies
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        if (n >= nt) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          const int j = 8 * n + 2 * t + (e & 1);
+          const float p = s[n][e] * inv[r];
+          if (HM) hm[n][e] += p;
+          float pz = j >= nd ? p : 0.f;
+          if (drop) pz *= drop_scale(drop_r[r], j, tr.threshold, tr.keep_scale);
+          s[n][e] = pz;
+        }
+      }
+
+      // O = P V: P from registers, V's key rows in the order 2t, 2t + 1; each
+      // 64 keys' sum in fresh accumulators, added on the CUDA cores
+      float o[kDh / 8][4];
+#pragma unroll
+      for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+#pragma unroll
+      for (int c0 = 0; c0 < NT; c0 += kPvChunk) {
+        float pv[kDh / 8][4];
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+        for (int kk = c0; kk < c0 + kPvChunk && kk < NT; ++kk) {
+          if (kk < kk0 || kk >= nt) continue;
+          const FragA pa = frag_a_from_c<F>(s[kk]);
+          const float* vr = v_s + (8 * kk + 2 * t) * kKStride + g;
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n) {
+            mma_form<F>(pv[n], pa, frag_b<F>(vr[8 * n], vr[kKStride + 8 * n]));
+          }
+        }
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
+      }
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] >= lv) continue;
+        float* orow = out + ((size_t)b * lv + row[r]) * d_model + h * kDh + 2 * t;
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n) {
+          *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
+        }
+      }
+      __syncthreads();  // stage h & 1 is free for head h + 2
+    }
+
+    if (HM) {
+      const float fh = (float)heads;
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        if (row[r] >= lv) continue;
+        float* hrow = head_mean + ((size_t)b * lv + row[r]) * lk;
 #pragma unroll
         for (int n = 0; n < NT; ++n)
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int j = 8 * n + 2 * t + c;
-            if (j < lk && tr.donor_key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+            if (j < lk) hrow[j] = hm[n][2 * r + c] / fh;
           }
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          if (tr.query_valid[(size_t)d * lv + min(row[r], lv - 1)] <= 0.f) {
-            mask_bits[r] &= ~pad_bits;
-          }
-        }
       }
-      if (drop) {
-        const uint32_t drop_h = drop_head(drop_seed(tr.seed), b * heads + h);
-        drop_r[0] = drop_row(drop_h, row[0]);
-        drop_r[1] = drop_row(drop_h, row[1]);
-      }
-    }
-
-    // S = (scale Q) K^T over the key tiles
-    float s[NT][4];
-    {
-      FragA qf[kDh / 8];
-      const float* q0 = q_s + (wrow + g) * kKStride + t;
-      const float* q1 = q0 + 8 * kKStride;
-#pragma unroll
-      for (int ks = 0; ks < kDh / 8; ++ks) {
-        qf[ks] = frag_a<F>(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
-                        q1[8 * ks + 4] * scale);
-      }
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n < nt) dot_form<F>(s[n], qf, k_s + (8 * n + g) * kKStride + t, 1.f);
-      }
-    }
-
-    // masked keys to -1e30; the row max across the quad
-    float mx[2] = {kMasked, kMasked};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        if (!((mask_bits[r] >> (2 * n + (e & 1))) & 1u)) s[n][e] = kMasked;
-        mx[r] = fmaxf(mx[r], s[n][e]);
-      }
-    }
-    float inv[2], l[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      l[r] = 0.f;
-    }
-    // e = exp2((s - m) log2 e) at keys in range (exactly 1 at the max), and
-    // the row sums across the quad, in a fixed order
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const bool in = (in_bits >> (2 * n + (e & 1))) & 1u;
-        s[n][e] = in ? exp2_fast((s[n][e] - mx[r]) * kLog2e) : 0.f;
-        l[r] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-      inv[r] = 1.f / l[r];
-      if (TRAIN && tr.lse != nullptr && t == 0 && row[r] < lv) {
-        tr.lse[((size_t)b * heads + h) * lv + row[r]] = mx[r] + logf(l[r]);
-      }
-    }
-
-    // P; the head mean takes it undropped, p.v dropped and 0 at the dummies
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      if (n >= nt) continue;
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int j = 8 * n + 2 * t + (e & 1);
-        const float p = s[n][e] * inv[r];
-        if (HM) hm[n][e] += p;
-        float pz = j >= nd ? p : 0.f;
-        if (drop) pz *= drop_scale(drop_r[r], j, tr.threshold, tr.keep_scale);
-        s[n][e] = pz;
-      }
-    }
-
-    // O = P V: P from registers, V's key rows in the order 2t, 2t + 1; each
-    // 64 keys' sum in fresh accumulators, added on the CUDA cores
-    float o[kDh / 8][4];
-#pragma unroll
-    for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-#pragma unroll
-    for (int c0 = 0; c0 < NT; c0 += kPvChunk) {
-      float pv[kDh / 8][4];
-#pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-#pragma unroll
-      for (int kk = c0; kk < c0 + kPvChunk && kk < NT; ++kk) {
-        if (kk < kk0 || kk >= nt) continue;
-        const FragA pa = frag_a_from_c<F>(s[kk]);
-        const float* vr = v_s + (8 * kk + 2 * t) * kKStride + g;
-#pragma unroll
-        for (int n = 0; n < kDh / 8; ++n) {
-          mma_form<F>(pv[n], pa, frag_b<F>(vr[8 * n], vr[kKStride + 8 * n]));
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (row[r] >= lv) continue;
-      float* orow = out + ((size_t)b * lv + row[r]) * d_model + h * kDh + 2 * t;
-#pragma unroll
-      for (int n = 0; n < kDh / 8; ++n) {
-        *reinterpret_cast<float2*>(orow + 8 * n) = make_float2(o[n][2 * r], o[n][2 * r + 1]);
-      }
-    }
-    __syncthreads();  // stage h & 1 is free for head h + 2
-  }
-
-  if (HM) {
-    const float fh = (float)heads;
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (row[r] >= lv) continue;
-      float* hrow = head_mean + ((size_t)b * lv + row[r]) * lk;
-#pragma unroll
-      for (int n = 0; n < NT; ++n)
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int j = 8 * n + 2 * t + c;
-          if (j < lk) hrow[j] = hm[n][2 * r + c] / fh;
-        }
     }
   }
 }

@@ -529,310 +529,310 @@ aca_attention_bwd_kernel(const Operands a) {
   extern __shared__ float4 smem4[];
   if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
     aca_bwd_bf16<NT>(a, reinterpret_cast<unsigned char*>(smem4));
-    return;
-  }
-  const int lv = a.lv, lk = a.lk, nd = a.nd;
-  const int lkp = round8(lk);
-  const int nt = lkp >> 3;
-  const int ps = round16(lk) + 4;  // dS / P z row stride
-  float* k_s = reinterpret_cast<float*>(smem4);
-  float* v_s = k_s + lkp * kKStride;
-  float* q_s = v_s + lkp * kKStride;
-  float* do_s = q_s + kTileRows * kKStride;
-  float* ds_s = do_s + kTileRows * kKStride;
-  float* pz_s = ds_s + kTileRows * ps;
+  } else {
+    const int lv = a.lv, lk = a.lk, nd = a.nd;
+    const int lkp = round8(lk);
+    const int nt = lkp >> 3;
+    const int ps = round16(lk) + 4;  // dS / P z row stride
+    float* k_s = reinterpret_cast<float*>(smem4);
+    float* v_s = k_s + lkp * kKStride;
+    float* q_s = v_s + lkp * kKStride;
+    float* do_s = q_s + kTileRows * kKStride;
+    float* ds_s = do_s + kTileRows * kKStride;
+    float* pz_s = ds_s + kTileRows * ps;
 
-  const int h = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int b = blockIdx.z;
-  const int bh = b * a.heads + h;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int d_model = a.heads * kDh;
-  const size_t col0 = (size_t)h * kDh;
-  const int c_begin = chunk * a.chunk_rows;
-  const int c_end = min(lv, c_begin + a.chunk_rows);
+    const int h = blockIdx.x;
+    const int chunk = blockIdx.y;
+    const int b = blockIdx.z;
+    const int bh = b * a.heads + h;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int d_model = a.heads * kDh;
+    const size_t col0 = (size_t)h * kDh;
+    const int c_begin = chunk * a.chunk_rows;
+    const int c_end = min(lv, c_begin + a.chunk_rows);
 
-  // K and V of this head, rows past lk zero; dS and P z zero past round8(lk)
-  for (int i = threadIdx.x; i < lkp * (kDh / 4); i += blockDim.x) {
-    const int j = i >> 3;
-    const int c = (i & 7) * 4;
-    if (j < lk) {
-      const size_t g0 = ((size_t)b * lk + j) * d_model + col0 + c;
-      cp_async16(k_s + j * kKStride + c, a.k + g0);
-      cp_async16(v_s + j * kKStride + c, a.v + g0);
-    } else {
-      st4(k_s + j * kKStride + c, make_float4(0.f, 0.f, 0.f, 0.f));
-      st4(v_s + j * kKStride + c, make_float4(0.f, 0.f, 0.f, 0.f));
+    // K and V of this head, rows past lk zero; dS and P z zero past round8(lk)
+    for (int i = threadIdx.x; i < lkp * (kDh / 4); i += blockDim.x) {
+      const int j = i >> 3;
+      const int c = (i & 7) * 4;
+      if (j < lk) {
+        const size_t g0 = ((size_t)b * lk + j) * d_model + col0 + c;
+        cp_async16(k_s + j * kKStride + c, a.k + g0);
+        cp_async16(v_s + j * kKStride + c, a.v + g0);
+      } else {
+        st4(k_s + j * kKStride + c, make_float4(0.f, 0.f, 0.f, 0.f));
+        st4(v_s + j * kKStride + c, make_float4(0.f, 0.f, 0.f, 0.f));
+      }
     }
-  }
-  for (int i = threadIdx.x; i < kTileRows * (ps - lkp); i += blockDim.x) {
-    const int r = i / (ps - lkp);
-    const int c = lkp + i - r * (ps - lkp);
-    ds_s[r * ps + c] = 0.f;
-    pz_s[r * ps + c] = 0.f;
-  }
+    for (int i = threadIdx.x; i < kTileRows * (ps - lkp); i += blockDim.x) {
+      const int r = i / (ps - lkp);
+      const int c = lkp + i - r * (ps - lkp);
+      ds_s[r * ps + c] = 0.f;
+      pz_s[r * ps + c] = 0.f;
+    }
 
-  // this lane's keys: valid in batch row b, and padded in the donor row
-  uint32_t ok_bits = 0u, pad_bits = 0u;
-  const float* qvalid_d = nullptr;
-  if (a.donor_rows != nullptr) {
-    const int d = a.donor_rows[bh];
-    qvalid_d = a.query_valid + (size_t)d * lv;
+    // this lane's keys: valid in batch row b, and padded in the donor row
+    uint32_t ok_bits = 0u, pad_bits = 0u;
+    const float* qvalid_d = nullptr;
+    if (a.donor_rows != nullptr) {
+      const int d = a.donor_rows[bh];
+      qvalid_d = a.query_valid + (size_t)d * lv;
+#pragma unroll
+      for (int n = 0; n < NT; ++n)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = 8 * n + 2 * t + c;
+          if (j < lk && a.donor_key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+        }
+    }
 #pragma unroll
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
         const int j = 8 * n + 2 * t + c;
-        if (j < lk && a.donor_key_valid[(size_t)d * lk + j] <= 0.f) pad_bits |= 1u << (2 * n + c);
+        if (j < lk && a.key_valid[(size_t)b * lk + j] > 0.f) ok_bits |= 1u << (2 * n + c);
       }
-  }
-#pragma unroll
-  for (int n = 0; n < NT; ++n)
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int j = 8 * n + 2 * t + c;
-      if (j < lk && a.key_valid[(size_t)b * lk + j] > 0.f) ok_bits |= 1u << (2 * n + c);
-    }
-  const uint32_t drop_h = drop_head(drop_seed(a.seed), bh);
-  const float inv_heads = 1.f / (float)a.heads;
+    const uint32_t drop_h = drop_head(drop_seed(a.seed), bh);
+    const float inv_heads = 1.f / (float)a.heads;
 
-  // this warp's key tile of dk and dv (keys 16 warp + g and + 8)
-  float dk[kDh / 8][4], dv[kDh / 8][4];
+    // this warp's key tile of dk and dv (keys 16 warp + g and + 8)
+    float dk[kDh / 8][4], dv[kDh / 8][4];
 #pragma unroll
-  for (int n = 0; n < kDh / 8; ++n)
+    for (int n = 0; n < kDh / 8; ++n)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      dk[n][e] = 0.f;
-      dv[n][e] = 0.f;
-    }
-
-  for (int r0 = c_begin; r0 < c_end; r0 += kTileRows) {
-    // the Q and dO tile; rows past lv read row lv - 1 and get P = 0
-    for (int i = threadIdx.x; i < kTileRows * (kDh / 4); i += blockDim.x) {
-      const int r = i >> 3;
-      const int c = (i & 7) * 4;
-      const size_t g0 = ((size_t)b * lv + min(r0 + r, lv - 1)) * d_model + col0 + c;
-      cp_async16(q_s + r * kKStride + c, a.q + g0);
-      cp_async16(do_s + r * kKStride + c, a.d_out + g0);
-    }
-    cp_async_commit();
-    cp_async_wait_all();
-    __syncthreads();
-
-    const int wrow = warp * 16;
-    if (r0 + wrow < c_end) {  // the warp's rows hold a live one
-      const int row[2] = {r0 + wrow + g, r0 + wrow + g + 8};
-      float lse_r[2];
-      uint32_t mask_bits[2], drop_r[2];
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const bool live = row[r] < c_end;
-        lse_r[r] = live ? a.lse[(size_t)bh * lv + row[r]] : 0.f;
-        mask_bits[r] = live ? ok_bits : 0u;
-        if (live && qvalid_d != nullptr && qvalid_d[row[r]] <= 0.f) mask_bits[r] &= ~pad_bits;
-        drop_r[r] = a.threshold != 0u ? drop_row(drop_h, row[r]) : 0u;
+      for (int e = 0; e < 4; ++e) {
+        dk[n][e] = 0.f;
+        dv[n][e] = 0.f;
       }
 
-      // the head-mean gradient at the lane's (row, key) positions, loaded
-      // first so that its latency hides behind the products
-      float dp[NT][4];
+    for (int r0 = c_begin; r0 < c_end; r0 += kTileRows) {
+      // the Q and dO tile; rows past lv read row lv - 1 and get P = 0
+      for (int i = threadIdx.x; i < kTileRows * (kDh / 4); i += blockDim.x) {
+        const int r = i >> 3;
+        const int c = (i & 7) * 4;
+        const size_t g0 = ((size_t)b * lv + min(r0 + r, lv - 1)) * d_model + col0 + c;
+        cp_async16(q_s + r * kKStride + c, a.q + g0);
+        cp_async16(do_s + r * kKStride + c, a.d_out + g0);
+      }
+      cp_async_commit();
+      cp_async_wait_all();
+      __syncthreads();
+
+      const int wrow = warp * 16;
+      if (r0 + wrow < c_end) {  // the warp's rows hold a live one
+        const int row[2] = {r0 + wrow + g, r0 + wrow + g + 8};
+        float lse_r[2];
+        uint32_t mask_bits[2], drop_r[2];
 #pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n >= nt) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const bool ok = (mask_bits[r] >> (2 * n + (e & 1))) & 1u;
-          dp[n][e] = a.d_head_mean != nullptr && ok
-                         ? a.d_head_mean[((size_t)b * lv + row[r]) * lk + 8 * n + 2 * t + (e & 1)]
-                         : 0.f;
+        for (int r = 0; r < 2; ++r) {
+          const bool live = row[r] < c_end;
+          lse_r[r] = live ? a.lse[(size_t)bh * lv + row[r]] : 0.f;
+          mask_bits[r] = live ? ok_bits : 0u;
+          if (live && qvalid_d != nullptr && qvalid_d[row[r]] <= 0.f) mask_bits[r] &= ~pad_bits;
+          drop_r[r] = a.threshold != 0u ? drop_row(drop_h, row[r]) : 0u;
         }
-      }
 
-      // S = (scale Q) K^T, as the forward
-      float s[NT][4];
-      FragA f[kDh / 8];
-      {
-        const float* q0 = q_s + (wrow + g) * kKStride + t;
-        const float* q1 = q0 + 8 * kKStride;
-#pragma unroll
-        for (int ks = 0; ks < kDh / 8; ++ks) {
-          f[ks] = frag_a<F>(q0[8 * ks] * a.scale, q1[8 * ks] * a.scale, q0[8 * ks + 4] * a.scale,
-                         q1[8 * ks + 4] * a.scale);
-        }
+        // the head-mean gradient at the lane's (row, key) positions, loaded
+        // first so that its latency hides behind the products
+        float dp[NT][4];
 #pragma unroll
         for (int n = 0; n < NT; ++n) {
-          if (n < nt) dot_form<F>(s[n], f, k_s + (8 * n + g) * kKStride + t, 1.f);
-        }
-        const float* o0 = do_s + (wrow + g) * kKStride + t;
-        const float* o1 = o0 + 8 * kKStride;
+          if (n >= nt) continue;
 #pragma unroll
-        for (int ks = 0; ks < kDh / 8; ++ks) {
-          f[ks] = frag_a<F>(o0[8 * ks], o1[8 * ks], o0[8 * ks + 4], o1[8 * ks + 4]);
-        }
-      }
-
-      // per key tile: dO V^T, then P in s, dP in dp, P z to shared memory,
-      // and this lane's share of D
-      float d_sum[2] = {0.f, 0.f};
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n >= nt) continue;
-        float dov[4] = {0.f, 0.f, 0.f, 0.f};  // z is 0 at the dummies
-        if (8 * n + 8 > nd) dot_form<F>(dov, f, v_s + (8 * n + g) * kKStride + t, 1.f);
-        float pz[4];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const int j = 8 * n + 2 * t + (e & 1);
-          const bool ok = (mask_bits[r] >> (2 * n + (e & 1))) & 1u;
-          const float p = ok ? exp2_fast((s[n][e] - lse_r[r]) * kLog2e) : 0.f;
-          const float z = j < nd ? 0.f
-                          : a.threshold != 0u ? drop_scale(drop_r[r], j, a.threshold, a.keep_scale)
-                                              : 1.f;
-          const float dpf = z * dov[e] + dp[n][e] * inv_heads;
-          d_sum[r] += p * dpf;
-          s[n][e] = p;
-          dp[n][e] = dpf;
-          pz[e] = p * z;
-        }
-        float* pw = pz_s + (wrow + g) * ps + 8 * n + 2 * t;
-        *reinterpret_cast<float2*>(pw) = make_float2(pz[0], pz[1]);
-        *reinterpret_cast<float2*>(pw + 8 * ps) = make_float2(pz[2], pz[3]);
-      }
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 1);
-        d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 2);
-      }
-
-      // dS = P (dP - D) in dp and to shared memory
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        if (n >= nt) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - d_sum[e >> 1]);
-        float* dw = ds_s + (wrow + g) * ps + 8 * n + 2 * t;
-        *reinterpret_cast<float2*>(dw) = make_float2(dp[n][0], dp[n][1]);
-        *reinterpret_cast<float2*>(dw + 8 * ps) = make_float2(dp[n][2], dp[n][3]);
-      }
-
-      // dq = dS K: dS from registers, K's key rows in the order 2t, 2t + 1;
-      // each 32 keys' sum in fresh accumulators, added on the CUDA cores
-      float dq[kDh / 8][4];
-#pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
-#pragma unroll
-      for (int c0 = 0; c0 < NT; c0 += kDqChunk) {
-        float pdq[kDh / 8][4];
-#pragma unroll
-        for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) pdq[n][e] = 0.f;
-#pragma unroll
-        for (int kk = c0; kk < c0 + kDqChunk && kk < NT; ++kk) {
-          if (kk >= nt) continue;
-          const FragA da = frag_a_from_c<F>(dp[kk]);
-          const float* kr = k_s + (8 * kk + 2 * t) * kKStride + g;
-#pragma unroll
-          for (int n = 0; n < kDh / 8; ++n) {
-            mma_form<F>(pdq[n], da, frag_b<F>(kr[8 * n], kr[kKStride + 8 * n]));
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const bool ok = (mask_bits[r] >> (2 * n + (e & 1))) & 1u;
+            dp[n][e] = a.d_head_mean != nullptr && ok
+                           ? a.d_head_mean[((size_t)b * lv + row[r]) * lk + 8 * n + 2 * t + (e & 1)]
+                           : 0.f;
           }
         }
+
+        // S = (scale Q) K^T, as the forward
+        float s[NT][4];
+        FragA f[kDh / 8];
+        {
+          const float* q0 = q_s + (wrow + g) * kKStride + t;
+          const float* q1 = q0 + 8 * kKStride;
+#pragma unroll
+          for (int ks = 0; ks < kDh / 8; ++ks) {
+            f[ks] = frag_a<F>(q0[8 * ks] * a.scale, q1[8 * ks] * a.scale, q0[8 * ks + 4] * a.scale,
+                           q1[8 * ks + 4] * a.scale);
+          }
+#pragma unroll
+          for (int n = 0; n < NT; ++n) {
+            if (n < nt) dot_form<F>(s[n], f, k_s + (8 * n + g) * kKStride + t, 1.f);
+          }
+          const float* o0 = do_s + (wrow + g) * kKStride + t;
+          const float* o1 = o0 + 8 * kKStride;
+#pragma unroll
+          for (int ks = 0; ks < kDh / 8; ++ks) {
+            f[ks] = frag_a<F>(o0[8 * ks], o1[8 * ks], o0[8 * ks + 4], o1[8 * ks + 4]);
+          }
+        }
+
+        // per key tile: dO V^T, then P in s, dP in dp, P z to shared memory,
+        // and this lane's share of D
+        float d_sum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (n >= nt) continue;
+          float dov[4] = {0.f, 0.f, 0.f, 0.f};  // z is 0 at the dummies
+          if (8 * n + 8 > nd) dot_form<F>(dov, f, v_s + (8 * n + g) * kKStride + t, 1.f);
+          float pz[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const int j = 8 * n + 2 * t + (e & 1);
+            const bool ok = (mask_bits[r] >> (2 * n + (e & 1))) & 1u;
+            const float p = ok ? exp2_fast((s[n][e] - lse_r[r]) * kLog2e) : 0.f;
+            const float z = j < nd ? 0.f
+                            : a.threshold != 0u ? drop_scale(drop_r[r], j, a.threshold, a.keep_scale)
+                                                : 1.f;
+            const float dpf = z * dov[e] + dp[n][e] * inv_heads;
+            d_sum[r] += p * dpf;
+            s[n][e] = p;
+            dp[n][e] = dpf;
+            pz[e] = p * z;
+          }
+          float* pw = pz_s + (wrow + g) * ps + 8 * n + 2 * t;
+          *reinterpret_cast<float2*>(pw) = make_float2(pz[0], pz[1]);
+          *reinterpret_cast<float2*>(pw + 8 * ps) = make_float2(pz[2], pz[3]);
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 1);
+          d_sum[r] += __shfl_xor_sync(0xffffffffu, d_sum[r], 2);
+        }
+
+        // dS = P (dP - D) in dp and to shared memory
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          if (n >= nt) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dp[n][e] = s[n][e] * (dp[n][e] - d_sum[e >> 1]);
+          float* dw = ds_s + (wrow + g) * ps + 8 * n + 2 * t;
+          *reinterpret_cast<float2*>(dw) = make_float2(dp[n][0], dp[n][1]);
+          *reinterpret_cast<float2*>(dw + 8 * ps) = make_float2(dp[n][2], dp[n][3]);
+        }
+
+        // dq = dS K: dS from registers, K's key rows in the order 2t, 2t + 1;
+        // each 32 keys' sum in fresh accumulators, added on the CUDA cores
+        float dq[kDh / 8][4];
 #pragma unroll
         for (int n = 0; n < kDh / 8; ++n)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dq[n][e] += pdq[n][e];
+          for (int e = 0; e < 4; ++e) dq[n][e] = 0.f;
+#pragma unroll
+        for (int c0 = 0; c0 < NT; c0 += kDqChunk) {
+          float pdq[kDh / 8][4];
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) pdq[n][e] = 0.f;
+#pragma unroll
+          for (int kk = c0; kk < c0 + kDqChunk && kk < NT; ++kk) {
+            if (kk >= nt) continue;
+            const FragA da = frag_a_from_c<F>(dp[kk]);
+            const float* kr = k_s + (8 * kk + 2 * t) * kKStride + g;
+#pragma unroll
+            for (int n = 0; n < kDh / 8; ++n) {
+              mma_form<F>(pdq[n], da, frag_b<F>(kr[8 * n], kr[kKStride + 8 * n]));
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) dq[n][e] += pdq[n][e];
+        }
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          if (row[r] >= c_end) continue;
+          float* o = a.dq + ((size_t)b * lv + row[r]) * d_model + col0 + 2 * t;
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n) {
+            *reinterpret_cast<float2*>(o + 8 * n) =
+                make_float2(dq[n][2 * r] * a.scale, dq[n][2 * r + 1] * a.scale);
+          }
+        }
+      } else {
+        // rows past the chunk: dS and P z 0, so that no stale value reaches dk, dv
+        for (int i = lane; i < 16 * lkp; i += 32) {
+          const int r = wrow + i / lkp;
+          const int c = i - (i / lkp) * lkp;
+          ds_s[r * ps + c] = 0.f;
+          pz_s[r * ps + c] = 0.f;
+        }
       }
+      __syncthreads();  // every warp's dS and P z are in
+
+      // dk += dS^T Q and dv += (P z)^T dO for key tile `warp`: the A operand
+      // from shared memory, its k slots t and t + 4 the query rows 2t and
+      // 2t + 1 of each 8 (so that the B loads of Q and dO, rows 2t, 2t + 1 and
+      // column g, hit distinct banks); fresh accumulators per 16 rows
+      if (warp < kKeyTiles) {
+        const int key0 = 16 * warp + g;
+#pragma unroll 1
+        for (int rg = 0; rg < kTileRows && r0 + rg < c_end; rg += 16) {
+          float pdk[kDh / 8][4], pdv[kDh / 8][4];
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              pdk[n][e] = 0.f;
+              pdv[n][e] = 0.f;
+            }
+#pragma unroll
+          for (int ks = 0; ks < 2; ++ks) {
+            const int ra = rg + 8 * ks + 2 * t;  // rows ra (slot t) and ra + 1 (slot t + 4)
+            const float* d0 = ds_s + ra * ps + key0;
+            const float* p0 = pz_s + ra * ps + key0;
+            const FragA da = frag_a<F>(d0[0], d0[8], d0[ps], d0[ps + 8]);
+            const FragA pa = frag_a<F>(p0[0], p0[8], p0[ps], p0[ps + 8]);
+            const float* qr = q_s + ra * kKStride + g;
+            const float* orr = do_s + ra * kKStride + g;
+#pragma unroll
+            for (int n = 0; n < kDh / 8; ++n) {
+              mma_form<F>(pdk[n], da, frag_b<F>(qr[8 * n], qr[kKStride + 8 * n]));
+              mma_form<F>(pdv[n], pa, frag_b<F>(orr[8 * n], orr[kKStride + 8 * n]));
+            }
+          }
+#pragma unroll
+          for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              dk[n][e] += pdk[n][e];
+              dv[n][e] += pdv[n][e];
+            }
+        }
+      }
+      __syncthreads();  // the tile's buffers are free for the next one
+    }
+
+    // dk and dv of the warp's keys: written, or the chunk's partial sums
+    if (warp < kKeyTiles) {
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        if (row[r] >= c_end) continue;
-        float* o = a.dq + ((size_t)b * lv + row[r]) * d_model + col0 + 2 * t;
+        const int key = 16 * warp + g + 8 * r;
+        if (key >= lk) continue;
 #pragma unroll
         for (int n = 0; n < kDh / 8; ++n) {
-          *reinterpret_cast<float2*>(o + 8 * n) =
-              make_float2(dq[n][2 * r] * a.scale, dq[n][2 * r + 1] * a.scale);
-        }
-      }
-    } else {
-      // rows past the chunk: dS and P z 0, so that no stale value reaches dk, dv
-      for (int i = lane; i < 16 * lkp; i += 32) {
-        const int r = wrow + i / lkp;
-        const int c = i - (i / lkp) * lkp;
-        ds_s[r * ps + c] = 0.f;
-        pz_s[r * ps + c] = 0.f;
-      }
-    }
-    __syncthreads();  // every warp's dS and P z are in
-
-    // dk += dS^T Q and dv += (P z)^T dO for key tile `warp`: the A operand
-    // from shared memory, its k slots t and t + 4 the query rows 2t and
-    // 2t + 1 of each 8 (so that the B loads of Q and dO, rows 2t, 2t + 1 and
-    // column g, hit distinct banks); fresh accumulators per 16 rows
-    if (warp < kKeyTiles) {
-      const int key0 = 16 * warp + g;
-#pragma unroll 1
-      for (int rg = 0; rg < kTileRows && r0 + rg < c_end; rg += 16) {
-        float pdk[kDh / 8][4], pdv[kDh / 8][4];
-#pragma unroll
-        for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            pdk[n][e] = 0.f;
-            pdv[n][e] = 0.f;
+          const int c = 8 * n + 2 * t;
+          if (a.chunks == 1) {
+            const size_t g0 = ((size_t)b * lk + key) * d_model + col0 + c;
+            *reinterpret_cast<float2*>(a.dk + g0) =
+                make_float2(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
+            *reinterpret_cast<float2*>(a.dv + g0) = make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
+          } else {
+            const size_t part = (size_t)a.batch * a.heads * a.chunks * lk * kDh;
+            const size_t w0 = (((size_t)bh * a.chunks + chunk) * lk + key) * kDh + c;
+            *reinterpret_cast<float2*>(a.ws + w0) = make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
+            *reinterpret_cast<float2*>(a.ws + part + w0) =
+                make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
           }
-#pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          const int ra = rg + 8 * ks + 2 * t;  // rows ra (slot t) and ra + 1 (slot t + 4)
-          const float* d0 = ds_s + ra * ps + key0;
-          const float* p0 = pz_s + ra * ps + key0;
-          const FragA da = frag_a<F>(d0[0], d0[8], d0[ps], d0[ps + 8]);
-          const FragA pa = frag_a<F>(p0[0], p0[8], p0[ps], p0[ps + 8]);
-          const float* qr = q_s + ra * kKStride + g;
-          const float* orr = do_s + ra * kKStride + g;
-#pragma unroll
-          for (int n = 0; n < kDh / 8; ++n) {
-            mma_form<F>(pdk[n], da, frag_b<F>(qr[8 * n], qr[kKStride + 8 * n]));
-            mma_form<F>(pdv[n], pa, frag_b<F>(orr[8 * n], orr[kKStride + 8 * n]));
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dk[n][e] += pdk[n][e];
-            dv[n][e] += pdv[n][e];
-          }
-      }
-    }
-    __syncthreads();  // the tile's buffers are free for the next one
-  }
-
-  // dk and dv of the warp's keys: written, or the chunk's partial sums
-  if (warp < kKeyTiles) {
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int key = 16 * warp + g + 8 * r;
-      if (key >= lk) continue;
-#pragma unroll
-      for (int n = 0; n < kDh / 8; ++n) {
-        const int c = 8 * n + 2 * t;
-        if (a.chunks == 1) {
-          const size_t g0 = ((size_t)b * lk + key) * d_model + col0 + c;
-          *reinterpret_cast<float2*>(a.dk + g0) =
-              make_float2(dk[n][2 * r] * a.scale, dk[n][2 * r + 1] * a.scale);
-          *reinterpret_cast<float2*>(a.dv + g0) = make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
-        } else {
-          const size_t part = (size_t)a.batch * a.heads * a.chunks * lk * kDh;
-          const size_t w0 = (((size_t)bh * a.chunks + chunk) * lk + key) * kDh + c;
-          *reinterpret_cast<float2*>(a.ws + w0) = make_float2(dk[n][2 * r], dk[n][2 * r + 1]);
-          *reinterpret_cast<float2*>(a.ws + part + w0) =
-              make_float2(dv[n][2 * r], dv[n][2 * r + 1]);
         }
       }
     }

@@ -1,10 +1,12 @@
 // Helpers shared by the attention kernels of this directory: the head
 // layout, float4 loads and stores, cp.async, the tensor-core products in
-// their three forms (3xTF32, 1xTF32, bf16), and the flash kernels' key mask
-// and staged key tiles.
+// their three forms (3xTF32, 1xTF32, bf16), the flash kernels' key mask
+// and staged key tiles, and Hopper's TMA copies, mbarriers and warpgroup
+// products (wgmma).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -64,16 +66,16 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //   kForm1xTF32 (tensorfloat32): hi_a.hi_b alone, one product per dot:
 //     about three decimal digits, what cuBLAS's TF32 GEMMs keep.
 //   kFormBF16 (bfloat16): each operand rounded to bf16, to nearest even
-//     (__floats2bfloat162_rn's rounding), with f32 sums. Every kernel's bf16
-//     instances (the flash and the ACA kernels, forward and backward) take
-//     these operands on the bf16 instruction itself, mma.sync.m16n8k16,
-//     from bf16 tiles in shared memory (the section after dot_form below),
-//     in bodies of their own; the m16n8k8 helpers' bf16 branch (split_pair)
-//     rounds the same bits for the TF32 instruction, on which a bf16 value
-//     is exact and the product of two exact in f32.
-// The 1xTF32 and bf16 forms keep the 3xTF32 form's accumulation order: each
-// k-step's product in a fresh accumulator (dot_form below), each chunk of
-// keys in fresh accumulators added on the CUDA cores.
+//     (cvt.rn.bf16x2.f32), with f32 sums. Every kernel's bf16 instances take
+//     these operands on a bf16 instruction, in bodies of their own that the
+//     m16n8k8 helpers below never see: the flash forward and the ACA
+//     kernels on mma.sync.m16n8k16 from bf16 tiles in shared memory (the
+//     section after dot_form below), the flash backward on Hopper's
+//     warpgroup product wgmma from bf16 tiles that TMA copies (the last
+//     section).
+// The 1xTF32 form keeps the 3xTF32 form's accumulation order: each k-step's
+// product in a fresh accumulator (dot_form below), each chunk of keys in
+// fresh accumulators added on the CUDA cores.
 // flashvtg_tpu_torch/ops/forms.py emulates the three forms in torch, and
 // the kernels' plain versions round their operands by it.
 //
@@ -107,27 +109,16 @@ struct FragB {  // an 8 x 8 B operand, split
 };
 
 // Two operands x and y of form F, each as (hi, lo): TF32 parts, hi =
-// rna(v) and, in the 3xTF32 form only, lo = rna(v - hi); or in the bf16
-// form both rounded to bf16, to nearest even, by one conversion instruction
-// (cvt.rn.bf16x2.f32, __floats2bfloat162_rn's), each the high half of an
-// f32 (lo 0). Rounding each value apart (cvt.rn.bf16.f32 and a shift, or
-// three integer instructions) ran the bf16 kernels 25-50 % slower than the
-// 1xTF32 ones on the card (PERF.md).
+// rna(v) and, in the 3xTF32 form only, lo = rna(v - hi). The bf16 form
+// never comes here: its bodies take bf16 operands on bf16 instructions.
 template <int F>
 __device__ __forceinline__ void split_pair(float x, float y, uint32_t& hx, uint32_t& lx,
                                            uint32_t& hy, uint32_t& ly) {
-  if (F == kFormBF16) {
-    uint32_t u;  // {y (high half), x (low half)}
-    asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(u) : "f"(y), "f"(x));
-    hx = u << 16;
-    hy = u & 0xffff0000u;
-    lx = ly = 0u;
-  } else {
-    hx = tf32_rna(x);
-    hy = tf32_rna(y);
-    lx = F == kForm3xTF32 ? tf32_rna(x - __uint_as_float(hx)) : 0u;
-    ly = F == kForm3xTF32 ? tf32_rna(y - __uint_as_float(hy)) : 0u;
-  }
+  static_assert(F != kFormBF16, "the bf16 form has bodies of its own");
+  hx = tf32_rna(x);
+  hy = tf32_rna(y);
+  lx = F == kForm3xTF32 ? tf32_rna(x - __uint_as_float(hx)) : 0u;
+  ly = F == kForm3xTF32 ? tf32_rna(y - __uint_as_float(hy)) : 0u;
 }
 
 template <int F = kForm3xTF32>
@@ -280,12 +271,11 @@ __device__ __forceinline__ void load_kv_tile(float* k_s, float* v_s, const float
 
 // ---- bf16 operands on the bf16 instruction (mma.sync.m16n8k16) ---------------
 //
-// The bf16 form of every kernel (flash_attention.cu, flash_attention_bwd.cu,
-// aca_attention.cu, aca_attention_bwd.cu) takes its products on
+// The bf16 form of the flash forward (flash_attention.cu) and of the ACA
+// kernels (aca_attention.cu, aca_attention_bwd.cu) takes its products on
 // mma.sync.m16n8k16 (bf16 in, f32 out): twice the k of the TF32
 // instruction, at twice its rate. Its operands are rounded to bf16 once,
-// where they are staged, by split_pair's conversion (cvt.rn.bf16x2.f32, to
-// nearest even), so they are the bits the m16n8k8 bf16 form took.
+// where they are staged (cvt.rn.bf16x2.f32, to nearest even).
 // Fragments, g = lane / 4, t = lane % 4; a register holds two bf16 values,
 // the lower column (or k row) in its low half:
 //   A (16 x 16, row major): a0 (g, 2t..2t+1), a1 (g + 8, 2t..2t+1),
@@ -375,10 +365,11 @@ __device__ __forceinline__ void frag_a16_from_c(uint32_t (&a)[4], const float (&
 // registers, b the ldmatrix.x4 of its 8 rows as stored (register 2 ks and
 // 2 ks + 1 step ks's B operand). Each step's product goes to a fresh
 // accumulator and the two are added on the CUDA cores, as dot_form adds its
-// k-steps. The flash forward takes S here, and the backward S and dP (dq
-// kernel) and S^T and dP^T (dk/dv kernel) alike: the same products in the
-// same order, one bf16 product a term, so the three kernels' S agree and
-// S^T is S transposed, bit for bit. The ACA forward and backward take S
+// k-steps. The flash forward takes S here; the backward's S and dP (dq
+// kernel) and S^T and dP^T (dk/dv kernel) take the same two k16 sums on
+// wgmma, which sums a k16 step as mma.sync does, and add them alike
+// (flash_attention_bwd.cu dot_pair_wgmma), so the three kernels' S agree
+// and S^T is S transposed, bit for bit. The ACA forward and backward take S
 // (and the backward dO V^T) here too, so their S agree bit for bit.
 __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh / 16][4],
                                          const uint32_t (&b)[4]) {
@@ -389,7 +380,7 @@ __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh 
   for (int e = 0; e < 4; ++e) c[e] = s0[e] + s1[e];
 }
 
-// The flash kernels' staged rows in bf16, beside load_kv_tile: kRows rows
+// The flash forward's staged rows in bf16, beside load_kv_tile: kRows rows
 // of 32 floats of one head, from device memory into registers (16-byte
 // loads, kRows * 8 / kThreads of each tensor a thread), then rounded to bf16
 // into tiles of kBStride rows. The two halves are apart so that a block can
@@ -429,3 +420,163 @@ struct RowsBF16 {
     }
   }
 };
+
+// ---- Hopper: TMA tile copies, mbarriers, warpgroup products (sm_90a) ---------
+//
+// The flash backward's bf16 instances (flash_attention_bwd.cu) take their
+// products on wgmma, from bf16 tiles that TMA copies into shared memory:
+//  * a tile is R rows of one head's 32 bf16 values: 64 bytes a row, exactly
+//    the 64-byte swizzle atom. A TMA box of 32 x R with
+//    CU_TENSOR_MAP_SWIZZLE_64B stores 16-byte chunk c of row r at chunk
+//    c ^ ((r >> 1) & 3) (address bits 4-5 XOR bits 7-8, so a tile starts on
+//    a 512-byte boundary; tiles here start on 1024), which is the layout
+//    wgmma reads through a descriptor of layout type 2 (64-byte swizzle).
+//    Rows past the tensor's end arrive as zeros;
+//  * as the K-major operand of a product over the head dim (S = Q K^T: both
+//    operands), 8 rows (512 bytes) make a core-matrix group (the stride
+//    byte offset) and the second k16 step starts 32 bytes into the rows; as
+//    the MN-major operand of a product whose k runs down the rows (K in dq =
+//    dS K), the 32 head columns are one atom wide and 8 rows (512 bytes)
+//    again make a k group, so the two byte offsets are both 512 there;
+//  * an mbarrier counts the bytes of its stage's copies (arrive.expect_tx by
+//    the one thread that issues them); the block waits on the stage's phase
+//    parity, which flips each time the stage fills;
+//  * wgmma.m64nNk16 (bf16 in, f32 out) takes 64 rows a warpgroup, warp w
+//    rows 16w .. 16w + 15, each warp in the m16n8k16 C layout above repeated
+//    over the 8-column n-tiles: accumulator register 4j + e is register e of
+//    n-tile j. A in registers has the m16n8k16 A layout, so acc_to_a turns
+//    columns 16kk .. 16kk + 15 of an accumulator into the A operand of the
+//    next product (FlashAttention-3's P and dS in registers);
+//  * a product is asynchronous: wgmma_fence before it (registers written
+//    since are visible to it), commit, then wait before its accumulator or A
+//    registers are read or written again (wgmma_hold keeps the compiler
+//    from moving an access across the asm statements).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(arrivals)
+               : "memory");
+}
+
+// makes the barriers' initialisation visible to the async proxy (TMA)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// one arrival that also expects `bytes` more to land on the barrier
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// waits until the barrier's phase of this parity has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// orders this thread's earlier shared-memory accesses before later copies
+// of the async proxy (TMA) into the same memory
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// TMA: the box of `map` at (column c, row r, batch row b) into `dst`,
+// completing on `bar` (a 3-D map over a (B, L, H * 32) tensor)
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, int c, int r,
+                                            int b, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c), "r"(r), "r"(b), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// The shared-memory matrix descriptor of a 64-byte-swizzled bf16 tile that
+// starts at `tile` (bits 0-13: address / 16; 16-29: leading byte offset /
+// 16; 32-45: stride byte offset / 16, 512 bytes; 62-63: layout type 2, the
+// 64-byte swizzle). K-major operands take `lead` 1 (unused: a k16 step
+// lies inside one atom), MN-major ones 32 (unused too: 32 columns are one
+// atom; set to the group stride so that neither field reading matters).
+constexpr uint32_t kDescKMajor = 1, kDescMNMajor = 512 >> 4;
+
+__device__ __forceinline__ uint64_t wgmma_desc(const void* tile, uint32_t lead) {
+  const uint64_t addr = smem_u32(tile);
+  return ((addr & 0x3ffffu) >> 4) | ((uint64_t)lead << 16) | ((uint64_t)(512 >> 4) << 32) |
+         (2ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// waits until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int R>
+__device__ __forceinline__ void wgmma_hold(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+#define WGMMA_D16(c)                                                                   \
+  c(d[0]), c(d[1]), c(d[2]), c(d[3]), c(d[4]), c(d[5]), c(d[6]), c(d[7]), c(d[8]), c(d[9]), \
+      c(d[10]), c(d[11]), c(d[12]), c(d[13]), c(d[14]), c(d[15])
+
+// d (64 x 32) = a b^T in a fresh accumulator: one k16 step, a (64 rows) and
+// b (32 rows) K-major tiles in shared memory, by descriptors
+__device__ __forceinline__ void wgmma_n32_ss(float (&d)[16], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : WGMMA_D16("=f")
+      : "l"(a), "l"(b), "r"(0));
+}
+
+// d (64 x 32) += a b: one k16 step, a (64 x 16) in registers (acc_to_a's
+// layout), b (16 rows of 32 columns) an MN-major tile in shared memory
+__device__ __forceinline__ void wgmma_n32_rs(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : WGMMA_D16("+f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef WGMMA_D16
+
+// the A operand of k16 step kk of a product whose k runs along the columns
+// of accumulator d: its columns 16kk .. 16kk + 15 (n-tiles 2kk and 2kk + 1),
+// rounded to bf16
+template <int R>
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R], int kk) {
+  a[0] = pack_bf16(d[8 * kk], d[8 * kk + 1]);
+  a[1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+  a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+  a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+}

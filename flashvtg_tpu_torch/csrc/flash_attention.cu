@@ -342,177 +342,177 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
     flash_bf16<TRAIN>(q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold,
                       keep_scale, reinterpret_cast<uint16_t*>(smem4), key_bits, &tile_mask);
-    return;
-  }
-  float* stages = reinterpret_cast<float*>(smem4);
+  } else {
+    float* stages = reinterpret_cast<float*>(smem4);
 
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int d_model = heads * kDh;
-  const float* qb = q + (size_t)b * len * d_model;
-  const float* kb = k + (size_t)b * len * d_model;
-  const float* vb = v + (size_t)b * len * d_model;
-  const bool drop = TRAIN && threshold != 0u;
-  // this lane's rows: row[0] and row[1] = row[0] + 8
-  const int row0 = (int)blockIdx.x * kTileRows + warp * 16 + g;
-  const int row[2] = {row0, row0 + 8};
+    const int h = blockIdx.y;
+    const int b = blockIdx.z;
+    const int warp = threadIdx.x >> 5;
+    const int lane = threadIdx.x & 31;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int d_model = heads * kDh;
+    const float* qb = q + (size_t)b * len * d_model;
+    const float* kb = k + (size_t)b * len * d_model;
+    const float* vb = v + (size_t)b * len * d_model;
+    const bool drop = TRAIN && threshold != 0u;
+    // this lane's rows: row[0] and row[1] = row[0] + 8
+    const int row0 = (int)blockIdx.x * kTileRows + warp * 16 + g;
+    const int row[2] = {row0, row0 + 8};
 
-  build_key_mask(key_bits, &tile_mask, key_valid + (size_t)b * len, len);
-  const unsigned mask = tile_mask;
-  int tile = next_tile(mask, 0);
-  if (tile >= 0) {
-    load_kv_tile(stages, stages + kTileKeys * kKStride, kb, vb, tile * kTileKeys, kTileKeys,
-                 len, d_model, h);
-  }
-  cp_async_commit();
-
-  // the warp's 16 rows of scale * q, split, as the A operand of the four
-  // k-steps of q.k; rows past len read row len - 1, computed and never written
-  FragA qf[kDh / 8];
-  {
-    const float* q0 = qb + (size_t)min(row[0], len - 1) * d_model + h * kDh + t;
-    const float* q1 = qb + (size_t)min(row[1], len - 1) * d_model + h * kDh + t;
-#pragma unroll
-    for (int ks = 0; ks < kDh / 8; ++ks) {
-      qf[ks] = frag_a<F>(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
-                      q1[8 * ks + 4] * scale);
-    }
-  }
-  uint32_t drop_r[2] = {0u, 0u};
-  if (drop) {
-    const uint32_t drop_h = drop_head(drop_seed(seed), b * heads + h);
-    drop_r[0] = drop_row(drop_h, row[0]);
-    drop_r[1] = drop_row(drop_h, row[1]);
-  }
-
-  // online softmax state of the lane's two rows (the same in the four lanes
-  // of a quad), this lane's share of the row sums, and the output fragments
-  float m[2] = {-INFINITY, -INFINITY};
-  float l[2] = {0.f, 0.f};
-  float o[kDh / 8][4];
-#pragma unroll
-  for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-
-  for (int it = 0; tile >= 0; ++it) {
-    const int next = next_tile(mask, tile + 1);
-    if (next >= 0) {
-      float* st = stages + ((it + 1) & 1) * kStageFloats;
-      load_kv_tile(st, st + kTileKeys * kKStride, kb, vb, next * kTileKeys, kTileKeys, len,
-                   d_model, h);
+    build_key_mask(key_bits, &tile_mask, key_valid + (size_t)b * len, len);
+    const unsigned mask = tile_mask;
+    int tile = next_tile(mask, 0);
+    if (tile >= 0) {
+      load_kv_tile(stages, stages + kTileKeys * kKStride, kb, vb, tile * kTileKeys, kTileKeys,
+                   len, d_model, h);
     }
     cp_async_commit();
-    cp_async_wait_all_but_newest();  // this thread's copies of `tile` landed
-    __syncthreads();                 // and every other thread's
-    const float* k_s = stages + (it & 1) * kStageFloats;
-    const float* v_s = k_s + kTileKeys * kKStride;
+
+    // the warp's 16 rows of scale * q, split, as the A operand of the four
+    // k-steps of q.k; rows past len read row len - 1, computed and never written
+    FragA qf[kDh / 8];
+    {
+      const float* q0 = qb + (size_t)min(row[0], len - 1) * d_model + h * kDh + t;
+      const float* q1 = qb + (size_t)min(row[1], len - 1) * d_model + h * kDh + t;
+#pragma unroll
+      for (int ks = 0; ks < kDh / 8; ++ks) {
+        qf[ks] = frag_a<F>(q0[8 * ks] * scale, q1[8 * ks] * scale, q0[8 * ks + 4] * scale,
+                        q1[8 * ks + 4] * scale);
+      }
+    }
+    uint32_t drop_r[2] = {0u, 0u};
+    if (drop) {
+      const uint32_t drop_h = drop_head(drop_seed(seed), b * heads + h);
+      drop_r[0] = drop_row(drop_h, row[0]);
+      drop_r[1] = drop_row(drop_h, row[1]);
+    }
+
+    // online softmax state of the lane's two rows (the same in the four lanes
+    // of a quad), this lane's share of the row sums, and the output fragments
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.f, 0.f};
+    float o[kDh / 8][4];
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+
+    for (int it = 0; tile >= 0; ++it) {
+      const int next = next_tile(mask, tile + 1);
+      if (next >= 0) {
+        float* st = stages + ((it + 1) & 1) * kStageFloats;
+        load_kv_tile(st, st + kTileKeys * kKStride, kb, vb, next * kTileKeys, kTileKeys, len,
+                     d_model, h);
+      }
+      cp_async_commit();
+      cp_async_wait_all_but_newest();  // this thread's copies of `tile` landed
+      __syncthreads();                 // and every other thread's
+      const float* k_s = stages + (it & 1) * kStageFloats;
+      const float* v_s = k_s + kTileKeys * kKStride;
 
 #pragma unroll 1
-    for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
-      const int j0 = tile * kTileKeys + c0;
-      uint32_t words[kChunk / 32], any = 0u;
+      for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
+        const int j0 = tile * kTileKeys + c0;
+        uint32_t words[kChunk / 32], any = 0u;
 #pragma unroll
-      for (int w = 0; w < kChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
-      if (any == 0u) continue;  // the same in every warp
+        for (int w = 0; w < kChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
+        if (any == 0u) continue;  // the same in every warp
 
-      // S = (scale Q) K^T for the chunk's keys
-      float s[kChunkTiles][4];
+        // S = (scale Q) K^T for the chunk's keys
+        float s[kChunkTiles][4];
 #pragma unroll
-      for (int n = 0; n < kChunkTiles; ++n) {
-        dot_form<F>(s[n], qf, k_s + (c0 + 8 * n + g) * kKStride + t, 1.f);
-      }
+        for (int n = 0; n < kChunkTiles; ++n) {
+          dot_form<F>(s[n], qf, k_s + (c0 + 8 * n + g) * kKStride + t, 1.f);
+        }
 
-      // masked keys to -inf, then the chunk's row max across the quad
-      float mx[2] = {-INFINITY, -INFINITY};
+        // masked keys to -inf, then the chunk's row max across the quad
+        float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-      for (int n = 0; n < kChunkTiles; ++n) {
-        const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
+        for (int n = 0; n < kChunkTiles; ++n) {
+          const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          if (!((bits >> (e & 1)) & 1u)) s[n][e] = -INFINITY;
-          mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+          for (int e = 0; e < 4; ++e) {
+            if (!((bits >> (e & 1)) & 1u)) s[n][e] = -INFINITY;
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+          }
         }
-      }
-      // p = exp2((s - m) log2 e): exactly 1 at the row's max, so that a row
-      // with one valid key gets P = 1 and lse = m exactly, as the backward
-      // recomputes them
-      float m_use[2];
+        // p = exp2((s - m) log2 e): exactly 1 at the row's max, so that a row
+        // with one valid key gets P = 1 and lse = m exactly, as the backward
+        // recomputes them
+        float m_use[2];
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        const float m_new = fmaxf(m[r], mx[r]);
-        // -inf only while no valid key has come yet: nothing to rescale
-        m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-        const float alpha = exp2_fast((m[r] - m_use[r]) * kLog2e);  // 0 while m is -inf
-        m[r] = m_new;
-        l[r] *= alpha;
+        for (int r = 0; r < 2; ++r) {
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+          const float m_new = fmaxf(m[r], mx[r]);
+          // -inf only while no valid key has come yet: nothing to rescale
+          m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+          const float alpha = exp2_fast((m[r] - m_use[r]) * kLog2e);  // 0 while m is -inf
+          m[r] = m_new;
+          l[r] *= alpha;
 #pragma unroll
-        for (int n = 0; n < kDh / 8; ++n) {
-          o[n][2 * r] *= alpha;
-          o[n][2 * r + 1] *= alpha;
+          for (int n = 0; n < kDh / 8; ++n) {
+            o[n][2 * r] *= alpha;
+            o[n][2 * r + 1] *= alpha;
+          }
         }
-      }
 
-      // P (0 at masked keys), the row sums, and the probabilities p.v reads
+        // P (0 at masked keys), the row sums, and the probabilities p.v reads
 #pragma unroll
-      for (int n = 0; n < kChunkTiles; ++n) {
+        for (int n = 0; n < kChunkTiles; ++n) {
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int r = e >> 1;
-          const float p = exp2_fast((s[n][e] - m_use[r]) * kLog2e);
-          l[r] += p;
-          s[n][e] = drop ? p * drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), threshold,
-                                          keep_scale)
-                         : p;
+          for (int e = 0; e < 4; ++e) {
+            const int r = e >> 1;
+            const float p = exp2_fast((s[n][e] - m_use[r]) * kLog2e);
+            l[r] += p;
+            s[n][e] = drop ? p * drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), threshold,
+                                            keep_scale)
+                           : p;
+          }
         }
-      }
 
-      // O += P V: P from registers, V's key rows in the order 2t, 2t + 1;
-      // the chunk's sum in fresh accumulators, added to O on the CUDA cores
-      float pv[kDh / 8][4];
+        // O += P V: P from registers, V's key rows in the order 2t, 2t + 1;
+        // the chunk's sum in fresh accumulators, added to O on the CUDA cores
+        float pv[kDh / 8][4];
 #pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
+        for (int n = 0; n < kDh / 8; ++n)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kChunkTiles; ++kk) {
-        const FragA pa = frag_a_from_c<F>(s[kk]);
-        const float* vr = v_s + (c0 + 8 * kk + 2 * t) * kKStride + g;
+        for (int kk = 0; kk < kChunkTiles; ++kk) {
+          const FragA pa = frag_a_from_c<F>(s[kk]);
+          const float* vr = v_s + (c0 + 8 * kk + 2 * t) * kKStride + g;
 #pragma unroll
-        for (int n = 0; n < kDh / 8; ++n) {
-          mma_form<F>(pv[n], pa, frag_b<F>(vr[8 * n], vr[kKStride + 8 * n]));
+          for (int n = 0; n < kDh / 8; ++n) {
+            mma_form<F>(pv[n], pa, frag_b<F>(vr[8 * n], vr[kKStride + 8 * n]));
+          }
         }
+#pragma unroll
+        for (int n = 0; n < kDh / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
       }
-#pragma unroll
-      for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
+      __syncthreads();  // this stage is free for the tile after next
+      tile = next;
     }
-    __syncthreads();  // this stage is free for the tile after next
-    tile = next;
-  }
-  cp_async_wait_all();  // a block with no valid key never waited
+    cp_async_wait_all();  // a block with no valid key never waited
 
-  // the row sums across the quad, in a fixed order
+    // the row sums across the quad, in a fixed order
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-    if (row[r] >= len) continue;
-    const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no valid key: zeros
-    float* orow = out + ((size_t)b * len + row[r]) * d_model + h * kDh + 2 * t;
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (row[r] >= len) continue;
+      const float inv = l[r] > 0.f ? 1.f / l[r] : 0.f;  // no valid key: zeros
+      float* orow = out + ((size_t)b * len + row[r]) * d_model + h * kDh + 2 * t;
 #pragma unroll
-    for (int n = 0; n < kDh / 8; ++n) {
-      *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      for (int n = 0; n < kDh / 8; ++n) {
+        *reinterpret_cast<float2*>(orow + 8 * n) =
+            make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      }
+      if (TRAIN && t == 0) lse[((size_t)b * heads + h) * len + row[r]] = m[r] + logf(l[r]);
     }
-    if (TRAIN && t == 0) lse[((size_t)b * heads + h) * len + row[r]] = m[r] + logf(l[r]);
   }
 }
 

@@ -8,7 +8,9 @@ library is never loaded.
 `build_all()` starts one nvcc per source, all at once, and waits for them.
 Every kernel with a product is a template on its product form (ops/forms.py,
 csrc/attn_common.cuh), so a library holds each kernel three times, and
-every C entry takes the form as an int before its stream.
+every C entry takes the form as an int before its stream. The SASS helpers
+below read which tensor-core instruction each instance holds (mma.sync's
+HMMA, wgmma's HGMMA).
 Nothing here runs at import: the tests import every module on machines
 without nvcc or a card.
 """
@@ -92,7 +94,7 @@ def build_all() -> Dict[str, str]:
     return reports
 
 
-_HMMA_KIND = re.compile(r"\bHMMA(?:\.\w+)*")
+_HMMA_KIND = re.compile(r"\bHG?MMA(?:\.\w+)*")
 
 
 def sass_mma_kinds(name: str) -> Dict[str, Dict[str, int]]:
@@ -100,7 +102,8 @@ def sass_mma_kinds(name: str) -> Dict[str, Dict[str, int]]:
     library of `name`, from cuobjdump --dump-sass; an instruction is its
     opcode with its modifiers, which name the shape and the operand type:
     HMMA.1688.F32.TF32 is mma.sync.m16n8k8 on tf32, HMMA.16816.F32.BF16
-    m16n8k16 on bf16."""
+    m16n8k16 on bf16, HGMMA.64x32x16.F32.BF16 the warpgroup product
+    wgmma.m64n32k16 on bf16."""
     cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
     tool = shutil.which("cuobjdump") or os.path.join(cuda_home, "bin", "cuobjdump")
     sass = subprocess.run([tool, "--dump-sass", library_path(name)], capture_output=True,
@@ -120,7 +123,7 @@ def sass_mma_kinds(name: str) -> Dict[str, Dict[str, int]]:
 
 def sass_mma_counts(name: str) -> Dict[str, int]:
     """{kernel function: its tensor-core instructions (SASS lines naming
-    HMMA)} in the built library of `name`."""
+    HMMA or HGMMA)} in the built library of `name`."""
     return {fn: sum(per.values()) for fn, per in sass_mma_kinds(name).items()}
 
 
@@ -150,25 +153,35 @@ def mma_kinds_by_form(kinds: Dict[str, Dict[str, int]]) -> Dict[str, Dict[str, D
         k: acc.get(k, 0) + per.get(k, 0) for k in {**acc, **per}})
 
 
-# the SASS of mma.sync.m16n8k8 on tf32 and of m16n8k16 on bf16
+# the SASS of mma.sync.m16n8k8 on tf32 and of m16n8k16 on bf16; of wgmma
+# on bf16 with f32 sums, any m64nNk16 shape (HGMMA.64x32x16.F32.BF16)
 TF32_MMA, BF16_MMA = "HMMA.1688.F32.TF32", "HMMA.16816.F32.BF16"
+BF16_WGMMA = "HGMMA.64xNx16.F32.BF16"
+_BF16_WGMMA = re.compile(r"HGMMA\.64x\d+x16\.F32\.BF16")
 
 
 def mma_kind_faults(by_form: Dict[str, Dict[str, Dict[str, int]]],
-                    bf16_kernels: Iterable[str]) -> List[str]:
+                    bf16_kernels: Iterable[str],
+                    wgmma_kernels: Iterable[str] = ()) -> List[str]:
     """The instances of mma_kinds_by_form's result that break the rule of
-    the product forms' instructions: the bf16 instances of `bf16_kernels`
-    on BF16_MMA alone, every other instance on TF32_MMA alone. One line a
+    the product forms' instructions: the bf16 instances of `wgmma_kernels`
+    on BF16_WGMMA (wgmma on bf16, any N) alone, those of `bf16_kernels` on
+    BF16_MMA alone, every other instance on TF32_MMA alone. One line a
     fault, naming the kernel, the form and what its SASS holds; a kernel
-    of `bf16_kernels` missing from `by_form` is a fault too. Empty when
-    the rule holds."""
-    bf16_kernels = tuple(bf16_kernels)
-    faults = [f"{fn}: no such kernel with a product form" for fn in bf16_kernels
+    of either list missing from `by_form` is a fault too. Empty when the
+    rule holds."""
+    bf16_kernels, wgmma_kernels = tuple(bf16_kernels), tuple(wgmma_kernels)
+    faults = [f"{fn}: no such kernel with a product form" for fn in bf16_kernels + wgmma_kernels
               if fn not in by_form]
     for fn, per in by_form.items():
         for form, found in per.items():
-            want = BF16_MMA if form == "bf16" and fn in bf16_kernels else TF32_MMA
-            if list(found) != [want]:
+            if form == "bf16" and fn in wgmma_kernels:
+                ok = bool(found) and all(_BF16_WGMMA.fullmatch(k) for k in found)
+                want = BF16_WGMMA
+            else:
+                want = BF16_MMA if form == "bf16" and fn in bf16_kernels else TF32_MMA
+                ok = list(found) == [want]
+            if not ok:
                 faults.append(f"{fn} {form}: {found}, want {want} alone")
     return faults
 
@@ -212,7 +225,8 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             "flashvtg_flash_attention_train_f32": [p] * 6 + [i] * 4 + train,
         },
         "flash_attention_bwd": {
-            "flashvtg_flash_attention_bwd_f32": [p] * 11 + [i] * 4 + train,
+            # ... dq, dk, dv, then the bf16 form's five bf16 copies
+            "flashvtg_flash_attention_bwd_f32": [p] * 16 + [i] * 4 + train,
         },
     }
     for fn_name, argtypes in signatures[name].items():

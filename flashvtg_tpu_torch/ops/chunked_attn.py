@@ -53,6 +53,7 @@ from flashvtg_tpu_torch.ops.aca import (
     _check_rc,
     _launching,
     _merge_heads,
+    _ptr,
     _seed_ptr,
     _split_heads,
     _stream,
@@ -68,6 +69,9 @@ FORM_LAUNCHES: Dict[str, Dict[str, int]] = {form: dict.fromkeys(KERNELS, 0) for 
 MAX_LEN = 4096  # the largest v_bucket; the kernel keeps one bit per 128 keys
 PLAIN_CHUNK = 512  # the JAX package's attn_chunk default
 KERNEL_KEYS = 64  # keys a step of the forward kernel's online softmax (kChunk)
+# the backward's return code for a TMA map that did not encode: this plus
+# the encode's CUresult (csrc/flash_attention_bwd.cu kTensorMapError)
+TENSOR_MAP_ERROR = 1 << 16
 
 
 def launch_counts() -> Dict[str, int]:
@@ -269,14 +273,21 @@ def _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads, dropout=0.0, see
     # place with D' = rowsum(P z dP) by the dq kernel, which must run before
     # the dk/dv kernel that reads D'
     delta = q.new_empty((b, num_heads, length))
+    # the bf16 form's scratch: the pre-pass's bf16 copies of scale q, q, k,
+    # v and dO, which the product kernels' TMA copies read (one allocation)
+    staged = (torch.empty((5, *q.shape), dtype=torch.bfloat16, device=q.device).unbind()
+              if form == "bf16" else [None] * 5)
     seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = kernels.load("flash_attention_bwd").flashvtg_flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), d_out.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, length, num_heads, HEAD_DIM,
-        HEAD_DIM ** -0.5, seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form],
-        _stream(q),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(_ptr(t) for t in staged), b, length,
+        num_heads, HEAD_DIM, HEAD_DIM ** -0.5, seed_ptr, threshold(dropout),
+        1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{tag}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{rc - TENSOR_MAP_ERROR}")
     _check_rc(tag, rc)
     return dq, dk, dv
 

@@ -9,8 +9,9 @@ on the tensor cores in one of three forms, which the precision dials choose
     f32;
   * "1xtf32" (tensorfloat32): hi_a.hi_b alone, about three decimal digits;
   * "bf16" (bfloat16): each operand rounded to bf16, to nearest even, with
-    f32 products and sums: every kernel, flash and ACA, forward and
-    backward, takes it on the bf16 instruction, mma.sync.m16n8k16.
+    f32 products and sums: the flash forward and the ACA kernels take it on
+    the bf16 instruction mma.sync.m16n8k16, the flash backward on Hopper's
+    warpgroup product wgmma (bf16 tiles copied by TMA).
 `dot` is each form's products on the CPU (tests/test_torch_tf32x3.py holds
 them against float64). The kernels' plain versions (ops/aca.py,
 ops/chunked_attn.py) take their products through `product`: an f32 einsum

@@ -44,7 +44,13 @@ other operations a pair at 67. Prints the card's name and power limit,
 the registers and spills ptxas reported for every attention kernel with
 a product (the build logs beside the libraries), with --sass-mix each of
 their instances' SASS opcodes (cuobjdump, counted once where they stand,
-not as they run), then one JSON line a (shape, pass, form).
+not as they run: HMMA for mma.sync, HGMMA for wgmma, UTMALDG for a TMA
+copy), then one JSON line a (shape, pass, form). Each flash backward line
+is followed by one of its pre-pass alone (`pass` "bwd_prepass": the device
+function flash_bwd_stage_kernel, which at the bf16 form also writes the
+bf16 copies of scale q, q, k, v and dO that the product kernels' TMA
+copies read, or flash_bwd_delta_kernel, D alone), its bound the bytes it
+moves once at 3.35 TB/s (prepass_bound_ms).
 
 It uses only ops/chunked_attn.py's and ops/aca.py's launchers, so it also
 times another tree of the package: put that tree first on PYTHONPATH and
@@ -140,6 +146,17 @@ def bound_ms(b, length, valid_pairs, form, backward, train):
         dots, other = 128 * valid_pairs, 5 * valid_pairs
     t_ops = max(dots / DOT_PEAK[form], other / F32_PEAK)
     return max(nbytes / HBM_RATE, t_ops) * 1e3
+
+
+def prepass_bound_ms(b, length, form):
+    """The flash backward pre-pass's bound: it reads O and dO (and at bf16 q,
+    k, v too) in f32 and writes D, and at bf16 five bf16 copies (scale q, q,
+    k, v, dO), each once, at the memory rate."""
+    n = b * length * HEADS * 32
+    nbytes = 4 * 2 * n + 4 * b * HEADS * length
+    if form == "bf16":
+        nbytes += 4 * 3 * n + 2 * 5 * n
+    return nbytes / HBM_RATE * 1e3
 
 
 def ptxas_report(log: str):
@@ -309,7 +326,7 @@ def main():
     dev = torch.device("cuda")
     mode = {"3xtf32": "float32", "1xtf32": "tensorfloat32", "bf16": "bfloat16"}
 
-    def report(shape, pas, form, fn, bound, lib_inputs, facts):
+    def report(shape, pas, form, fn, bound, lib_inputs, facts, prepass_bound=None):
         ms = time_blocks(fn, args.blocks, args.iters)
         sdpa = None
         if lib_inputs is not None and not args.no_library:
@@ -322,12 +339,19 @@ def main():
                     sdpa = [x - y for x, y in zip(
                         time_blocks(both, args.blocks, args.iters),
                         time_blocks(fwd, args.blocks, args.iters))]
+        per_kernel = kernel_ms(fn, args.iters)
         print(json.dumps({"shape": shape, "pass": pas, **dict(
             form=form, dial=mode[form], **facts,
-            ms=float(np.mean(ms)), ms_blocks=ms, kernel_ms=kernel_ms(fn, args.iters),
+            ms=float(np.mean(ms)), ms_blocks=ms, kernel_ms=per_kernel,
             bound_ms=bound, library_ms=None if sdpa is None else float(np.mean(sdpa)),
             library_ms_blocks=sdpa,
         )}), flush=True)
+        if prepass_bound is not None:
+            prepass = {k: v for k, v in per_kernel.items()
+                       if k in ("flash_bwd_stage_kernel", "flash_bwd_delta_kernel")}
+            print(json.dumps({"shape": shape, "pass": "bwd_prepass", "form": form, **facts,
+                              "kernel_ms": prepass, "prepass_bound_ms": prepass_bound}),
+                  flush=True)
 
     for shape in args.shapes:
         if shape not in SHAPES:
@@ -365,7 +389,8 @@ def main():
             for pas, fn in calls.items():
                 report(shape, pas, form, fn,
                        bound_ms(b, length, valid_pairs, form, pas == "bwd", train),
-                       (q, k, v, valid), facts)
+                       (q, k, v, valid), facts,
+                       prepass_bound_ms(b, length, form) if pas == "bwd" else None)
 
 
 if __name__ == "__main__":

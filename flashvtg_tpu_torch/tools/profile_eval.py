@@ -48,7 +48,8 @@ feed path of train/infer.py (one upload, the packed step, one non-blocking
 fetch a batch, PIPELINE_DEPTH batches in flight) over --steps batches of a
 synthetic split. Each line has the host wall time and device-busy time per
 step and the idle share; a graph's replayed kernels are in the class
-breakdown by name.
+breakdown by name, and each attention kernel's device function (with its
+template arguments) has its launches a step and mean device ms a launch.
 """
 
 from __future__ import annotations
@@ -240,9 +241,31 @@ def profiled(run):
     return wall, per_name
 
 
+# an attention kernel's device function and its template arguments (the
+# first the product form, ops/forms.py) in a demangled kernel record
+ATTENTION_FUNCTION = re.compile(r"((?:flash|aca)_\w*?_kernel)(<[^>]*>)?")
+
+
+def attention_launches(per_name, steps):
+    """{attention device function with its template arguments: {launches a
+    step, mean device ms a launch}} of a profiled run of `steps` steps: which
+    of a class's ms a step come from more launches and which from longer
+    ones."""
+    table = collections.defaultdict(lambda: [0.0, 0])
+    for name, (us, calls) in per_name.items():
+        m = ATTENTION_FUNCTION.search(name)
+        if m:
+            key = m.group(1) + re.sub(r"\s+", "", m.group(2) or "")
+            table[key][0] += us
+            table[key][1] += calls
+    return {k: {"launches_per_step": n / steps, "mean_ms": us / 1e3 / n}
+            for k, (us, n) in sorted(table.items()) if n}
+
+
 def busy_summary(wall, per_name, steps):
-    """The per-step wall and device-busy ms, the idle share and the device
-    time by kernel class of a profiled run of `steps` steps."""
+    """The per-step wall and device-busy ms, the idle share, the device time
+    by kernel class and the attention kernels' launches and mean ms
+    (attention_launches) of a profiled run of `steps` steps."""
     busy_us = sum(us for us, _ in per_name.values())
     classes = collections.defaultdict(float)
     for name, (us, _) in per_name.items():
@@ -252,6 +275,7 @@ def busy_summary(wall, per_name, steps):
         "device_busy_ms_per_step": busy_us / 1e3 / steps,
         "idle_share": 1 - busy_us / 1e6 / wall if busy_us else None,
         "class_ms_per_step": {k: v / 1e3 / steps for k, v in classes.items()},
+        "attention_kernels": attention_launches(per_name, steps),
     }
 
 

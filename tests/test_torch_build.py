@@ -2,8 +2,8 @@
 nvcc nor a card is needed): a library's name follows its source, every
 header of csrc/ and the nvcc flags, so an edit is rebuilt and a stale
 library never loads; the tensor-core count is taken per kernel function
-from cuobjdump's SASS, by instruction (bf16 m16n8k16 apart from tf32
-m16n8k8), and summed per product form; a missing nvcc is
+from cuobjdump's SASS, by instruction (bf16 wgmma and bf16 m16n8k16 apart
+from tf32 m16n8k8), and summed per product form; a missing nvcc is
 reported by name; the rule of each form's instruction
 (kernels.mma_kind_faults) names the instances that break it; the ACA
 backward's row chunks and workspace (ops/aca.py:bwd_tiling, the formula
@@ -48,6 +48,11 @@ def test_sass_mma_counts_per_kernel_function(monkeypatch):
         "        /*0120*/                   HMMA.1688.F32.TF32 R16, R8, R14, R16 ;",
         "\t\tFunction : _Z7prepassPf",
         "        /*0100*/                   FFMA R1, R2, R3, R1 ;",
+        "\t\tFunction : _Z6wgmmaILi2EEvPf",
+        "        /*0100*/                   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;",
+        "        /*0110*/                   UTMALDG.3D [UR8], [UR4] ;",
+        "        /*0120*/                   HGMMA.64x32x16.F32.BF16 R24, R56, gdesc[UR8], R24, gsb0 ;",
+        "        /*0130*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
     ])
 
     def fake_run(cmd, **kwargs):
@@ -55,24 +60,35 @@ def test_sass_mma_counts_per_kernel_function(monkeypatch):
         return subprocess.CompletedProcess(cmd, 0, stdout=sass, stderr="")
 
     monkeypatch.setattr(kernels.subprocess, "run", fake_run)
+    # wgmma's HGMMA lines count as tensor-core instructions beside HMMA's
     assert kernels.sass_mma_counts("flash_attention") == {
-        "_Z6kernelILb1EEvPf": 2, "_Z7prepassPf": 0}
+        "_Z6kernelILb1EEvPf": 2, "_Z7prepassPf": 0, "_Z6wgmmaILi2EEvPf": 3}
 
 
+# the flash backward: the dq kernel's bf16 instance on wgmma (an A from
+# shared memory, a predicated one with A from registers, a TMA copy), its
+# 3xTF32 and 1xTF32 instances on m16n8k8; the dk/dv kernel's likewise; the
+# D and staging pre-passes (no product)
 FAKE_SASS_KINDS = "\n".join([
     "\tcode for sm_90a",
-    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsE",
-    "        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;",
-    "        /*0110*/                   LDSM.16.MT88.4 R12, [R2] ;",
-    "        /*0120*/               @P0 HMMA.16816.F32.BF16 R16, R8, R14, R16 ;",
-    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi0EEEvNS_8OperandsE",
+    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsENS_8TileMapsE",
+    "        /*0100*/                   HGMMA.64x32x16.F32.BF16 R24, gdesc[UR4], RZ, !UPT, gsb0 ;",
+    "        /*0110*/                   UTMALDG.3D [UR8], [UR4] ;",
+    "        /*0120*/               @P0 HGMMA.64x32x16.F32.BF16 R88, R56, gdesc[UR8], R88, gsb0 ;",
+    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi0EEEvNS_8OperandsENS_8TileMapsE",
     "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
     "        /*0110*/                   HMMA.1688.F32.TF32 R4, R8, R14, R4 ;",
     "        /*0120*/                   HMMA.1688.F32.TF32 R4, R8, R16, R4 ;",
-    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi1EEEvNS_8OperandsE",
+    "\t\tFunction : _ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi1EEEvNS_8OperandsENS_8TileMapsE",
     "        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;",
+    *(f"\t\tFunction : _ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelILi{form}EEEvNS_8OperandsENS_8"
+      f"TileMapsE\n        /*0100*/                   {instr} R24, R8, R12, R24 ;"
+      for form, instr in ((0, "HMMA.1688.F32.TF32"), (1, "HMMA.1688.F32.TF32"),
+                          (2, "HGMMA.64x32x16.F32.BF16"))),
     "\t\tFunction : _ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii",
     "        /*0100*/                   FFMA R1, R2, R3, R1 ;",
+    "\t\tFunction : _ZN12_GLOBAL__N_122flash_bwd_stage_kernelENS_8OperandsEPKfNS_10StagedBF16Ei",
+    "        /*0100*/                   F2FP.BF16.F32.PACK_AB R1, R2, R3 ;",
 ])
 
 
@@ -87,15 +103,21 @@ def _fake_cuobjdump(monkeypatch, sass):
 def test_sass_mma_kinds_tell_the_bf16_instruction_from_the_tf32_one(monkeypatch):
     """Each kernel function's tensor-core lines by instruction, its opcode
     with the modifiers that name shape and operand type (a predicate is no
-    part of it): the bf16 m16n8k16 apart from the tf32 m16n8k8; the total
-    is sass_mma_counts'."""
+    part of it): wgmma's HGMMA on bf16 apart from the tf32 m16n8k8; the
+    total is sass_mma_counts'."""
     _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
     kinds = kernels.sass_mma_kinds("flash_attention_bwd")
+    dq = "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi{}EEEvNS_8OperandsENS_8TileMapsE"
+    dkdv = "_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelILi{}EEEvNS_8OperandsENS_8TileMapsE"
     assert kinds == {
-        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsE": {"HMMA.16816.F32.BF16": 2},
-        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi0EEEvNS_8OperandsE": {"HMMA.1688.F32.TF32": 3},
-        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi1EEEvNS_8OperandsE": {"HMMA.1688.F32.TF32": 1},
+        dq.format(2): {"HGMMA.64x32x16.F32.BF16": 2},
+        dq.format(0): {"HMMA.1688.F32.TF32": 3},
+        dq.format(1): {"HMMA.1688.F32.TF32": 1},
+        dkdv.format(0): {"HMMA.1688.F32.TF32": 1},
+        dkdv.format(1): {"HMMA.1688.F32.TF32": 1},
+        dkdv.format(2): {"HGMMA.64x32x16.F32.BF16": 1},
         "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii": {},
+        "_ZN12_GLOBAL__N_122flash_bwd_stage_kernelENS_8OperandsEPKfNS_10StagedBF16Ei": {},
     }
     assert kernels.sass_mma_counts("flash_attention_bwd") == {
         fn: sum(per.values()) for fn, per in kinds.items()}
@@ -103,16 +125,25 @@ def test_sass_mma_kinds_tell_the_bf16_instruction_from_the_tf32_one(monkeypatch)
 
 def test_mma_kinds_by_form_reads_each_instances_instruction(monkeypatch):
     """Per kernel and form, the instructions of its instances: what
-    chip_smoke.py's build phase holds (the flash and ACA kernels' bf16
-    instances on HMMA.16816.F32.BF16 alone, every other on HMMA.1688.F32.TF32
-    alone, kernels.mma_kind_faults); a kernel without a form is left out."""
+    chip_smoke.py's build phase holds (the flash backward's bf16 instances
+    on wgmma alone, the flash forward's and the ACA kernels' on
+    HMMA.16816.F32.BF16 alone, every other on HMMA.1688.F32.TF32 alone,
+    kernels.mma_kind_faults); a kernel without a form (the pre-passes) is
+    left out."""
     _fake_cuobjdump(monkeypatch, FAKE_SASS_KINDS)
     by_form = kernels.mma_kinds_by_form(kernels.sass_mma_kinds("flash_attention_bwd"))
-    assert by_form == {"flash_bwd_dq_kernel": {
-        "3xtf32": {"HMMA.1688.F32.TF32": 3},
-        "1xtf32": {"HMMA.1688.F32.TF32": 1},
-        "bf16": {"HMMA.16816.F32.BF16": 2},
-    }}
+    assert by_form == {
+        "flash_bwd_dq_kernel": {
+            "3xtf32": {"HMMA.1688.F32.TF32": 3},
+            "1xtf32": {"HMMA.1688.F32.TF32": 1},
+            "bf16": {"HGMMA.64x32x16.F32.BF16": 2},
+        },
+        "flash_bwd_dkdv_kernel": {
+            "3xtf32": {"HMMA.1688.F32.TF32": 1},
+            "1xtf32": {"HMMA.1688.F32.TF32": 1},
+            "bf16": {"HGMMA.64x32x16.F32.BF16": 1},
+        },
+    }
     mixed = {"_ZN12_GLOBAL__N_121flash_bwd_dkdv_kernelILi2EEEvNS_8OperandsE":
              {"HMMA.16816.F32.BF16": 4, "HMMA.1688.F32.TF32": 1}}
     assert kernels.mma_kinds_by_form(mixed)["flash_bwd_dkdv_kernel"]["bf16"] == {
@@ -164,17 +195,20 @@ def _flash_kinds(monkeypatch):
     return by_form
 
 
-# the kernels whose bf16 instances take mma.sync.m16n8k16 in the fake SASS
-# (chip_smoke.py:BF16_MMA_KERNELS names the built libraries' five)
-BF16_FLASH = ("flash_attention_kernel", "flash_bwd_dq_kernel")
+# the kernels whose bf16 instances take mma.sync.m16n8k16 in the fake SASS,
+# and those whose bf16 instances take wgmma (chip_smoke.py:BF16_MMA_KERNELS
+# and WGMMA_KERNELS name the built libraries' five)
+BF16_FLASH = ("flash_attention_kernel",)
 BF16_KERNELS = BF16_FLASH + ("aca_attention_kernel", "aca_attention_bwd_kernel")
+WGMMA = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 
 
 def test_mma_kind_faults_accept_the_flash_kernels_on_the_bf16_instruction(monkeypatch):
     """chip_smoke.py's rule holds on the layout of the built libraries: the
-    flash forward's eval and training instances, the flash backward's and
-    both ACA kernels' at bf16 on HMMA.16816.F32.BF16 alone, the 3xTF32 and
-    1xTF32 instances on HMMA.1688.F32.TF32 alone."""
+    flash backward's dq and dk/dv kernels at bf16 on wgmma alone, the flash
+    forward's eval and training instances and both ACA kernels' at bf16 on
+    HMMA.16816.F32.BF16 alone, the 3xTF32 and 1xTF32 instances on
+    HMMA.1688.F32.TF32 alone."""
     by_form = _flash_kinds(monkeypatch)
     assert by_form["flash_attention_kernel"] == {
         "3xtf32": {"HMMA.1688.F32.TF32": 4},
@@ -182,13 +216,18 @@ def test_mma_kind_faults_accept_the_flash_kernels_on_the_bf16_instruction(monkey
         "bf16": {"HMMA.16816.F32.BF16": 4},
     }
     assert set(by_form) == {"flash_attention_kernel", "flash_bwd_dq_kernel",
-                            "aca_attention_kernel", "aca_attention_bwd_kernel"}
-    assert kernels.mma_kind_faults(by_form, BF16_KERNELS) == []
+                            "flash_bwd_dkdv_kernel", "aca_attention_kernel",
+                            "aca_attention_bwd_kernel"}
+    assert kernels.mma_kind_faults(by_form, BF16_KERNELS, WGMMA) == []
     # a kernel whose bf16 instances are on m16n8k16 but which the list
     # leaves out is a fault: the list names every such kernel
-    faults = kernels.mma_kind_faults(by_form, BF16_FLASH)
+    faults = kernels.mma_kind_faults(by_form, BF16_FLASH, WGMMA)
     assert sorted(f.split(" ")[0] for f in faults) == ["aca_attention_bwd_kernel",
                                                        "aca_attention_kernel"]
+    # and so is one on wgmma that the wgmma list leaves out
+    faults = kernels.mma_kind_faults(by_form, BF16_KERNELS)
+    assert sorted(f.split(" ")[:2] for f in faults) == [["flash_bwd_dkdv_kernel", "bf16:"],
+                                                        ["flash_bwd_dq_kernel", "bf16:"]]
 
 
 def test_mma_kind_faults_accept_the_aca_kernels_on_the_bf16_instruction(monkeypatch):
@@ -211,18 +250,27 @@ def test_mma_kind_faults_accept_the_aca_kernels_on_the_bf16_instruction(monkeypa
     aca_only = {fn: by_form[fn] for fn in ("aca_attention_kernel", "aca_attention_bwd_kernel")}
     assert kernels.mma_kind_faults(aca_only, ("aca_attention_kernel",
                                               "aca_attention_bwd_kernel")) == []
+    assert kernels.mma_kind_faults(aca_only, BF16_KERNELS[1:], WGMMA) == [
+        f"{fn}: no such kernel with a product form" for fn in WGMMA]
 
 
 @pytest.mark.parametrize("bad", ["tf32", "mixed", "other_form", "missing", "aca_tf32",
-                                 "aca_bwd_tf32", "aca_mixed", "aca_other_form"])
+                                 "aca_bwd_tf32", "aca_mixed", "aca_other_form", "bwd_hmma",
+                                 "bwd_mixed", "bwd_empty", "bwd_other_form", "bwd_missing",
+                                 "fwd_hgmma", "aca_hgmma"])
 def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, bad):
     """A bf16 instance left on the TF32 instruction, one that mixes the two,
     a 3xTF32 instance on the bf16 one, and a kernel of the list that the
     SASS lacks: each is one fault naming the kernel and the form; the same
-    for the ACA forward's and backward's instances."""
+    for the ACA forward's and backward's instances. The flash backward's
+    bf16 instances on mma.sync.m16n8k16 alone, on wgmma and mma.sync both,
+    or on none, its 3xTF32 instance on wgmma, its kernel missing: each a
+    fault; and the forward or an ACA kernel at bf16 on wgmma is one too
+    (they keep m16n8k16)."""
     by_form = _flash_kinds(monkeypatch)
     fwd = by_form["flash_attention_kernel"]
     aca_fwd = by_form["aca_attention_kernel"]
+    hgmma = "HGMMA.64x32x16.F32.BF16"
     if bad == "tf32":
         fwd["bf16"] = {kernels.TF32_MMA: 64}
         want = "flash_attention_kernel bf16"
@@ -244,14 +292,35 @@ def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, ba
     elif bad == "aca_mixed":  # one of the four kinds of instance left behind
         aca_fwd["bf16"] = {kernels.BF16_MMA: 3, kernels.TF32_MMA: 1}
         want = "aca_attention_kernel bf16"
-    else:
+    elif bad == "aca_other_form":
         aca_fwd["1xtf32"] = {kernels.BF16_MMA: 4}
         want = "aca_attention_kernel 1xtf32"
-    faults = kernels.mma_kind_faults(by_form, BF16_KERNELS)
+    elif bad == "bwd_hmma":  # the backward's bf16 body back on mma.sync
+        by_form["flash_bwd_dq_kernel"]["bf16"] = {kernels.BF16_MMA: 24}
+        want = "flash_bwd_dq_kernel bf16"
+    elif bad == "bwd_mixed":
+        by_form["flash_bwd_dkdv_kernel"]["bf16"] = {hgmma: 8, kernels.BF16_MMA: 4}
+        want = "flash_bwd_dkdv_kernel bf16"
+    elif bad == "bwd_empty":
+        by_form["flash_bwd_dkdv_kernel"]["bf16"] = {}
+        want = "flash_bwd_dkdv_kernel bf16"
+    elif bad == "bwd_other_form":  # the 3xTF32 instance keeps m16n8k8
+        by_form["flash_bwd_dq_kernel"]["3xtf32"] = {hgmma: 6}
+        want = "flash_bwd_dq_kernel 3xtf32"
+    elif bad == "bwd_missing":
+        del by_form["flash_bwd_dkdv_kernel"]
+        want = "flash_bwd_dkdv_kernel: no such kernel"
+    elif bad == "fwd_hgmma":
+        fwd["bf16"] = {"HGMMA.64x64x16.F32.BF16": 8}
+        want = "flash_attention_kernel bf16"
+    else:
+        by_form["aca_attention_bwd_kernel"]["bf16"] = {hgmma: 8}
+        want = "aca_attention_bwd_kernel bf16"
+    faults = kernels.mma_kind_faults(by_form, BF16_KERNELS, WGMMA)
     assert len(faults) == 1 and faults[0].startswith(want), faults
     # a kernel off the list keeps its bf16 instance on the TF32 instruction
     if bad == "tf32":
-        assert kernels.mma_kind_faults(by_form, BF16_KERNELS[1:]) == []
+        assert kernels.mma_kind_faults(by_form, BF16_KERNELS[1:], WGMMA) == []
 
 
 def test_hmma_by_form_sums_each_kernels_instances_per_form():
@@ -273,11 +342,17 @@ def test_hmma_by_form_sums_each_kernels_instances_per_form():
         "_ZN51_GLOBAL__N__e895d2d6_18_flash_attention_cu_bc10f23522flash_attention_kernelILi1"
         "ELb1EEEvPKfS2_S2_S2_PfiifS3_jjf": 64,
         "_ZN12_GLOBAL__N_122flash_bwd_delta_kernelEPKfS1_Pfiii": 0,
+        # the flash backward's bf16 dq instance: its wgmma lines (HGMMA),
+        # which sass_mma_counts counts beside HMMA's; the staging pre-pass
+        # has no product
+        "_ZN12_GLOBAL__N_119flash_bwd_dq_kernelILi2EEEvNS_8OperandsENS_8TileMapsE": 6,
+        "_ZN12_GLOBAL__N_122flash_bwd_stage_kernelENS_8OperandsEPKfNS_10StagedBF16Ei": 0,
     }
     assert kernels.hmma_by_form(counts) == {
         "aca_attention_kernel": {"3xtf32": 144, "1xtf32": 0, "bf16": 56},
         "aca_attention_bwd_kernel": {"3xtf32": 0, "1xtf32": 120, "bf16": 60},
         "flash_attention_kernel": {"3xtf32": 0, "1xtf32": 64, "bf16": 0},
+        "flash_bwd_dq_kernel": {"3xtf32": 0, "1xtf32": 0, "bf16": 6},
     }
 
 

@@ -509,6 +509,12 @@ def test_aca_one_key_row_is_exact(cuda, form):
         (2, 2047, "last_tile_key", 0.1),
         (3, 300, "empty_row", 0.0),  # a batch row with no valid key
         (3, 300, "empty_row", 0.1),
+        # the bf16 body's TMA boxes (64 rows) past the end of the rows: a
+        # batch row whose only valid keys lie in the last, partial 128-key
+        # tile, at kMaxLen and at lengths that are not a multiple of 64
+        (2, chunked_attn.MAX_LEN, "last_tile_only", 0.1),
+        (3, 4000, "last_tile_only", 0.1),
+        (3, 1000, "last_tile_only", 0.0),
     ],
 )
 @pytest.mark.parametrize("form", ["3xtf32", "bf16"])
@@ -522,10 +528,13 @@ def test_flash_train_kernels_match_plain(cuda, form, b, length, case, p):
     backward bit-equal."""
     q, k, v, _ = _inputs(b, length, length, 8, 21)
     rng = np.random.default_rng(22)
-    if case in ("ragged", "empty_row"):
+    if case in ("ragged", "empty_row", "last_tile_only"):
         valid = _ragged(b, length, 23)
         if case == "empty_row":
             valid[1] = 0.0
+        elif case == "last_tile_only":
+            valid[1] = 0.0
+            valid[1, (length - 1) // 128 * 128 + 3 :: 5] = 1.0
     elif case == "holes":
         valid = _holes(b, length, 24)
     else:
@@ -578,6 +587,24 @@ def test_flash_train_kernels_match_plain(cuda, form, b, length, case, p):
         assert torch.equal(got[~live], torch.zeros_like(got[~live])), name
     again = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, p, seed, form=form)
     assert all(torch.equal(x, y) for x, y in zip(grads, again))
+
+
+@pytest.mark.parametrize("form", ["3xtf32", "bf16"])
+def test_flash_backward_launches_are_bit_equal(cuda, form):
+    """Three launches of the backward on the same inputs, at the TACoS train
+    shape with dropout, give the same dq, dk and dv bit for bit: every sum
+    in one block in a fixed order, no float atomics (the bf16 body's wgmma
+    accumulators and TMA ring included)."""
+    b, length = 4, 2048
+    q, k, v, _ = _inputs(b, length, length, 8, 31)
+    t = [x.to(cuda) for x in (q, k, v, _ragged(b, length, 32))]
+    out, lse = chunked_attn._launch(*t, 8, 0.1, 77, want_lse=True, form=form)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(33)).to(cuda)
+    first = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, 0.1, 77, form=form)
+    for _ in range(2):
+        again = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, 0.1, 77, form=form)
+        assert all(torch.equal(x, y) for x, y in zip(first, again))
+    assert all(torch.isfinite(x).all() for x in first)
 
 
 def test_flash_backward_row_without_valid_key_is_zero(cuda):
