@@ -12,17 +12,18 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      nvcc per source, all at once, and counts each kernel's tensor-core
      instructions in its SASS (cuobjdump): every kernel that takes a dot
      product (on mma.sync or wgmma) must have some, all but the flash
-     backward's pre-passes (D, and at bf16 D with the bf16 copies) and the
-     ACA backward's chunk-sum pass; and per product form
+     backward's pre-passes (D, and at bf16 D with the bf16 copies), the
+     flash forward's bf16 pre-pass and the ACA backward's chunk-sum pass;
+     and per product form
      (each kernel is a template on it): the 1xTF32 and the bf16 instances
      must hold fewer than the 3xTF32 ones; and by instruction
-     (kernels.mma_kind_faults): the bf16 instances of the flash backward's
-     dq and dk/dv kernels Hopper's warpgroup product on bf16 (wgmma,
-     HGMMA.64xNx16.F32.BF16) alone, those of the flash forward (eval and
-     training instances) and of the ACA kernels (the forward's eval and
-     training instances, with and without the head mean, which the short
-     self-attention shares; the backward) the bf16 mma.sync.m16n8k16
-     alone, every other instance the TF32 m16n8k8 alone;
+     (kernels.mma_kind_faults): the bf16 instances of the flash forward
+     (eval and training instances) and of the flash backward's dq and
+     dk/dv kernels Hopper's warpgroup product on bf16 (wgmma,
+     HGMMA.64xNx16.F32.BF16) alone, those of the ACA kernels (the
+     forward's eval and training instances, with and without the head
+     mean, which the short self-attention shares; the backward) the bf16
+     mma.sync.m16n8k16 alone, every other instance the TF32 m16n8k8 alone;
   3. kernels vs their plain PyTorch versions on the card, at the shapes the
      two eval paths give them (atol 1e-5: both are f32-accurate, the
      kernels' products in 3xTF32, and differ in the order of their sums),
@@ -278,8 +279,7 @@ F32_PEAK = 67e12  # H100 SXM float32 outside the tensor cores, FLOP/s
 # 495 TFLOP/s, over its three TF32 products; TF32 products at 495; bf16
 # operands with f32 sums at the bf16 rate, 989, the rate of the bf16
 # instructions that every kernel's bf16 instances take them on (the flash
-# backward's wgmma; the flash forward's and the ACA kernels'
-# mma.sync.m16n8k16)
+# forward's and backward's wgmma; the ACA kernels' mma.sync.m16n8k16)
 DOT_PEAK = {"3xtf32": 495e12 / 3, "1xtf32": 495e12, "bf16": 989e12}
 HBM_RATE = 3.35e12  # H100 SXM device memory, bytes/s
 KERNEL_ATOL = 1e-5
@@ -287,8 +287,8 @@ KERNEL_ATOL = 1e-5
 # HMMA.16816.F32.BF16), and those whose bf16 instances take wgmma on bf16
 # (HGMMA.64xNx16.F32.BF16): every kernel with a product is in one; every
 # other instance takes m16n8k8 on tf32 (kernels.mma_kind_faults)
-BF16_MMA_KERNELS = ("flash_attention_kernel", "aca_attention_kernel", "aca_attention_bwd_kernel")
-WGMMA_KERNELS = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+BF16_MMA_KERNELS = ("aca_attention_kernel", "aca_attention_bwd_kernel")
+WGMMA_KERNELS = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 # phase 14: a kernel against its plain version at the same form (which
 # rounds the same operands), relative to max(max |plain|, 0.1): about 2-3
 # times the largest gap the card has shown over the shapes of phases 3 and 7
@@ -557,7 +557,40 @@ def phase_kernels(dev, seed, form="3xtf32"):
         source="flashvtg_tpu_torch/csrc/flash_attention.cu",
         replaces="scripts/bench_flash.py:57", **reading,
     ))
+    if form == "bf16":  # the bf16 forward's pre-pass, beside it, at the same shape
+        rows.append(dict(
+            name=form_name(PREPASS, form), route="cuda",
+            source="flashvtg_tpu_torch/csrc/flash_attention.cu",
+            replaces="scripts/bench_flash.py:57", **prepass_reading(dev, g, 8, 2048),
+        ))
     return rows, shapes
+
+
+def prepass_reading(dev, g, b, length):
+    """The flash forward's bf16 pre-pass (ops/chunked_attn.py:stage_kv,
+    csrc/flash_attention.cu flash_fwd_stage_kernel) on (B, L, 8 * 32) k
+    and v against its plain version, bit for bit (both round to nearest
+    even); timed beside its bound, the bytes it moves once (k and v read in
+    f32, written in bf16). No single PyTorch call rounds two tensors into
+    one: library_ms is null."""
+    import torch
+
+    from flashvtg_tpu_torch.ops import chunked_attn
+
+    _, k, v = qkv_b(g, dev, b, 8, length, length)
+    got, ref = chunked_attn.stage_kv(k, v), chunked_attn.stage_kv_plain(k, v)
+    torch.cuda.synchronize()
+    shape = f"B={b} H=8 L={length} Dh=32"
+    err = (got.float() - ref.float()).abs().max().item()
+    if not torch.equal(got, ref):
+        raise AssertionError(f"{PREPASS} {shape} vs plain: not bit-equal, max |err| {err}")
+    return dict(
+        kernel=PREPASS, form="bf16", shape=shape, max_abs_err=err,
+        max_rel_err=err / max(ref.float().abs().max().item(), 0.1),
+        ms=time_ms(lambda: chunked_attn.stage_kv(k, v)),
+        plain_ms=time_ms(lambda: chunked_attn.stage_kv_plain(k, v), iters=20),
+        bound_ms=(4 + 2) * 2 * k.numel() / HBM_RATE * 1e3, bound_by="bytes", library_ms=None,
+    )
 
 
 # (B, Lv, dummies, text tokens, fewest and most valid clips) of the eval
@@ -917,8 +950,11 @@ def self_train_case(dev, g, b, heads, p, seed, valid, form="3xtf32"):
         fwd_plain = functools.partial(chunked_attn.flash_attention_plain, *args, want_lse=True,
                                       form=form)
         got, ref = fwd(), fwd_plain()
+        # the backward as the autograd Function runs it: at bf16 with the
+        # forward's bf16 k and v copies
+        kv = chunked_attn._launch(*args, want_lse=True, form=form, keep_kv=True)[2]
         bwd = functools.partial(chunked_attn._launch_bwd, q, k, v, valid, *got, d_out, heads,
-                                p, drop_seed, form=form)
+                                p, drop_seed, form=form, kv=kv)
         bwd_plain = functools.partial(chunked_attn.flash_attention_bwd_plain, q, k, v, valid,
                                       *ref, d_out, heads, p, drop_seed, form=form)
         call = functools.partial(in_dial, form, chunked_attn.flash_attention, **call)
@@ -986,6 +1022,8 @@ def phase_train_kernels(dev, seed, form="3xtf32"):
             shapes[form_name(f"{path} {name}_bwd L={length}", form)] = bwd
             readings.setdefault(name + "_bwd", []).append(bwd)
         bhll = 4 * b * heads * lv * lv
+        if lv > 128 and form == "bf16":  # the flash forward's pre-pass at this shape
+            shapes[form_name(f"{path} {PREPASS} L={lv}", form)] = prepass_reading(dev, g, b, lv)
         if lv > 128:  # the flash forward + backward's peak: memory-linear
             peak = shapes[form_name(f"{path} flash_attention_bwd L={lv}", form)][
                 "function_fwd_bwd_peak_bytes"]
@@ -1111,15 +1149,23 @@ DEVICE_FUNCTIONS = (
 )
 
 
+# the flash forward's bf16 pre-pass (flash_fwd_stage_kernel): the forward's
+# C entry launches it before each bf16 forward kernel, and the wrapper
+# counts the two as the forward's one launch
+PREPASS = "flash_attention_prepass"
+
+
 def group_of(kernel):
     return BWD_PAIR if kernel in ("aca_attention_bwd", "masked_attention_bwd") else kernel
 
 
-def grouped(counts):
-    """{kernel: n} summed into DEVICE_FUNCTIONS' groups."""
+def grouped(counts, form):
+    """{kernel: n} of `form` summed into DEVICE_FUNCTIONS' groups, and the
+    pre-pass's launches that they imply (one a bf16 flash forward)."""
     out = {group: 0 for _, group in DEVICE_FUNCTIONS}
     for name, n in counts.items():
         out[group_of(name)] += n
+    out[PREPASS] = out["flash_attention"] if form == "bf16" else 0
     return out
 
 
@@ -1129,8 +1175,11 @@ def device_launch_table(per_name):
     card ran them, those of eager calls and of CUDA-graph replays alike."""
     from flashvtg_tpu_torch.ops.forms import FORMS
 
-    table = {form: grouped({}) for form in FORMS}
+    table = {form: grouped({}, form) for form in FORMS}
     for name, (_, calls) in per_name.items():
+        if "flash_fwd_stage_kernel" in name:  # no form in its name: bf16 only
+            table["bf16"][PREPASS] += calls
+            continue
         for pattern, group in DEVICE_FUNCTIONS:
             m = re.search(pattern, name)
             if m:
@@ -1167,8 +1216,9 @@ def check_device_launches(what, table, want, eager):
     (`eager`, {form: {kernel: n}}: eager calls only, a capture counts
     nothing) are at most those, and more than 0 for each kernel `want` has."""
     for form, counts in want.items():
-        assert table[form] == grouped(counts), (what, form, table[form], grouped(counts))
-        seen = grouped(eager[form])
+        assert table[form] == grouped(counts, form), (what, form, table[form],
+                                                      grouped(counts, form))
+        seen = grouped(eager[form], form)
         assert all(seen[g] <= n for g, n in table[form].items()), (what, form, seen)
         assert all(eager[form][k] > 0 for k, n in counts.items() if n), (what, form, eager)
 
@@ -2121,7 +2171,7 @@ def profiled_steps(run, want):
         wall, busy_us, table = busy_ms(run)
         counted_in = {f: {k: n - before[f][k] for k, n in c.items()}
                       for f, c in form_launch_counts().items()}
-        if all(table[f] == grouped(w) for f, w in want.items()):
+        if all(table[f] == grouped(w, f) for f, w in want.items()):
             return wall, busy_us, table, window, counted_in
         tables.append(table)
         log(f"[profiler] window {window}: the kernel records differ from a step's launches "
@@ -2206,7 +2256,7 @@ def feed_train_modes(dev, preset, seed, **overrides):
         if mode == "scan":
             assert not any(n for c in counted_in.values() for n in c.values()), counted_in
         else:
-            assert all(table[f] == grouped(counted_in[f]) for f in table), (mode, counted_in)
+            assert all(table[f] == grouped(counted_in[f], f) for f in table), (mode, counted_in)
         wall = steps / sps
         reading.update(
             warmup_chunk_s=warm_s, steps_per_s=sps, wall_ms_per_step=wall * 1e3 / steps,
@@ -2471,7 +2521,8 @@ def streamed_train_modes(dev, preset, seed, source=None):
             if graph:
                 assert not any(n for c in counted_in.values() for n in c.values()), counted_in
             else:
-                assert all(table[f] == grouped(counted_in[f]) for f in table), (mode, counted_in)
+                assert all(table[f] == grouped(counted_in[f], f) for f in table), (mode,
+                                                                                  counted_in)
             wall = steps / sps
             reading = dict(
                 warmup_chunk_s=warm_s, steps_per_s=sps, wall_ms_per_step=wall * 1e3 / steps,
@@ -2603,7 +2654,7 @@ def streamed_train_runs(dev, seed, tacos_split):
         table, names, trace_bytes = trace_launch_table(cfg.profile_dir)
         first_epoch = at_form(KERNEL_FORMS[cfg.train_precision],
                               {k: n * per_epoch for k, n in per_step.items()})
-        assert all(table[f] == grouped(w) for f, w in first_epoch.items()), table
+        assert all(table[f] == grouped(w, f) for f, w in first_epoch.items()), table
         for kernel in ("aca_attention_kernel", "aca_attention_bwd_kernel",
                        "flash_attention_kernel", "flash_bwd_dq_kernel"):
             assert any(kernel in n for n in names), kernel
@@ -3490,7 +3541,10 @@ def main():
             row[key] = max([row[key]] + [
                 r[key] for r in shapes.values()
                 if r.get("kernel") == row["kernel"] and r.get("form") == row["form"]])
-        by_path = {name: p["form_launches"][row["form"]][row["kernel"]]
+        # the pre-pass's launches are the bf16 forward's (one each), as its
+        # wrapper counts them; its device launches are its own records
+        counted = "flash_attention" if row["kernel"] == PREPASS else row["kernel"]
+        by_path = {name: p["form_launches"][row["form"]][counted]
                    for name, p in paths.items() if "form_launches" in p}
         row["launches"] = sum(by_path.values())
         row["launches_by_path"] = {k: v for k, v in by_path.items() if v}

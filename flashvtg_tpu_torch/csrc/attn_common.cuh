@@ -68,11 +68,10 @@ __device__ __forceinline__ void cp_async_wait_all() {
 //   kFormBF16 (bfloat16): each operand rounded to bf16, to nearest even
 //     (cvt.rn.bf16x2.f32), with f32 sums. Every kernel's bf16 instances take
 //     these operands on a bf16 instruction, in bodies of their own that the
-//     m16n8k8 helpers below never see: the flash forward and the ACA
-//     kernels on mma.sync.m16n8k16 from bf16 tiles in shared memory (the
-//     section after dot_form below), the flash backward on Hopper's
-//     warpgroup product wgmma from bf16 tiles that TMA copies (the last
-//     section).
+//     m16n8k8 helpers below never see: the ACA kernels on mma.sync.m16n8k16
+//     from bf16 tiles in shared memory (the section after dot_form below),
+//     the flash forward and backward on Hopper's warpgroup product wgmma
+//     from bf16 tiles that TMA copies (the last section).
 // The 1xTF32 form keeps the 3xTF32 form's accumulation order: each k-step's
 // product in a fresh accumulator (dot_form below), each chunk of keys in
 // fresh accumulators added on the CUDA cores.
@@ -271,8 +270,8 @@ __device__ __forceinline__ void load_kv_tile(float* k_s, float* v_s, const float
 
 // ---- bf16 operands on the bf16 instruction (mma.sync.m16n8k16) ---------------
 //
-// The bf16 form of the flash forward (flash_attention.cu) and of the ACA
-// kernels (aca_attention.cu, aca_attention_bwd.cu) takes its products on
+// The bf16 form of the ACA kernels (aca_attention.cu, aca_attention_bwd.cu)
+// takes its products on
 // mma.sync.m16n8k16 (bf16 in, f32 out): twice the k of the TF32
 // instruction, at twice its rate. Its operands are rounded to bf16 once,
 // where they are staged (cvt.rn.bf16x2.f32, to nearest even).
@@ -365,12 +364,12 @@ __device__ __forceinline__ void frag_a16_from_c(uint32_t (&a)[4], const float (&
 // registers, b the ldmatrix.x4 of its 8 rows as stored (register 2 ks and
 // 2 ks + 1 step ks's B operand). Each step's product goes to a fresh
 // accumulator and the two are added on the CUDA cores, as dot_form adds its
-// k-steps. The flash forward takes S here; the backward's S and dP (dq
-// kernel) and S^T and dP^T (dk/dv kernel) take the same two k16 sums on
-// wgmma, which sums a k16 step as mma.sync does, and add them alike
-// (flash_attention_bwd.cu dot_pair_wgmma), so the three kernels' S agree
-// and S^T is S transposed, bit for bit. The ACA forward and backward take S
-// (and the backward dO V^T) here too, so their S agree bit for bit.
+// k-steps. The ACA forward and backward take S (and the backward dO V^T)
+// here, so their S agree bit for bit. The flash kernels take the same two
+// k16 sums on wgmma, which sums a k16 step as mma.sync does, and add them
+// alike (flash_attention.cu issue_s; flash_attention_bwd.cu
+// dot_pair_wgmma), so the forward's S, the dq kernel's S and the dk/dv
+// kernel's S^T agree bit for bit.
 __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh / 16][4],
                                          const uint32_t (&b)[4]) {
   float s0[4] = {0.f, 0.f, 0.f, 0.f}, s1[4] = {0.f, 0.f, 0.f, 0.f};
@@ -380,51 +379,13 @@ __device__ __forceinline__ void dot_bf16(float (&c)[4], const uint32_t (&a)[kDh 
   for (int e = 0; e < 4; ++e) c[e] = s0[e] + s1[e];
 }
 
-// The flash forward's staged rows in bf16, beside load_kv_tile: kRows rows
-// of 32 floats of one head, from device memory into registers (16-byte
-// loads, kRows * 8 / kThreads of each tensor a thread), then rounded to bf16
-// into tiles of kBStride rows. The two halves are apart so that a block can
-// compute while the loads are in flight. load_rows reads row j of `base`
-// (`stride` floats a row) as row min(j, last) where `last` >= 0, and as
-// zeros past `len` where `last` < 0 (the key tile's rows past len, whose
-// probabilities are exactly 0: 0 times stale shared memory could be NaN).
-template <int kRows, int kThreads>
-struct RowsBF16 {
-  static constexpr int kVecs = kRows * (kDh / 4) / kThreads;
-  static_assert(kVecs * kThreads == kRows * (kDh / 4), "whole rows a block");
-  float4 x[kVecs];
-
-  __device__ __forceinline__ void load(const float* base, size_t stride, int j0, int len,
-                                       int last) {
-#pragma unroll
-    for (int u = 0; u < kVecs; ++u) {
-      const int i = threadIdx.x + kThreads * u;
-      const int j = j0 + (i >> 3);
-      if (last >= 0) {
-        x[u] = ld4(base + (size_t)min(j, last) * stride + (i & 7) * 4);
-      } else {
-        x[u] = j < len ? ld4(base + (size_t)j * stride + (i & 7) * 4)
-                       : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-    }
-  }
-
-  // rows r0 .. r0 + kRows - 1 of the tile at `tile`, each value times mult
-  __device__ __forceinline__ void store(uint16_t* tile, int r0, float mult = 1.f) const {
-#pragma unroll
-    for (int u = 0; u < kVecs; ++u) {
-      const int i = threadIdx.x + kThreads * u;
-      const float4 v = x[u];
-      st_bf16x4(tile + (r0 + (i >> 3)) * kBStride + (i & 7) * 4,
-                make_float4(v.x * mult, v.y * mult, v.z * mult, v.w * mult));
-    }
-  }
-};
-
 // ---- Hopper: TMA tile copies, mbarriers, warpgroup products (sm_90a) ---------
 //
-// The flash backward's bf16 instances (flash_attention_bwd.cu) take their
-// products on wgmma, from bf16 tiles that TMA copies into shared memory:
+// The flash forward's and backward's bf16 instances (flash_attention.cu,
+// flash_attention_bwd.cu) take their products on wgmma, from bf16 tiles
+// that TMA copies into shared memory, out of (B, L, H * 32) bf16 copies that
+// a pre-pass of each rounds with st_bf16x8 (below), so that the two round
+// alike:
 //  * a tile is R rows of one head's 32 bf16 values: 64 bytes a row, exactly
 //    the 64-byte swizzle atom. A TMA box of 32 x R with
 //    CU_TENSOR_MAP_SWIZZLE_64B stores 16-byte chunk c of row r at chunk
@@ -454,6 +415,24 @@ struct RowsBF16 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+constexpr int kBoxRows = 64;                    // rows of every TMA box
+constexpr int kTileBytes = kBoxRows * kDh * 2;  // one box of bf16: 4 KB
+constexpr int kRowBytes = kDh * 2;              // a tile row
+
+// the first 1024-byte boundary at or after p in shared memory (a swizzled
+// tile starts on one)
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+// eight floats x, y, each times mult, as bf16 to nearest even at p (16-byte
+// aligned): the pre-passes' rounding of the copies the TMA maps read
+__device__ __forceinline__ void st_bf16x8(uint16_t* p, float4 x, float4 y, float mult) {
+  *reinterpret_cast<uint4*>(p) =
+      make_uint4(pack_bf16(x.x * mult, x.y * mult), pack_bf16(x.z * mult, x.w * mult),
+                 pack_bf16(y.x * mult, y.y * mult), pack_bf16(y.z * mult, y.w * mult));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t arrivals) {
@@ -568,7 +547,36 @@ __device__ __forceinline__ void wgmma_n32_rs(float (&d)[16], const uint32_t (&a)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+#define WGMMA_D32(c)                                                                    \
+  WGMMA_D16(c), c(d[16]), c(d[17]), c(d[18]), c(d[19]), c(d[20]), c(d[21]), c(d[22]),       \
+      c(d[23]), c(d[24]), c(d[25]), c(d[26]), c(d[27]), c(d[28]), c(d[29]), c(d[30]), c(d[31])
+
+// d (64 x 64) = a b^T in a fresh accumulator: one k16 step, a (64 x 16) in
+// registers (acc_to_a's layout), b (64 rows) a K-major tile in shared memory
+__device__ __forceinline__ void wgmma_n64_rs_k(float (&d)[32], const uint32_t (&a)[4],
+                                               uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : WGMMA_D32("=f")
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(0));
+}
+
+#undef WGMMA_D32
 #undef WGMMA_D16
+
+// keeps the A registers of a product in flight alive, unchanged, up to here
+// (after the wgmma_wait that covers it)
+template <int N>
+__device__ __forceinline__ void wgmma_hold_a(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[i][e])::"memory");
+}
 
 // the A operand of k16 step kk of a product whose k runs along the columns
 // of accumulator d: its columns 16kk .. 16kk + 15 (n-tiles 2kk and 2kk + 1),
@@ -580,3 +588,50 @@ __device__ __forceinline__ void acc_to_a(uint32_t (&a)[4], const float (&d)[R], 
   a[2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
   a[3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
 }
+
+// ---- host side: the TMA maps of the bf16 copies ----------------------------
+
+// cuTensorMapEncodeTiled, found through the runtime's entry-point query (so
+// the library needs no -lcuda); null where the CUDA library lacks it
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
+      fn = reinterpret_cast<EncodeTiled>(p);
+    }
+  }
+  return fn;
+}
+
+// The TMA map of a (batch, len, heads * 32) bf16 tensor: boxes of 32
+// columns (one head) x kBoxRows rows x 1 batch row, 64-byte swizzle; a box's
+// rows past len arrive as zeros
+inline CUresult encode_rows(EncodeTiled encode, CUtensorMap* map, const uint16_t* ptr, int batch,
+                            int len, int heads) {
+  const cuuint64_t dims[3] = {(cuuint64_t)heads * kDh, (cuuint64_t)len, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)heads * kRowBytes,
+                                 (cuuint64_t)len * heads * kRowBytes};
+  const cuuint32_t box[3] = {kDh, kBoxRows, 1};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<uint16_t*>(ptr), dims,
+                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// an encode's failure, as the C entries return it: kTensorMapError plus the
+// CUresult (ops/chunked_attn.py names it)
+constexpr int kTensorMapError = 1 << 16;

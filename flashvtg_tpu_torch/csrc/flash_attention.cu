@@ -1,7 +1,7 @@
 // Memory-linear masked self-attention over any number of keys, for Hopper
 // (sm_90a): the products on the tensor cores in 3xTF32 (f32-accurate),
-// 1xTF32 (both on mma.sync.m16n8k8) or bf16 (on m16n8k16), as the precision
-// dial asks.
+// 1xTF32 (both on mma.sync.m16n8k8) or bf16 (on Hopper's warpgroup product
+// wgmma), as the precision dial asks.
 //
 // Replaces: the long, memory-linear form of JAX's library Pallas kernel
 // jax.experimental.pallas.ops.tpu.flash_attention (called at
@@ -71,23 +71,38 @@
 // form, and bf16 operands with f32 sums the bfloat16 form (attn_common.cuh;
 // the template F, chosen by the C entries' `form`).
 //
-// The bf16 form has a body of its own (flash_bf16 below), on the bf16
-// instruction mma.sync.m16n8k16 from bf16 K and V tiles in shared memory:
-//  * K and V are rounded to bf16 once a block, where they are staged (two
-//    stages of 2 x 128 rows of kBStride bf16, 40 KB, against the f32 forms'
-//    72 KB), loaded through registers a 64-key chunk at a time so that the
-//    next tile's rows are in flight while the chunk computes; the f32 forms
-//    convert every K and V value in each of the four warps, inside the
-//    product loops;
-//  * S = (scale Q) K^T is attn_common.cuh dot_bf16 on bf16(scale q) in
-//    registers and K by ldmatrix: the function the backward's kernels take
-//    S by, bit for bit, so at a row's only key lse = m = s exactly and the
-//    backward's P is exactly 1 there;
-//  * P feeds P V as bf16 A operands in natural key order (the C tiles of two
-//    adjacent n-tiles), V's B operand by ldmatrix.trans;
-//  * a 64-key chunk takes 32 tensor-core instructions a warp (16 for S, 16
-//    for P V) against the m16n8k8 form's 64; the mask, max, exp2, row sums
-//    and dropout hash on the CUDA cores are the other forms'.
+// The bf16 form has a body of its own (flash_bf16 below), on Hopper's
+// warpgroup product wgmma from bf16 K and V tiles that TMA copies
+// (attn_common.cuh, last section):
+//  * a pre-pass (flash_fwd_stage_kernel, launched by the same entry just
+//    before the kernel) rounds k and v to bf16 once, into (B, L, H * 32)
+//    copies that the wrapper allocates; the training form hands them to the
+//    backward, whose pre-pass then rounds only scale q, q and dO. On
+//    mma.sync every 64-row block rounded its head's whole K and V itself,
+//    through registers (32 blocks a head at L 2048);
+//  * a block is one warpgroup: 64 query rows, the M of wgmma.m64nNk16. The
+//    128-key K and V tiles that hold a valid key come through a ring of
+//    kStagesBF16 TMA stages (64-byte swizzle, one mbarrier a stage), the
+//    copies issued by one thread; a tile with no valid key is never copied;
+//  * S = (scale Q) K^T for 64 keys (two mask words) at a time is wgmma with
+//    bf16(scale q) in registers as A and K's tile as the K-major B, each
+//    k16 step in a fresh accumulator added on the CUDA cores: the sums of
+//    attn_common.cuh dot_bf16, which the backward's kernels take S by, so
+//    at a row's only key lse = m = s exactly and the backward's P is
+//    exactly 1 there;
+//  * O += P V is wgmma with P from registers (acc_to_a) and V's tile as the
+//    MN-major B; O stays in the wgmma accumulators across the whole loop,
+//    rescaled by alpha between products (truncating f32 accumulation, as
+//    the backward's dq, dk and dv: far inside the bf16 form's band), so a
+//    chunk takes no adds on the CUDA cores;
+//  * the products are asynchronous: a chunk's P V runs while the next
+//    chunk's S is issued, and one wait ends both (kStagesBF16, kChunkBF16
+//    below: two stages, 64-key chunks read fastest on the card). Issuing the
+//    next chunk's S before this chunk's softmax, to overlap the two, read
+//    slower at every shape (PERF.md §6): it holds two more S
+//    accumulators, which cost a block an SM at 64-key chunks, and the other
+//    blocks' warps already fill the tensor cores' gaps;
+//  * a chunk whose keys are all valid skips the mask's bit tests.
 // Its bound: the same pairs' dot products at the bf16 rate, 989 TFLOP/s
 // (0.023 ms at the TACoS eval shape), against the same inputs and outputs;
 // but each valid pair also takes one exp2 on the special-function unit (16
@@ -113,8 +128,7 @@ namespace {
 
 constexpr int kWarps = 4;               // 16 query rows each
 constexpr int kMinBlocks = 3;           // per SM: caps a thread at 65536 / (32 kWarps kMinBlocks) registers
-constexpr int kMinBlocksBF16 = 4;       // the same, for the bf16 form's body (128 registers,
-                                        // no spills; 3 ran 4-9 % slower on the card)
+constexpr int kMinBlocksBF16 = 4;       // the same, for the bf16 form's body
 constexpr int kTileRows = 16 * kWarps;  // query rows per block
 constexpr int kTileKeys = 128;          // keys per staged tile (one bit of the tile mask)
 constexpr int kChunk = 64;              // keys per S fragment set, 32 or 64
@@ -124,33 +138,103 @@ constexpr int kMaxLen = kTileKeys * (kMaskWords / 4);
 
 constexpr int kStageFloats = 2 * kTileKeys * kKStride;  // K, V
 
-// ---- the bf16 form on mma.sync.m16n8k16 (attn_common.cuh) -------------------
+// ---- the bf16 form on Hopper's warpgroup products (attn_common.cuh) ---------
 //
-// The same kernel on bf16 K and V tiles (the design: this file's header);
-// the online softmax on the C fragments is the other forms' (m16n8k16's C
-// layout is m16n8k8's), so the mask bits, the dropout index and the lse
-// write keep their indices.
+// The same kernel on wgmma, one warpgroup (the four warps) a block, from the
+// pre-pass's bf16 K and V that TMA copies (the design: this file's header).
+// The accumulator's layout is the m16n8 C layout (a warp's 16 rows, n-tiles
+// of 8 keys), so the mask bits, the online softmax, the dropout index and
+// the lse write are the f32 forms', on s[4 n + e] for their s[n][e].
 
-constexpr int kKvTileBF16 = kTileKeys * kBStride;  // bf16 elements
-constexpr int kStageElemsBF16 = 2 * kKvTileBF16;   // K, V
-using KvRowsBF16 = RowsBF16<kChunk, kWarps * 32>;
+constexpr int kStagesBF16 = 2;  // 128-key K and V tiles in flight (the TMA ring)
+constexpr int kChunkBF16 = 64;  // keys a chunk: the N of S's products, two mask words
+static_assert(kChunkBF16 == 64, "S is m64n64k16 (attn_common.cuh wgmma_n64_rs_k)");
+constexpr int kSAcc = kChunkBF16 / 2;  // S's accumulator registers a thread
+constexpr int kKvBoxes = kTileKeys / kBoxRows;               // TMA boxes a tile, each tensor
+constexpr int kKvStageBytes = 2 * kKvBoxes * kTileBytes;     // K, then V: 16 KB
+// shared memory a bf16 block: the ring on a 1024-byte boundary that the
+// block finds itself (the first 1024 bytes are slack), the mbarriers after it
+constexpr int kSmemBF16 = 1024 + kStagesBF16 * kKvStageBytes + 8 * kStagesBF16;
 
-template <int F>
-constexpr int kSmemBytes = F == kFormBF16 ? (int)sizeof(uint16_t) * 2 * kStageElemsBF16
-                                          : (int)sizeof(float) * 2 * kStageFloats;
+// the TMA maps of the pre-pass's bf16 k and v (attn_common.cuh encode_rows)
+struct KvMaps {
+  CUtensorMap k, v;
+};
+
+// The pre-pass of the bf16 form: k and v rounded to bf16 once, into the
+// (B, L, H * 32) copies that the TMA maps read, by st_bf16x8 as the
+// backward's pre-pass rounds them (a thread eight values of each)
+__global__ void __launch_bounds__(256)
+flash_fwd_stage_kernel(const float* __restrict__ k, const float* __restrict__ v,
+                       uint16_t* __restrict__ k_bf16, uint16_t* __restrict__ v_bf16,
+                       size_t n8) {
+  const size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n8) return;
+  const size_t g = 8 * i;
+  st_bf16x8(k_bf16 + g, ld4(k + g), ld4(k + g + 4), 1.f);
+  st_bf16x8(v_bf16 + g, ld4(v + g), ld4(v + g + 4), 1.f);
+}
+
+// TMA copies of the 128-key tile `tile` of head h into a stage: K's boxes,
+// then V's
+__device__ __forceinline__ void copy_kv(const KvMaps& m, unsigned char* stage, uint64_t* bar,
+                                        int h, int tile, int b) {
+  mbar_expect_tx(bar, kKvStageBytes);
+#pragma unroll
+  for (int i = 0; i < kKvBoxes; ++i) {
+    const int r = tile * kTileKeys + i * kBoxRows;
+    tma_load_3d(stage + i * kTileBytes, &m.k, h * kDh, r, b, bar);
+    tma_load_3d(stage + (kKvBoxes + i) * kTileBytes, &m.v, h * kDh, r, b, bar);
+  }
+}
+
+// whether the chunk of keys from j0 holds a valid key (its mask words)
+__device__ __forceinline__ bool chunk_live(const uint32_t* key_bits, int j0) {
+  uint32_t any = 0u;
+#pragma unroll
+  for (int w = 0; w < kChunkBF16 / 32; ++w) any |= key_bits[(j0 >> 5) + w];
+  return any != 0u;
+}
+
+// Moves the chunk cursor (tile, its place `it` in the walk of tiles that
+// hold a valid key, first key c0 in the tile) to the first chunk at or after
+// it with a valid key; tile -1 past the last. Every tile of the walk has one.
+__device__ __forceinline__ void seek_chunk(const uint32_t* key_bits, unsigned mask, int& tile,
+                                           int& it, int& c0) {
+  while (tile >= 0) {
+    for (; c0 < kTileKeys; c0 += kChunkBF16) {
+      if (chunk_live(key_bits, tile * kTileKeys + c0)) return;
+    }
+    tile = next_tile(mask, tile + 1);
+    ++it;
+    c0 = 0;
+  }
+}
+
+// S = (scale Q) K^T for the chunk of keys at k_t: each k16 step in a
+// fresh accumulator, sa and sb, added on the CUDA cores once both are done
+// (attn_common.cuh dot_bf16's sums, the backward's S); one commit group
+__device__ __forceinline__ void issue_s(float (&sa)[kSAcc], float (&sb)[kSAcc],
+                                        const uint32_t (&qf)[kDh / 16][4],
+                                        const unsigned char* k_t) {
+  const uint64_t kd = wgmma_desc(k_t, kDescKMajor);
+  wgmma_fence();
+  wgmma_n64_rs_k(sa, qf[0], kd);
+  wgmma_n64_rs_k(sb, qf[1], kd + 2);  // the second k16 step: 32 bytes on
+  wgmma_commit();
+}
 
 template <bool TRAIN>
 __device__ __forceinline__ void flash_bf16(const float* __restrict__ q,
-                                           const float* __restrict__ k,
-                                           const float* __restrict__ v,
                                            const float* __restrict__ key_valid,
                                            float* __restrict__ out, int len, int heads,
                                            float scale, float* __restrict__ lse,
                                            const uint32_t* __restrict__ seed,
                                            uint32_t threshold, float keep_scale,
-                                           uint16_t* tiles, uint32_t* key_bits,
-                                           unsigned* tile_mask) {
-  static_assert(kChunk % 16 == 0, "whole k16 steps of P V a chunk");
+                                           const KvMaps& maps, unsigned char* smem,
+                                           uint32_t* key_bits, unsigned* tile_mask) {
+  unsigned char* ring = align1024(smem);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + kStagesBF16 * kKvStageBytes);
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int warp = threadIdx.x >> 5;
@@ -159,26 +243,22 @@ __device__ __forceinline__ void flash_bf16(const float* __restrict__ q,
   const int t = lane & 3;
   const int d_model = heads * kDh;
   const size_t head0 = (size_t)b * len * d_model + h * kDh;
-  const float* kb = k + head0;
-  const float* vb = v + head0;
   const bool drop = TRAIN && threshold != 0u;
   const int row0 = (int)blockIdx.x * kTileRows + warp * 16 + g;
   const int row[2] = {row0, row0 + 8};
-  // ldmatrix rows: as stored (K for S), and transposed, 8-row halves (V)
-  const int ld_row = lane & 7, ld_col = 8 * (lane >> 3);
-  const int tr_row = 8 * ((lane >> 3) & 1) + (lane & 7), tr_col = 8 * (lane >> 4);
 
   build_key_mask(key_bits, tile_mask, key_valid + (size_t)b * len, len);
   const unsigned mask = *tile_mask;
-  int tile = next_tile(mask, 0);
-  if (tile >= 0) {
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
-      KvRowsBF16 kr, vr;
-      kr.load(kb, d_model, tile * kTileKeys + c0, len, -1);
-      vr.load(vb, d_model, tile * kTileKeys + c0, len, -1);
-      kr.store(tiles, c0);
-      vr.store(tiles + kKvTileBF16, c0);
+  if (threadIdx.x == 0 && mask != 0u) {
+    for (int i = 0; i < kStagesBF16; ++i) mbar_init(full + i, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  int ahead = next_tile(mask, 0);  // the next tile to copy (thread 0's)
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStagesBF16 && ahead >= 0; ++i) {
+      copy_kv(maps, ring + i * kKvStageBytes, full + i, h, ahead, b);
+      ahead = next_tile(mask, ahead + 1);
     }
   }
 
@@ -199,115 +279,116 @@ __device__ __forceinline__ void flash_bf16(const float* __restrict__ q,
 
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  float o[kDh / 8][4];
+  float o[16];  // O, the P V accumulator across the whole loop
 #pragma unroll
-  for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
-  __syncthreads();  // the first tile is in place
+  for (int e = 0; e < 16; ++e) o[e] = 0.f;
+  uint32_t pa[kChunkBF16 / 16][4];  // P, the A operand of P V
+  bool pv = false;  // a P V product in flight
+  int pv_it = 0;    // the tile (its place in the walk) that it reads
 
-  for (int it = 0; tile >= 0; ++it) {
-    const int next = next_tile(mask, tile + 1);
-    const uint16_t* k_s = tiles + (it & 1) * kStageElemsBF16;
-    const uint16_t* v_s = k_s + kKvTileBF16;
-    uint16_t* nk_s = tiles + ((it + 1) & 1) * kStageElemsBF16;
+  int tile = next_tile(mask, 0), it = 0, c0 = 0;
+  seek_chunk(key_bits, mask, tile, it, c0);
+  while (tile >= 0) {
+    const int stage = it % kStagesBF16;
+    const unsigned char* k_t = ring + stage * kKvStageBytes;
+    const unsigned char* v_t = k_t + kKvStageBytes / 2;
 
-#pragma unroll 1
-    for (int c0 = 0; c0 < kTileKeys; c0 += kChunk) {
-      // the next tile's keys of this chunk, in flight while it computes
-      KvRowsBF16 k_next, v_next;
-      if (next >= 0) {
-        k_next.load(kb, d_model, next * kTileKeys + c0, len, -1);
-        v_next.load(vb, d_model, next * kTileKeys + c0, len, -1);
-      }
-      const int j0 = tile * kTileKeys + c0;
-      uint32_t words[kChunk / 32], any = 0u;
-#pragma unroll
-      for (int w = 0; w < kChunk / 32; ++w) any |= words[w] = key_bits[(j0 >> 5) + w];
-      if (any != 0u) {  // the same in every warp
-        // S = (scale Q) K^T for the chunk's keys
-        float s[kChunkTiles][4];
-#pragma unroll
-        for (int n = 0; n < kChunkTiles; ++n) {
-          uint32_t kf[4];
-          ldsm_x4(kf, k_s + (c0 + 8 * n + ld_row) * kBStride + ld_col);
-          dot_bf16(s[n], qf, kf);
+    // S for the chunk's keys; its wait also ends the last chunk's P V, which
+    // ran while this S was issued
+    if (!pv || it != pv_it) mbar_wait(full + stage, (it / kStagesBF16) & 1);
+    float sa[kSAcc], sb[kSAcc];
+    issue_s(sa, sb, qf, k_t + c0 * kRowBytes);
+    wgmma_wait<0>();
+    wgmma_hold(sa);
+    wgmma_hold(sb);
+    if (pv) {
+      wgmma_hold(o);
+      wgmma_hold_a(pa);
+      if (it != pv_it) {
+        __syncthreads();  // every warp is done with the last tile: refill its stage
+        if (threadIdx.x == 0 && ahead >= 0) {
+          fence_proxy_async();
+          const int done = pv_it % kStagesBF16;
+          copy_kv(maps, ring + done * kKvStageBytes, full + done, h, ahead, b);
+          ahead = next_tile(mask, ahead + 1);
         }
-
-        // masked keys to -inf, then the chunk's row max across the quad
-        float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-        for (int n = 0; n < kChunkTiles; ++n) {
-          const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            if (!((bits >> (e & 1)) & 1u)) s[n][e] = -INFINITY;
-            mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-          }
-        }
-        float m_use[2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-          mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-          const float m_new = fmaxf(m[r], mx[r]);
-          m_use[r] = m_new == -INFINITY ? 0.f : m_new;
-          const float alpha = exp2_fast((m[r] - m_use[r]) * kLog2e);
-          m[r] = m_new;
-          l[r] *= alpha;
-#pragma unroll
-          for (int n = 0; n < kDh / 8; ++n) {
-            o[n][2 * r] *= alpha;
-            o[n][2 * r + 1] *= alpha;
-          }
-        }
-
-        // P (0 at masked keys), the row sums, and the probabilities P V reads
-#pragma unroll
-        for (int n = 0; n < kChunkTiles; ++n) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int r = e >> 1;
-            const float p = exp2_fast((s[n][e] - m_use[r]) * kLog2e);
-            l[r] += p;
-            s[n][e] = drop ? p * drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1), threshold,
-                                            keep_scale)
-                           : p;
-          }
-        }
-
-        // O += P V: P from registers, a k16 step per 16 keys, V read
-        // transposed; the chunk's sum in fresh accumulators, added to O on
-        // the CUDA cores
-        float pv[kDh / 8][4];
-#pragma unroll
-        for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
-#pragma unroll
-        for (int kk = 0; kk < kChunk / 16; ++kk) {
-          uint32_t pa[4];
-          frag_a16_from_c(pa, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-          for (int np = 0; np < kDh / 16; ++np) {
-            uint32_t vt[4];
-            ldsm_x4_trans(vt, v_s + (c0 + 16 * kk + tr_row) * kBStride + 16 * np + tr_col);
-            mma_bf16(pv[2 * np], pa, vt[0], vt[1]);
-            mma_bf16(pv[2 * np + 1], pa, vt[2], vt[3]);
-          }
-        }
-#pragma unroll
-        for (int n = 0; n < kDh / 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) o[n][e] += pv[n][e];
-      }
-      if (next >= 0) {
-        k_next.store(nk_s, c0);
-        v_next.store(nk_s + kKvTileBF16, c0);
       }
     }
-    __syncthreads();  // the next tile is in place; this one is free for the tile after
-    tile = next;
+    float s[kSAcc];
+#pragma unroll
+    for (int e = 0; e < kSAcc; ++e) s[e] = sa[e] + sb[e];
+
+    // masked keys to -inf (a chunk of valid keys alone, the common one,
+    // skips the bit tests), then the chunk's row max across the quad
+    const int j0 = tile * kTileKeys + c0;
+    uint32_t words[kChunkBF16 / 32], all = 0xffffffffu;
+#pragma unroll
+    for (int w = 0; w < kChunkBF16 / 32; ++w) all &= words[w] = key_bits[(j0 >> 5) + w];
+    float mx[2] = {-INFINITY, -INFINITY};
+    if (all != 0xffffffffu) {  // the same in every warp
+#pragma unroll
+      for (int n = 0; n < kChunkBF16 / 8; ++n) {
+        const uint32_t bits = words[n >> 2] >> ((n & 3) * 8 + 2 * t);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (!((bits >> (e & 1)) & 1u)) s[4 * n + e] = -INFINITY;
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kSAcc; ++e) mx[(e >> 1) & 1] = fmaxf(mx[(e >> 1) & 1], s[e]);
+    float m_use[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      const float m_new = fmaxf(m[r], mx[r]);
+      m_use[r] = m_new == -INFINITY ? 0.f : m_new;
+      alpha[r] = exp2_fast((m[r] - m_use[r]) * kLog2e);
+      m[r] = m_new;
+      l[r] *= alpha[r];
+    }
+
+    // P (0 at masked keys), the row sums, and the probabilities P V reads
+#pragma unroll
+    for (int n = 0; n < kChunkBF16 / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        const float p = exp2_fast((s[4 * n + e] - m_use[r]) * kLog2e);
+        l[r] += p;
+        s[4 * n + e] = drop ? p * drop_scale(drop_r[r], j0 + 8 * n + 2 * t + (e & 1),
+                                             threshold, keep_scale)
+                            : p;
+      }
+    }
+
+#pragma unroll
+    for (int n = 0; n < kDh / 8; ++n) {
+      o[4 * n] *= alpha[0];
+      o[4 * n + 1] *= alpha[0];
+      o[4 * n + 2] *= alpha[1];
+      o[4 * n + 3] *= alpha[1];
+    }
+
+    // O += P V: P from registers, a k16 step per 16 keys, V's tile read
+    // transposed (MN-major); in flight into the next chunk's S
+#pragma unroll
+    for (int kk = 0; kk < kChunkBF16 / 16; ++kk) acc_to_a(pa[kk], s, kk);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kChunkBF16 / 16; ++kk) {
+      wgmma_n32_rs(o, pa[kk], wgmma_desc(v_t + (c0 + 16 * kk) * kRowBytes, kDescMNMajor));
+    }
+    wgmma_commit();
+    pv = true;
+    pv_it = it;
+    c0 += kChunkBF16;
+    seek_chunk(key_bits, mask, tile, it, c0);
+  }
+  if (pv) {  // the last P V
+    wgmma_wait<0>();
+    wgmma_hold(o);
   }
 
 #pragma unroll
@@ -320,13 +401,17 @@ __device__ __forceinline__ void flash_bf16(const float* __restrict__ q,
 #pragma unroll
     for (int n = 0; n < kDh / 8; ++n) {
       *reinterpret_cast<float2*>(orow + 8 * n) =
-          make_float2(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+          make_float2(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     }
     if (TRAIN && t == 0) lse[((size_t)b * heads + h) * len + row[r]] = m[r] + logf(l[r]);
   }
 }
 
-// F = the product form (attn_common.cuh); TRAIN = the training form
+template <int F>
+constexpr int kSmemBytes = F == kFormBF16 ? kSmemBF16 : (int)sizeof(float) * 2 * kStageFloats;
+
+// F = the product form (attn_common.cuh); TRAIN = the training form; `maps`
+// read by the bf16 instances only
 template <int F, bool TRAIN>
 __global__ void __launch_bounds__(kWarps * 32, F == kFormBF16 ? kMinBlocksBF16 : kMinBlocks)
 flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
@@ -335,13 +420,13 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
                        float* __restrict__ out, int len, int heads,
                        float scale, float* __restrict__ lse,
                        const uint32_t* __restrict__ seed, uint32_t threshold,
-                       float keep_scale) {
+                       float keep_scale, const __grid_constant__ KvMaps maps) {
   extern __shared__ float4 smem4[];
   __shared__ uint32_t key_bits[kMaskWords];
   __shared__ unsigned tile_mask;
-  if constexpr (F == kFormBF16) {  // its own body, on the bf16 instruction (above)
-    flash_bf16<TRAIN>(q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold,
-                      keep_scale, reinterpret_cast<uint16_t*>(smem4), key_bits, &tile_mask);
+  if constexpr (F == kFormBF16) {  // its own body, on wgmma (above)
+    flash_bf16<TRAIN>(q, key_valid, out, len, heads, scale, lse, seed, threshold, keep_scale,
+                      maps, reinterpret_cast<unsigned char*>(smem4), key_bits, &tile_mask);
   } else {
     float* stages = reinterpret_cast<float*>(smem4);
 
@@ -519,12 +604,9 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
 template <int F, bool TRAIN>
 cudaError_t launch(const float* q, const float* k, const float* v,
                    const float* key_valid, float* out, int batch, int len,
-                   int heads, int head_dim, float scale, float* lse, const uint32_t* seed,
-                   uint32_t threshold, float keep_scale, cudaStream_t stream) {
-  if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 ||
-      batch > 65535 || heads < 1 || heads > 65535) {
-    return cudaErrorInvalidValue;
-  }
+                   int heads, float scale, float* lse, const uint32_t* seed,
+                   uint32_t threshold, float keep_scale, const KvMaps& maps,
+                   cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(
       flash_attention_kernel<F, TRAIN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       kSmemBytes<F>);
@@ -535,23 +617,54 @@ cudaError_t launch(const float* q, const float* k, const float* v,
   if (err != cudaSuccess) return err;
   dim3 grid((len + kTileRows - 1) / kTileRows, heads, batch);
   flash_attention_kernel<F, TRAIN><<<grid, kWarps * 32, kSmemBytes<F>, stream>>>(
-      q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold, keep_scale);
+      q, k, v, key_valid, out, len, heads, scale, lse, seed, threshold, keep_scale, maps);
   return cudaGetLastError();
 }
 
+// the bf16 form's pre-pass over (batch, len, heads * 32) k and v
+cudaError_t launch_stage(const float* k, const float* v, uint16_t* k_bf16, uint16_t* v_bf16,
+                         int batch, int len, int heads, cudaStream_t stream) {
+  const size_t n8 = (size_t)batch * len * heads * (kDh / 8);
+  flash_fwd_stage_kernel<<<(unsigned)((n8 + 255) / 256), 256, 0, stream>>>(k, v, k_bf16,
+                                                                          v_bf16, n8);
+  return cudaGetLastError();
+}
+
+// the launch at `form`: returns a cudaError_t, or kTensorMapError plus the
+// CUresult of a TMA map (bf16 form) that did not encode
 template <bool TRAIN>
-cudaError_t launch_form(int form, const float* q, const float* k, const float* v,
-                        const float* key_valid, float* out, int batch, int len, int heads,
-                        int head_dim, float scale, float* lse, const uint32_t* seed,
-                        uint32_t threshold, float keep_scale, cudaStream_t stream) {
-#define FLASH_FORM(F)                                                                     \
-  launch<F, TRAIN>(q, k, v, key_valid, out, batch, len, heads, head_dim, scale, lse, seed, \
-                   threshold, keep_scale, stream)
+int launch_form(int form, const float* q, const float* k, const float* v,
+                const float* key_valid, float* out, uint16_t* k_bf16, uint16_t* v_bf16,
+                int batch, int len, int heads, int head_dim, float scale, float* lse,
+                const uint32_t* seed, uint32_t threshold, float keep_scale,
+                cudaStream_t stream) {
+  if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 ||
+      batch > 65535 || heads < 1 || heads > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  KvMaps maps{};
+  if (form == kFormBF16) {
+    if (k_bf16 == nullptr || v_bf16 == nullptr) return (int)cudaErrorInvalidValue;
+    // the pre-pass first: it writes the copies that the maps below read, and
+    // its runtime launch makes the device's primary context current on this
+    // thread (autograd's device thread may have none yet), which
+    // cuTensorMapEncodeTiled needs
+    const cudaError_t err = launch_stage(k, v, k_bf16, v_bf16, batch, len, heads, stream);
+    if (err != cudaSuccess) return (int)err;
+    EncodeTiled encode = encode_tiled();
+    if (encode == nullptr) return (int)cudaErrorNotSupported;
+    CUresult r = encode_rows(encode, &maps.k, k_bf16, batch, len, heads);
+    if (r == CUDA_SUCCESS) r = encode_rows(encode, &maps.v, v_bf16, batch, len, heads);
+    if (r != CUDA_SUCCESS) return kTensorMapError + (int)r;
+  }
+#define FLASH_FORM(F)                                                                       \
+  (int)launch<F, TRAIN>(q, k, v, key_valid, out, batch, len, heads, scale, lse, seed,       \
+                        threshold, keep_scale, maps, stream)
   switch (form) {
     case kForm3xTF32: return FLASH_FORM(kForm3xTF32);
     case kForm1xTF32: return FLASH_FORM(kForm1xTF32);
     case kFormBF16: return FLASH_FORM(kFormBF16);
-    default: return cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;
   }
 #undef FLASH_FORM
 }
@@ -560,16 +673,36 @@ cudaError_t launch_form(int form, const float* q, const float* k, const float* v
 
 extern "C" {
 
+// The bf16 form's pre-pass alone (the entries below launch it themselves
+// at the bf16 form): k and v (B, L, H*Dh) f32 rounded to bf16 into k_bf16
+// and v_bf16 (the same shape), as the backward takes them over
+// (flash_attention_bwd.cu, stage_kv 0). All contiguous and 16-byte aligned.
 // Launches on `stream` and returns cudaGetLastError() (0 = launched).
+int flashvtg_flash_attention_stage_bf16(const float* k, const float* v, uint16_t* k_bf16,
+                                        uint16_t* v_bf16, int batch, int len, int heads,
+                                        void* stream) {
+  if (k == nullptr || v == nullptr || k_bf16 == nullptr || v_bf16 == nullptr || len < 1 ||
+      len > kMaxLen || batch < 1 || batch > 65535 || heads < 1 || heads > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)launch_stage(k, v, k_bf16, v_bf16, batch, len, heads, (cudaStream_t)stream);
+}
+
+// Launches on `stream` and returns cudaGetLastError() (0 = launched), or
+// kTensorMapError plus the CUresult of a TMA map that did not encode.
 // q, k, v and out (B, L, H*Dh), key_valid (B, L); all f32, contiguous and
 // 16-byte aligned; 1 <= L <= 4096, Dh = 32. form: the products' form, 0
 // 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh); any other value is refused.
+// At the bf16 form k_bf16 and v_bf16 (B, L, H*Dh) are scratch the caller
+// allocates: the pre-pass, launched first, writes bf16 copies of k and v
+// there, which the kernel reads in their place (and the backward may take
+// over); the other forms pass null.
 int flashvtg_flash_attention_f32(const float* q, const float* k, const float* v,
-                                 const float* key_valid, float* out, int batch,
-                                 int len, int heads, int head_dim, float scale,
-                                 int form, void* stream) {
-  return (int)launch_form<false>(form, q, k, v, key_valid, out, batch, len, heads, head_dim,
-                                 scale, nullptr, nullptr, 0u, 1.f, (cudaStream_t)stream);
+                                 const float* key_valid, float* out, uint16_t* k_bf16,
+                                 uint16_t* v_bf16, int batch, int len, int heads,
+                                 int head_dim, float scale, int form, void* stream) {
+  return launch_form<false>(form, q, k, v, key_valid, out, k_bf16, v_bf16, batch, len, heads,
+                            head_dim, scale, nullptr, nullptr, 0u, 1.f, (cudaStream_t)stream);
 }
 
 // The training form: as above, plus lse (B, H, L) and attention dropout
@@ -578,12 +711,14 @@ int flashvtg_flash_attention_f32(const float* q, const float* k, const float* v,
 // seed may be null).
 int flashvtg_flash_attention_train_f32(const float* q, const float* k, const float* v,
                                        const float* key_valid, float* out, float* lse,
+                                       uint16_t* k_bf16, uint16_t* v_bf16,
                                        int batch, int len, int heads, int head_dim,
                                        float scale, const unsigned* seed, unsigned threshold,
                                        float keep_scale, int form, void* stream) {
   if (lse == nullptr || (threshold != 0u && seed == nullptr)) return (int)cudaErrorInvalidValue;
-  return (int)launch_form<true>(form, q, k, v, key_valid, out, batch, len, heads, head_dim,
-                                scale, lse, seed, threshold, keep_scale, (cudaStream_t)stream);
+  return launch_form<true>(form, q, k, v, key_valid, out, k_bf16, v_bf16, batch, len, heads,
+                           head_dim, scale, lse, seed, threshold, keep_scale,
+                           (cudaStream_t)stream);
 }
 
 }  // extern "C"

@@ -78,10 +78,12 @@
 // pre-pass has no product).
 // The bf16 form has bodies of its own (dkdv_bf16, dq_bf16) on Hopper's
 // warpgroup product, wgmma, fed by TMA (attn_common.cuh, last section):
-//  * its pre-pass (flash_bwd_stage_kernel) also rounds scale q, q, k, v and
-//    dO to bf16 once, into (B, L, H * 32) copies that the wrapper
-//    allocates; no block rounds an f32 operand in its product loop (on
-//    mma.sync each key block rounded every query row of its head again);
+//  * its pre-pass (flash_bwd_stage_kernel) also rounds scale q, q and dO to
+//    bf16 once, into (B, L, H * 32) copies that the wrapper allocates, and
+//    k and v unless the training forward's copies of them are handed over
+//    (flash_attention.cu rounds them alike, for its own TMA copies); no
+//    block rounds an f32 operand in its product loop (on mma.sync each key
+//    block rounded every query row of its head again);
 //  * a block is one warpgroup: 64 query rows (dq) or 64 keys (dk/dv), the M
 //    of wgmma.m64nNk16. Its fixed operands (scale Q and dO; K and V) come by
 //    TMA once, the streamed ones (the dq kernel's 128-key K and V tiles that
@@ -93,7 +95,7 @@
 //    K and V as A) for 32 keys (query rows) at a time are wgmma from shared
 //    memory on 64-byte-swizzled tiles, each k16 step in a fresh accumulator
 //    added on the CUDA cores: the sums of attn_common.cuh dot_bf16, which
-//    the forward (flash_attention.cu, on mma.sync) takes its S by, so the
+//    the forward (flash_attention.cu, on wgmma too) takes its S by, so the
 //    forward's S, the dq kernel's S and the dk/dv kernel's S^T agree bit
 //    for bit, and so do dP and dP^T; D' sums the very terms the dk/dv
 //    kernel forms, and dS' = P (z dP - D') is exactly 0 over a batch row
@@ -214,9 +216,6 @@ __device__ __forceinline__ void load_query_stage(const Operands& a, float* stage
 // the f32 forms'; the accumulator's layout is the m16n8 C layout (a warp's
 // 16 rows, n-tiles of 8 columns), so their indices are those forms' too.
 
-constexpr int kBoxRows = 64;                    // rows of every TMA box
-constexpr int kTileBytes = kBoxRows * kDh * 2;  // one box of bf16: 4 KB
-constexpr int kRowBytes = kDh * 2;              // a tile row
 constexpr int kSub = 32;        // keys (dq) or query rows (dk/dv) a product's N
 constexpr int kDqStages = 2;    // 128-key tiles of K and V in flight, dq kernel
 constexpr int kKvStages = 3;    // 64-row tiles of scale Q, Q and dO in flight, dk/dv kernel
@@ -238,16 +237,13 @@ struct TileMaps {
   CUtensorMap qs, q, k, v, d_out;
 };
 
-__device__ __forceinline__ void st_bf16x8(uint16_t* p, float4 x, float4 y, float mult) {
-  *reinterpret_cast<uint4*>(p) =
-      make_uint4(pack_bf16(x.x * mult, x.y * mult), pack_bf16(x.z * mult, x.w * mult),
-                 pack_bf16(y.x * mult, y.y * mult), pack_bf16(y.z * mult, y.w * mult));
-}
-
 // The bf16 form's pre-pass, in place of flash_bwd_delta_kernel: D as that
-// kernel sums it, and the bf16 copies of scale q, q, k, v and dO, rounded
-// once here (each product kernel's block would otherwise round its tiles
-// again: every query row once a key block).
+// kernel sums it, and the bf16 copies of scale q, q and dO, and with KV of
+// k and v, rounded once here (each product kernel's block would otherwise
+// round its tiles again: every query row once a key block). Without KV the
+// training forward's pre-pass (flash_attention.cu flash_fwd_stage_kernel)
+// wrote st.k and st.v already, by the same st_bf16x8.
+template <bool KV>
 __global__ void __launch_bounds__(256)
 flash_bwd_stage_kernel(const Operands a, const float* __restrict__ out, const StagedBF16 st,
                        int rows) {
@@ -268,8 +264,10 @@ flash_bwd_stage_kernel(const Operands a, const float* __restrict__ out, const St
       const float4 q0 = ld4(a.q + g), q1 = ld4(a.q + g + 4);
       st_bf16x8(st.qs + g, q0, q1, a.scale);
       st_bf16x8(st.q + g, q0, q1, 1.f);
-      st_bf16x8(st.k + g, ld4(a.k + g), ld4(a.k + g + 4), 1.f);
-      st_bf16x8(st.v + g, ld4(a.v + g), ld4(a.v + g + 4), 1.f);
+      if (KV) {
+        st_bf16x8(st.k + g, ld4(a.k + g), ld4(a.k + g + 4), 1.f);
+        st_bf16x8(st.v + g, ld4(a.v + g), ld4(a.v + g + 4), 1.f);
+      }
       st_bf16x8(st.d_out + g, d0, d1, 1.f);
     }
     s += __shfl_xor_sync(0xffffffffu, s, 1);
@@ -278,12 +276,6 @@ flash_bwd_stage_kernel(const Operands a, const float* __restrict__ out, const St
       a.delta[((size_t)b * a.heads + c / kDh) * a.len + i] = s;
     }
   }
-}
-
-// the first 1024-byte boundary at or after p in shared memory (a swizzled
-// tile starts on one)
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
 template <int N>
@@ -1025,51 +1017,6 @@ cudaError_t launch_products(const Operands& a, const TileMaps& maps, int batch,
   return cudaGetLastError();
 }
 
-// cuTensorMapEncodeTiled, found through the runtime's entry-point query (so
-// the library needs no -lcuda); null where the CUDA library lacks it
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) {
-      fn = reinterpret_cast<EncodeTiled>(p);
-    }
-  }
-  return fn;
-}
-
-// The TMA map of a (batch, len, heads * 32) bf16 tensor: boxes of 32
-// columns (one head) x kBoxRows rows x 1 batch row, 64-byte swizzle; a box's
-// rows past len arrive as zeros
-CUresult encode_rows(EncodeTiled encode, CUtensorMap* map, const uint16_t* ptr, int batch,
-                     int len, int heads) {
-  const cuuint64_t dims[3] = {(cuuint64_t)heads * kDh, (cuuint64_t)len, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)heads * kRowBytes,
-                                 (cuuint64_t)len * heads * kRowBytes};
-  const cuuint32_t box[3] = {kDh, kBoxRows, 1};
-  const cuuint32_t step[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<uint16_t*>(ptr), dims,
-                strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
-// an encode's failure, as the C entry returns it: kTensorMapError plus the
-// CUresult (ops/chunked_attn.py names it)
-constexpr int kTensorMapError = 1 << 16;
-
 }  // namespace
 
 extern "C" {
@@ -1080,7 +1027,10 @@ extern "C" {
 // (B, L, H*Dh); key_valid (B, L); lse and delta (B, H, L), delta scratch
 // (the pre-pass writes D there, the dq kernel D'); at the bf16 form the
 // pre-pass's bf16 copies of scale q, q, k, v and dO (B, L, H*Dh), scratch
-// the caller allocates (null at the other forms); threshold = floor(p *
+// the caller allocates (null at the other forms), and stage_kv: 1 = the
+// pre-pass writes the k and v copies too, 0 = they hold the training
+// forward's copies of the same k and v already (flash_attention.cu
+// flashvtg_flash_attention_stage_bf16); threshold = floor(p *
 // 2^24) (0 = no dropout), keep_scale = 1 / (1 - p), seed the forward's (device
 // memory; null without dropout);
 // form the products' form, 0 3xTF32, 1 1xTF32, 2 bf16 (attn_common.cuh),
@@ -1091,10 +1041,10 @@ int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float
                                      const float* lse, const float* d_out, float* delta,
                                      float* dq, float* dk, float* dv, uint16_t* qs_bf16,
                                      uint16_t* q_bf16, uint16_t* k_bf16, uint16_t* v_bf16,
-                                     uint16_t* d_out_bf16, int batch, int len, int heads,
-                                     int head_dim, float scale, const unsigned* seed,
-                                     unsigned threshold, float keep_scale, int form,
-                                     void* stream) {
+                                     uint16_t* d_out_bf16, int stage_kv, int batch, int len,
+                                     int heads, int head_dim, float scale,
+                                     const unsigned* seed, unsigned threshold,
+                                     float keep_scale, int form, void* stream) {
   const StagedBF16 st = {qs_bf16, q_bf16, k_bf16, v_bf16, d_out_bf16};
   if (head_dim != kDh || len < 1 || len > kMaxLen || batch < 1 || batch > 65535 ||
       heads < 1 || heads > 65535 || form < kForm3xTF32 || form > kFormBF16 ||
@@ -1107,6 +1057,16 @@ int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float
   const Operands a = {q, k, v, key_valid, lse, d_out, delta, dq, dk, dv,
                       len, heads, scale, seed, threshold, keep_scale};
   if (form == kFormBF16) {
+    // the pre-pass first: a runtime launch makes the device's primary
+    // context current on this thread (autograd's device thread may have
+    // none yet), which cuTensorMapEncodeTiled below needs
+    if (stage_kv) {
+      flash_bwd_stage_kernel<true><<<(rows + 7) / 8, 256, 0, s>>>(a, out, st, rows);
+    } else {
+      flash_bwd_stage_kernel<false><<<(rows + 7) / 8, 256, 0, s>>>(a, out, st, rows);
+    }
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
     EncodeTiled encode = encode_tiled();
     if (encode == nullptr) return (int)cudaErrorNotSupported;
     TileMaps maps;
@@ -1116,9 +1076,6 @@ int flashvtg_flash_attention_bwd_f32(const float* q, const float* k, const float
       const CUresult r = encode_rows(encode, dst[i], src[i], batch, len, heads);
       if (r != CUDA_SUCCESS) return kTensorMapError + (int)r;
     }
-    flash_bwd_stage_kernel<<<(rows + 7) / 8, 256, 0, s>>>(a, out, st, rows);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
     return (int)launch_products<kFormBF16>(a, maps, batch, s);
   }
   flash_bwd_delta_kernel<<<(rows + 7) / 8, 256, 0, s>>>(out, d_out, delta, rows, len, heads);

@@ -221,12 +221,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
             "flashvtg_aca_attention_bwd_f32": [p] * 14 + [i] * 7 + train,
         },
         "flash_attention": {
-            "flashvtg_flash_attention_f32": [p] * 5 + [i] * 4 + [f, i, p],
-            "flashvtg_flash_attention_train_f32": [p] * 6 + [i] * 4 + train,
+            # k, v, their bf16 copies, batch, len, heads, stream
+            "flashvtg_flash_attention_stage_bf16": [p] * 4 + [i] * 3 + [p],
+            # ... out (lse), then the bf16 form's copies of k and v
+            "flashvtg_flash_attention_f32": [p] * 7 + [i] * 4 + [f, i, p],
+            "flashvtg_flash_attention_train_f32": [p] * 8 + [i] * 4 + train,
         },
         "flash_attention_bwd": {
-            # ... dq, dk, dv, then the bf16 form's five bf16 copies
-            "flashvtg_flash_attention_bwd_f32": [p] * 16 + [i] * 4 + train,
+            # ... dq, dk, dv, then the bf16 form's five bf16 copies, stage_kv
+            "flashvtg_flash_attention_bwd_f32": [p] * 16 + [i] * 5 + train,
         },
     }
     for fn_name, argtypes in signatures[name].items():

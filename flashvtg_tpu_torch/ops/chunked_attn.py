@@ -13,7 +13,11 @@ the current dial's form (ops/forms.py: 3xTF32, f32-accurate, at float32;
     place of the long, memory-linear form of JAX's library Pallas
     flash_attention (scripts/bench_flash.py:57). Its training form also
     writes the row log-sum-exp and applies attention dropout
-    (ops/attn_dropout.py) inside the tile loop.
+    (ops/attn_dropout.py) inside the tile loop. At the bf16 form the same
+    entry first launches a pre-pass (stage_kv alone) that rounds k and v to
+    bf16 into one (2, B, L, H*Dh) allocation, which the kernel's TMA copies
+    read; the training form keeps it for the backward, which then rounds
+    only scale q, q and dO.
   * csrc/flash_attention_bwd.cu, the FlashAttention-2 backward: it takes the
     place of that library kernel's VJP (timed as forward + backward at
     scripts/bench_flash.py:62-74), recomputing the probabilities from q, k
@@ -215,6 +219,58 @@ def flash_attention_bwd_plain(q, k, v, key_valid, out, lse, d_out, num_heads: in
     return _merge_heads(torch.cat(dqs, dim=2)), _merge_heads(dk), _merge_heads(dv)
 
 
+def _plain(t) -> bool:
+    """Whether a call on `t` takes the plain versions: a tensor on the CPU."""
+    return t.device.type == "cpu"
+
+
+def stage_kv_plain(k, v):
+    """The bf16 form's pre-pass in PyTorch: k and v (B, L, H*Dh) rounded
+    to bf16, to nearest even, as one (2, B, L, H*Dh) tensor."""
+    return torch.stack((k, v)).to(torch.bfloat16)
+
+
+def stage_kv(k, v):
+    """The bf16 form's pre-pass alone (csrc/flash_attention.cu
+    flash_fwd_stage_kernel, which the bf16 forward's entry launches before
+    its kernel): k and v as one (2, B, L, H*Dh) bf16 tensor, the copies the
+    bf16 forward's TMA copies read and the training form hands to the
+    backward. The kernel on the card, stage_kv_plain on the CPU."""
+    return stage_kv_plain(k, v) if _plain(k) else _launch_stage(k, v)
+
+
+def _launch_stage(k, v):
+    from flashvtg_tpu_torch import kernels
+
+    tag = "flash pre-pass kernel"
+    if k.device.type != "cuda" or v.device != k.device:
+        raise ValueError(f"{tag}: k on {k.device}, v on {v.device}, expected one CUDA device")
+    if k.dim() != 3 or v.shape != k.shape or k.shape[-1] % HEAD_DIM:
+        raise ValueError(f"{tag}: shapes k {tuple(k.shape)} v {tuple(v.shape)}")
+    for name, t in (("k", k), ("v", v)):
+        if t.dtype != torch.float32:
+            raise TypeError(f"{tag}: {name} is {t.dtype}, expected float32")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{tag}: {name} is not contiguous and 16-byte aligned")
+    b, length, d = k.shape
+    kv = torch.empty((2, b, length, d), dtype=torch.bfloat16, device=k.device)
+    rc = kernels.load("flash_attention").flashvtg_flash_attention_stage_bf16(
+        k.data_ptr(), v.data_ptr(), kv[0].data_ptr(), kv[1].data_ptr(), b, length,
+        d // HEAD_DIM, _stream(k),
+    )
+    _check_rc(tag, rc)
+    return kv
+
+
+def _check_launch(tag, rc):
+    """Raises on a C entry's nonzero return: a TMA map that did not encode
+    (TENSOR_MAP_ERROR plus its CUresult) or a CUDA error."""
+    if rc >= TENSOR_MAP_ERROR:
+        raise RuntimeError(f"{tag}: cuTensorMapEncodeTiled failed: CUresult "
+                           f"{rc - TENSOR_MAP_ERROR}")
+    _check_rc(tag, rc)
+
+
 def _check_self(tag, q, k, v, key_valid, num_heads):
     b, length, lk = _check_operands(tag, q, k, v, key_valid, num_heads)
     if lk != length:
@@ -228,39 +284,50 @@ def _check_self(tag, q, k, v, key_valid, num_heads):
 
 
 def _launch(q, k, v, key_valid, num_heads, dropout=0.0, seed=0, want_lse=False,
-            form="3xtf32"):
+            form="3xtf32", keep_kv=False):
     """The forward kernel, with flash_attention_plain's arguments and
     results. Without LSE or dropout it launches the eval entry; otherwise
-    the training entry, which also writes the row log-sum-exp."""
+    the training entry, which also writes the row log-sum-exp. At the bf16
+    form the entry launches the pre-pass first, into one (2, B, L, H*Dh)
+    bf16 allocation made here (stage_kv's result); with `want_lse` and
+    `keep_kv` it comes third (None at the other forms), for the backward."""
     from flashvtg_tpu_torch import kernels
 
     tag = "flash kernel"
     b, length = _check_self(tag, q, k, v, key_valid, num_heads)
     out = torch.empty_like(q)
+    kv, kv_ptrs = None, (None, None)
+    if form == "bf16":
+        kv = torch.empty((2, *k.shape), dtype=torch.bfloat16, device=k.device)
+        kv_ptrs = (kv.data_ptr(), kv.data_ptr() + 2 * k.numel())  # its two halves
     lib = kernels.load("flash_attention")
     if not (want_lse or dropout > 0):
         rc = lib.flashvtg_flash_attention_f32(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-            out.data_ptr(), b, length, num_heads, HEAD_DIM, HEAD_DIM ** -0.5, FORM_IDS[form],
-            _stream(q),
+            out.data_ptr(), *kv_ptrs, b, length, num_heads, HEAD_DIM, HEAD_DIM ** -0.5,
+            FORM_IDS[form], _stream(q),
         )
-        _check_rc(tag, rc)
+        _check_launch(tag, rc)
         return out
     lse = q.new_empty((b, num_heads, length))
     seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = lib.flashvtg_flash_attention_train_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
-        out.data_ptr(), lse.data_ptr(), b, length, num_heads, HEAD_DIM,
+        out.data_ptr(), lse.data_ptr(), *kv_ptrs, b, length, num_heads, HEAD_DIM,
         HEAD_DIM ** -0.5, seed_ptr, threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form],
         _stream(q),
     )
-    _check_rc(tag, rc)
-    return (out, lse) if want_lse else out
+    _check_launch(tag, rc)
+    if not want_lse:
+        return out
+    return (out, lse, kv) if keep_kv else (out, lse)
 
 
 def _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads, dropout=0.0, seed=0,
-                form="3xtf32"):
-    """The backward kernel, with flash_attention_bwd_plain's arguments."""
+                form="3xtf32", kv=None):
+    """The backward kernel, with flash_attention_bwd_plain's arguments. At
+    the bf16 form `kv` may hold the training forward's bf16 copies of these
+    k and v (stage_kv's); the pre-pass then rounds only scale q, q and dO."""
     from flashvtg_tpu_torch import kernels
 
     tag = "flash backward kernel"
@@ -274,21 +341,26 @@ def _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads, dropout=0.0, see
     # the dk/dv kernel that reads D'
     delta = q.new_empty((b, num_heads, length))
     # the bf16 form's scratch: the pre-pass's bf16 copies of scale q, q, k,
-    # v and dO, which the product kernels' TMA copies read (one allocation)
-    staged = (torch.empty((5, *q.shape), dtype=torch.bfloat16, device=q.device).unbind()
-              if form == "bf16" else [None] * 5)
+    # v and dO, which the product kernels' TMA copies read (one allocation),
+    # k's and v's the forward's when it handed them over
+    staged = [None] * 5
+    if form == "bf16":
+        if kv is not None and (kv.shape != (2, *k.shape) or kv.dtype != torch.bfloat16
+                               or kv.device != k.device or not kv.is_contiguous()):
+            raise ValueError(f"{tag}: kv {tuple(kv.shape)} {kv.dtype} on {kv.device}, "
+                             f"expected stage_kv's of k {tuple(k.shape)}")
+        own = torch.empty((5 if kv is None else 3, *q.shape), dtype=torch.bfloat16,
+                          device=q.device).unbind()
+        staged = list(own) if kv is None else [own[0], own[1], kv[0], kv[1], own[2]]
     seed_ptr, _seed = _seed_ptr(seed, dropout, q.device)
     rc = kernels.load("flash_attention_bwd").flashvtg_flash_attention_bwd_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), key_valid.data_ptr(),
         out.data_ptr(), lse.data_ptr(), d_out.data_ptr(), delta.data_ptr(),
-        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(_ptr(t) for t in staged), b, length,
-        num_heads, HEAD_DIM, HEAD_DIM ** -0.5, seed_ptr, threshold(dropout),
-        1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
+        dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), *(_ptr(t) for t in staged),
+        int(kv is None), b, length, num_heads, HEAD_DIM, HEAD_DIM ** -0.5, seed_ptr,
+        threshold(dropout), 1.0 / (1.0 - dropout), FORM_IDS[form], _stream(q),
     )
-    if rc >= TENSOR_MAP_ERROR:
-        raise RuntimeError(f"{tag}: cuTensorMapEncodeTiled failed: CUresult "
-                           f"{rc - TENSOR_MAP_ERROR}")
-    _check_rc(tag, rc)
+    _check_launch(tag, rc)
     return dq, dk, dv
 
 
@@ -297,33 +369,37 @@ class _FlashFn(torch.autograd.Function):
     dropout, and its backward in the forward's product form; kernels on the
     card, plain versions on the CPU. `seed` is the call's 0-d seed tensor
     (an int is put on the device; None without dropout), saved for the
-    backward."""
+    backward, and so are the bf16 forward's copies of k and v (stage_kv),
+    which the backward takes in place of rounding k and v again."""
 
     @staticmethod
     def forward(ctx, q, k, v, key_valid, num_heads, dropout, seed, form):
-        on_cpu = q.device.type == "cpu"
         if dropout > 0 and not isinstance(seed, torch.Tensor):
             seed = seed_tensor(seed, q.device)
-        out, lse = (flash_attention_plain if on_cpu else _launch)(
-            q, k, v, key_valid, num_heads, dropout, seed, want_lse=True, form=form
-        )
-        if not on_cpu:
+        kv = None
+        if _plain(q):
+            out, lse = flash_attention_plain(q, k, v, key_valid, num_heads, dropout, seed,
+                                             want_lse=True, form=form)
+        else:
+            out, lse, kv = _launch(q, k, v, key_valid, num_heads, dropout, seed,
+                                   want_lse=True, form=form, keep_kv=True)
             _count("flash_attention", form)
-        ctx.save_for_backward(q, k, v, key_valid, out, lse, seed)
+        ctx.save_for_backward(q, k, v, key_valid, out, lse, seed, kv)
         ctx.args = (num_heads, dropout, form)
         return out
 
     @staticmethod
     def backward(ctx, d_out):
-        q, k, v, key_valid, out, lse, seed = ctx.saved_tensors
+        q, k, v, key_valid, out, lse, seed, kv = ctx.saved_tensors
         num_heads, dropout, form = ctx.args
-        on_cpu = q.device.type == "cpu"
         with autocast_off(q):
-            dq, dk, dv = (flash_attention_bwd_plain if on_cpu else _launch_bwd)(
-                q, k, v, key_valid, out, lse, d_out, num_heads, dropout, seed, form=form,
-            )
-        if not on_cpu:
-            _count("flash_attention_bwd", form)
+            if _plain(q):
+                dq, dk, dv = flash_attention_bwd_plain(q, k, v, key_valid, out, lse, d_out,
+                                                       num_heads, dropout, seed, form=form)
+            else:
+                dq, dk, dv = _launch_bwd(q, k, v, key_valid, out, lse, d_out, num_heads,
+                                         dropout, seed, form=form, kv=kv)
+                _count("flash_attention_bwd", form)
         return dq, dk, dv, None, None, None, None, None
 
 
@@ -337,7 +413,7 @@ def flash_attention(q, k, v, key_valid, num_heads: int, dropout: float = 0.0,
     with autocast_off(q):
         grads = torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v))
         if not grads and dropout == 0:
-            if q.device.type == "cpu":
+            if _plain(q):
                 return flash_attention_plain(q, k, v, key_valid, num_heads, form=form)
             out = _launch(q, k, v, key_valid, num_heads, form=form)
             _count("flash_attention", form)

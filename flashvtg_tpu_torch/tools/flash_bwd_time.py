@@ -45,12 +45,17 @@ the registers and spills ptxas reported for every attention kernel with
 a product (the build logs beside the libraries), with --sass-mix each of
 their instances' SASS opcodes (cuobjdump, counted once where they stand,
 not as they run: HMMA for mma.sync, HGMMA for wgmma, UTMALDG for a TMA
-copy), then one JSON line a (shape, pass, form). Each flash backward line
-is followed by one of its pre-pass alone (`pass` "bwd_prepass": the device
+copy), then one JSON line a (shape, pass, form). At the bf16 form each
+flash forward line is followed by one of its pre-pass alone (`pass`
+"fwd_prepass": the device function flash_fwd_stage_kernel, which rounds k
+and v to the bf16 copies that the kernel's TMA copies read), and each flash
+backward line by one of its own pre-pass (`pass` "bwd_prepass": the device
 function flash_bwd_stage_kernel, which at the bf16 form also writes the
-bf16 copies of scale q, q, k, v and dO that the product kernels' TMA
-copies read, or flash_bwd_delta_kernel, D alone), its bound the bytes it
-moves once at 3.35 TB/s (prepass_bound_ms).
+bf16 copies of scale q, q and dO, and of k and v unless the training
+forward handed its copies over, as the autograd Function does and this tool
+does where the tree's launchers take them; or flash_bwd_delta_kernel, D
+alone), each with its bound, the bytes it moves once at 3.35 TB/s
+(prepass_bound_ms); the forward's `ms` holds its pre-pass.
 
 It uses only ops/chunked_attn.py's and ops/aca.py's launchers, so it also
 times another tree of the package: put that tree first on PYTHONPATH and
@@ -61,6 +66,7 @@ change / parent.
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import os
 import re
@@ -89,7 +95,8 @@ SHORT_SHAPES = {"flagship_train_short75": (64, 75, 0, 20, 75, True),
 HEADS, DROPOUT = 8, 0.1
 # the attention kernels' device functions, by the names their template
 # instances carry
-KERNEL_NAME = re.compile(r"(flash_attention_kernel|flash_bwd_\w+?_kernel"
+KERNEL_NAME = re.compile(r"(flash_attention_kernel|flash_fwd_stage_kernel"
+                         r"|flash_bwd_\w+?_kernel"
                          r"|aca_attention_bwd_reduce_kernel|aca_attention_bwd_kernel"
                          r"|aca_attention_kernel)")
 PRODUCT_KERNEL = re.compile(r"(flash_attention_kernel|flash_bwd_(?:dq|dkdv)_kernel"
@@ -148,15 +155,23 @@ def bound_ms(b, length, valid_pairs, form, backward, train):
     return max(nbytes / HBM_RATE, t_ops) * 1e3
 
 
-def prepass_bound_ms(b, length, form):
+def prepass_bound_ms(b, length, form, kv_staged=False):
     """The flash backward pre-pass's bound: it reads O and dO (and at bf16 q,
-    k, v too) in f32 and writes D, and at bf16 five bf16 copies (scale q, q,
-    k, v, dO), each once, at the memory rate."""
+    k, v too, or q alone when the forward's k and v copies are handed over,
+    `kv_staged`) in f32 and writes D, and at bf16 five bf16 copies (scale q,
+    q, k, v, dO; three when handed over), each once, at the memory rate."""
     n = b * length * HEADS * 32
     nbytes = 4 * 2 * n + 4 * b * HEADS * length
     if form == "bf16":
-        nbytes += 4 * 3 * n + 2 * 5 * n
+        nbytes += (4 * n + 2 * 3 * n) if kv_staged else (4 * 3 * n + 2 * 5 * n)
     return nbytes / HBM_RATE * 1e3
+
+
+def fwd_prepass_bound_ms(b, length):
+    """The flash forward's bf16 pre-pass's bound: k and v read in f32 and
+    written as bf16, each once, at the memory rate."""
+    n = b * length * HEADS * 32
+    return (4 * 2 * n + 2 * 2 * n) / HBM_RATE * 1e3
 
 
 def ptxas_report(log: str):
@@ -326,7 +341,8 @@ def main():
     dev = torch.device("cuda")
     mode = {"3xtf32": "float32", "1xtf32": "tensorfloat32", "bf16": "bfloat16"}
 
-    def report(shape, pas, form, fn, bound, lib_inputs, facts, prepass_bound=None):
+    def report(shape, pas, form, fn, bound, lib_inputs, facts, prepass_bound=None,
+               prepass="bwd_prepass"):
         ms = time_blocks(fn, args.blocks, args.iters)
         sdpa = None
         if lib_inputs is not None and not args.no_library:
@@ -347,11 +363,11 @@ def main():
             library_ms_blocks=sdpa,
         )}), flush=True)
         if prepass_bound is not None:
-            prepass = {k: v for k, v in per_kernel.items()
-                       if k in ("flash_bwd_stage_kernel", "flash_bwd_delta_kernel")}
-            print(json.dumps({"shape": shape, "pass": "bwd_prepass", "form": form, **facts,
-                              "kernel_ms": prepass, "prepass_bound_ms": prepass_bound}),
-                  flush=True)
+            names = (("flash_fwd_stage_kernel",) if prepass == "fwd_prepass"
+                     else ("flash_bwd_stage_kernel", "flash_bwd_delta_kernel"))
+            print(json.dumps({"shape": shape, "pass": prepass, "form": form, **facts,
+                              "kernel_ms": {k: v for k, v in per_kernel.items() if k in names},
+                              "prepass_bound_ms": prepass_bound}), flush=True)
 
     for shape in args.shapes:
         if shape not in SHAPES:
@@ -372,6 +388,9 @@ def main():
         valid_pairs = HEADS * length * float(valid.sum().item())
         p = args.dropout if train else 0.0
         facts = dict(B=b, L=length, heads=HEADS, dropout=p, valid_keys=int(valid.sum().item()))
+        # the training forward hands its bf16 k and v copies to the backward
+        # where this tree's launchers take them (as its autograd Function does)
+        hands_kv = "kv" in inspect.signature(chunked_attn._launch_bwd).parameters
         for form in args.forms:
             calls = {}
             if "fwd" in args.passes:
@@ -381,16 +400,24 @@ def main():
                 else:
                     calls["fwd"] = lambda form=form: chunked_attn._launch(
                         q, k, v, valid, HEADS, form=form)
+            kv_staged = hands_kv and form == "bf16"
             if "bwd" in args.passes and train:
-                out, lse = chunked_attn._launch(q, k, v, valid, HEADS, p, args.seed,
-                                                want_lse=True, form=form)
-                calls["bwd"] = lambda form=form, out=out, lse=lse: chunked_attn._launch_bwd(
-                    q, k, v, valid, out, lse, d_out, HEADS, p, args.seed, form=form)
+                out, lse, *kv = chunked_attn._launch(q, k, v, valid, HEADS, p, args.seed,
+                                                     want_lse=True, form=form,
+                                                     **({"keep_kv": True} if hands_kv else {}))
+                extra = {"kv": kv[0]} if kv_staged else {}
+                calls["bwd"] = lambda form=form, out=out, lse=lse, extra=extra: (
+                    chunked_attn._launch_bwd(q, k, v, valid, out, lse, d_out, HEADS, p,
+                                             args.seed, form=form, **extra))
             for pas, fn in calls.items():
+                prepass = None
+                if pas == "bwd":
+                    prepass = prepass_bound_ms(b, length, form, kv_staged)
+                elif form == "bf16" and hasattr(chunked_attn, "stage_kv"):
+                    prepass = fwd_prepass_bound_ms(b, length)
                 report(shape, pas, form, fn,
                        bound_ms(b, length, valid_pairs, form, pas == "bwd", train),
-                       (q, k, v, valid), facts,
-                       prepass_bound_ms(b, length, form) if pas == "bwd" else None)
+                       (q, k, v, valid), facts, prepass, pas + "_prepass")
 
 
 if __name__ == "__main__":

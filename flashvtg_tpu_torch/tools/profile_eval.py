@@ -49,7 +49,9 @@ fetch a batch, PIPELINE_DEPTH batches in flight) over --steps batches of a
 synthetic split. Each line has the host wall time and device-busy time per
 step and the idle share; a graph's replayed kernels are in the class
 breakdown by name, and each attention kernel's device function (with its
-template arguments) has its launches a step and mean device ms a launch.
+template arguments) has its launches a step and mean device ms a launch;
+a train line also has the card's peak allocated memory over its mode
+(`peak_mem_bytes`: the harness, its warm-up and the profiled steps).
 """
 
 from __future__ import annotations
@@ -417,13 +419,14 @@ def feed_modes(cfg, args, dev):
     steps = max(k, args.steps - args.steps % k)
     for mode in ["streamed", "streamed_ahead", "feed"] + (
             ["streamed_graph", "scan"] if args.scan else []):
+        torch.cuda.reset_peak_memory_stats()
         h = ScanHarness(cfg.replace(bsz=b), cfg.max_v_l, cfg.max_q_l, cfg.t_feat_dim,
                         device=dev, n_feed_batches=4, seed=args.seed)
         h.run(mode, k, k).cpu()  # warm-up (and the capture)
         wall, per_name = profiled(lambda: h.run(mode, steps, k, i0=k).cpu())
         yield {"preset": args.preset, "mode": "train", "feed_mode": mode,
                "scan_steps": k if mode == "scan" else 0, "precision": cfg.train_precision,
-               "bsz": b, "steps": steps,
+               "bsz": b, "steps": steps, "peak_mem_bytes": torch.cuda.max_memory_allocated(),
                **with_mfu(busy_summary(wall, per_name, steps), cfg, b, cfg.train_precision,
                           True)}
         del h

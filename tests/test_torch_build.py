@@ -157,7 +157,7 @@ FAKE_SASS_FLASH = "\n".join([
       f"        /*0100*/                   {instr} R4, R8, R12, R4 ;\n"
       f"        /*0110*/                   {instr} R16, R8, R14, R16 ;"
       for form, instr in ((0, "HMMA.1688.F32.TF32"), (1, "HMMA.1688.F32.TF32"),
-                          (2, "HMMA.16816.F32.BF16"))
+                          (2, "HGMMA.64x32x16.F32.BF16"))
       for train in (0, 1)),
 ])
 
@@ -198,22 +198,21 @@ def _flash_kinds(monkeypatch):
 # the kernels whose bf16 instances take mma.sync.m16n8k16 in the fake SASS,
 # and those whose bf16 instances take wgmma (chip_smoke.py:BF16_MMA_KERNELS
 # and WGMMA_KERNELS name the built libraries' five)
-BF16_FLASH = ("flash_attention_kernel",)
-BF16_KERNELS = BF16_FLASH + ("aca_attention_kernel", "aca_attention_bwd_kernel")
-WGMMA = ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
+BF16_KERNELS = ("aca_attention_kernel", "aca_attention_bwd_kernel")
+WGMMA = ("flash_attention_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel")
 
 
 def test_mma_kind_faults_accept_the_flash_kernels_on_the_bf16_instruction(monkeypatch):
     """chip_smoke.py's rule holds on the layout of the built libraries: the
-    flash backward's dq and dk/dv kernels at bf16 on wgmma alone, the flash
-    forward's eval and training instances and both ACA kernels' at bf16 on
-    HMMA.16816.F32.BF16 alone, the 3xTF32 and 1xTF32 instances on
+    flash forward's eval and training instances and the flash backward's dq
+    and dk/dv kernels at bf16 on wgmma (HGMMA) alone, both ACA kernels' at
+    bf16 on HMMA.16816.F32.BF16 alone, the 3xTF32 and 1xTF32 instances on
     HMMA.1688.F32.TF32 alone."""
     by_form = _flash_kinds(monkeypatch)
     assert by_form["flash_attention_kernel"] == {
         "3xtf32": {"HMMA.1688.F32.TF32": 4},
         "1xtf32": {"HMMA.1688.F32.TF32": 4},
-        "bf16": {"HMMA.16816.F32.BF16": 4},
+        "bf16": {"HGMMA.64x32x16.F32.BF16": 4},
     }
     assert set(by_form) == {"flash_attention_kernel", "flash_bwd_dq_kernel",
                             "flash_bwd_dkdv_kernel", "aca_attention_kernel",
@@ -221,12 +220,13 @@ def test_mma_kind_faults_accept_the_flash_kernels_on_the_bf16_instruction(monkey
     assert kernels.mma_kind_faults(by_form, BF16_KERNELS, WGMMA) == []
     # a kernel whose bf16 instances are on m16n8k16 but which the list
     # leaves out is a fault: the list names every such kernel
-    faults = kernels.mma_kind_faults(by_form, BF16_FLASH, WGMMA)
+    faults = kernels.mma_kind_faults(by_form, (), WGMMA)
     assert sorted(f.split(" ")[0] for f in faults) == ["aca_attention_bwd_kernel",
                                                        "aca_attention_kernel"]
-    # and so is one on wgmma that the wgmma list leaves out
+    # and so is one on wgmma that the wgmma list leaves out: the forward too
     faults = kernels.mma_kind_faults(by_form, BF16_KERNELS)
-    assert sorted(f.split(" ")[:2] for f in faults) == [["flash_bwd_dkdv_kernel", "bf16:"],
+    assert sorted(f.split(" ")[:2] for f in faults) == [["flash_attention_kernel", "bf16:"],
+                                                        ["flash_bwd_dkdv_kernel", "bf16:"],
                                                         ["flash_bwd_dq_kernel", "bf16:"]]
 
 
@@ -250,7 +250,7 @@ def test_mma_kind_faults_accept_the_aca_kernels_on_the_bf16_instruction(monkeypa
     aca_only = {fn: by_form[fn] for fn in ("aca_attention_kernel", "aca_attention_bwd_kernel")}
     assert kernels.mma_kind_faults(aca_only, ("aca_attention_kernel",
                                               "aca_attention_bwd_kernel")) == []
-    assert kernels.mma_kind_faults(aca_only, BF16_KERNELS[1:], WGMMA) == [
+    assert kernels.mma_kind_faults(aca_only, BF16_KERNELS, WGMMA) == [
         f"{fn}: no such kernel with a product form" for fn in WGMMA]
 
 
@@ -265,8 +265,9 @@ def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, ba
     for the ACA forward's and backward's instances. The flash backward's
     bf16 instances on mma.sync.m16n8k16 alone, on wgmma and mma.sync both,
     or on none, its 3xTF32 instance on wgmma, its kernel missing: each a
-    fault; and the forward or an ACA kernel at bf16 on wgmma is one too
-    (they keep m16n8k16)."""
+    fault; the forward's bf16 instances on wgmma with mma.sync lines left
+    beside it are one too, and so is an ACA kernel at bf16 on wgmma (they
+    keep m16n8k16)."""
     by_form = _flash_kinds(monkeypatch)
     fwd = by_form["flash_attention_kernel"]
     aca_fwd = by_form["aca_attention_kernel"]
@@ -275,10 +276,10 @@ def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, ba
         fwd["bf16"] = {kernels.TF32_MMA: 64}
         want = "flash_attention_kernel bf16"
     elif bad == "mixed":
-        fwd["bf16"] = {kernels.BF16_MMA: 60, kernels.TF32_MMA: 4}
+        fwd["bf16"] = {hgmma: 60, kernels.TF32_MMA: 4}
         want = "flash_attention_kernel bf16"
     elif bad == "other_form":
-        fwd["3xtf32"] = {kernels.BF16_MMA: 32}
+        fwd["3xtf32"] = {hgmma: 32}
         want = "flash_attention_kernel 3xtf32"
     elif bad == "missing":
         del by_form["flash_attention_kernel"]
@@ -310,17 +311,17 @@ def test_mma_kind_faults_name_each_instance_that_breaks_the_rule(monkeypatch, ba
     elif bad == "bwd_missing":
         del by_form["flash_bwd_dkdv_kernel"]
         want = "flash_bwd_dkdv_kernel: no such kernel"
-    elif bad == "fwd_hgmma":
-        fwd["bf16"] = {"HGMMA.64x64x16.F32.BF16": 8}
+    elif bad == "fwd_hgmma":  # wgmma with mma.sync lines of the old body beside it
+        fwd["bf16"] = {"HGMMA.64x64x16.F32.BF16": 8, kernels.BF16_MMA: 4}
         want = "flash_attention_kernel bf16"
     else:
         by_form["aca_attention_bwd_kernel"]["bf16"] = {hgmma: 8}
         want = "aca_attention_bwd_kernel bf16"
     faults = kernels.mma_kind_faults(by_form, BF16_KERNELS, WGMMA)
     assert len(faults) == 1 and faults[0].startswith(want), faults
-    # a kernel off the list keeps its bf16 instance on the TF32 instruction
+    # a kernel off the lists keeps its bf16 instance on the TF32 instruction
     if bad == "tf32":
-        assert kernels.mma_kind_faults(by_form, BF16_KERNELS[1:], WGMMA) == []
+        assert kernels.mma_kind_faults(by_form, BF16_KERNELS, WGMMA[1:]) == []
 
 
 def test_hmma_by_form_sums_each_kernels_instances_per_form():
@@ -489,3 +490,102 @@ def test_timing_tool_aca_cases_rehearse_on_the_cpu(monkeypatch, shape):
         assert lib is None
     else:  # q, k, v and the key mask for sdpa
         assert [tuple(x.shape) for x in lib] == [(b, lv, 256)] * 3 + [(b, lk)]
+
+
+# --- the flash wrappers' scratch and arguments (ops/chunked_attn.py) ----------
+
+class _RecordedEntries:
+    """A built library's C entries on the CPU: each call's name and
+    arguments, in order; every call returns 0 (launched) and writes nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            self.calls.append((name, args))
+            return 0
+        return entry
+
+
+def test_flash_prepass_plain_rounds_as_the_plain_versions():
+    """stage_kv on the CPU (its plain version) rounds k and v to bf16 as the
+    plain versions round their operands at the bf16 form (ops/forms.py), to
+    nearest even, into one (2, B, L, H*Dh) tensor."""
+    import torch
+
+    from flashvtg_tpu_torch.ops import chunked_attn
+    from flashvtg_tpu_torch.ops.forms import round_operand
+
+    g = torch.Generator().manual_seed(5)
+    k, v = (torch.randn((3, 77, 64), generator=g) for _ in range(2))
+    kv = chunked_attn.stage_kv(k, v)
+    assert kv.shape == (2, 3, 77, 64) and kv.dtype == torch.bfloat16
+    assert torch.equal(kv[0].float(), round_operand(k, "bf16"))
+    assert torch.equal(kv[1].float(), round_operand(v, "bf16"))
+
+
+@pytest.mark.parametrize("form", ["3xtf32", "1xtf32", "bf16"])
+def test_flash_wrappers_hand_the_bf16_copies_to_the_backward(monkeypatch, form):
+    """The flash wrappers' scratch and arguments, rehearsed on the CPU with
+    the library's entries recorded in the kernels' place. The plain route
+    is unchanged: the plain versions' values, no entry called, no bf16
+    tensor saved for the backward. On the kernels' route, at the bf16 form
+    one (2, B, L, H*Dh) bf16 allocation is made a forward, its halves go to
+    the forward entry (whose pre-pass fills them) and, saved by the autograd
+    Function, to the backward's, which then stages only scale q, q and dO
+    (stage_kv 0) in a (3, B, L, H*Dh) allocation; the eval forward keeps
+    no copy. At the other forms no scratch and null pointers."""
+    import torch
+
+    from flashvtg_tpu_torch import kernels
+    from flashvtg_tpu_torch.ops import chunked_attn
+
+    b, length, heads = 2, 150, 2
+    n = b * length * heads * 32
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn((b, length, heads * 32), generator=g).requires_grad_()
+               for _ in range(3))
+    valid = torch.ones((b, length))
+    lib = _RecordedEntries()
+    monkeypatch.setattr(kernels, "load", lambda name: lib)
+
+    def run(dropout, seed):
+        saved = []
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: saved.append(t) or t,
+                                                      lambda t: t):
+            out = chunked_attn._FlashFn.apply(q, k, v, valid, heads, dropout, seed, form)
+        out.backward(torch.ones_like(out))
+        return out, [t for t in saved if t.dtype == torch.bfloat16]
+
+    out, saved_bf16 = run(0.0, None)
+    ref = chunked_attn.flash_attention_plain(q.detach(), k.detach(), v.detach(), valid, heads,
+                                             form=form)
+    assert torch.equal(out.detach(), ref) and saved_bf16 == [] and lib.calls == []
+
+    monkeypatch.setattr(chunked_attn, "_plain", lambda t: False)
+    monkeypatch.setattr(chunked_attn, "_launching", lambda: True)
+    monkeypatch.setattr(chunked_attn, "_stream", lambda t: 0)
+    monkeypatch.setattr(chunked_attn, "_check_self",
+                        lambda tag, q, k, v, key_valid, h: (q.shape[0], q.shape[1]))
+    _, saved_bf16 = run(0.1, 7)
+    names = [name for name, _ in lib.calls]
+    fwd = dict(lib.calls)["flashvtg_flash_attention_train_f32"]
+    bwd = dict(lib.calls)["flashvtg_flash_attention_bwd_f32"]
+    assert names == ["flashvtg_flash_attention_train_f32", "flashvtg_flash_attention_bwd_f32"]
+    assert fwd[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    if form != "bf16":
+        assert fwd[6:8] == (None, None) and bwd[11:17] == (None,) * 5 + (1,)
+        assert saved_bf16 == []
+    else:
+        assert fwd[7] - fwd[6] == 2 * n  # the halves of one bf16 allocation
+        (kv,) = saved_bf16
+        assert kv.shape == (2, b, length, heads * 32) and kv.data_ptr() == fwd[6]
+        qs, qb, kb, vb, dob, stage_kv = bwd[11:17]
+        assert (kb, vb, stage_kv) == (fwd[6], fwd[7], 0)
+        assert qb - qs == 2 * n and dob - qb == 2 * n  # its own three copies
+    lib.calls.clear()
+    chunked_attn._launch(q.detach(), k.detach(), v.detach(), valid, heads, form=form)
+    ((name, args),) = lib.calls
+    assert name == "flashvtg_flash_attention_f32"
+    assert (args[6] - args[5] == 2 * n) if form == "bf16" else args[5:7] == (None, None)

@@ -607,6 +607,77 @@ def test_flash_backward_launches_are_bit_equal(cuda, form):
     assert all(torch.isfinite(x).all() for x in first)
 
 
+def test_flash_prepass_matches_plain(cuda):
+    """The bf16 form's pre-pass (stage_kv: flash_fwd_stage_kernel) rounds k
+    and v as torch's bf16 cast does, to nearest even, bit for bit, at the
+    TACoS train shape and at one row."""
+    for b, length in ((32, 2048), (1, 1)):
+        _, k, v, _ = _inputs(b, length, length, 8, 41)
+        k, v = k.to(cuda), v.to(cuda)
+        kv = chunked_attn.stage_kv(k, v)
+        torch.cuda.synchronize()
+        assert kv.shape == (2, b, length, 256) and kv.dtype == torch.bfloat16
+        assert torch.equal(kv, chunked_attn.stage_kv_plain(k, v))
+
+
+@pytest.mark.parametrize("p", [0.0, 0.1])
+def test_flash_backward_takes_the_forward_copies_bit_equal(cuda, p):
+    """The bf16 backward with the training forward's bf16 k and v (the
+    pre-pass's copies, handed over) gives the same dq, dk and dv, bit for
+    bit, as with its own pre-pass rounding k and v: the copies are the same
+    function of the same inputs. Through the autograd Function too."""
+    b, length = 4, 2048
+    q, k, v, _ = _inputs(b, length, length, 8, 43)
+    t = [x.to(cuda) for x in (q, k, v, _ragged(b, length, 44))]
+    out, lse, kv = chunked_attn._launch(*t, 8, p, 45, want_lse=True, form="bf16",
+                                        keep_kv=True)
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(46)).to(cuda)
+    own = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, p, 45, form="bf16")
+    handed = chunked_attn._launch_bwd(*t, out, lse, d_out, 8, p, 45, form="bf16", kv=kv)
+    torch.cuda.synchronize()
+    assert all(torch.isfinite(x).all() for x in own)
+    assert all(torch.equal(x, y) for x, y in zip(own, handed))
+    qg, kg, vg = (x.clone().requires_grad_() for x in t[:3])
+    seed = torch.tensor(45, dtype=torch.int32, device=cuda)
+    fn_out = chunked_attn._FlashFn.apply(qg, kg, vg, t[3], 8, p, seed if p else None, "bf16")
+    fn_out.backward(d_out)
+    assert torch.equal(fn_out.detach(), out)
+    assert all(torch.equal(g, x) for g, x in zip((qg.grad, kg.grad, vg.grad), own))
+
+
+@pytest.mark.parametrize("case", ["partial_tile", "one_tile_row", "one_clip", "two_tiles"])
+@pytest.mark.parametrize("train", [False, True])
+def test_flash_bf16_tma_edges(cuda, case, train):
+    """The bf16 forward's TMA boxes at the edges of the rows, against the
+    plain version at the bf16 form: L not a multiple of 128 with a last,
+    partial tile whose boxes run past the rows; a batch row whose only
+    valid keys lie in one tile (the walk copies that tile alone); L = 1;
+    and exactly two whole tiles, one 64-key chunk holding a whole mask word
+    of masked keys beside a word of valid ones."""
+    b, length = {"partial_tile": (3, 333), "one_tile_row": (3, 700), "one_clip": (2, 1),
+                 "two_tiles": (2, 256)}[case]
+    q, k, v, _ = _inputs(b, length, length, 8, 47)
+    valid = _ragged(b, length, 48)
+    if case == "one_tile_row":
+        valid[1] = 0.0
+        valid[1, 260:300] = 1.0  # inside the third tile
+    elif case == "two_tiles":
+        valid[:, 32:64] = 0.0
+    t = [x.to(cuda) for x in (q, k, v, valid)]
+    p = 0.1 if train else 0.0
+    if train:
+        out, lse = chunked_attn._launch(*t, 8, p, 49, want_lse=True, form="bf16")
+        ref, ref_lse = chunked_attn.flash_attention_plain(*t, 8, p, 49, want_lse=True,
+                                                          form="bf16")
+        _assert_forward(lse, ref_lse, "bf16")
+    else:
+        out = chunked_attn._launch(*t, 8, form="bf16")
+        ref = chunked_attn.flash_attention_plain(*t, 8, form="bf16")
+    _assert_forward(out, ref, "bf16")
+    again = chunked_attn._launch(*t, 8, p, 49, want_lse=train, form="bf16")
+    assert torch.equal(again[0] if train else again, out)
+
+
 def test_flash_backward_row_without_valid_key_is_zero(cuda):
     q, k, v, _ = _inputs(2, 300, 300, 8, 26)
     valid = torch.ones((2, 300))
