@@ -9,7 +9,8 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
   1. device: prints the card's name and power limit, requires CUDA, sets
      float32 without TF32 for matmuls and cuDNN;
   2. build: compiles every CUDA kernel of the port from its sources, one
-     nvcc per source, all at once, and counts each kernel's tensor-core
+     nvcc per source, all at once, then the host runtime's two libraries
+     (phase 18 (a)), and counts each kernel's tensor-core
      instructions in its SASS (cuobjdump): every kernel that takes a dot
      product (on mma.sync or wgmma) must have some, all but the flash
      backward's pre-passes (D, and at bf16 D with the bf16 copies), the
@@ -249,6 +250,21 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      launched, the maps within VIS_ATOL of the CPU export, and the CLI's
      PNGs written where matplotlib is installed (the chip machine has none:
      there the CLI is not run, and the result says so).
+ 18. host runtime (flashvtg_tpu_torch/runtime), run after phase 4: (a) in
+     phase 2, both libraries (featload.cpp, mr_ap.cpp) built from their
+     sources with g++, one each, at once: the seconds and the compiler's
+     version; (b) mr_ap_batch and hl_ap_batch bit for bit against the plain
+     functions (detection_ap, binary_ap_columns) on seeded fuzz sets (ties,
+     zero-length windows, G 0-20, P up to 150, NaN saliency scores), the
+     declined queries exactly G == 0, G > 15 and P > 126, the rows handled
+     and declined both non-zero; (c) eval_submission natively and through
+     the plain functions alone on phase 4's submissions (without and with
+     NMS) and a seeded 1,550-query one: equal metric dicts, the seconds of
+     each; (d) feature files of every layout fl_load reads (.npy f4 / f8,
+     rank 1 / 2, .npz stored / deflated) through load_features and numpy:
+     bit-equal without the l2-norm, with it bit-equal to the loader's
+     arithmetic (runtime.l2norm_replica) and within HOST_L2_ULPS of numpy's
+     l2_normalize; ms a file for each.
 `--only dp` runs phases 1, 2, 7 and 17 alone and prints no result line.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]}, a row per kernel and form, and, last,
@@ -1238,6 +1254,11 @@ def launches_per_batch(cfg):
     }
 
 
+# the latest MR eval's (submission, submission after NMS, ground truth) by
+# dset_name: phase 18 scores the flagship's (phase 4) again
+MR_SUBMISSIONS = {}
+
+
 def score_mr(cfg, ds, out):
     """The MR eval's output checked (submission rows, finite metrics) and
     scored by eval_submission, with and without NMS."""
@@ -1246,6 +1267,7 @@ def score_mr(cfg, ds, out):
     sub, sub_nms, _ = out
     check_submission(sub, ds, cfg)
     check_submission(sub_nms, ds, cfg)
+    MR_SUBMISSIONS[cfg.dset_name] = (sub, sub_nms, ds.data)
     metrics, metrics_nms = eval_submission(sub, ds.data), eval_submission(sub_nms, ds.data)
     for m in (metrics, metrics_nms):
         assert m["brief"] and all(np.isfinite(v) for v in m["brief"].values())
@@ -3340,6 +3362,241 @@ def run_phase17(dev, seed):
     return {"steps": steps, "cli": cli}
 
 
+# phase 18: the host runtime's fuzz sets (queries a set, sets) and the
+# feature files of each layout (d) writes
+HOST_FUZZ_SETS, HOST_FUZZ_QUERIES = 24, 25
+HOST_FEATURE_FILES = 32
+# layout: (shape, dtype, file kind): the flagship's SlowFast and CLIP video
+# rows (75 clips of 2304 / 512), a pooled sentence vector (rank 1)
+HOST_FEATURE_LAYOUTS = {
+    "npy_f4_rank2": ((75, 2304), np.float32, "npy"),
+    "npy_f8_rank2": ((75, 512), np.float64, "npy"),
+    "npy_f4_rank1": ((512,), np.float32, "npy"),
+    "npy_f8_rank1": ((4096,), np.float64, "npy"),
+    "npz_stored": ((75, 2304), np.float32, "npz"),
+    "npz_deflated": ((75, 512), np.float32, "npz_deflated"),
+}
+# the fused l2-norm (float64 sum of squares, float32 reciprocal, a product)
+# against the plain path's utils/io.py:l2_normalize (a float32 norm, a
+# division), in ulps of the plain value: 3 at most on the CPU at 7 to 4096
+# columns (tests/test_torch_runtime.py holds the fused norm bit for bit to
+# runtime.l2norm_replica, which (d) also does)
+HOST_L2_ULPS = 4
+
+
+def host_mr_set(rng, n):
+    """One fuzz set of mr_ap_batch: G from 0 to 20 and P from 0 to 150 (one
+    query in 4 past 12), half the queries on 0.5 s edges with scores to one
+    decimal (IoU and score ties), half unquantized with zero-length
+    predictions and GTs, some exactly on each other (IoU 0/0)."""
+    preds, gts = [], []
+    for _ in range(n):
+        p = int(rng.integers(13, 151)) if rng.random() < 0.25 else int(rng.integers(0, 13))
+        g = int(rng.integers(0, 21))
+        if rng.random() < 0.5:
+            starts, lens = rng.integers(0, 280, p) * 0.5, rng.integers(1, 80, p) * 0.5
+            scores = np.round(rng.random(p), 1)
+            gs, gl = rng.integers(0, 280, g) * 0.5, rng.integers(1, 80, g) * 0.5
+        else:
+            starts, lens, scores = rng.random(p) * 140, rng.random(p) * 40, rng.random(p)
+            gs, gl = rng.random(g) * 140, rng.random(g) * 40
+            if p and rng.random() < 0.5:
+                lens[rng.integers(0, p)] = 0.0
+            if g and rng.random() < 0.5:
+                gl[rng.integers(0, g)] = 0.0
+            if p and g and rng.random() < 0.3:
+                starts[0] = gs[0]
+                lens[0] = gl[0] = 0.0
+        preds.append(np.stack([starts, starts + lens, scores], 1) if p else np.zeros((0, 3)))
+        gts.append(np.stack([gs, gs + gl], 1) if g else np.zeros((0, 2)))
+    return preds, gts
+
+
+def host_hl_set(rng, n):
+    """One fuzz set of hl_ap_batch: 1 to 400 clips a query, 9 label columns
+    (some single-valued), scores with ties, a third of the queries with NaN
+    scores."""
+    scores, labels = [], []
+    for _ in range(n):
+        clips = int(rng.integers(1, 401))
+        s = np.round(rng.standard_normal(clips), int(rng.integers(0, 3)))
+        if rng.random() < 0.33:
+            s[rng.random(clips) < 0.3] = np.nan
+        m = rng.integers(0, 2, (9, clips)).astype(np.float64)
+        if rng.random() < 0.4:
+            m[int(rng.integers(0, 9))] = float(rng.integers(0, 2))
+        scores.append(s)
+        labels.append(m)
+    return scores, labels
+
+
+def host_fuzz(seed):
+    """Phase 18 (b): mr_ap_batch and hl_ap_batch bit for bit against the
+    plain functions (detection_ap, binary_ap_columns) on the fuzz sets; the
+    queries mr_ap_batch declines are exactly G == 0, G > 15 and P > 126."""
+    from flashvtg_tpu_torch import runtime
+    from flashvtg_tpu_torch.eval.metrics import MR_AP_THDS, binary_ap_columns, detection_ap
+
+    rng = np.random.default_rng(seed + 18)
+    runtime.reset_counts()
+    for _ in range(HOST_FUZZ_SETS):
+        preds, gts = host_mr_set(rng, HOST_FUZZ_QUERIES)
+        ap, handled = runtime.mr_ap_batch(preds, gts, MR_AP_THDS)
+        for i, (p, g) in enumerate(zip(preds, gts)):
+            declines = len(p) > 0 and (len(g) == 0 or len(g) > 15 or len(p) > 126)
+            assert handled[i] == (not declines), (i, len(p), len(g))
+            if handled[i] and len(p):
+                want = detection_ap(g, p[:, :2], p[:, 2])
+                assert ap[i].tobytes() == want.tobytes(), (i, ap[i], want)
+        scores, labels = host_hl_set(rng, HOST_FUZZ_QUERIES)
+        got = runtime.hl_ap_batch(scores, labels)
+        for q, (sc, m) in enumerate(zip(scores, labels)):
+            want = binary_ap_columns(m, sc)
+            assert got[q].tobytes() == want.tobytes(), (q, got[q], want)
+    c = runtime.counts()
+    assert c["mr_ap_batch"]["native"] > 0 and c["mr_ap_batch"]["declined"] > 0, c
+    assert c["hl_ap_batch"]["native"] == HOST_FUZZ_SETS * HOST_FUZZ_QUERIES, c
+    return c
+
+
+@contextlib.contextmanager
+def plain_metrics():
+    """eval/metrics.py through its plain functions alone: mr_ap_batch
+    declines every query, so detection_ap scores each, and hl_ap_batch is
+    binary_ap_columns query by query."""
+    from unittest import mock
+
+    from flashvtg_tpu_torch import runtime
+    from flashvtg_tpu_torch.eval.metrics import binary_ap_columns
+
+    def declined(preds_list, gts_list, thresholds):
+        return np.zeros((len(preds_list), len(thresholds))), np.zeros(len(preds_list), bool)
+
+    def columns(scores_list, labels_list):
+        return np.stack([binary_ap_columns(m, s) for s, m in zip(scores_list, labels_list)])
+
+    with mock.patch.object(runtime, "mr_ap_batch", declined), \
+            mock.patch.object(runtime, "hl_ap_batch", columns):
+        yield
+
+
+def host_metric_suite(seed):
+    """Phase 18 (c): eval_submission through the native kernels and through
+    the plain functions alone, on the flagship eval's submissions (phase 4,
+    without and with NMS) and a seeded one of QVHighlights val's 1,550
+    queries: the metric dicts equal, the seconds of each, and the rows each
+    kernel handled and declined in the native run."""
+    from flashvtg_tpu_torch import runtime
+    from flashvtg_tpu_torch.eval.metrics import eval_submission
+    from flashvtg_tpu_torch.utils.synthetic import make_synthetic_submission
+
+    sub, sub_nms, gt = MR_SUBMISSIONS["hl"]
+    sets = {"flagship": (sub, gt), "flagship_nms": (sub_nms, gt),
+            "qvh_val_1550": make_synthetic_submission(1550, seed)}
+    out = {}
+    for name, (s, g) in sets.items():
+        runtime.reset_counts()
+        t0 = time.perf_counter()
+        native = eval_submission(s, g)
+        native_s = time.perf_counter() - t0
+        counts = runtime.counts()
+        with plain_metrics():
+            t0 = time.perf_counter()
+            plain = eval_submission(s, g)
+            plain_s = time.perf_counter() - t0
+        assert native == plain, (name, native["brief"], plain["brief"])
+        assert counts["mr_ap_batch"]["native"] > 0 and counts["hl_ap_batch"]["native"] > 0
+        out[name] = dict(queries=len(s), native_s=native_s, plain_s=plain_s,
+                         plain_over_native=plain_s / native_s, counts=counts)
+    return out
+
+
+def ulps(a, b):
+    """Largest distance of two float32 arrays in units in the last place."""
+    ia = a.astype(np.float32).view(np.int32).astype(np.int64)
+    ib = b.astype(np.float32).view(np.int32).astype(np.int64)
+    # order the sign-magnitude integers so that neighbours differ by one
+    ia = np.where(ia < 0, -(ia & 0x7FFFFFFF), ia)
+    ib = np.where(ib < 0, -(ib & 0x7FFFFFFF), ib)
+    return int(np.abs(ia - ib).max()) if a.size else 0
+
+
+def host_feature_loads(seed):
+    """Phase 18 (d): feature files of every layout fl_load reads, loaded
+    through load_features and through the plain numpy path
+    (data/dataset.py's np.load, then utils/io.py:l2_normalize), without
+    and with the row l2-norm: without it bit-equal; with it bit-equal to
+    runtime.l2norm_replica and within HOST_L2_ULPS of the plain path. The
+    ms a file (a dataset row's features) of each path; the files are read
+    warm from the page cache, just written."""
+    from flashvtg_tpu_torch import runtime
+    from flashvtg_tpu_torch.utils.io import l2_normalize
+
+    rng = np.random.default_rng(seed + 19)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for layout, (shape, dtype, kind) in HOST_FEATURE_LAYOUTS.items():
+            paths = []
+            for i in range(HOST_FEATURE_FILES):
+                arr = rng.standard_normal(shape).astype(dtype)
+                path = os.path.join(tmp, f"{layout}_{i}.{kind[:3]}")
+                if kind == "npy":
+                    np.save(path, arr)
+                else:
+                    (np.savez_compressed if kind == "npz_deflated" else np.savez)(
+                        path, features=arr)
+                paths.append(path)
+            row = {}
+            for l2 in (False, True):
+                runtime.reset_counts()
+                t0 = time.perf_counter()
+                native = [runtime.load_features(p, "features", 0, l2) for p in paths]
+                native_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+                assert runtime.counts()["load_features"] == {"native": len(paths),
+                                                             "declined": 0}
+                t0 = time.perf_counter()
+                raw, plain = [], []
+                for p in paths:
+                    a = np.load(p)
+                    raw.append(np.asarray(a["features"] if p.endswith(".npz") else a,
+                                          np.float32))
+                    plain.append(l2_normalize(raw[-1]) if l2 else raw[-1])
+                plain_ms = (time.perf_counter() - t0) * 1e3 / len(paths)
+                gap = 0
+                for got, r, want, p in zip(native, raw, plain, paths):
+                    r, want = r.reshape(got.shape), want.reshape(got.shape)  # rank 1: a row
+                    if l2:
+                        assert got.tobytes() == runtime.l2norm_replica(r).tobytes(), p
+                        gap = max(gap, ulps(got, want))
+                    else:
+                        assert got.tobytes() == want.tobytes(), p
+                assert gap <= HOST_L2_ULPS, (layout, gap)
+                key = "l2norm" if l2 else "raw"
+                row[key] = dict(native_ms_a_row=native_ms, plain_ms_a_row=plain_ms,
+                                plain_over_native=plain_ms / native_ms, max_ulps=gap)
+            out[layout] = dict(shape=list(shape), dtype=np.dtype(dtype).name, **row)
+    return out
+
+
+def run_host_runtime(seed, build):
+    """Phase 18: the host runtime (flashvtg_tpu_torch/runtime), its build
+    from phase 2, (b) the fuzz, (c) the metric suite, (d) the loader."""
+    from flashvtg_tpu_torch.tools.host_runtime_time import cpu_model
+
+    t0 = time.perf_counter()
+    res = dict(host_cpu=f"{cpu_model()}, {len(os.sched_getaffinity(0))} cores", build=build)
+    log(f"[host runtime] host CPU {res['host_cpu']}")
+    res["fuzz_counts"] = host_fuzz(seed)
+    log(f"[host runtime fuzz] bit-equal; rows handled / declined "
+        f"{json.dumps(res['fuzz_counts'])}")
+    res["metric_suite"] = host_metric_suite(seed)
+    log(f"[host runtime metrics] equal dicts; {json.dumps(res['metric_suite'])}")
+    res["feature_loads"] = host_feature_loads(seed)
+    log(f"[host runtime loads] {json.dumps(res['feature_loads'])}")
+    res["phase_s"] = time.perf_counter() - t0
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3364,7 +3621,7 @@ def main():
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
 
-    from flashvtg_tpu_torch import kernels
+    from flashvtg_tpu_torch import kernels, runtime
     from flashvtg_tpu_torch.utils.runtime import resolve_device
 
     dev = resolve_device("cuda")
@@ -3408,6 +3665,15 @@ def main():
     log(f"[build] SASS HMMA / HGMMA instructions per kernel and form: {json.dumps(hmma_kinds)}")
     faults = kernels.mma_kind_faults(hmma_kinds, BF16_MMA_KERNELS, WGMMA_KERNELS)
     assert not faults, faults
+    # the host runtime's two libraries (phase 18 (a)), one g++ each, at once
+    t0 = time.perf_counter()
+    host_build = dict(seconds=runtime.build(), compiler=runtime.compiler_version(),
+                      libraries=[os.path.basename(runtime.library_path(n))
+                                 for n in runtime.SOURCES])
+    for name in runtime.SOURCES:
+        runtime.load(name)
+    host_build["wall_s"] = time.perf_counter() - t0
+    log(f"[build] host runtime: {json.dumps(host_build)}")
 
     if args.only == "dp":
         log(f"[train kernels] {json.dumps(phase_train_kernels(dev, args.seed))}")
@@ -3427,6 +3693,8 @@ def main():
     phases = {
         "flagship": lambda: run_preset(dev, "qvhighlights_slowclip", args.queries, 8,
                                        args.seed, feed_compare=True),
+        # phase 18, on phase 4's submissions
+        "host_runtime": lambda: run_host_runtime(args.seed, host_build),
         "tacos": lambda: run_preset(dev, "tacos", args.tacos_queries, 2, args.seed),
         "flagship_train": lambda: run_train_preset(dev, "qvhighlights_slowclip",
                                                    args.train_steps, args.seed),

@@ -3,8 +3,10 @@
 Counterpart of flashvtg_tpu/data/dataset.py for moment retrieval: jsonl
 rows; npz/npy/pt features from several `v_feat_dirs`, concatenated; row
 l2-normalisation; the two TEF channels; truncation to max_v_l / max_q_l.
-Features load with numpy (the JAX package's native C++ loader does the same
-job and is not ported). With load_labels (training) every access draws the
+Features load through the host runtime's C++ loader (runtime.load_features:
+the cut to max_v_l / max_q_l and the row l2-norm fused), as the JAX package
+loads them, and with numpy only where it declines the file (.pt, other
+dtypes). With load_labels (training) every access draws the
 row's labels anew from the dataset's seeded random.Random, as the reference
 draws them per __getitem__: GT windows (span_windows), saliency labels
 (saliency_sub_as_query for charades / TACoS-style sets, saliency_all for
@@ -35,6 +37,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from flashvtg_tpu_torch import runtime
 from flashvtg_tpu_torch.data import labels as L
 from flashvtg_tpu_torch.utils.io import l2_normalize, load_jsonl
 
@@ -106,12 +109,16 @@ def _load_array(path: str, key: Optional[str]) -> np.ndarray:
 
 def _try_paths(paths_and_keys, max_rows: int = 0, l2norm: bool = False):
     """Load the first existing candidate feature file, truncated to
-    `max_rows` (0 = all) and row-l2-normalised on request."""
+    `max_rows` (0 = all) and row-l2-normalised on request: through the
+    native loader, and with numpy where it declines the file."""
     last_err = None
     for path, key in paths_and_keys:
         if not os.path.exists(path):
             last_err = FileNotFoundError(path)
             continue
+        native = runtime.load_features(path, key or "features", max_rows, l2norm)
+        if native is not None:
+            return native
         try:
             arr = np.asarray(_load_array(path, key), np.float32)
         except (KeyError, ValueError) as e:

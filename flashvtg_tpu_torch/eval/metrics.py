@@ -1,10 +1,13 @@
-"""Moment-retrieval and highlight-detection metric suite (numpy).
+"""Moment-retrieval and highlight-detection metric suite.
 
 Counterpart of flashvtg_tpu/eval/metrics.py (reference
-standalone_eval/eval.py and utils.py). Where the JAX package calls its
-native batched kernels (runtime mr_ap_batch / hl_ap_batch), this copy runs
-the Python/numpy paths `detection_ap` and `binary_ap_columns`, which those
-kernels are bit-identical to.
+standalone_eval/eval.py and utils.py). As in the JAX package, the per-query
+APs run in the native batched kernels of the host runtime
+(flashvtg_tpu_torch/runtime: mr_ap_batch for every query of compute_mr_ap,
+one hl_ap_batch call for eval_highlight). `detection_ap` and
+`binary_ap_columns` are the plain numpy versions those kernels are
+bit-identical to: detection_ap scores the queries mr_ap_batch declines, and
+the tests hold the kernels against both.
 
   * MR mAP: VOC-interpolated detection AP per query at IoU 0.5:0.05:0.95,
     for GT-length buckets short (0,10] / middle (10,30] / long (30,150] /
@@ -20,6 +23,8 @@ from collections import OrderedDict, defaultdict
 from typing import Dict, List, Sequence
 
 import numpy as np
+
+from flashvtg_tpu_torch import runtime
 
 MR_AP_THDS = tuple(float(f"{e:.2f}") for e in np.linspace(0.5, 0.95, 10))
 MR_R1_THDS = tuple(float(f"{e:.2f}") for e in np.linspace(0.3, 0.95, 14))
@@ -173,10 +178,17 @@ def compute_mr_ap(submission, ground_truth, max_pred_windows: int = 10):
     for d in ground_truth:
         gt_by_qid[d["qid"]].extend(d["relevant_windows"])
 
-    ap_mat = np.zeros((len(pred_by_qid), len(MR_AP_THDS)))
-    for i, (qid, wins) in enumerate(pred_by_qid.items()):
-        wins = wins.reshape(-1, wins.shape[-1])[:, :3] if wins.size else np.zeros((0, 3))
-        gts = np.asarray(gt_by_qid[qid], dtype=np.float64).reshape(-1, 2)
+    qids = list(pred_by_qid)
+    preds_list = [
+        w.reshape(-1, w.shape[-1])[:, :3] if w.size else np.zeros((0, 3))
+        for w in (pred_by_qid[q] for q in qids)
+    ]
+    gts_list = [np.asarray(gt_by_qid[q], dtype=np.float64).reshape(-1, 2) for q in qids]
+    # every query through the native kernel; the rows it declines (G == 0,
+    # G > 15, P > 126) through detection_ap
+    ap_mat, handled = runtime.mr_ap_batch(preds_list, gts_list, MR_AP_THDS)
+    for i in np.flatnonzero(~handled):
+        wins, gts = preds_list[i], gts_list[i]
         if len(wins):
             ap_mat[i] = detection_ap(gts, wins[:, :2], wins[:, 2])
     ap_thds = ap_mat.mean(0)
@@ -257,6 +269,7 @@ def eval_highlight(submission, ground_truth):
     n_thd = len(_HL_THRESHOLDS)
     hits = np.zeros((n_thd, len(preds), 3))
     ap_scores = np.zeros((n_thd, len(preds), 3))
+    scores_list, labels_list = [], []
     for i, (qid, d) in enumerate(preds.items()):
         scores = np.asarray(d["pred_saliency_scores"])
         top = int(np.argmax(scores))
@@ -272,8 +285,12 @@ def eval_highlight(submission, ground_truth):
             if top < len(gt_bin):  # HIT@1: top clip positive for any worker
                 hits[t, i] = gt_bin[top]
             cols.append(gt_bin.T)  # (3 workers, num_clips)
-        ap = binary_ap_columns(np.concatenate(cols, axis=0), y_pred)
-        ap_scores[:, i, :] = ap.reshape(n_thd, 3)
+        scores_list.append(np.asarray(y_pred, np.float64))
+        labels_list.append(np.concatenate(cols, axis=0))
+    # the 9 (threshold x worker) AP columns of every query in one native call
+    if preds:
+        ap = runtime.hl_ap_batch(scores_list, labels_list)
+        ap_scores = ap.reshape(len(preds), n_thd, 3).transpose(1, 0, 2)
     out = {}
     for t, (_, name) in enumerate(_HL_THRESHOLDS):
         out[f"HL-min-{name}"] = {

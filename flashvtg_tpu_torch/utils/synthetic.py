@@ -12,6 +12,8 @@ video as `_rgb.npy` + `_opt.npy` halves), `make_synthetic_charades` writes
 Charades-STA rows (windows and durations, two queries a video), with
 `write_glove` for the VGG configuration's GloVe text. The length mixes of
 these writers are guesses, not the datasets' own (each writer says which).
+`make_synthetic_submission` makes a QVHighlights-val-sized submission and
+its ground truth in memory, for the metric suite.
 
 With `split` (e.g. "train", "val") a writer names its annotation file
 `<split>.jsonl` and puts the split into every vid and qid, so the splits of
@@ -316,3 +318,27 @@ def write_glove(path: str, dim: int = 300, seed: int = 0) -> str:
         for w in CHARADES_WORDS[:-1]:
             f.write(w + " " + " ".join(f"{x:.6f}" for x in rng.standard_normal(dim)) + "\n")
     return path
+
+
+def make_synthetic_submission(n_queries: int = 1550, seed: int = 0, many_gt_every: int = 97):
+    """(submission, ground truth) of a QVHighlights-val-sized set: 150 s
+    videos of 75 clips, 1-3 GT windows a query (every `many_gt_every`-th
+    query 16-20, past the native detection AP's limit of 15), 10 predicted
+    windows and 75 saliency scores a query, about 12 annotated clips with
+    three worker scores each. The mix is a guess at the split's."""
+    rng = np.random.default_rng(seed)
+    sub, gt = [], []
+    for i in range(n_queries):
+        ng = int(rng.integers(16, 21)) if i % many_gt_every == 0 else int(rng.integers(1, 4))
+        starts = rng.integers(0, 70, ng) * 2.0
+        wins = [[float(s), float(min(150.0, s + 2.0 * rng.integers(1, 20)))] for s in starts]
+        ids = sorted({int(x) for x in rng.integers(0, 75, 12)})
+        gt.append(dict(qid=i, duration=150, relevant_windows=wins, relevant_clip_ids=ids,
+                       saliency_scores=[[int(x) for x in rng.integers(0, 5, 3)] for _ in ids]))
+        pred_starts = rng.uniform(0, 140, 10)
+        sub.append(dict(
+            qid=i,
+            pred_relevant_windows=[[round(a, 2), round(min(150.0, a + rng.uniform(2, 30)), 2),
+                                    round(float(rng.uniform()), 4)] for a in pred_starts],
+            pred_saliency_scores=[round(float(x), 4) for x in rng.standard_normal(75)]))
+    return sub, gt

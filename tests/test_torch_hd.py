@@ -98,13 +98,9 @@ def test_hl_metrics_match_jax(seed):
 
 @pytest.mark.parametrize("load_labels", [False, True], ids=["eval", "train"])
 @pytest.mark.parametrize("preset", HD)
-def test_hd_dataset_matches_jax(tmp_path, preset, load_labels, monkeypatch):
-    # the JAX package's native loader l2-normalises a single feature file in
-    # its own order (1 ulp off numpy); the port has only the numpy path, so
-    # it is held bit for bit against the JAX package's numpy path
-    from flashvtg_tpu import runtime
-
-    monkeypatch.setattr(runtime, "load_features", lambda *a, **kw: None)
+def test_hd_dataset_matches_jax(tmp_path, preset, load_labels):
+    # both packages read the feature files through their native loaders
+    # (the fused l2-norm's order is the same in both), bit for bit
     ann, vdir, qdir = _write(preset, str(tmp_path), 6, seed=1)
     cfg, jcfg = _configs(preset, ann, vdir, qdir)
     if load_labels:
@@ -132,12 +128,9 @@ def test_hd_dataset_matches_jax(tmp_path, preset, load_labels, monkeypatch):
     assert any(len(ds[i][1]["query_feat"]) > cfg.max_q_l for i in range(len(ds)))
 
 
-def test_tvsum_single_file_fallback_matches_jax(tmp_path, monkeypatch):
+def test_tvsum_single_file_fallback_matches_jax(tmp_path):
     """A TVSum video without `_rgb.npy` is read from `{vid}.npy`, l2-normed
-    per row as one file."""
-    from flashvtg_tpu import runtime
-
-    monkeypatch.setattr(runtime, "load_features", lambda *a, **kw: None)
+    per row as one file (the native loader's fused norm in both packages)."""
     ann, vdir, qdir = _write("tvsum", str(tmp_path), 3, seed=9)
     for row in load_jsonl(ann):
         halves = [f"{vdir}/{row['vid']}_{h}.npy" for h in ("rgb", "opt")]
