@@ -2338,7 +2338,7 @@ def feed_vs_streamed_eval(cfg, model, ds, infer):
     in both, the queries (videos) a second and the idle share of each."""
     import torch
 
-    from flashvtg_tpu_torch.train.infer import FETCHES
+    from flashvtg_tpu_torch.utils.observability import counter
 
     res, outs = {}, {}
     batches = -(-len(ds) // cfg.eval_bsz)
@@ -2346,13 +2346,13 @@ def feed_vs_streamed_eval(cfg, model, ds, infer):
         c = cfg.replace(device_feed=mode)
         infer(c, model, ds)
         assert (getattr(ds, "_device_feed_cache", None) is not None) or mode == "off"
-        fetches = FETCHES["d2h"]
+        fetches = counter("eval.fetches")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         outs[mode] = infer(c, model, ds)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        per_batch = (FETCHES["d2h"] - fetches) / batches
+        per_batch = (counter("eval.fetches") - fetches) / batches
         assert per_batch == 1, (mode, per_batch)
         _, busy_us, _ = busy_ms(lambda: infer(c, model, ds))
         res["feed" if mode == "on" else "streamed"] = dict(

@@ -6,6 +6,10 @@ windows to (max_windows, 2) with +inf, and every batch carries the
 negative-pair indicator real_neg_mask. With pad_features off (the
 device-resident feed, data/feed.py, holds the features) a batch carries no
 feature or mask tensors (MODEL_KEYS), only labels and bookkeeping.
+
+A call is the span `data.collate` (utils/observability.py) and counts its
+video rows, B x the padded length (`data.video_rows`), and the valid ones
+among them (`data.valid_video_rows`).
 """
 
 from __future__ import annotations
@@ -17,6 +21,7 @@ import numpy as np
 
 from flashvtg_tpu_torch.data.dataset import strip_vid_suffix
 from flashvtg_tpu_torch.ops.pad import bucket_length, pad_batch
+from flashvtg_tpu_torch.utils import observability as obs
 
 MODEL_KEYS = ("src_txt", "src_txt_mask", "src_vid", "src_vid_mask")
 # what the train step reads: the model's inputs and the targets
@@ -69,6 +74,14 @@ class Collator:
     pad_features: bool = True  # False: no MODEL_KEYS (the device feed has them)
 
     def __call__(self, samples: List[tuple]) -> Dict[str, object]:
+        with obs.span("data.collate"):
+            batch, lv = self._collate(samples)
+        obs.count("data.video_rows", len(samples) * lv)
+        obs.count("data.valid_video_rows", int(batch["valid_v_lens"].sum()))
+        return batch
+
+    def _collate(self, samples: List[tuple]):
+        """(the collated batch, its padded video length)."""
         inputs = [x for _, x in samples]
         v_lens = [len(x["video_feat"]) for x in inputs]
         lv = self.fixed_v_len or bucket_length(max(v_lens), self.v_buckets)
@@ -98,4 +111,4 @@ class Collator:
                 w = x["gt_windows"][:m]
                 gt[i, : len(w)] = w
             batch["gt_windows"] = gt
-        return batch
+        return batch, lv

@@ -39,7 +39,8 @@ buffer is marked as used by the compute stream (`record_stream`), so the
 caching allocator hands it out again only after the step that reads it;
 the pinned buffer is handed out again only after its copy (the caching
 host allocator records the copy's stream). The step widens the bf16
-features on the card.
+features on the card. `stage_batch` is the span `data.stage`
+(utils/observability.py).
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
+
+from flashvtg_tpu_torch.utils import observability as obs
 
 logger = logging.getLogger(__name__)
 
@@ -214,8 +217,9 @@ def stage_batch(batch: Dict, keys: Sequence[str], device,
                 transfer_dtype: str = "float32") -> StagedBatch:
     """`batch`'s `keys` staged for `device`: pinned and packed for the card
     (host work, made on the prefetch thread), wrapped for the CPU."""
-    return StagedBatch(*wire_dtypes(batch, keys, transfer_dtype),
-                       pin=torch.device(device).type == "cuda")
+    with obs.span("data.stage"):
+        return StagedBatch(*wire_dtypes(batch, keys, transfer_dtype),
+                           pin=torch.device(device).type == "cuda")
 
 
 class PlacedBatch:

@@ -15,6 +15,9 @@ the tests hold the kernels against both.
   * MR R1@thd: share of queries whose top-1 window reaches IoU >= thd with
     the best-matching GT window, 0.3:0.05:0.95; plus mIoU.
   * HL mAP / HIT@1 at min worker scores Fair(2) / Good(3) / VeryGood(4).
+
+Each `eval_submission` call is the root span `eval.metrics`
+(utils/observability.py; recorded while a torch profiler records).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ from typing import Dict, List, Sequence
 import numpy as np
 
 from flashvtg_tpu_torch import runtime
+from flashvtg_tpu_torch.utils import observability as obs
 
 MR_AP_THDS = tuple(float(f"{e:.2f}") for e in np.linspace(0.5, 0.95, 10))
 MR_R1_THDS = tuple(float(f"{e:.2f}") for e in np.linspace(0.3, 0.95, 14))
@@ -300,6 +304,7 @@ def eval_highlight(submission, ground_truth):
     return out
 
 
+@obs.root("eval.metrics")
 def eval_submission(submission, ground_truth, verbose=False, match_number=True):
     """Full metric dict with a sorted "brief" block (reference eval.py:271-344).
     `verbose` is accepted for call compatibility and prints nothing."""

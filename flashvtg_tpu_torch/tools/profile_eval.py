@@ -440,12 +440,12 @@ def eval_feed_modes(cfg, args, dev):
 
     from flashvtg_tpu_torch.data.dataset import VTGDataset
     from flashvtg_tpu_torch.train.infer import (
-        FETCHES,
         eval_data_config,
         run_hl_inference,
         run_mr_inference,
     )
     from flashvtg_tpu_torch.utils import synthetic
+    from flashvtg_tpu_torch.utils.observability import counter
 
     b = args.bsz or cfg.eval_bsz
     hd = cfg.dset_name in HD_SETS
@@ -468,13 +468,13 @@ def eval_feed_modes(cfg, args, dev):
             c = cfg.replace(device_feed=mode)
             ds = VTGDataset(eval_data_config(c, ann))
             infer(c, model, ds)  # warm-up (and the feed's build)
-            fetches = FETCHES["d2h"]
+            fetches = counter("eval.fetches")
             wall, per_name = profiled(lambda: infer(c, model, ds))
             batches = -(-len(ds) // b)
             yield {"preset": args.preset, "mode": "eval",
                    "feed_mode": "feed" if mode == "on" else "streamed",
                    "precision": c.eval_precision, "bsz": b, "steps": batches,
-                   "fetches_per_batch": (FETCHES["d2h"] - fetches) / batches,
+                   "fetches_per_batch": (counter("eval.fetches") - fetches) / batches,
                    "queries_per_s": len(ds) / wall,
                    **with_mfu(busy_summary(wall, per_name, batches), c, b, c.eval_precision,
                               False)}

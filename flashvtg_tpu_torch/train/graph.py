@@ -43,6 +43,7 @@ FORM_LAUNCHES) count the eager warm-up steps' launches; the capture
 launches nothing and counts nothing, and a replay launches the graph's
 kernels without a Python call, so the replays' launches are read from the
 device, in the profiler's kernel records (chip_smoke.py phases 15, 16).
+Each capture counts one `graph.captures` (utils/observability.py).
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+
+from flashvtg_tpu_torch.utils import observability as obs
 
 WARMUP_STEPS = 2
 
@@ -118,6 +121,7 @@ class GraphSteps:
         return out
 
     def _capture(self) -> None:
+        obs.count("graph.captures")
         t0 = time.perf_counter()
         device = self.device
         torch.cuda.synchronize(device)

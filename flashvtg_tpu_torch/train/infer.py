@@ -29,6 +29,15 @@ memory with a CUDA event; `_pipelined` keeps PIPELINE_DEPTH batches in
 flight and waits on the oldest one's event only. The rows, rounding, NMS
 and eval losses are those of one fetch per output.
 
+Each inference call is the root span `eval.infer` (utils/observability.py;
+recorded while a torch profiler records), with spans per batch, the batch
+number their id: `eval.collate` (the dataset reads and the Collator),
+`eval.dispatch` (masks, upload, feed gather, the forward's launches),
+`eval.fetch_wait` (the host blocked on the batch's fetch) and `eval.rows`
+(unpacking and formatting); and per call `eval.gather`, `eval.postprocess`
+and `eval.nms`. Counters: `eval.batches`, and `eval.fetches` (the
+device-to-host copies, one a batch).
+
 Under a process group (parallel/mesh.py; the counterpart of the JAX
 package's `_eval_shardings` / `_batch_putter`) the two inference loops deal
 the split's batches to the ranks, batch i to rank i % world, each batch
@@ -64,12 +73,11 @@ from flashvtg_tpu_torch.losses import criterion
 from flashvtg_tpu_torch.models.points import pyramid_masks_strict
 from flashvtg_tpu_torch.ops.nms import suppress_overlaps
 from flashvtg_tpu_torch.parallel import mesh
+from flashvtg_tpu_torch.utils import observability as obs
 from flashvtg_tpu_torch.utils.runtime import check_precision, float32_outputs, matmul_precision
 
 # batches in flight before the host waits on the oldest one's fetch
 PIPELINE_DEPTH = 4
-# device-to-host copies made by the eval loops (one a batch)
-FETCHES = {"d2h": 0}
 
 
 def eval_data_config(cfg, path: str, load_labels: bool = False) -> DataConfig:
@@ -197,9 +205,11 @@ def _dealt_batches(dataset: VTGDataset, collator: Collator, bsz: int, order=None
     collated."""
     w, r = mesh.world(), mesh.rank()
     for bi, idx in enumerate(_batch_rows(len(dataset), bsz, order)):
-        samples = [dataset[j] for j in idx]
-        if bi % w == r:
-            yield bi, len(idx), idx, collator(samples)
+        with obs.span("eval.collate", bi):
+            samples = [dataset[j] for j in idx]
+            batch = collator(samples) if bi % w == r else None
+        if batch is not None:
+            yield bi, len(idx), idx, batch
 
 
 def _dealt(per_batch: List[tuple]) -> List[tuple]:
@@ -270,8 +280,8 @@ def _maybe_device_feed(cfg, dataset: VTGDataset, fixed_v_len, device):
 def _fetch(t: torch.Tensor):
     """(host tensor, CUDA event or None): `t` copied to pinned host memory
     without blocking, the event recorded after the copy; a CPU tensor as it
-    is. Counted in FETCHES."""
-    FETCHES["d2h"] += 1
+    is. Counted as eval.fetches."""
+    obs.count("eval.fetches")
     if t.device.type != "cuda":
         return t, None
     host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -302,11 +312,12 @@ def _dispatch(step, batch, idx, feed, lv, strides, device, keys):
     return counts, _fetch(step(dev, point_valid))
 
 
-def _ready(fetched) -> np.ndarray:
-    """The fetched array, once its copy has ended."""
+def _ready(fetched, bi: int) -> np.ndarray:
+    """The fetched array of batch `bi`, once its copy has ended."""
     host, done = fetched
-    if done is not None:
-        done.synchronize()
+    with obs.span("eval.fetch_wait", bi):
+        if done is not None:
+            done.synchronize()
     return host.numpy()
 
 
@@ -323,6 +334,34 @@ def _pipelined(fn, items, depth: int = PIPELINE_DEPTH):
         yield q.popleft()
 
 
+def _mr_entries(cfg, batch, real: int, counts, spans, scores, saliency) -> List[dict]:
+    """The submission rows of a batch's `real` rows."""
+    entries = []
+    # 4-decimal rounding in float64: reproduces float(f"{x:.4f}") for
+    # float32-origin values
+    sal_r = np.round(saliency.astype(np.float64), 4)
+    for j in range(real):
+        meta = batch["meta"][j]
+        n = min(cfg.max_num_moment, int(counts[j]))
+        dur = meta.get("duration", 1e9)
+        win = np.clip(spans[j, :n], 0, dur)
+        rows = np.round(
+            np.concatenate([win, scores[j, :n, None]], axis=1).astype(np.float64),
+            4,
+        ).tolist()
+        entry = dict(
+            qid=meta["qid"],
+            query=meta.get("query", ""),
+            vid=meta["vid"],
+            pred_relevant_windows=rows,
+        )
+        lvalid = int(batch["valid_v_lens"][j])
+        entry["pred_saliency_scores"] = sal_r[j, :lvalid].tolist()
+        entries.append(entry)
+    return entries
+
+
+@obs.root("eval.infer")
 def run_mr_inference(
     cfg, model, dataset: VTGDataset, nms_thd: Optional[float] = None,
     loss_cfg=None,
@@ -346,61 +385,47 @@ def run_mr_inference(
     nms = nms_thd if nms_thd is not None else cfg.nms_thd
 
     def dispatch(item):
-        _, _, idx, batch = item
-        lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
-        return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, keys)
+        bi, _, idx, batch = item
+        with obs.span("eval.dispatch", bi):
+            lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
+            return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, keys)
 
     per_batch = []  # (batch number, rows, losses, entries) of this rank's batches
     for (bi, real, idx, batch), (lv, (counts, fetched)) in _pipelined(
             dispatch, _dealt_batches(dataset, collator, cfg.eval_bsz, order)):
-        spans, scores, saliency, losses = step.unpack(_ready(fetched), lv)
-        entries = []
-        # 4-decimal rounding in float64: reproduces float(f"{x:.4f}") for
-        # float32-origin values
-        sal_r = np.round(saliency.astype(np.float64), 4)
-        for j in range(real):
-            meta = batch["meta"][j]
-            n = min(cfg.max_num_moment, int(counts[j]))
-            dur = meta.get("duration", 1e9)
-            win = np.clip(spans[j, :n], 0, dur)
-            rows = np.round(
-                np.concatenate([win, scores[j, :n, None]], axis=1).astype(np.float64),
-                4,
-            ).tolist()
-            entry = dict(
-                qid=meta["qid"],
-                query=meta.get("query", ""),
-                vid=meta["vid"],
-                pred_relevant_windows=rows,
-            )
-            lvalid = int(batch["valid_v_lens"][j])
-            entry["pred_saliency_scores"] = sal_r[j, :lvalid].tolist()
-            entries.append(entry)
-        per_batch.append((bi, real, losses, entries))
+        arr = _ready(fetched, bi)
+        with obs.span("eval.rows", bi):
+            spans, scores, saliency, losses = step.unpack(arr, lv)
+            per_batch.append((bi, real, losses,
+                              _mr_entries(cfg, batch, real, counts, spans, scores, saliency)))
+        obs.count("eval.batches")
 
     submission: List[dict] = []
     loss_sums: Dict[str, float] = {}
     n_rows = 0
-    for _, real, losses, entries in _dealt(per_batch):
-        for k, v in losses.items():
-            loss_sums[k] = loss_sums.get(k, 0.0) + v * real
-        n_rows += real
-        submission.extend(entries)
+    with obs.span("eval.gather"):
+        for _, real, losses, entries in _dealt(per_batch):
+            for k, v in losses.items():
+                loss_sums[k] = loss_sums.get(k, 0.0) + v * real
+            n_rows += real
+            submission.extend(entries)
 
-    post = build_post_processor(cfg.dset_name, cfg.clip_length, cfg.v_feat_dim)
-    submission = post(submission)
-
-    if cfg.dset_name in ("charadesSTA", "charadesSTA_internvideo2", "tacos", "nlq"):
-        for s in submission:
-            s.pop("pred_saliency_scores", None)
+    with obs.span("eval.postprocess"):
+        post = build_post_processor(cfg.dset_name, cfg.clip_length, cfg.v_feat_dim)
+        submission = post(submission)
+        if cfg.dset_name in ("charadesSTA", "charadesSTA_internvideo2", "tacos", "nlq"):
+            for s in submission:
+                s.pop("pred_saliency_scores", None)
 
     submission_nms = None
     if nms is not None and nms != -1:
-        submission_nms = apply_nms(submission, nms, cfg.nms_type, device=device)
+        with obs.span("eval.nms"):
+            submission_nms = apply_nms(submission, nms, cfg.nms_type, device=device)
     eval_losses = {k: v / n_rows for k, v in loss_sums.items()} if loss_sums else {}
     return submission, submission_nms, eval_losses
 
 
+@obs.root("eval.infer")
 def run_hl_inference(cfg, model, dataset: VTGDataset) -> dict:
     """TVSum / YouTube-HL: the saliency of every video of one domain on the
     device that holds the model's parameters, then the domain's mAP (TVSum
@@ -417,16 +442,21 @@ def run_hl_inference(cfg, model, dataset: VTGDataset) -> dict:
                           packed=True)
 
     def dispatch(item):
-        _, _, idx, batch = item
-        lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
-        return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, MODEL_KEYS)
+        bi, _, idx, batch = item
+        with obs.span("eval.dispatch", bi):
+            lv = fixed_v_len if feed is not None else batch["src_vid"].shape[1]
+            return lv, _dispatch(step, batch, idx, feed, lv, cfg.strides, device, MODEL_KEYS)
 
     per_batch = []  # (batch number, [(qid, saliency row, label, valid clips)])
     for (bi, real, idx, batch), (lv, (_, fetched)) in _pipelined(
             dispatch, _dealt_batches(dataset, collator, cfg.eval_bsz, order)):
-        _, _, sal, _ = step.unpack(_ready(fetched), lv)
-        per_batch.append((bi, [(batch["meta"][j]["qid"], sal[j].copy(), batch["meta"][j]["label"],
-                                int(batch["valid_v_lens"][j])) for j in range(real)]))
+        arr = _ready(fetched, bi)
+        with obs.span("eval.rows", bi):
+            _, _, sal, _ = step.unpack(arr, lv)
+            per_batch.append((bi, [(batch["meta"][j]["qid"], sal[j].copy(),
+                                    batch["meta"][j]["label"], int(batch["valid_v_lens"][j]))
+                                   for j in range(real)]))
+        obs.count("eval.batches")
     preds, labels, saliency = [], [], {}
     for _, rows in _dealt(per_batch):
         for qid, row, label, lvalid in rows:

@@ -67,7 +67,15 @@ debug_nans (utils/observability.py:nan_tripwire) checks every module's
 forward output and runs autograd's anomaly mode, for this call of train()
 alone; after an epoch whose mean losses are not all finite it names the
 non-finite parameters. profile_dir traces the run's first epoch
-(utils/observability.py:profile_trace).
+(utils/observability.py:profile_trace), its spans in spans.jsonl.
+
+Spans and counters (utils/observability.py): each epoch is the root span
+`train.epoch`; on the prefetch thread `data.make_batch` (id the step, or
+a chunk's first step) holds the batch's collation and staging; on the
+main thread `train.batch_wait` (blocked on the prefetch queue),
+`train.issue` (the copy ahead, the static-input copy, the replay and the
+loss copy; a chunk's upload and steps) and `train.step_wait` (blocked on
+the step before). Each step counts one `train.steps`.
 
 Data parallel (parallel/mesh.py; the JAX loop's mesh and multi-host
 rows): under a torch.distributed process group (`cli train` under
@@ -145,6 +153,7 @@ from flashvtg_tpu_torch.utils.convert import (
     model_state,
     save_torch_checkpoint,
 )
+from flashvtg_tpu_torch.utils import observability as obs
 from flashvtg_tpu_torch.utils.io import AverageMeter, save_json, save_jsonl
 from flashvtg_tpu_torch.utils.runtime import (
     TRANSFER_DTYPES,
@@ -709,6 +718,7 @@ def train_feed(cfg, dataset: VTGDataset, collator: Collator, device,
     return build_device_feed(dataset, collator, device, narrow)
 
 
+@obs.root("train.epoch")
 def run_chunked_epoch(feed_steps, host_batch, n_steps: int, k: int, loss_buf,
                       device) -> int:
     """n_steps feed-mode steps in chunks of k: each chunk's labels and row
@@ -717,15 +727,23 @@ def run_chunked_epoch(feed_steps, host_batch, n_steps: int, k: int, loss_buf,
     steps run."""
 
     def chunk(ci):
-        made = [host_batch(i) for i in range(ci * k, min((ci + 1) * k, n_steps))]
-        made = [m for m in made if m is not None]
-        return stack_chunk(made) if made else None
+        with obs.span("data.make_batch", ci * k):
+            made = [host_batch(i) for i in range(ci * k, min((ci + 1) * k, n_steps))]
+            made = [m for m in made if m is not None]
+            return stack_chunk(made) if made else None
 
     done = 0
-    for _, arrays in _prefetched(chunk, -(-max(n_steps, 0) // k)):
-        if arrays is not None:
-            done = run_chunk(feed_steps, arrays, loss_buf, done, device)
-    return done
+    with contextlib.closing(_prefetched(chunk, -(-max(n_steps, 0) // k))) as chunks:
+        while True:
+            with obs.span("train.batch_wait", done):
+                item = next(chunks, None)
+            if item is None:
+                return done
+            if item[1] is not None:
+                with obs.span("train.issue", done):
+                    ran = run_chunk(feed_steps, item[1], loss_buf, done, device)
+                obs.count("train.steps", ran - done)
+                done = ran
 
 
 def stack_chunk(made) -> Dict[str, np.ndarray]:
@@ -750,6 +768,7 @@ def run_chunk(feed_steps, arrays: Dict[str, np.ndarray], loss_buf, row: int,
     return row
 
 
+@obs.root("train.epoch")
 def run_streamed_epoch(streamed_steps, host_batch, n_steps: int, loss_buf, device,
                        transfer_dtype: str = "float32") -> int:
     """n_steps streamed steps through `streamed_steps` (train/graph.py:
@@ -768,10 +787,11 @@ def run_streamed_epoch(streamed_steps, host_batch, n_steps: int, loss_buf, devic
     copy_stream = torch.cuda.Stream(device) if cuda else None
 
     def made(i):
-        m = host_batch(i)
-        if m is None or not cuda:
-            return m and m[1]
-        return stage_batch(m[1], TRAIN_KEYS, device, transfer_dtype=transfer_dtype)
+        with obs.span("data.make_batch", i):
+            m = host_batch(i)
+            if m is None or not cuda:
+                return m and m[1]
+            return stage_batch(m[1], TRAIN_KEYS, device, transfer_dtype=transfer_dtype)
 
     def place(item) -> PlacedBatch:
         if cuda:
@@ -781,20 +801,27 @@ def run_streamed_epoch(streamed_steps, host_batch, n_steps: int, loss_buf, devic
     done = 0
     with contextlib.closing(_prefetched(made, max(n_steps, 0))) as items:
         items = (item for _, item in items if item is not None)
-        first = next(items, None)
-        pending = None if first is None else place(first)
+        with obs.span("train.batch_wait", 0):
+            first = next(items, None)
+        with obs.span("train.issue", 0):
+            pending = None if first is None else place(first)
         before = None  # the end of the previous step, on the compute stream
         while pending is not None:
-            loss_buf[done].copy_(streamed_steps(pending.wait()))
+            with obs.span("train.issue", done):
+                loss_buf[done].copy_(streamed_steps(pending.wait()))
             done += 1
+            obs.count("train.steps")
             ended = None
             if cuda:
                 ended = torch.cuda.Event()
                 ended.record()
-            nxt = next(items, None)
+            with obs.span("train.batch_wait", done):
+                nxt = next(items, None)
             if before is not None:
-                before.synchronize()
-            pending = None if nxt is None else place(nxt)
+                with obs.span("train.step_wait", done - 2):
+                    before.synchronize()
+            with obs.span("train.issue", done):
+                pending = None if nxt is None else place(nxt)
             before = ended
     return done
 

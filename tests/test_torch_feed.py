@@ -51,6 +51,7 @@ from flashvtg_tpu_torch.train.infer import (
     run_mr_inference,
 )
 from flashvtg_tpu_torch.utils.convert import state_dict_from_jax
+from flashvtg_tpu_torch.utils.observability import counter
 from flashvtg_tpu_torch.utils.synthetic import make_synthetic_qvh, make_synthetic_tvsum
 
 SMALL = dict(
@@ -281,11 +282,11 @@ def test_packed_pipelined_mr_equals_per_batch(split, variant, monkeypatch):
     monkeypatch.setattr(infer, "build_post_processor", lambda *a: lambda s: s)
     for mode in ("on", "off"):
         c = cfg.replace(device_feed=mode, nms_thd=-1)
-        fetches = infer.FETCHES["d2h"]
+        fetches = counter("eval.fetches")
         sub, _, losses = run_mr_inference(
             c, model, VTGDataset(eval_data_config(c, split["eval_path"], load_labels=True)),
             loss_cfg=loss_cfg)
-        assert infer.FETCHES["d2h"] - fetches == 4  # one a batch: 8, 8, 4, 2
+        assert counter("eval.fetches") - fetches == 4  # one a batch: 8, 8, 4, 2
         assert [(r["qid"], r["pred_relevant_windows"], r["pred_saliency_scores"])
                 for r in sub] == want_rows
         assert list(losses) == list(want_losses) and losses == want_losses

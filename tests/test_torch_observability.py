@@ -3,7 +3,7 @@ train(), on the CPU.
 
   * profile_dir: train() of 2 epochs writes one torch.profiler trace into
     profile_dir, of the first epoch only (its AdamW steps are the first
-    epoch's), which json.load reads;
+    epoch's), which json.load reads, and the epoch's spans (spans.jsonl);
   * debug_nans: on a split with one NaN feature row, train() raises
     FloatingPointError naming the first module whose output holds a NaN;
     without debug_nans the same run trains on and its losses are not
@@ -82,6 +82,10 @@ def test_profile_dir_traces_the_first_epoch(tmp_path, split):
     names = [e.get("name", "") for e in events]
     assert sum(n == "Optimizer.step#AdamW.step" for n in names) == 2
     assert any(n.startswith("aten::") for n in names)
+    with open(prof / "spans.jsonl") as f:  # the first epoch's spans beside it
+        spans = [json.loads(line) for line in f]
+    (epoch,) = [s for s in spans if s["name"] == "train.epoch"]
+    assert epoch["counters"]["train.steps"] == 2
 
 
 def test_debug_nans_raises_on_a_nan_row(tmp_path, nan_split):
