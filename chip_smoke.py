@@ -265,7 +265,21 @@ attention kernels in 3xTF32, TF32 off), phase 14 at the other dials:
      bit-equal without the l2-norm, with it bit-equal to the loader's
      arithmetic (runtime.l2norm_replica) and within HOST_L2_ULPS of numpy's
      l2_normalize; ms a file for each.
-`--only dp` runs phases 1, 2, 7 and 17 alone and prints no result line.
+ 19. layer norm (ops/layer_norm.py, csrc/layer_norm.cu): the forward
+     kernel (with the row statistics, as training calls it) and the fused
+     backward against their plain twins (within LN_RTOL of max |plain|; a
+     bf16 dx within one bf16 step more), two backward launches bit-equal,
+     at the TACoS train step's shapes (65,536 rows of 256 with an f32 and a
+     bf16 input; the 770-wide video and 4096-wide text input projections,
+     no dx), the flagship train shape (2,400 x 256) and tvsum_ms's (4,000
+     x 256): each timed beside its bytes bound, its plain twin and the
+     library call that computes the same function (F.layer_norm, under
+     autocast for a bf16 input; its backward through autograd, forward +
+     backward minus forward), by CUDA events and, the host left out, over
+     CUDA-graph replays; and the host's cost of an eval call (no gradient),
+     the module against nn.LayerNorm, at a small shape.
+`--only dp` runs phases 1, 2, 7 and 17 alone and prints no result line;
+`--only layer_norm` phases 1, 2 and 19.
 The synthetic HD and Charades length mixes are guesses (utils/synthetic.py).
 Then one line {"kernels": [...]}, a row per kernel and form, and, last,
 {"ok": true, "device": {...}}.
@@ -3597,6 +3611,174 @@ def run_host_runtime(seed, build):
     return res
 
 
+# phase 19: the LayerNorm kernels (csrc/layer_norm.cu) against their plain
+# twins (ops/layer_norm.py), relative to max |plain|: f32 sums in another
+# order; a bf16 dx within one bf16 step more (tests/test_torch_kernels.py)
+LN_RTOL = 1e-4
+# (name, rows, d, x's dtype, dx wanted): the TACoS train step's trunk (B 32
+# x Lv 2048 rows of 256, its input f32 from the residual stream or bf16 from
+# autocast's products) and its input projections over the features (the
+# 770-wide video rows, the 4096-wide text rows of B 32 x Lq 40; no dx), the
+# flagship train shape (B 32 x Lv 75) and tvsum_ms's (B 4 x Lv 1000)
+LN_SHAPES = (
+    ("tacos_train", 65536, 256, "float32", True),
+    ("tacos_train_bf16_input", 65536, 256, "bfloat16", True),
+    ("tacos_video_input", 65536, 770, "float32", False),
+    ("tacos_text_input", 1280, 4096, "float32", False),
+    ("flagship_train", 2400, 256, "float32", True),
+    ("flagship_train_bf16_input", 2400, 256, "bfloat16", True),
+    ("tvsum_ms_train", 4000, 256, "float32", True),
+)
+LN_HOST_CALLS = 2000  # eval calls a host-cost reading averages over
+
+
+def graph_ms(fn, iters=20, replays=3):
+    """Mean device milliseconds of fn over `iters` calls captured in one CUDA
+    graph and replayed: the host's cost of a call left out (at small shapes
+    time_ms's events time the host issuing the launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    return ms
+
+
+def layer_norm_host_us(dev, seed):
+    """The host's microseconds a call of an eval LayerNorm (no gradient, a
+    (8, 75, 256) f32 input: the card finishes each launch before the next
+    is launched), the port's module against nn.LayerNorm with the same
+    parameters, measured in turns: the enqueue time the eval's dispatch
+    pays."""
+    import torch
+
+    from flashvtg_tpu_torch.ops.layer_norm import LayerNorm
+
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn((8, 75, 256), generator=g).to(dev)
+    mine, ref = LayerNorm(256).to(dev), torch.nn.LayerNorm(256, eps=1e-5).to(dev)
+    out = {"module": [], "nn_layer_norm": []}
+    with torch.no_grad():
+        for _ in range(3):
+            for key, m in (("module", mine), ("nn_layer_norm", ref)):
+                for _ in range(50):
+                    m(x)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(LN_HOST_CALLS):
+                    m(x)
+                out[key].append((time.perf_counter() - t0) / LN_HOST_CALLS * 1e6)
+                torch.cuda.synchronize()
+    return {k: sorted(v) for k, v in out.items()}
+
+
+def phase_layer_norm(dev, seed):
+    """Phase 19 (the module's doc): a reading a shape, and the host's cost
+    of an eval call."""
+    import torch
+    import torch.nn.functional as F
+
+    from flashvtg_tpu_torch.ops import layer_norm as ln
+
+    readings = []
+    for name, rows, d, dtype, want_dx in LN_SHAPES:
+        dt = getattr(torch, dtype)
+        g = torch.Generator().manual_seed(seed + rows + d)
+        x = (torch.randn((rows, d), generator=g) * 3 + torch.randn(d, generator=g)).to(dev, dt)
+        w = (torch.randn(d, generator=g) * 0.5 + 1).to(dev)
+        b = (torch.randn(d, generator=g) * 0.1).to(dev)
+        dy = torch.randn((rows, d), generator=g).to(dev)
+        cast = torch.autocast("cuda", dtype=torch.bfloat16, enabled=dt == torch.bfloat16)
+        with cast:
+            _, y, stats = ln._forward(x, w, b, ln.EPS, True)
+            y_ref, stats_ref = ln.layer_norm_plain(x, w, b)
+        dx, dw, db = ln._backward(dy, x, stats, w, want_dx)
+        dx_ref, dw_ref, db_ref = ln.layer_norm_bwd_plain(dy, x, stats, w, want_dx)
+        again = ln._backward(dy, x, stats, w, want_dx)
+        torch.cuda.synchronize()
+        errs = {k: rel_err(got.float(), ref.float()) for k, got, ref in (
+            ("y", y, y_ref), ("stats", stats, stats_ref), ("dgamma", dw, dw_ref),
+            ("dbeta", db, db_ref))}
+        bf16_steps = 0.0
+        if want_dx:
+            errs["dx"] = rel_err(dx.float(), dx_ref.float())
+            if dt == torch.bfloat16:  # |dx - plain| beyond LN_RTOL, in bf16 steps
+                gap = (dx.float() - dx_ref.float()).abs() - LN_RTOL * dx_ref.float().abs().max()
+                step = (2.0 ** -7 * dx_ref.float().abs()).clamp_min(1e-30)
+                bf16_steps = (gap / step).max().item()
+        worst = max(v for k, v in errs.items() if not (k == "dx" and dt == torch.bfloat16))
+        if not (worst <= LN_RTOL and bf16_steps <= 1.0):
+            raise AssertionError(f"layer norm {name} vs plain: {errs}, bf16 dx {bf16_steps} "
+                                 "steps")
+        if not all(torch.equal(p, q) for p, q in zip((dx, dw, db), again) if p is not None):
+            raise AssertionError(f"layer norm {name}: two backward launches disagree")
+        xb = x.element_size()
+        fwd_bytes = rows * d * (xb + 4) + 2 * rows * 4 + 2 * d * 4
+        bwd_bytes = rows * d * (xb + 4 + (xb if want_dx else 0)) + 2 * rows * 4 + 3 * d * 4
+        xl = x.detach().requires_grad_(want_dx)
+        wl, bl = w.detach().requires_grad_(), b.detach().requires_grad_()
+        leaves = [t for t in (xl, wl, bl) if t.requires_grad]
+
+        def lib_fwd():
+            with cast:
+                return F.layer_norm(xl, (d,), wl, bl, ln.EPS)
+
+        def lib_both():
+            return torch.autograd.grad(lib_fwd(), leaves, dy)
+
+        def fwd():
+            with cast:
+                ln._forward(x, w, b, ln.EPS, True)
+
+        def plain_fwd():
+            with cast:
+                ln.layer_norm_plain(x, w, b)
+
+        def bwd():
+            ln._backward(dy, x, stats, w, want_dx)
+
+        lib_fwd_ms = time_ms(lib_fwd, iters=20, warmup=3)
+        lib_fwd_device_ms = graph_ms(lib_fwd)
+        readings.append(dict(
+            name=name, shape=[rows, d], dtype=dtype, dx=want_dx,
+            errors=errs, bf16_dx_steps=bf16_steps,
+            bwd_blocks=ln.bwd_blocks(rows, d, dt == torch.bfloat16, dev),
+            fwd_ms=time_ms(fwd, iters=20, warmup=3),
+            fwd_bound_ms=fwd_bytes / HBM_RATE * 1e3,
+            fwd_plain_ms=time_ms(plain_fwd, iters=5, warmup=1),
+            fwd_library_ms=lib_fwd_ms,
+            bwd_ms=time_ms(bwd, iters=20, warmup=3),
+            bwd_bound_ms=bwd_bytes / HBM_RATE * 1e3,
+            bwd_plain_ms=time_ms(lambda: ln.layer_norm_bwd_plain(dy, x, stats, w, want_dx),
+                                 iters=5, warmup=1),
+            bwd_library_ms=time_ms(lib_both, iters=20, warmup=3) - lib_fwd_ms,
+            # device time alone (graph replays)
+            fwd_device_ms=graph_ms(fwd), bwd_device_ms=graph_ms(bwd),
+            fwd_library_device_ms=lib_fwd_device_ms,
+            bwd_library_device_ms=graph_ms(lib_both) - lib_fwd_device_ms,
+        ))
+        log(f"[layer norm] {json.dumps(readings[-1])}")
+    return {"shapes": readings, "eval_host_us_a_call": layer_norm_host_us(dev, seed)}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3604,9 +3786,9 @@ def main():
     ap.add_argument("--tacos-queries", type=int, default=64)
     ap.add_argument("--train-steps", type=int, default=3)
     ap.add_argument("--hd-queries", type=int, default=64)
-    ap.add_argument("--only", choices=("dp",),
+    ap.add_argument("--only", choices=("dp", "layer_norm"),
                     help="run the device and build phases and this phase alone (dp: 7 and "
-                         "17), printing no result line")
+                         "17; layer_norm: 19), printing no result line")
     args = ap.parse_args()
 
     import torch
@@ -3644,8 +3826,9 @@ def main():
         for fn, n in hmma[name].items():
             # the flash pre-passes (D = rowsum(dO O); at bf16 with the bf16
             # copies) and the ACA backward's sum of its chunks' partial dk
-            # and dv have no product
-            if "delta" not in fn and "stage" not in fn and "reduce" not in fn:
+            # and dv have no product, nor have the LayerNorm kernels
+            if ("delta" not in fn and "stage" not in fn and "reduce" not in fn
+                    and "layer_norm" not in fn):
                 assert n > 0, f"{fn}: no tensor-core instruction"
     # every kernel with a product in each form, summed over its instances:
     # one product a dot in the 1xTF32 and bf16 forms (the bf16 instances on
@@ -3675,6 +3858,10 @@ def main():
     host_build["wall_s"] = time.perf_counter() - t0
     log(f"[build] host runtime: {json.dumps(host_build)}")
 
+    if args.only == "layer_norm":
+        log(f"[layer norm] {json.dumps(phase_layer_norm(dev, args.seed))}")
+        log("chip_smoke: --only layer_norm ran phases 1, 2 and 19; no result line")
+        return 0
     if args.only == "dp":
         log(f"[train kernels] {json.dumps(phase_train_kernels(dev, args.seed))}")
         log(f"[dp] {json.dumps(run_phase17(dev, args.seed))}")
@@ -3689,6 +3876,7 @@ def main():
     log(f"[train kernels] {json.dumps(train_rows)} {json.dumps(train_shapes)}")
     rows += train_rows
     shapes.update(train_shapes)
+    layer_norm = phase_layer_norm(dev, args.seed)
 
     phases = {
         "flagship": lambda: run_preset(dev, "qvhighlights_slowclip", args.queries, 8,
@@ -3830,7 +4018,8 @@ def main():
                       "form_identity": form_identity,
                       "streamed_train": {p: {k: v for k, v in r.items() if k != "dials"}
                                          for p, r in streamed.items()},
-                      "debug_nans": runs["debug_nans"], "utilisation": util}))
+                      "debug_nans": runs["debug_nans"], "utilisation": util,
+                      "layer_norm": layer_norm}))
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ library is never loaded.
 `build_all()` starts one nvcc per source, all at once, and waits for them.
 Every kernel with a product is a template on its product form (ops/forms.py,
 csrc/attn_common.cuh), so a library holds each kernel three times, and
-every C entry takes the form as an int before its stream. The SASS helpers
+every attention C entry takes the form as an int before its stream (the
+LayerNorm kernels of layer_norm.cu have no product and no form). The SASS helpers
 below read which tensor-core instruction each instance holds (mma.sync's
 HMMA, wgmma's HGMMA).
 Nothing here runs at import: the tests import every module on machines
@@ -38,6 +39,7 @@ SOURCES = {
     "aca_attention_bwd": "aca_attention_bwd.cu",
     "flash_attention": "flash_attention.cu",
     "flash_attention_bwd": "flash_attention_bwd.cu",
+    "layer_norm": "layer_norm.cu",
 }
 
 _lock = threading.Lock()
@@ -230,6 +232,15 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         "flash_attention_bwd": {
             # ... dq, dk, dv, then the bf16 form's five bf16 copies, stage_kv
             "flashvtg_flash_attention_bwd_f32": [p] * 16 + [i] * 5 + train,
+        },
+        "layer_norm": {
+            # x, gamma, beta, y, stats, rows, d, x_bf16, eps, stream
+            "flashvtg_layer_norm_fwd": [p] * 5 + [i] * 3 + [f, p],
+            # rows, d, x_bf16
+            "flashvtg_layer_norm_bwd_blocks": [i] * 3,
+            # x, dy, stats, gamma, dx, part, dgamma, dbeta, rows, d, x_bf16,
+            # blocks, stream
+            "flashvtg_layer_norm_bwd": [p] * 8 + [i] * 4 + [p],
         },
     }
     for fn_name, argtypes in signatures[name].items():

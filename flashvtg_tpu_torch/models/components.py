@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from flashvtg_tpu_torch.ops.layer_norm import LayerNorm
+
 
 # host-made constant arrays of the forward, one copy per (key, device), with
 # the pinned host array each was copied from: a forward that a CUDA graph
@@ -72,7 +74,7 @@ class TrainablePositionalEncoding(nn.Module):
     def __init__(self, max_positions: int, d: int, dropout: float = 0.1):
         super().__init__()
         self.position_embeddings = nn.Embedding(max_positions, d)
-        self.LayerNorm = nn.LayerNorm(d, eps=1e-5)
+        self.LayerNorm = LayerNorm(d, eps=1e-5)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x):
@@ -107,7 +109,7 @@ class LinearLayer(nn.Module):
 
     def __init__(self, in_dim: int, out_dim: int, dropout: float, relu: bool):
         super().__init__()
-        self.LayerNorm = nn.LayerNorm(in_dim, eps=1e-5)
+        self.LayerNorm = LayerNorm(in_dim, eps=1e-5)
         self.net = nn.Sequential(nn.Dropout(dropout), nn.Linear(in_dim, out_dim))
         self.relu = relu
 
@@ -244,7 +246,7 @@ def _pyramid_level(d: int, stride: int) -> nn.Sequential:
             _ToChannelsFirst(),
             nn.Conv1d(d, d, 2, stride=2),
             _ToChannelsFirst(),
-            nn.LayerNorm(d, eps=1e-5),
+            LayerNorm(d, eps=1e-5),
             nn.ReLU(),
         ]
     return nn.Sequential(*layers)

@@ -60,6 +60,7 @@ from flashvtg_tpu_torch.models.flashvtg import ModelConfig, decode_boundaries
 from flashvtg_tpu_torch.models.lgi import TSA, PhraseContext, PhraseGenerate, SaliencyProj
 from flashvtg_tpu_torch.models.points import generate_points, pyramid_masks_pool
 from flashvtg_tpu_torch.models.transformer import Encoder, T2VEncoder
+from flashvtg_tpu_torch.ops.layer_norm import LayerNorm
 from flashvtg_tpu_torch.parallel.mesh import roll_rows
 
 
@@ -92,7 +93,7 @@ class MSTransformer(nn.Module):
         self.encoder = Encoder(
             cfg.enc_layers, d, cfg.nheads, cfg.dim_feedforward, cfg.dropout
         )
-        self.fuse_proj = nn.Sequential(nn.Linear(2 * d, d), nn.LayerNorm(d, eps=1e-5))
+        self.fuse_proj = nn.Sequential(nn.Linear(2 * d, d), LayerNorm(d, eps=1e-5))
 
 
 class FlashVTGMSModel(nn.Module):

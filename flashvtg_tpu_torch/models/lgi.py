@@ -26,6 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from flashvtg_tpu_torch.models.components import sine_position_embedding
+from flashvtg_tpu_torch.ops.layer_norm import LayerNorm
 from flashvtg_tpu_torch.utils.runtime import widened
 
 
@@ -85,9 +86,9 @@ class CrossAttentionBlock(nn.Module):
         self.q_proj = nn.Linear(d, d)
         self.kv_proj = nn.Linear(d, 2 * d)
         self.att = MHACore(d, num_heads, dropout)
-        self.norm = nn.LayerNorm(d, eps=1e-5)
+        self.norm = LayerNorm(d, eps=1e-5)
         self.linear = nn.Linear(d, d)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x, y, key_valid=None):
@@ -108,7 +109,7 @@ class SelfAttentionBlock(nn.Module):
         self.k_proj = nn.Linear(d, d)
         self.v_proj = nn.Linear(d, d)
         self.att = MHACore(d, num_heads, dropout)
-        self.norm = nn.LayerNorm(d, eps=1e-5)
+        self.norm = LayerNorm(d, eps=1e-5)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x, valid=None):
@@ -167,8 +168,8 @@ class HadamardProduct(nn.Module):
         self.fc_1 = nn.Linear(d, d)
         self.fc_2 = nn.Linear(d, d)
         self.fc_3 = nn.Linear(d, d)
-        self.norm = nn.LayerNorm(d, eps=1e-5)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
+        self.norm = LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
 
     def forward(self, phrase, video):
         x1 = F.relu(self.fc_1(phrase))[:, :, None, :]
@@ -196,7 +197,7 @@ class LowRankDynamicConv(nn.Module):
             {f"k{k}": nn.Parameter(torch.randn(rank, d, k)) for k in self.t_kernels}
         )
         self.linear_out = nn.Linear(len(self.t_kernels) * d, d)
-        self.norm = nn.LayerNorm(d, eps=1e-5)
+        self.norm = LayerNorm(d, eps=1e-5)
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, context_emb, phrase_slot):
@@ -220,7 +221,7 @@ class PhraseContextLayer(nn.Module):
         super().__init__()
         self.t_att = SelfAttentionBlock(d, num_heads, dropout)
         self.fc_t = nn.Sequential(nn.Linear(d, d), nn.ReLU(), nn.Dropout(dropout))
-        self.norm_t = nn.LayerNorm(d, eps=1e-5)
+        self.norm_t = LayerNorm(d, eps=1e-5)
 
     def forward(self, x, valid):
         x = self.t_att(x, valid)
@@ -264,8 +265,8 @@ class TSALayer(nn.Module):
         super().__init__()
         self.t_att = SelfAttentionBlock(d, num_heads, dropout)
         self.linear = nn.Linear(d, d)
-        self.norm = nn.LayerNorm(d, eps=1e-5)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)  # unread
+        self.norm = LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)  # unread
         self.dropout = nn.Dropout(dropout)
 
     def forward(self, x, valid=None):

@@ -35,6 +35,7 @@ from torch import nn
 from flashvtg_tpu_torch.models.components import DropPath
 from flashvtg_tpu_torch.ops.aca import MAX_KEYS, aca_attention, masked_attention
 from flashvtg_tpu_torch.ops.chunked_attn import flash_attention
+from flashvtg_tpu_torch.ops.layer_norm import LayerNorm
 
 
 def tiled_attn_donors(batch: int, num_heads: int, device=None) -> torch.Tensor:
@@ -99,8 +100,8 @@ class T2VEncoderLayer(nn.Module):
         self.activation = nn.PReLU()
         self.dropout = nn.Dropout(dropout)
         self.linear2 = nn.Linear(dim_feedforward, d)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(d, eps=1e-5)
         self.dropout1 = DropPath(dropout)
         self.dropout2 = DropPath(dropout)
 
@@ -180,8 +181,8 @@ class EncoderLayer(nn.Module):
         self.activation = nn.PReLU()
         self.dropout = nn.Dropout(dropout)
         self.linear2 = nn.Linear(dim_feedforward, d)
-        self.norm1 = nn.LayerNorm(d, eps=1e-5)
-        self.norm2 = nn.LayerNorm(d, eps=1e-5)
+        self.norm1 = LayerNorm(d, eps=1e-5)
+        self.norm2 = LayerNorm(d, eps=1e-5)
         self.dropout1 = DropPath(dropout)
         self.dropout2 = DropPath(dropout)
 

@@ -1,6 +1,7 @@
 """The CUDA attention kernels (csrc/aca_attention.cu, csrc/flash_attention.cu,
 their training forms, and the backward kernels csrc/aca_attention_bwd.cu and
-csrc/flash_attention_bwd.cu) vs their plain versions, on the card. Every
+csrc/flash_attention_bwd.cu) and the LayerNorm kernels (csrc/layer_norm.cu)
+vs their plain versions, on the card. Every
 test here needs CUDA and skips without it: the kernels have no CPU mode.
 The file imports torch and the port only, so it also runs on a machine
 without JAX:
@@ -13,6 +14,8 @@ differ in the order of their sums (the flash kernel's online softmax adds a
 rescale per key chunk).
 Gradients: see GRAD_RTOL below.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -1068,3 +1071,186 @@ def test_graph_replays_draw_new_masks(cuda, kind):
     for i in range(2):
         assert not torch.equal(replays[i][0], replays[i + 1][0])
         assert not torch.equal(replays[i][2], replays[i + 1][2])
+
+
+# --- LayerNorm (csrc/layer_norm.cu) -------------------------------------------
+#
+# The forward and the fused backward against their plain twins
+# (ops/layer_norm.py), x float32 and bfloat16 (under autocast, as the bf16
+# dial hands it on), at the widths the presets build. Tolerances: f32 sums
+# in another order (warp butterflies, the blocks' partials in block order,
+# against torch's reductions): LN_RTOL of max |plain| on y, the statistics,
+# a float32 dx, dgamma and dbeta (summed over up to 65,536 rows); a
+# bfloat16 dx is rounded once from f32 values that differ by that much, so
+# a pair may round to neighbouring bf16 values: one bf16 step (2^-7 |plain|)
+# apart, plus LN_RTOL.
+
+LN_RTOL = 1e-4
+LN_SHAPES = [(65536, 256), (2400, 256), (1023, 770), (1280, 4096), (333, 2818)]
+
+
+def _ln_inputs(shape, dtype, seed, dev):
+    g = torch.Generator().manual_seed(seed)
+    d = shape[-1]
+    x = torch.randn(shape, generator=g) * 3 + torch.randn(d, generator=g)
+    w = torch.randn(d, generator=g) * 0.5 + 1
+    b = torch.randn(d, generator=g) * 0.1
+    dy = torch.randn(shape, generator=g)
+    return x.to(dev, dtype), w.to(dev), b.to(dev), dy.to(dev)
+
+
+def _ln_rel(got, want):
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def _ln_autocast(dtype):
+    return torch.autocast("cuda", dtype=torch.bfloat16, enabled=dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", LN_SHAPES)
+def test_layer_norm_kernels_match_plain(cuda, shape, dtype):
+    from flashvtg_tpu_torch.ops import layer_norm
+
+    dt = getattr(torch, dtype)
+    x, w, b, dy = _ln_inputs(shape, dt, 5, cuda)
+    with _ln_autocast(dt):
+        _, y, stats = layer_norm._forward(x, w, b, 1e-5, True)
+        y_ref, stats_ref = layer_norm.layer_norm_plain(x, w, b)
+        y_eval = layer_norm.layer_norm(x, w, b)  # no gradient wanted: no statistics
+    dx, dw, db = layer_norm._backward(dy, x, stats, w, True)
+    dx_ref, dw_ref, db_ref = layer_norm.layer_norm_bwd_plain(dy, x, stats, w)
+    no_dx, dw2, db2 = layer_norm._backward(dy, x, stats, w, False)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and dx.dtype == dt and torch.equal(y_eval, y)
+    for what, got, want in (("y", y, y_ref), ("stats", stats, stats_ref),
+                            ("dgamma", dw, dw_ref), ("dbeta", db, db_ref)):
+        assert _ln_rel(got, want) <= LN_RTOL, what
+    if dt == torch.float32:
+        assert _ln_rel(dx, dx_ref) <= LN_RTOL
+    else:
+        want = dx_ref.float()
+        gap = (dx.float() - want).abs()
+        assert bool((gap <= 2.0 ** -7 * want.abs() + LN_RTOL * want.abs().max()).all())
+    # without the input gradient: the same weight gradients, no dx
+    assert no_dx is None and torch.equal(dw2, dw) and torch.equal(db2, db)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_layer_norm_graph_replays_are_bit_equal(cuda, dtype):
+    """The op's forward and backward captured in a CUDA graph at the TACoS
+    train shape: two replays give the same bits, and the eager call's (no
+    atomics; the backward's grid is fixed); the capture launches nothing
+    the wrappers count, and the program counter counts the captured call."""
+    from flashvtg_tpu_torch.ops import layer_norm
+    from flashvtg_tpu_torch.utils import observability as obs
+
+    dt = getattr(torch, dtype)
+    x0, w0, b0, dy = _ln_inputs((65536, 256), dt, 6, cuda)
+    x, w, b = (t.clone().requires_grad_() for t in (x0, w0, b0))
+
+    def step():
+        for t in (x, w, b):
+            t.grad = None
+        with _ln_autocast(dt):
+            y = layer_norm.layer_norm(x, w, b)
+        y.backward(dy)
+        return y.detach(), x.grad, w.grad, b.grad
+
+    eager = tuple(t.clone() for t in step())
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    layer_norm.reset_launch_counts()
+    before = obs.counter("ops.layer_norm")
+    with torch.cuda.graph(graph):
+        static = step()
+    assert layer_norm.launch_counts() == {"layer_norm": 0, "layer_norm_bwd": 0}
+    assert obs.counter("ops.layer_norm") - before == 1
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(tuple(t.clone() for t in static))
+    torch.cuda.synchronize()
+    for first, second, ref in zip(replays[0], replays[1], eager):
+        assert torch.equal(first, second) and torch.equal(first, ref)
+
+
+def test_layer_norm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from flashvtg_tpu_torch.ops import layer_norm
+
+    x, w, b, _ = _ln_inputs((8, 64), torch.float32, 7, cuda)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        layer_norm.layer_norm(x.half(), w, b)
+    with pytest.raises(TypeError, match="outside autocast"):
+        layer_norm.layer_norm(x.bfloat16(), w, b)
+    with pytest.raises(ValueError, match="weight"):
+        layer_norm.layer_norm(x, w[:32], b)
+    with pytest.raises(ValueError, match="bias"):
+        layer_norm.layer_norm(x, w, b.bfloat16())
+    with pytest.raises(ValueError, match="width"):
+        wide = torch.zeros((2, layer_norm.MAX_WIDTH + 1), device=cuda)
+        layer_norm.layer_norm(wide, torch.ones(wide.shape[1], device=cuda),
+                              torch.zeros(wide.shape[1], device=cuda))
+
+
+def test_tacos_train_layer_norms_run_on_the_kernels(cuda):
+    """A TACoS train forward and backward (full width; depth cut to 2 ACA,
+    2 encoder and 1 dummy-encoder layers; train mode at the bfloat16 dial):
+    every LayerNorm call launches the forward kernel once (the launch count,
+    the program counter and the module calls agree, and so do the card's
+    kernel records), the backward launches the fused backward, and no
+    PyTorch LayerNorm kernel runs."""
+    from flashvtg_tpu_torch.models import build_model
+    from flashvtg_tpu_torch.models.points import pyramid_masks_strict
+    from flashvtg_tpu_torch.ops import layer_norm
+    from flashvtg_tpu_torch.tools.profile_eval import profiled
+    from flashvtg_tpu_torch.train.config import from_preset
+    from flashvtg_tpu_torch.utils import observability as obs
+
+    cfg = from_preset("tacos", t2v_layers=2, enc_layers=2, dummy_layers=1)
+    model = build_model(cfg.model_config(), cuda, seed=0).train()
+    calls = []
+    for m in model.modules():
+        if isinstance(m, layer_norm.LayerNorm):
+            m.register_forward_hook(lambda *a: calls.append(1))
+    rng = np.random.default_rng(1)
+    b, lv, lq = 2, cfg.max_v_l, cfg.max_q_l
+    v_lens, q_lens = np.asarray([lv, 517]), np.asarray([lq, 9])
+    txt_mask = (np.arange(lq)[None] < q_lens[:, None]).astype(np.float32)
+    vid_mask = (np.arange(lv)[None] < v_lens[:, None]).astype(np.float32)
+    arrs = (
+        rng.standard_normal((b, lq, cfg.t_feat_dim), dtype=np.float32) * txt_mask[..., None],
+        txt_mask,
+        rng.standard_normal((b, lv, cfg.total_v_feat_dim), dtype=np.float32)
+        * vid_mask[..., None],
+        vid_mask,
+        pyramid_masks_strict(v_lens, lv, cfg.strides)[0],
+    )
+    inputs = [torch.from_numpy(a).to(cuda) for a in arrs]
+
+    def run():
+        with matmul_precision("bfloat16", cuda):
+            out = model(*inputs)
+            loss = sum(torch.where(torch.isfinite(t), t, 0).sum() for t in (
+                out[k].float() for k in ("saliency_scores", "out_class", "out_coord")))
+        loss.backward()
+
+    layer_norm.reset_launch_counts()
+    before = obs.counter("ops.layer_norm")
+    _, per_name = profiled(run)
+    n = len(calls)
+    counts = layer_norm.launch_counts()
+    assert n > 0 and counts["layer_norm"] == n == obs.counter("ops.layer_norm") - before
+    assert 0 < counts["layer_norm_bwd"] <= n
+    device = {name: c for name, (_, c) in per_name.items()}
+    assert sum(c for name, c in device.items() if "vtg_layer_norm_fwd" in name) == n
+    assert sum(c for name, c in device.items()
+               if re.search(r"vtg_layer_norm_bwd(_wide)?_kernel", name)) == counts["layer_norm_bwd"]
+    torch_ln = [name for name in device
+                if re.search(r"layer_?norm|gammabeta|rowwisemoments", name.lower())
+                and "vtg_layer_norm" not in name]
+    assert not torch_ln, torch_ln
